@@ -17,14 +17,17 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.search.ivfpq import IVFPQIndex
+from repro_torch.search.pq import PQIndex
 from repro_torch.search.reducers import Reducer
-from repro_torch.search.registry import Index
+from repro_torch.search.registry import Index, OPQIndex
 from repro_torch.search.serve import EngineState
 from repro_torch.search.spec import IndexSpec, parse_spec
 
 __all__ = ["state_from_arrays"]
 
 _SNAPSHOT_PREFIX = "['state']"
+# the NamedTuple payloads, carried field by field
+_PAYLOADS = {"pq": PQIndex, "opq": OPQIndex, "ivfpq": IVFPQIndex}
 
 
 def state_from_arrays(arrays: Mapping[str, np.ndarray],
@@ -54,10 +57,13 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray],
                 f"reducer kind {spec.reduce.kind!r} is not ported yet")
         proj = Reducer("qpad", (get(".proj.params[0]", ".proj[0]"),
                                 get(".proj.params[1]", ".proj[1]")))
-    if spec.kind != "ivfpq":
+    if spec.kind == "flat":
+        payload = get(".index.payload")
+    elif spec.kind in _PAYLOADS:
+        cls = _PAYLOADS[spec.kind]
+        payload = cls(**{f: get(f".index.payload.{f}") for f in cls._fields})
+    else:
         raise NotImplementedError(
             f"index kind {spec.kind!r} is not ported yet (see ROADMAP.md)")
-    payload = IVFPQIndex(**{f: get(f".index.payload.{f}")
-                            for f in IVFPQIndex._fields})
     return EngineState(corpus=get(".corpus"), proj=proj,
                        index=Index(spec.kind, payload))

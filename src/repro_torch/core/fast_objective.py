@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from .objective import num_selected_pairs
+from .objective import num_selected_pairs, penalized
 
 __all__ = ["ThresholdStats", "threshold_stats", "find_quantile_threshold",
            "phi_fast_value_and_grad"]
@@ -104,9 +104,4 @@ def phi_fast_value_and_grad(w: torch.Tensor, x: torch.Tensor,
     ``prev_mask`` marks its valid rows.
     """
     mu, g_mu, _ = _mu_fast_impl(w, x, b=b)
-    wn = w / torch.linalg.vector_norm(w)
-    dots = (prev @ wn) * prev_mask
-    pen = alpha * (dots * dots).sum()
-    g_pen_raw = 2.0 * alpha * (prev.T @ (dots * prev_mask))
-    g_pen = g_pen_raw - torch.dot(g_pen_raw, wn) * wn
-    return mu - pen, g_mu - g_pen
+    return penalized(mu, g_mu, w, prev, prev_mask, alpha)

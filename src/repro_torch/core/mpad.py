@@ -1,5 +1,5 @@
 """MPAD trainer: greedy direction selection by Riemannian Adam on the
-sphere (port of ``repro.core.mpad``, ``fast`` backend).
+sphere (port of ``repro.core.mpad``, ``fast`` and ``kernel`` backends).
 
   for k = 1..m:
       w = start direction k, normalized
@@ -34,7 +34,7 @@ class MPADConfig:
     alpha: float = 25.0         # orthogonality penalty factor
     iters: int = 64             # optimization iterations per direction (T)
     lr: float = 0.05
-    backend: str = "fast"       # fast | exact | kernel (only fast is ported)
+    backend: str = "fast"       # fast | kernel (K4) | exact (not ported)
     seed: int = 0
     center: bool = True
     batch_size: Optional[int] = None   # stochastic MPAD row-subsample
@@ -68,9 +68,12 @@ def transform(result: MPADResult, x: torch.Tensor) -> torch.Tensor:
 def _get_backend(name: str):
     if name == "fast":
         return fast_objective.phi_fast_value_and_grad
+    if name == "kernel":
+        from repro_torch.kernels.mpad_pairwise import ops as kernel_ops
+        return kernel_ops.phi_kernel_value_and_grad
     raise NotImplementedError(
         f"MPADConfig(backend={name!r}) is not ported yet: the port has the "
-        "'fast' backend only; 'exact' and 'kernel' (kernel K4) are in "
+        "'fast' and 'kernel' (kernel K4) backends; 'exact' is in "
         "ROADMAP.md, 'Modules still to port', item 6 (fit path)")
 
 

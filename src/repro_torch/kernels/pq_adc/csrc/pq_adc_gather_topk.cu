@@ -28,7 +28,8 @@
 // when M is a multiple of 16, so code bytes stream through in full
 // sectors. Each block sorts its chunk's (d2, slot) pairs with a bitonic
 // sort in shared memory and keeps its k best; a second kernel merges the
-// per-chunk lists the same way until one list of k is left. The kernel
+// per-chunk lists the same way until one list of k is left (the sort and
+// the merge are shared with K2, in topk_select.cuh). The kernel
 // allocates nothing and launches on the caller's stream. It does not yet
 // overlap loads with the sort (cp.async / TMA ring) or fuse the cell-major
 // gather of the codes: that is later work.
@@ -37,68 +38,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topk_select.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMinChunk = 2048;    // candidates per block (a power of two)
-constexpr int kMaxChunk = 16384;   // 128 KB of (key, slot) pairs
-constexpr int kPadSlot = 0x7fffffff;
-
 enum LutMode { kF32 = 0, kBF16 = 1, kInt8 = 2 };
-
-// Chunk length for a top-k of size k: a power of two >= 2k, so each pass
-// at least halves a list that is longer than one chunk.
-inline int chunk_for(int k) {
-  int ch = kMinChunk;
-  while (ch < 2 * k && ch < (kMaxChunk << 1)) ch <<= 1;
-  return ch;
-}
 
 __host__ __device__ inline size_t table_bytes(int mode, int m, int kc) {
   size_t b = static_cast<size_t>(m) * kc * (mode == kInt8 ? 1 : 4);
   return (b + 15) & ~static_cast<size_t>(15);
-}
-
-// (ka, sa) sorts after (kb, sb): a larger distance, or the same distance
-// and a larger slot.
-__device__ __forceinline__ bool sorts_after(float ka, int sa, float kb,
-                                            int sb) {
-  return ka > kb || (ka == kb && sa > sb);
-}
-
-// Ascending bitonic sort of n (a power of two) pairs in shared memory.
-__device__ void bitonic_sort(float* key, int* slot, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const float klo = key[lo], khi = key[hi];
-        const int slo = slot[lo], shi = slot[hi];
-        if (sorts_after(klo, slo, khi, shi) == up) {
-          key[lo] = khi;
-          key[hi] = klo;
-          slot[lo] = shi;
-          slot[hi] = slo;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Write the first k sorted pairs. The final pass marks a slot whose score
-// is +inf (a masked or missing candidate) as -1.
-__device__ void emit(const float* key, const int* slot, int k,
-                     float* out_key, int* out_slot, bool final_pass) {
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    const float kv = key[j];
-    int s = slot[j];
-    if (final_pass && isinf(kv) && kv > 0.f) s = -1;
-    out_key[j] = kv;
-    out_slot[j] = s;
-  }
 }
 
 template <int MODE>
@@ -190,35 +138,6 @@ adc_score_select(const void* __restrict__ tables,
   emit(key, slot, k, out_key + off, out_slot + off, final_pass != 0);
 }
 
-// One merge pass: each block sorts one chunk of a query's (Q, len) list of
-// per-chunk winners and keeps its k best.
-__global__ void __launch_bounds__(kThreads)
-select_topk(const float* __restrict__ in_key, const int* __restrict__ in_slot,
-            int len, int k, int chunk, float* __restrict__ out_key,
-            int* __restrict__ out_slot, int out_stride, int final_pass) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* key = reinterpret_cast<float*>(smem);
-  int* slot = reinterpret_cast<int*>(smem + sizeof(float) * chunk);
-  const int q = blockIdx.x;
-  const int part = blockIdx.y;
-  for (int j = threadIdx.x; j < chunk; j += blockDim.x) {
-    const int i = part * chunk + j;
-    if (i < len) {
-      const size_t src = static_cast<size_t>(q) * len + i;
-      key[j] = in_key[src];
-      slot[j] = in_slot[src];
-    } else {
-      key[j] = __int_as_float(0x7f800000);
-      slot[j] = kPadSlot;
-    }
-  }
-  __syncthreads();
-  bitonic_sort(key, slot, chunk);
-  const size_t off = static_cast<size_t>(q) * out_stride +
-                     static_cast<size_t>(part) * k;
-  emit(key, slot, k, out_key + off, out_slot + off, final_pass != 0);
-}
-
 template <int MODE>
 cudaError_t launch_score(const void* tables, const float* scale,
                          const uint8_t* codes, const float* base, int nq,
@@ -271,7 +190,6 @@ int qpad_pq_adc_gather_topk(const void* tables, int lut_mode,
   if (ch > kMaxChunk || nq <= 0 || n_cand <= 0 || k <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int parts = (n_cand + ch - 1) / ch;
-  const long long half = static_cast<long long>(nq) * parts * k;
   const bool one = parts == 1;
   float* dk = one ? out_d : scratch_key;
   int* ds = one ? out_i : scratch_slot;
@@ -289,28 +207,8 @@ int qpad_pq_adc_gather_topk(const void* tables, int lut_mode,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess || one) return static_cast<int>(err);
-
-  const size_t smem = 8 * static_cast<size_t>(ch);
-  err = cudaFuncSetAttribute(select_topk,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int len = parts * k;
-  int ping = 0;
-  for (;;) {
-    const int p2 = (len + ch - 1) / ch;
-    const float* sk = scratch_key + ping * half;
-    const int* ss = scratch_slot + ping * half;
-    const bool last = p2 == 1;
-    float* ok = last ? out_d : scratch_key + (1 - ping) * half;
-    int* os = last ? out_i : scratch_slot + (1 - ping) * half;
-    select_topk<<<dim3(nq, p2), kThreads, smem, stream>>>(
-        sk, ss, len, k, ch, ok, os, last ? k : p2 * k, last);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || last) return static_cast<int>(err);
-    len = p2 * k;
-    ping ^= 1;
-  }
+  return static_cast<int>(merge_lists(scratch_key, scratch_slot, nq, parts,
+                                       k, out_d, out_i, stream));
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
-"""Plain PyTorch version of the fused ADC-gather top-k (kernel K1).
+"""Plain PyTorch versions of the ADC top-k kernels K1 and K2.
 
-Port of the gathered-codes half of ``repro.kernels.pq_adc.ref``: the
-semantic spec that the CUDA kernel in ``csrc/`` is held against, and what
-the scan runs on CPU tensors and under the ``@jnp`` backend.
+Port of ``repro.kernels.pq_adc.ref``: the semantic spec that the CUDA
+kernels in ``csrc/`` are held against, and what the scans run on CPU
+tensors and under the ``@jnp`` backend. Two variants mirror the two
+kernels:
 
-    out[q, c] = base[q, c] + sum_m tables[q, m, codes[q, c, m]]
+    shared codes (K2):   out[q, n] = sum_m tables[q, m, codes[n, m]]
+    gathered codes (K1): out[q, c] = base[q, c] + sum_m tables[q, m, codes[q, c, m]]
 
 The tables are snapped onto the ``lut_dtype`` grid but kept in f32 (see
 ``lut.py``), so the lookup is one flat gather over the (Q, M*K) table at
@@ -25,7 +27,8 @@ from repro_torch.search.knn import topk_smallest
 
 from .lut import _int8_scale, fma_f32, snap_values
 
-__all__ = ["pq_adc_gather_scores_ref", "pq_adc_gather_topk_ref"]
+__all__ = ["pq_adc_scores_ref", "pq_adc_topk_ref",
+           "pq_adc_gather_scores_ref", "pq_adc_gather_topk_ref"]
 
 
 def _resolve_scale(tables, lut_dtype, scale, center):
@@ -49,6 +52,38 @@ def _snap_tables(tables, lut_dtype, scale, center):
     snapped = snap_values(tc, lut_dtype,
                           None if scale is None else scale[:, None, None])
     return torch.where(torch.isfinite(tables[0, 0, 0]), snapped, tables)
+
+
+def pq_adc_scores_ref(tables: torch.Tensor, codes: torch.Tensor,
+                      lut_dtype: str = "f32", scale=None,
+                      center=None) -> torch.Tensor:
+    """ADC distances over one shared code matrix.
+
+    tables (Q, M, K) f32; codes (N, M) uint8 or int. Returns (Q, N) f32
+    (minus ``sum_m center`` when ``center`` is given). The M lookups are
+    added from 0 in ascending m, the order of the JAX reference and of the
+    kernel; int8 sums are exact and take the scale once.
+    """
+    tables = tables.to(torch.float32)
+    nq, m, _ = tables.shape
+    scale = _resolve_scale(tables, lut_dtype, scale, center)
+    ft = _snap_tables(tables, lut_dtype, scale, center)
+    idx = codes.to(torch.int64)
+    d2 = torch.zeros((nq, codes.shape[0]), dtype=torch.float32,
+                     device=tables.device)
+    for j in range(m):                 # in place: (Q, N) can be gigabytes
+        d2.add_(ft[:, j, :].index_select(1, idx[:, j]))
+    if lut_dtype == "int8":
+        d2.mul_(scale[:, None])        # exact integer sums, one rescale
+    return d2
+
+
+def pq_adc_topk_ref(tables: torch.Tensor, codes: torch.Tensor, k: int,
+                    lut_dtype: str = "f32", scale=None, center=None):
+    """Returns (d2 (Q, k) ascending, row (Q, k) int64) over the shared code
+    matrix, in the order of ``lax.top_k`` (ties to the lower row)."""
+    return topk_smallest(pq_adc_scores_ref(tables, codes, lut_dtype, scale,
+                                           center), k)
 
 
 def pq_adc_gather_scores_ref(tables: torch.Tensor, codes: torch.Tensor,

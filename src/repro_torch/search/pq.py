@@ -1,16 +1,26 @@
-"""Product quantization: codebook training and per-query ADC tables (port
-of the parts of ``repro.search.pq`` the IVF-PQ path uses)."""
+"""Product quantization: codebook training, per-query ADC tables and the
+plain-PQ scan (port of ``repro.search.pq``, single-device read-only part).
+
+``pq_scan`` scores the candidate-varying table part through the shared-
+codes ADC top-k: kernel K2 (``repro_torch.kernels.pq_adc.ops.pq_adc_topk``)
+under ``backend="kernel"``, its plain version under ``backend="jnp"`` (the
+spec grammar's token, so one spec string drives both packages).
+
+Not ported yet: ``pq_local_scan`` (sharded serving, ROADMAP item 11).
+"""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.pq_adc.lut import LUT_DTYPES
+from repro_torch.kernels.pq_adc import ops as adc_ops
+from repro_torch.kernels.pq_adc.lut import LUT_DTYPES, center_lut
 
 from .ivf import kmeans, nearest
 
-__all__ = ["PQIndex", "adc_tables", "build_pq", "lut_projection"]
+__all__ = ["PQIndex", "adc_tables", "build_pq", "lut_projection",
+           "pq_reconstruct", "pq_scan", "pq_search"]
 
 
 class PQIndex(NamedTuple):
@@ -83,3 +93,41 @@ def _check_adc_args(backend: str, lut_dtype: str):
     if lut_dtype not in LUT_DTYPES:
         raise ValueError(
             f"unknown lut_dtype {lut_dtype!r}; expected one of {LUT_DTYPES}")
+
+
+def pq_reconstruct(index: PQIndex) -> torch.Tensor:
+    """Decode the rows (for error analysis): (N, D)."""
+    m = index.codebooks.shape[0]
+    return torch.cat([index.codebooks[j][index.codes[:, j].long()]
+                      for j in range(m)], dim=1)
+
+
+def pq_scan(index: PQIndex, q: torch.Tensor, k: int, backend: str = "jnp",
+            lut_dtype: str = "f32"):
+    """ADC top-k over the shared code matrix: (approx dists (Q, k), ids
+    (Q, k)), with (+inf, -1) where k exceeds the row count.
+
+    Only the candidate-varying table part (||cb||^2 - 2<q, cb>) goes
+    through the (possibly quantized) scan; the per-query constants,
+    ||q||^2 and, when quantizing, the table row means (``center_lut``),
+    stay in f32 and are added back after top-k, so they cost no
+    quantization range and cannot perturb the ranking.
+    """
+    _check_adc_args(backend, lut_dtype)
+    q = q.to(torch.float32)
+    tables = adc_tables(index.lut_w, index.cbnorm, q)
+    const = (q * q).sum(dim=1)                            # (Q,) ||q||^2
+    if lut_dtype != "f32":
+        tables, offs = center_lut(tables)
+        const = const + offs
+    topk = (adc_ops.pq_adc_topk if backend == "kernel"
+            else adc_ops.pq_adc_topk_plain)
+    d2, ids = topk(tables, index.codes, k, lut_dtype)
+    return (d2 + const[:, None]).clamp_min(0.0).sqrt(), ids
+
+
+def pq_search(index: PQIndex, q: torch.Tensor, k: int, backend: str = "jnp",
+              lut_dtype: str = "f32"):
+    """ADC top-k: returns (approx dists (Q, k), ids (Q, k)). The JAX
+    package jits ``pq_scan`` under this name; the port runs it eagerly."""
+    return pq_scan(index, q, k, backend, lut_dtype)

@@ -2,20 +2,23 @@
 ``repro.search.registry``, with the hooks the single-device read-only
 path uses: ``build`` and ``scan``).
 
-Only the ``ivfpq`` kind is registered so far; the other kinds of the spec
-grammar raise with a pointer to ``ROADMAP.md``.
+Registered kinds: ``flat`` (exact scan of the reduced rows), ``pq``,
+``opq`` (a learned rotation, then the pq scan on the rotated query) and
+``ivfpq``. ``ivf`` raises with a pointer to ``ROADMAP.md``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from .ivfpq import build_ivfpq, ivfpq_compact_scan, ivfpq_scan
+from .knn import knn_scan
+from .pq import PQIndex, build_pq, pq_reconstruct, pq_scan
 
 __all__ = ["Index", "IndexOps", "ScanParams", "BuildInits", "INDEX_KINDS",
-           "register_index", "get_ops"]
+           "OPQIndex", "register_index", "get_ops"]
 
 # every index kind of the spec grammar, ported or not
 INDEX_KINDS = ("flat", "ivf", "pq", "opq", "ivfpq")
@@ -44,7 +47,8 @@ class BuildInits:
     build from the same starting points; ``None`` fields are drawn from the
     engine's generator. ``fit_rows`` (fit_sample,) rows of the MPAD fit
     sample; ``w0`` (m, D) MPAD start directions; ``coarse_init`` (nlist,)
-    and ``pq_inits`` (M, K) k-means starting rows."""
+    and ``pq_inits`` (M, K) k-means starting rows (opq uses the same rows
+    for every iterate of its build, as JAX reuses one key)."""
     fit_rows: Optional[torch.Tensor] = None
     w0: Optional[torch.Tensor] = None
     coarse_init: Optional[torch.Tensor] = None
@@ -80,6 +84,95 @@ def get_ops(kind: str) -> IndexOps:
         raise ValueError(f"unknown index kind {kind!r}; registered kinds: "
                          f"{tuple(_REGISTRY)}") from None
 
+
+class OPQIndex(NamedTuple):
+    """OPQ payload: a learned orthogonal rotation of the scan space plus
+    plain-PQ state over the rotated rows."""
+    rot: torch.Tensor          # (d, d) learned orthogonal rotation
+    codebooks: torch.Tensor    # (M, K, dsub) over the rotated space
+    codes: torch.Tensor        # (N, M) uint8 (int32 if K > 256)
+    lut_w: torch.Tensor        # (d, M*K)
+    cbnorm: torch.Tensor       # (M, K)
+
+
+# --- flat: exact scan of the (reduced) vectors -------------------------------
+
+def _flat_build(reduced, spec, generator, inits):
+    # the payload is the scan rows; with no Reduce stage, the corpus itself
+    return reduced
+
+
+def _flat_scan(state, qr, n_cand, p):
+    return knn_scan(qr, state.index.payload, n_cand)
+
+
+register_index(IndexOps(kind="flat", lossy=False, build=_flat_build,
+                        scan=_flat_scan))
+
+
+# --- pq: product-quantized vectors, shared-codes ADC scan (K2) ---------------
+
+def _pq_build(reduced, spec, generator, inits):
+    return build_pq(reduced, spec.code.subspaces, spec.code.centroids,
+                    inits=inits.pq_inits, generator=generator)
+
+
+def _pq_scan(state, qr, n_cand, p):
+    return pq_scan(state.index.payload, qr, n_cand, backend=p.backend,
+                   lut_dtype=p.lut_dtype)
+
+
+register_index(IndexOps(kind="pq", lossy=True, build=_pq_build,
+                        scan=_pq_scan))
+
+
+# --- opq: learned orthogonal rotation + PQ codes -----------------------------
+# Alternate (1) k-means codebooks on the rotated rows with (2) the
+# orthogonal Procrustes solution R = U V^T of X^T X_hat; the identity
+# iterate is the plain-pq build (same starting rows), and the lowest-error
+# iterate is kept, so opq reconstructs no worse than pq at equal code bytes.
+
+_OPQ_ITERS = 3          # Procrustes/assignment alternations after identity
+
+
+def _opq_build(reduced, spec, generator, inits):
+    x = reduced.to(torch.float32)
+    n, d = x.shape
+    m, kc = spec.code.subspaces, spec.code.centroids
+    pq_inits = inits.pq_inits
+    if pq_inits is None:
+        # drawn as build_pq would draw them, once for every iterate
+        pq_inits = torch.stack([torch.randperm(n, generator=generator)[
+            :min(kc, n)] for _ in range(m)])
+    rot = torch.eye(d, dtype=torch.float32, device=x.device)
+    best, best_err = None, float("inf")
+    for _ in range(_OPQ_ITERS + 1):
+        xr = x @ rot
+        pq = build_pq(xr, m, kc, inits=pq_inits)
+        recon = pq_reconstruct(pq)
+        err = float(((xr - recon) ** 2).sum(dim=1).mean())
+        if best is None or err < best_err:
+            best, best_err = OPQIndex(rot=rot, codebooks=pq.codebooks,
+                                      codes=pq.codes, lut_w=pq.lut_w,
+                                      cbnorm=pq.cbnorm), err
+        u, _, vt = torch.linalg.svd(x.T @ recon)
+        rot = u @ vt
+    return best
+
+
+def _opq_scan(state, qr, n_cand, p):
+    ix = state.index.payload
+    view = PQIndex(codebooks=ix.codebooks, codes=ix.codes, lut_w=ix.lut_w,
+                   cbnorm=ix.cbnorm)
+    return pq_scan(view, qr @ ix.rot, n_cand, backend=p.backend,
+                   lut_dtype=p.lut_dtype)
+
+
+register_index(IndexOps(kind="opq", lossy=True, build=_opq_build,
+                        scan=_opq_scan))
+
+
+# --- ivfpq: coarse cells + PQ residual codes, ADC-gather scan (K1) -----------
 
 def _ivfpq_build(reduced, spec, generator, inits):
     return build_ivfpq(reduced, spec.coarse.nlist, spec.code.subspaces,

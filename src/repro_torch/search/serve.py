@@ -11,9 +11,10 @@ built index; ``search_fn(state, queries, k, ...)`` is the whole query
 pipeline as one function of tensors. ``SearchEngine`` builds the state
 once and pads each query batch to a power-of-two bucket, as the JAX engine
 does, so both packages run the same scan shapes; small ivfpq buckets take
-the compact scan when the posting-mass bound allows it.
+the compact scan when the posting-mass bound allows it. The index kinds
+served are those of ``registry`` (flat, pq, opq, ivfpq).
 
-Not ported yet (see ROADMAP.md): the re-rank pre-filter
+Not ported yet (see ROADMAP.md): the ivf kind, the re-rank pre-filter
 (``prefilter_batch``), streaming, sharding, snapshots, the WAL, metrics and
 tracing.
 """
