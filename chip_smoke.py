@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. device   CUDA must be present; prints the card's name and power limit.
-  2. build    builds every CUDA kernel of the port (K1, K2, K4) from the
+  2. build    builds every CUDA kernel of the port (K1, K2, K4, K5) from the
               checkout's sources, one nvcc per source, all at once
               (sm_90a), and times the build.
   3. edges    each kernel against its plain PyTorch version on edge
@@ -13,7 +13,11 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               ties, a deep merge. K2: ragged N, k > N, Q = 1, M not a
               multiple of 16, a large k, exact int8 ties, N = 1,000,000.
               K4: N = 1, 2, ragged N, N = 2048, a multi-tile N, repeated
-              values, tau = 0 and tau = +inf.
+              values, tau = 0 and tau = +inf. K5 (f32 and bf16): S = 1,
+              16, 80 (ragged), 4096; G = 1 and 8; dh = 8 to 256; window
+              16 at S = 1000, a window wider than S, window 1; and at bf16
+              TinyLlama's heads at S = 32768 and Gemma3-4B's local layers
+              (H 8 / KV 4 / dh 256, window 1024) at S = 8192.
   4. path 1   the ivfpq path at full size: build_engine over a
               1,000,000 x 384 clustered f32 corpus made with numpy from a
               seed, spec qpad64>ivf1024x16>pq16x256:i8@kernel>rr64, then
@@ -42,6 +46,25 @@ Phases (any failure exits nonzero; no phase's failure is caught):
   10. timings K2 and K4 beside their plain versions and bounds; p50
               latency and QPS of the pq and opq engines; the pq build's
               stage times.
+  11. path 3  the LM serving path: TinyLlama-1.1B's CONFIG at full width
+              and depth (22 layers), bf16, random weights from
+              lm_init_params(cfg, seed=0) on the card, attn_impl="flash".
+              Prefill 4 x 4096 tokens into a 4160-slot cache, then 64
+              greedy lm_decode_steps; K5's count is zeroed just before and
+              read just after (22 launches in the prefill, none in the
+              decode, whose attention is chunked). The same prefill on
+              attn_impl="chunked", decoding the flash route's tokens: the
+              last-position logits and the greedy tokens must agree within
+              LM_LOGIT_ATOL and LM_AGREE_FLOOR. lm_embed on the batch must
+              be finite, (4, 2048).
+  12. K5 main K5 against its plain version on path 3's own layer-0 q, k,
+              v, at bf16 and upcast to f32.
+  13. timings K5, its plain version, scaled_dot_product_attention (the
+              library yardstick; the port never calls it) and the bound at
+              path 3's shape; prefill ms, tokens/s and share of the bf16
+              peak; decode ms a step (p50) and tokens/s; peak memory.
+  14. trace   the card's busy share over one prefill and over 10 decode
+              steps (torch.profiler).
 
 Before those, one line {"result": {...}} holds every measurement of the
 run. The line before the last is {"kernels": [...]}; the last line is
@@ -67,9 +90,20 @@ BATCHES = (1, 8, 64, 256)
 K = 10
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12            # H100 SXM non-tensor f32 peak (data sheet)
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor peak (data sheet)
 LUTS = ("f32", "bf16", "int8")
 RECALL_FLOOR = 0.5               # a broken scan or re-rank lands far below
 RERANK = 64                      # candidates the pq / opq scans return
+# path 3: TinyLlama-1.1B serving, prefill B x S (train_4k's sequence;
+# prefill_32k's batch 32 and sequence 32768 are cut to fit the time limit),
+# then greedy decode steps into a cache of LM_MAX_LEN slots
+LM_BATCH, LM_SEQ, LM_MAX_LEN, LM_DECODE = 4, 4096, 4160, 64
+# flash and chunked prefill differ only in f32 summation order inside the
+# attention, rounded to bf16 once, and carried through 22 layers: their
+# last-position logits (std ~1 at random weights) may differ by a few bf16
+# ulps of the hidden state, and greedy tokens may flip only on near-ties
+LM_LOGIT_ATOL = 0.25
+LM_AGREE_FLOOR = 0.75
 
 
 class SmokeFailure(RuntimeError):
@@ -176,21 +210,22 @@ def compare_k1(torch, ops, ref, name, tables, codes, base, k, lut, scale):
     return err
 
 
-def device_busy(torch, eng, queries, reps=10):
-    """Share of a window of ``reps`` searches in which the card runs a
-    kernel: the kernels' device time (one stream, so no overlap) from a
+def busy_share(torch, fn, reps, label):
+    """Share of a window of ``reps`` calls of ``fn`` in which the card runs
+    a kernel: the kernels' device time (one stream, so no overlap) from a
     torch.profiler trace over the host time of the window, which ends in
     a synchronize. The profiler slows the host, so the idle share it
-    implies is an upper bound. Returns (busy share, top kernels)."""
+    implies is an upper bound. Logs and returns the share, the kernels
+    launched per call and the top kernels with their device µs per
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng.search(queries, K)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            eng.search(queries, K)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.key_averages()
@@ -198,8 +233,213 @@ def device_busy(torch, eng, queries, reps=10):
     busy_us = sum(e.self_device_time_total for e in kern)
     check(busy_us > 0, "the profiler saw no device time")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    return busy_us / wall_us, [(e.key[:60], e.self_device_time_total / reps)
-                               for e in top]
+    out = {"busy_share": busy_us / wall_us,
+           "kernels_per_call": sum(e.count for e in kern) / reps,
+           "top_kernels_us": [(e.key[:60], e.self_device_time_total / reps)
+                              for e in top]}
+    log(f"[trace] {label}: device busy {out['busy_share']:.3f} of the "
+        f"window, {out['kernels_per_call']:.0f} kernels a call; top kernels "
+        f"(us per call): "
+        f"{[(n, round(t, 1)) for n, t in out['top_kernels_us']]}")
+    return out
+
+
+def device_busy(torch, eng, queries, label, reps=10):
+    """``busy_share`` of ``reps`` searches, after one warm-up search."""
+    eng.search(queries, K)
+    return busy_share(torch, lambda: eng.search(queries, K), reps, label)
+
+
+def lm_serve(torch, tf, fa, params, cfg, tokens, steps, teacher=None):
+    """One prefill of ``tokens`` (B, S) into a fresh cache of LM_MAX_LEN
+    slots, then ``steps`` greedy decode steps, each fed the last step's
+    argmax over [:vocab] (as lm_family's smoke does), or ``teacher``'s
+    token at that step when given. Returns (prefill logits, greedy tokens
+    (B, steps + 1), K5 launches in the prefill, K5 launches in the decode,
+    the prefill's host ms, each decode step's ms by CUDA events)."""
+    cache = tf.init_cache(cfg, tokens.shape[0], LM_MAX_LEN)
+    torch.cuda.synchronize()
+    n0 = fa.flash_attention_fwd.launches
+    t0 = time.perf_counter()
+    logits, cache = tf.lm_prefill(params, cfg, tokens, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    n1 = fa.flash_attention_fwd.launches
+    first = logits
+    toks = [logits[:, :cfg.vocab].argmax(dim=-1)]
+    step_ms = []
+    for i in range(steps):
+        feed = toks[-1] if teacher is None else teacher[:, i]
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        logits, cache = tf.lm_decode_step(params, cfg, feed, tokens.shape[1]
+                                          + i, cache)
+        e.record()
+        toks.append(logits[:, :cfg.vocab].argmax(dim=-1))
+        torch.cuda.synchronize()
+        step_ms.append(s.elapsed_time(e))
+        check(bool(torch.isfinite(logits).all()), f"decode step {i}: "
+              "non-finite logits")
+    return (first, torch.stack(toks, dim=1), n1 - n0,
+            fa.flash_attention_fwd.launches - n1, prefill_ms, step_ms)
+
+
+def lm_path(torch, tf, fa, lm_param_count, rms_norm, base_cfg, counters):
+    """Path 3: ``base_cfg`` (TinyLlama-1.1B) at full width, bf16, random
+    weights from seed 0, served with attn_impl="flash" (K5 in every
+    prefill layer), held against the chunked route. Returns (result
+    dict, K5 launches on the main run, K5's max |err| on the path's own
+    q, k, v, K5 timing dict)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(base_cfg, attn_impl="flash")
+    out = {"config": cfg.name, "batch": LM_BATCH, "seq": LM_SEQ,
+           "max_len": LM_MAX_LEN, "decode_steps": LM_DECODE}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["mem_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = tf.lm_init_params(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, (LM_BATCH, LM_SEQ))).to(dev)
+
+    # the main run: counts zeroed just before, read just after
+    for fn in counters:
+        fn.launches = 0
+    logits, toks, n_pre, n_dec, pre_ms, step_ms = lm_serve(
+        torch, tf, fa, params, cfg, tokens, LM_DECODE)
+    launches = fa.flash_attention_fwd.launches
+    others = {fn.__name__: fn.launches for fn in counters
+              if fn is not fa.flash_attention_fwd}
+    log(f"[path 3] {cfg.name} prefill {LM_BATCH} x {LM_SEQ} + {LM_DECODE} "
+        f"decode steps: K5 launches {n_pre} in the prefill, {n_dec} in the "
+        f"decode; other kernels {others}")
+    check(n_pre == cfg.n_layers and n_dec == 0 and launches == n_pre,
+          f"K5 launched {n_pre} times in the prefill (want {cfg.n_layers}) "
+          f"and {n_dec} in the decode (want 0)")
+    check(not any(others.values()), "a search kernel ran on path 3")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()), "bad prefill logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "bad tokens")
+    out["k5_launches_prefill"] = n_pre
+    out["k5_launches_decode"] = n_dec
+    out["first_prefill_ms"] = pre_ms
+    out["decode_step_ms"] = {"p50": float(np.median(step_ms)),
+                             "p90": float(np.percentile(step_ms, 90)),
+                             "first": step_ms[0]}
+    out["decode_tok_per_s"] = LM_BATCH / (out["decode_step_ms"]["p50"] / 1e3)
+
+    # the same prefill on the chunked route, decoding the flash route's
+    # tokens (teacher-forced), so each step compares one context
+    cfg_c = dataclasses.replace(cfg, attn_impl="chunked")
+    logits_c, toks_c, n_pre_c, _, _, _ = lm_serve(
+        torch, tf, fa, params, cfg_c, tokens, LM_DECODE, teacher=toks)
+    check(n_pre_c == 0, "K5 ran on the chunked route")
+    ldiff = float((logits.float() - logits_c.float()).abs().max())
+    agree = float((toks_c == toks).float().mean())
+    out["flash_vs_chunked"] = {
+        "logits_max_abs_diff": ldiff, "logits_abs_max":
+        float(logits.float().abs().max()), "greedy_agreement": agree,
+        "tolerance": {"logits_atol": LM_LOGIT_ATOL,
+                      "agreement_floor": LM_AGREE_FLOOR}}
+    log(f"[path 3] flash vs chunked: last-position logits max |diff| "
+        f"{ldiff:.4f} (|logits| up to {out['flash_vs_chunked']['logits_abs_max']:.3f}),"
+        f" greedy tokens agree on {agree:.4f} of {toks.numel()}")
+    check(ldiff <= LM_LOGIT_ATOL, f"flash and chunked logits differ by "
+          f"{ldiff} > {LM_LOGIT_ATOL}")
+    check(agree >= LM_AGREE_FLOOR, f"greedy agreement {agree} < "
+          f"{LM_AGREE_FLOOR}")
+
+    # the embedding hook on one batch (K5 again in every layer)
+    n0 = fa.flash_attention_fwd.launches
+    emb = tf.lm_embed(params, cfg, tokens)
+    torch.cuda.synchronize()
+    check(tuple(emb.shape) == (LM_BATCH, cfg.d_model)
+          and bool(torch.isfinite(emb).all())
+          and fa.flash_attention_fwd.launches - n0 == cfg.n_layers,
+          f"lm_embed: {tuple(emb.shape)}, finite "
+          f"{bool(torch.isfinite(emb).all())}, "
+          f"{fa.flash_attention_fwd.launches - n0} K5 launches")
+    log(f"[path 3] lm_embed {tuple(emb.shape)} finite, "
+        f"{cfg.n_layers} K5 launches")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # K5 on the path's own layer-0 q, k, v, at bf16 and upcast to f32
+    log("[K5 main]")
+    lp0 = {key: t[0] for key, t in params["runs"][0].items()}
+    with torch.inference_mode():
+        x = rms_norm(params["embed"][tokens].to(cfg.dtype), lp0["ln1"])
+        q, k, v = tf._qkv(cfg, x, lp0, torch.arange(LM_SEQ, device=dev),
+                          None)
+    err = compare_k5(torch, fa, "K5 main bf16", q, k, v, None)
+    err = max(err, compare_k5(torch, fa, "K5 main f32", q.float(),
+                              k.float(), v.float(), None))
+
+    # timings, second call on
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    k5_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), reps=10)
+    k5_plain = cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v),
+                       reps=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True)
+    sdpa_err = float((sdpa.transpose(1, 2).float()
+                      - fa.flash_attention_fwd(q, k, v).float()).abs().max())
+    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+    bound, by, nops, nbytes = k5_bound(LM_BATCH, LM_SEQ, h, kvh, dh, None, 2)
+    log(f"[timings] K5 {k5_ms:.4f} ms, plain {k5_plain:.4f} ms, SDPA "
+        f"{lib_ms:.4f} ms (max |diff| to K5 {sdpa_err:.3e}), bound "
+        f"{bound:.4f} ms ({by}: {nops:.4g} ops, {nbytes} B) at B={LM_BATCH} "
+        f"S={LM_SEQ} H={h} KV={kvh} dh={dh} bf16")
+    k5 = {"ms": k5_ms, "plain_ms": k5_plain, "library_ms": lib_ms,
+          "bound_ms": bound, "bound_by": by, "ops": nops, "bytes": nbytes,
+          "sdpa_max_abs_diff": sdpa_err}
+    del qt, kt, vt, sdpa
+
+    def prefill_once(c):
+        cache = tf.init_cache(c, LM_BATCH, LM_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tf.lm_prefill(params, c, tokens, cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    pre = [prefill_once(cfg) for _ in range(3)]
+    pre_c = [prefill_once(cfg_c) for _ in range(2)]
+    model_flops = (2 * lm_param_count(cfg) * LM_BATCH * LM_SEQ
+                   + cfg.n_layers * nops)
+    p50 = float(np.median(pre))
+    out["prefill_ms"] = {"flash": pre, "chunked": pre_c}
+    out["prefill_tok_per_s"] = LM_BATCH * LM_SEQ / (p50 / 1e3)
+    out["prefill_model_flops"] = model_flops
+    out["prefill_peak_share"] = model_flops / (p50 / 1e3) / BF16_OPS_PER_S
+    log(f"[timings] prefill {LM_BATCH} x {LM_SEQ}: flash "
+        f"{[round(t, 2) for t in pre]} ms, chunked "
+        f"{[round(t, 2) for t in pre_c]} ms; {out['prefill_tok_per_s']:.0f} "
+        f"tok/s; {model_flops:.4g} FLOPs = {out['prefill_peak_share']:.4f} "
+        f"of the bf16 peak")
+    log(f"[timings] decode p50 {out['decode_step_ms']['p50']:.3f} ms a step "
+        f"(p90 {out['decode_step_ms']['p90']:.3f}, first "
+        f"{out['decode_step_ms']['first']:.3f}), "
+        f"{out['decode_tok_per_s']:.1f} tok/s at batch {LM_BATCH}; peak "
+        f"memory {out['peak_mem_gb']:.2f} GB (before path 3: "
+        f"{out['mem_before_gb']:.2f} GB)")
+
+    # the card's busy share: one prefill, then 10 decode steps
+    cache = tf.init_cache(cfg, LM_BATCH, LM_MAX_LEN)
+    step = iter(range(LM_SEQ, LM_SEQ + 10))
+    nxt = toks[:, 0]
+    out["busy"] = {
+        "prefill": busy_share(
+            torch, lambda: tf.lm_prefill(params, cfg, tokens, cache), 1,
+            "path 3 prefill"),
+        "decode": busy_share(
+            torch, lambda: tf.lm_decode_step(params, cfg, nxt, next(step),
+                                             cache), 10, "path 3 decode")}
+    return out, launches, err, k5
 
 
 def edge_cases(torch, ops, ref):
@@ -314,6 +554,86 @@ def edge_cases_k4(torch, pw):
     return err
 
 
+def k5_tolerance(dtype_name):
+    """K5 against its plain version: the tolerances of
+    tests/test_flash_attention.py. f32: the same f32 sums in another order
+    (atol 2e-5, rtol 1e-4). bf16: both round one f32 result to bf16 once,
+    so they differ by at most one bf16 ulp where the f32 sums straddle a
+    rounding boundary (atol 3e-2: an ulp of values below 4)."""
+    return (dict(atol=2e-5, rtol=1e-4) if dtype_name == "f32"
+            else dict(atol=3e-2, rtol=0.0))
+
+
+def compare_k5(torch, fa, name, q, k, v, window):
+    """K5 against its plain version on the same CUDA tensors, at
+    ``k5_tolerance``. Returns max |err|."""
+    got = fa.flash_attention_fwd(q, k, v, window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_fwd_plain(q, k, v, window)
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"{name}: output {got.dtype} {tuple(got.shape)}")
+    tol = k5_tolerance("f32" if q.dtype == torch.float32 else "bf16")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
+    check(ok and bool(torch.isfinite(got).all()),
+          f"{name}: beyond {tol} (max err {err})")
+    log(f"  {name}: ok, max |err| {err:.3e}")
+    return err
+
+
+def k5_inputs(torch, seed, b, s, h, kv, dh, dtype):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        .to("cuda").to(dtype)
+        for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+
+
+# (b, s, h, kv, dh, window): S = 1, 16, 80 (ragged), 4096; G = 1 and 8;
+# dh = 8, 16, 32, 64, 128, 256; window 16 at S = 1000, wider than S, and 1
+K5_EDGES = ((1, 1, 4, 4, 64, None), (2, 16, 8, 1, 8, None),
+            (2, 80, 8, 1, 64, None), (1, 80, 4, 4, 128, None),
+            (2, 80, 4, 2, 16, 24), (1, 4096, 32, 4, 64, None),
+            (1, 1000, 4, 2, 64, 16), (1, 1000, 8, 4, 256, 16),
+            (1, 300, 4, 1, 256, 1000), (1, 200, 8, 8, 32, 1),
+            (1, 257, 4, 2, 128, 1))
+
+
+def edge_cases_k5(torch, fa):
+    err = 0.0
+    for i, (b, s, h, kv, dh, win) in enumerate(K5_EDGES):
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = k5_inputs(torch, 10 + i, b, s, h, kv, dh, dt)
+            err = max(err, compare_k5(
+                torch, fa, f"K5 edge {name} B={b} S={s} H={h} KV={kv} "
+                f"dh={dh} window={win}", q, k, v, win))
+    # the LM shapes at full length, bf16, against the chunked plain version:
+    # TinyLlama at prefill_32k's sequence (batch 32 cut to 1), and
+    # Gemma3-4B's local layers (H 8 / KV 4 / dh 256, window 1024)
+    for name, (b, s, h, kv, dh, win) in (
+            ("tinyllama S=32768", (1, 32768, 32, 4, 64, None)),
+            ("gemma3-4b local S=8192", (1, 8192, 8, 4, 256, 1024))):
+        q, k, v = k5_inputs(torch, 7, b, s, h, kv, dh, torch.bfloat16)
+        err = max(err, compare_k5(torch, fa, f"K5 edge bf16 {name}", q, k, v,
+                                  win))
+    return err
+
+
+def k5_bound(b, s, h, kv, dh, window, elem_bytes):
+    """The least time of one K5 call: the larger of its operations (a
+    multiply-add of q.k and of p.v per head dim per (query, key) pair the
+    mask keeps) at the bf16 tensor peak and its bytes (q, k, v read once,
+    the output written once) at the HBM rate. Returns (ms, by, ops, bytes)."""
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w     # causal, within the window
+    nops = 4 * dh * pairs * b * h
+    nbytes = (2 * b * s * h * dh + 2 * b * s * kv * dh) * elem_bytes
+    t_ops, t_bytes = nops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", nops, nbytes)
+
+
 def search_timed(torch, eng, qd, batches):
     """Searches at each batch: 2 warm-up calls, then 20 timed by CUDA
     events. Returns ({batch: latency stats}, {batch: ids})."""
@@ -351,7 +671,10 @@ def main():
         from repro_torch._device import cpu_generator
         from repro_torch.core import MPADConfig, fast_objective
         from repro_torch.core.objective import num_selected_pairs
+        from repro_torch.configs import lm_param_count
+        from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA
         from repro_torch.kernels import build
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import mpad_pairwise as pw
         from repro_torch.kernels.pq_adc import ops, ref
         from repro_torch.kernels.pq_adc.lut import center_lut
@@ -366,6 +689,8 @@ def main():
         from repro_torch.search.serve import (EngineState, config_from_spec,
                                               exact_rerank)
         from repro_torch.search.spec import parse_spec
+        from repro_torch.models import transformer as tf
+        from repro_torch.models.layers import rms_norm
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -401,6 +726,8 @@ def main():
     k2_err = edge_cases_k2(torch, ops)
     log("[K4 edges]")
     k4_err = edge_cases_k4(torch, pw)
+    log("[K5 edges]")
+    k5_err = edge_cases_k5(torch, fa)
     torch.cuda.synchronize()
 
     # 4. the main path
@@ -412,7 +739,8 @@ def main():
     xd = torch.from_numpy(x).to(dev)
     qd = torch.from_numpy(q_all).to(dev)
     del x
-    counters = (ops.pq_adc_gather_topk, ops.pq_adc_topk, pw.pairwise_stats)
+    counters = (ops.pq_adc_gather_topk, ops.pq_adc_topk, pw.pairwise_stats,
+                fa.flash_attention_fwd)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -512,14 +840,8 @@ def main():
         f"{ {k: round(v, 4) for k, v in stages.items()} }")
 
     # 7. device busy share of the search path (torch.profiler)
-    result["device_busy"] = {}
-    for b in (1, 256):
-        share, top = device_busy(torch, eng, qd[:b])
-        result["device_busy"][b] = {"busy_share": share,
-                                    "top_kernels_us": top}
-        log(f"[trace] batch {b}: device busy {share:.3f} of the window; "
-            f"top kernels (us per search): "
-            f"{[(n, round(t, 1)) for n, t in top]}")
+    result["device_busy"] = {b: device_busy(torch, eng, qd[:b], f"batch {b}")
+                             for b in (1, 256)}
 
     # 8. path 2: pq with the QPAD fit on K4, then opq on the same reducer
     for fn in counters:
@@ -688,14 +1010,16 @@ def main():
     result["phi_step_ms"] = steps
     log(f"[timings] one fit step's objective, host ms: "
         f"{ {k: round(v, 3) for k, v in steps.items()} }")
-    result["path2_device_busy"] = {}
-    for b in (1, 256):
-        share, top = device_busy(torch, eng_pq, qd[:b])
-        result["path2_device_busy"][b] = {"busy_share": share,
-                                          "top_kernels_us": top}
-        log(f"[trace] pq batch {b}: device busy {share:.3f} of the window; "
-            f"top kernels (us per search): "
-            f"{[(n, round(t, 1)) for n, t in top]}")
+    result["path2_device_busy"] = {
+        b: device_busy(torch, eng_pq, qd[:b], f"pq batch {b}")
+        for b in (1, 256)}
+
+    # 11-14. path 3: the LM serving path on K5
+    lm, k5_launches, k5_main_err, k5 = lm_path(
+        torch, tf, fa, lm_param_count, rms_norm, TINYLLAMA, counters)
+    result["path3"] = lm
+    result["k5_timing"] = k5
+    k5_err = max(k5_err, k5_main_err)
 
     kernels = [{
         "name": "pq_adc_gather_topk", "route": "cuda",
@@ -716,7 +1040,14 @@ def main():
         "replaces": "src/repro/kernels/mpad_pairwise/kernel.py:64",
         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-        "library_ms": None}]
+        "library_ms": None}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+        "launches": k5_launches, "max_abs_err": k5_err, "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}]
     result["wall_s"] = time.perf_counter() - wall0
     log(f"[done] wall time {result['wall_s']:.1f} s")
     print(json.dumps({"result": result}))

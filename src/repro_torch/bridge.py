@@ -1,4 +1,5 @@
-"""Carry an engine state built by the JAX package across to the port.
+"""Carry state built by the JAX package across to the port: an engine's
+state, and an LM's parameters.
 
 ``state_from_arrays`` takes the state as a ``{keypath: np.ndarray}`` dict,
 keyed by the ``jax.tree_util.keystr`` paths of ``EngineState`` leaves: the
@@ -6,16 +7,19 @@ paths ``repro/runtime/checkpoint.py`` writes into a snapshot's ``.npz``
 (``['state'].corpus``, ``['state'].proj[0]``, ...) or those of a live
 engine's state (``.corpus``, ``.proj.params[0]``, ...). The port cannot
 reproduce ``jax.random`` streams, so this is how a test serves the very
-arrays the JAX package built.
+arrays the JAX package built. ``lm_params_from_arrays`` does the same for
+the parameters of ``repro.models.transformer`` (``['embed']``,
+``['runs'][0]['wq']``, ...).
 """
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models.transformer import LMConfig, Params, layer_runs
 from repro_torch.search.ivfpq import IVFPQIndex
 from repro_torch.search.pq import PQIndex
 from repro_torch.search.reducers import Reducer
@@ -23,7 +27,7 @@ from repro_torch.search.registry import Index, OPQIndex
 from repro_torch.search.serve import EngineState
 from repro_torch.search.spec import IndexSpec, parse_spec
 
-__all__ = ["state_from_arrays"]
+__all__ = ["state_from_arrays", "lm_params_from_arrays"]
 
 _SNAPSHOT_PREFIX = "['state']"
 # the NamedTuple payloads, carried field by field
@@ -67,3 +71,53 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray],
             f"index kind {spec.kind!r} is not ported yet (see ROADMAP.md)")
     return EngineState(corpus=get(".corpus"), proj=proj,
                        index=Index(spec.kind, payload))
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor with ``arr``'s bits. numpy holds a bf16 JAX array as
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: its bits
+    are carried as uint16 and reinterpreted."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.array(arr.view(np.uint16), copy=True)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def lm_params_from_arrays(arrays: Mapping[str, np.ndarray], cfg: LMConfig,
+                          device: DeviceLike = None) -> Params:
+    """The port's LM parameters for ``cfg`` from JAX arrays keyed by
+    ``jax.tree_util.keystr`` paths, copied bit for bit; each must have the
+    shape and dtype ``cfg`` gives it."""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE layers are not ported yet (see "
+                                  "ROADMAP.md)")
+    dev = resolve_device(device)
+    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                       cfg.d_ff)
+
+    def get(key, shape):
+        if key not in arrays:
+            raise KeyError(f"no array under {key}")
+        t = _tensor(np.asarray(arrays[key]))
+        if tuple(t.shape) != tuple(shape) or t.dtype != cfg.dtype:
+            raise ValueError(f"{key}: {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(shape)} {cfg.dtype}")
+        return t.to(dev)
+
+    def run(ri, n):
+        shapes: Dict[str, tuple] = {
+            "ln1": (n, d), "ln2": (n, d), "wq": (n, d, h * dh),
+            "wk": (n, d, kv * dh), "wv": (n, d, kv * dh),
+            "wo": (n, h * dh, d), "w_gate": (n, d, f), "w_up": (n, d, f),
+            "w_down": (n, f, d)}
+        return {name: get(f"['runs'][{ri}]['{name}']", shape)
+                for name, shape in shapes.items()}
+
+    params = {
+        "embed": get("['embed']", (cfg.vocab_padded, d)),
+        "final_norm": get("['final_norm']", (d,)),
+        "runs": [run(ri, n) for ri, (_, n) in enumerate(layer_runs(cfg))],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = get("['lm_head']", (d, cfg.vocab_padded))
+    return params

@@ -1,0 +1,107 @@
+"""Wrapper of the causal GQA flash-attention forward kernel (K5; port of
+``repro.kernels.flash_attention.kernel.flash_attention_fwd``).
+
+``flash_attention_fwd`` takes its plain version for tensors on the CPU,
+and only for those; for CUDA tensors it launches the CUDA kernel
+(``csrc/flash_attention_fwd.cu``) or raises. Each launch adds one to
+``flash_attention_fwd.launches``. It is forward only: the
+``autograd.Function`` (a backward through the chunked path, as the JAX
+package's custom VJP does) comes with the training path.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.models.layers import chunked_attention
+
+from .build import library
+
+__all__ = ["SUPPORTED_HEAD_DIMS", "flash_attention_fwd",
+           "flash_attention_fwd_plain"]
+
+# one compiled instance of the kernel per head dim
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """The plain version: ``chunked_attention`` at self-attention
+    positions (q_pos = kv_pos = arange(S))."""
+    pos = torch.arange(q.shape[1], device=q.device)
+    return chunked_attention(q, k, v, pos, pos, window=window)
+
+
+def _check(q, k, v, window):
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k, v must be (B, S, heads, dh)")
+    b, s, h, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if k.shape[1] != s:
+        raise ValueError(f"self-attention only: Sq {s} != Skv {k.shape[1]}")
+    if k.shape[2] == 0 or h % k.shape[2]:
+        raise ValueError(f"{h} query heads are not a multiple of "
+                         f"{k.shape[2]} KV heads")
+    if not q.device == k.device == v.device:
+        raise ValueError("q, k, v must be on one device")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPES:
+        raise TypeError(f"q, k, v must share a dtype of {_DTYPES}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel reads it: the head dim contiguous, and every row
+    starting on a 16-byte boundary (the kernel loads 16-byte vectors)."""
+    vec = 16 // t.element_size()
+    if (t.stride(3) != 1 or t.data_ptr() % 16
+            or any(st % vec for st in t.stride()[:3])):
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Causal GQA self-attention with an optional sliding window.
+
+    q: (B, S, H, dh); k, v: (B, S, KV, dh), f32 or bf16, H a multiple of
+    KV, dh in ``SUPPORTED_HEAD_DIMS``. Query head h reads KV head
+    h // (H // KV). Sums and softmax run in f32; returns (B, S, H, dh) in
+    q's dtype. The plain version, on the CPU, takes any head dim."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    b, s, h, dh = q.shape
+    if dh not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {SUPPORTED_HEAD_DIMS}, "
+                         f"not {dh}")
+    out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    scale = 1.0 / math.sqrt(dh)             # rounded to f32 as JAX does
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.qpad_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, s, h, k.shape[2], dh,
+            0 if window is None else int(window), scale,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0

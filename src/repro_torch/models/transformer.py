@@ -1,0 +1,313 @@
+"""Decoder-only LM, serving path (port of ``repro.models.transformer``):
+dense configurations, prefill, decode and the embedding hook.
+
+The structure is the JAX package's:
+
+* **Run-structured layer stack.** Layers are grouped into contiguous runs
+  of one attention kind ("global" full-causal or "local" sliding-window);
+  each run's parameters are stacked along a leading (length,) axis. A
+  Python loop over the layers stands in for the ``lax.scan``. Local runs
+  carry window-sized ring-buffer KV caches, global runs full-length ones.
+* **Position-based masking**: causality, sliding windows and ring-buffer
+  cache validity are all expressed through absolute positions, so prefill
+  and decode share one attention code path (``layers.chunked_attention``).
+* ``attn_impl="flash"`` routes the prefill's self-attention to kernel K5
+  (``kernels.flash_attention.flash_attention_fwd``); decode attends over
+  the cache through ``chunked_attention``, as in JAX.
+
+Parameters are a dict of tensors with the JAX pytree's names and shapes
+(``{"embed", "final_norm", "runs": [per-run dict of (length, ...) stacks],
+"lm_head"?}``), so ``bridge.lm_params_from_arrays`` is a copy. Unlike JAX,
+``lm_prefill`` and ``lm_decode_step`` update the cache in place (and
+return it), and run under ``torch.inference_mode()``. MoE configurations,
+the loss and the training forward wait for later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+from .layers import chunked_attention, he_init, rms_norm, rope, swiglu
+
+__all__ = ["LMConfig", "lm_init_params", "lm_prefill", "lm_decode_step",
+           "init_cache", "lm_embed", "layer_runs"]
+
+_NEG_INF = -1e30
+
+Params = Dict[str, Any]
+Cache = List[Dict[str, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """The JAX ``LMConfig``, field for field. ``dtype`` is a torch dtype.
+    ``moe`` must stay None here (the MoE block is not ported yet).
+    ``remat`` is kept so a configuration carries over unchanged; without
+    autograd it has no effect. ``seq_chunk`` serves the chunked loss of
+    the training path, not ported yet."""
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    rope_theta: float = 10000.0
+    rope_theta_local: Optional[float] = None   # gemma3: 10k local / 1M global
+    sliding_window: Optional[int] = None   # window for "local" layers
+    global_every: Optional[int] = None     # every k-th layer global (gemma 5:1 -> 6)
+    moe: Optional[Any] = None
+    tie_embeddings: bool = True
+    dtype: torch.dtype = torch.float32
+    seq_chunk: int = 1024                  # chunked-CE sequence chunk
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    remat: bool = True
+    attn_impl: str = "chunked"             # chunked | flash (kernel K5)
+
+    @property
+    def vocab_padded(self) -> int:
+        return ((self.vocab + 255) // 256) * 256
+
+
+def _dense_only(cfg: LMConfig):
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (see ROADMAP.md)")
+    if cfg.attn_impl not in ("chunked", "flash"):
+        raise ValueError(f"attn_impl must be 'chunked' or 'flash', got "
+                         f"{cfg.attn_impl!r}")
+
+
+def layer_runs(cfg: LMConfig) -> List[Tuple[str, int]]:
+    """[(kind, length), ...] contiguous runs of same-kind layers."""
+    if cfg.global_every is None:
+        kind = "local" if cfg.sliding_window is not None else "global"
+        return [(kind, cfg.n_layers)]
+    kinds = ["global" if (i % cfg.global_every) == cfg.global_every - 1
+             else "local" for i in range(cfg.n_layers)]
+    runs: List[Tuple[str, int]] = []
+    for k in kinds:
+        if runs and runs[-1][0] == k:
+            runs[-1] = (k, runs[-1][1] + 1)
+        else:
+            runs.append((k, 1))
+    return runs
+
+
+def _init_run_params(gen: torch.Generator, cfg: LMConfig, length: int):
+    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                       cfg.d_ff)
+    dt, dev = cfg.dtype, gen.device
+    return {
+        "ln1": torch.zeros((length, d), dtype=dt, device=dev),
+        "ln2": torch.zeros((length, d), dtype=dt, device=dev),
+        "wq": he_init(gen, (length, d, h * dh), d, dt),
+        "wk": he_init(gen, (length, d, kv * dh), d, dt),
+        "wv": he_init(gen, (length, d, kv * dh), d, dt),
+        "wo": he_init(gen, (length, h * dh, d), h * dh, dt),
+        "w_gate": he_init(gen, (length, d, f), d, dt),
+        "w_up": he_init(gen, (length, d, f), d, dt),
+        "w_down": he_init(gen, (length, f, d), f, dt),
+    }
+
+
+def lm_init_params(cfg: LMConfig, seed: int,
+                   device: DeviceLike = None) -> Params:
+    """Random parameters in the JAX pytree's layout, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on the target device (the
+    same seed gives the same weights on one device type; the CPU and CUDA
+    streams differ, and neither is JAX's). Runs on ``cuda`` unless
+    ``device`` names another device."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    params = {
+        "embed": he_init(gen, (cfg.vocab_padded, cfg.d_model), cfg.d_model,
+                         cfg.dtype),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
+                                  device=dev),
+        "runs": [_init_run_params(gen, cfg, length)
+                 for _, length in layer_runs(cfg)],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = he_init(gen, (cfg.d_model, cfg.vocab_padded),
+                                    cfg.d_model, cfg.dtype)
+    return params
+
+
+# ------------------------------------------------------------- layer bodies
+
+def _qkv(cfg: LMConfig, x, lp, q_pos, window):
+    b, sq, _ = x.shape
+    theta = (cfg.rope_theta_local
+             if (window is not None and cfg.rope_theta_local)
+             else cfg.rope_theta)
+    q = (x @ lp["wq"]).reshape(b, sq, cfg.n_heads, cfg.d_head)
+    k = (x @ lp["wk"]).reshape(b, sq, cfg.n_kv_heads, cfg.d_head)
+    v = (x @ lp["wv"]).reshape(b, sq, cfg.n_kv_heads, cfg.d_head)
+    return rope(q, q_pos, theta), rope(k, q_pos, theta), v
+
+
+def _mlp(cfg: LMConfig, h, lp):
+    x2 = rms_norm(h, lp["ln2"])
+    return h + swiglu(x2, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _layer_self(cfg: LMConfig, window, h, lp, q_pos):
+    """Self-contained segment attention (prefill, embedding).
+
+    Returns (h_out, k, v)."""
+    b, sq, _ = h.shape
+    q, k, v = _qkv(cfg, rms_norm(h, lp["ln1"]), lp, q_pos, window)
+    if cfg.attn_impl == "flash":
+        attn = flash_attention_fwd(q, k, v, window)
+    else:
+        attn = chunked_attention(q, k, v, q_pos, q_pos, window=window,
+                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    h = h + attn.reshape(b, sq, -1) @ lp["wo"]
+    return _mlp(cfg, h, lp), k, v
+
+
+def _layer_cached(cfg: LMConfig, window, h, lp, q_pos, ck, cv, kv_pos,
+                  slots):
+    """Decode: write this step's K/V into cache slots ``slots`` (in place),
+    attend over the cache. Returns h_out."""
+    b, sq, _ = h.shape
+    q, k, v = _qkv(cfg, rms_norm(h, lp["ln1"]), lp, q_pos, window)
+    ck[:, slots] = k.to(ck.dtype)
+    cv[:, slots] = v.to(cv.dtype)
+    attn = chunked_attention(
+        q, ck.to(q.dtype), cv.to(q.dtype), q_pos, kv_pos, window=window,
+        q_chunk=cfg.q_chunk, kv_chunk=ck.shape[1])
+    h = h + attn.reshape(b, sq, -1) @ lp["wo"]
+    return _mlp(cfg, h, lp)
+
+
+def _layer(run: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    return {key: stack[i] for key, stack in run.items()}
+
+
+def _window(cfg: LMConfig, kind: str) -> Optional[int]:
+    return cfg.sliding_window if kind == "local" else None
+
+
+def _forward_no_cache(cfg: LMConfig, params, h, q_pos):
+    """Embedding forward over all runs; no cache."""
+    for ri, (kind, length) in enumerate(layer_runs(cfg)):
+        for i in range(length):
+            h, _, _ = _layer_self(cfg, _window(cfg, kind), h,
+                                  _layer(params["runs"][ri], i), q_pos)
+    return h
+
+
+def _logits_head(cfg: LMConfig, params, h):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = h @ head
+    if cfg.vocab_padded != cfg.vocab:       # mask the padded vocab tail
+        logits[..., cfg.vocab:] = _NEG_INF
+    return logits
+
+
+# ------------------------------------------------------- serving path
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = None) -> Cache:
+    """Per-run KV caches: local runs allocate only the sliding window.
+    ``pos`` holds each slot's absolute position, -1 while unwritten. Runs
+    on ``cuda`` unless ``device`` names another device."""
+    dev = resolve_device(device)
+    dtype = dtype if dtype is not None else cfg.dtype
+    cache = []
+    for kind, length in layer_runs(cfg):
+        s_run = (min(cfg.sliding_window, max_len)
+                 if kind == "local" and cfg.sliding_window else max_len)
+        shape = (length, batch, s_run, cfg.n_kv_heads, cfg.d_head)
+        cache.append({
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.full((s_run,), -1, dtype=torch.int32, device=dev),
+        })
+    return cache
+
+
+@torch.inference_mode()
+def lm_prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+               cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    """Process a full prompt (B, S); returns (last-position logits
+    (B, vocab_padded), cache).
+
+    Attention is self-contained within the prompt. The caches are written
+    in place: local runs keep only the last ``window`` positions in their
+    ring buffers (positions s - n_write .. s-1 go to slots pos % s_run)."""
+    _dense_only(cfg)
+    b, s = tokens.shape
+    dev = tokens.device
+    h = params["embed"][tokens].to(cfg.dtype)
+    q_pos = torch.arange(s, device=dev)
+    for ri, (kind, length) in enumerate(layer_runs(cfg)):
+        rc = cache[ri]
+        s_run = rc["k"].shape[2]
+        n_write = min(s, s_run)
+        src = torch.arange(s - n_write, s, device=dev)   # positions written
+        dst = src % s_run                   # ring slots (identity if s <= s_run)
+        for i in range(length):
+            h, k, v = _layer_self(cfg, _window(cfg, kind), h,
+                                  _layer(params["runs"][ri], i), q_pos)
+            rc["k"][i][:, dst] = k[:, src].to(rc["k"].dtype)
+            rc["v"][i][:, dst] = v[:, src].to(rc["v"].dtype)
+        rc["pos"][dst] = src.to(torch.int32)
+    h = rms_norm(h, params["final_norm"])
+    logits = _logits_head(cfg, params, h[:, -1:, :])
+    return logits[:, 0], cache
+
+
+@torch.inference_mode()
+def lm_decode_step(params: Params, cfg: LMConfig, token: torch.Tensor,
+                   cur_len: int, cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    """One decode step: token (B,) at absolute position ``cur_len``.
+
+    Writes this step's K/V into the caches in place. Returns (logits
+    (B, vocab_padded), cache)."""
+    _dense_only(cfg)
+    cur_len = int(cur_len)
+    dev = token.device
+    h = params["embed"][token][:, None, :].to(cfg.dtype)
+    q_pos = torch.tensor([cur_len], dtype=torch.int32, device=dev)
+    for ri, (kind, length) in enumerate(layer_runs(cfg)):
+        rc = cache[ri]
+        s_run = rc["k"].shape[2]
+        window = _window(cfg, kind)
+        ring = kind == "local" and window and s_run == window
+        slot = cur_len % s_run if ring else cur_len
+        if slot >= s_run:
+            raise ValueError(f"position {cur_len} is past the cache's "
+                             f"{s_run} slots")
+        rc["pos"][slot] = cur_len
+        slots = torch.tensor([slot], device=dev)
+        for i in range(length):
+            h = _layer_cached(cfg, window, h, _layer(params["runs"][ri], i),
+                              q_pos, rc["k"][i], rc["v"][i], rc["pos"],
+                              slots)
+    h = rms_norm(h, params["final_norm"])
+    logits = _logits_head(cfg, params, h)
+    return logits[:, 0], cache
+
+
+@torch.inference_mode()
+def lm_embed(params: Params, cfg: LMConfig,
+             tokens: torch.Tensor) -> torch.Tensor:
+    """Mean-pooled final hidden states (B, d_model): the hook that turns
+    the LM into an embedder for the vector index."""
+    _dense_only(cfg)
+    h = params["embed"][tokens].to(cfg.dtype)
+    h = _forward_no_cache(cfg, params, h,
+                          torch.arange(tokens.shape[1], device=tokens.device))
+    return rms_norm(h, params["final_norm"]).mean(dim=1)

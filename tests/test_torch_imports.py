@@ -22,7 +22,7 @@ def _imported_roots(path):
 
 
 def test_the_port_has_files_to_scan():
-    assert len(FILES) >= 16
+    assert len(FILES) >= 40
     assert all(f.exists() for f in FILES)
 
 
