@@ -5,9 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. device   CUDA must be present; prints the card's name and power limit.
-  2. build    builds every CUDA kernel of the port (K1, K2, K4, K5) from the
-              checkout's sources, one nvcc per source, all at once
-              (sm_90a), and times the build.
+  2. build    builds every CUDA kernel of the port (K1, K2, K4, K5, K6)
+              from the checkout's sources, one nvcc per source, all at
+              once (sm_90a), and times the build.
   3. edges    each kernel against its plain PyTorch version on edge
               cases. K1: ragged C, masked slots, k > #finite, exact int8
               ties, a deep merge. K2: ragged N, k > N, Q = 1, M not a
@@ -17,7 +17,11 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               16, 80 (ragged), 4096; G = 1 and 8; dh = 8 to 256; window
               16 at S = 1000, a window wider than S, window 1; and at bf16
               TinyLlama's heads at S = 32768 and Gemma3-4B's local layers
-              (H 8 / KV 4 / dh 256, window 1024) at S = 8192.
+              (H 8 / KV 4 / dh 256, window 1024) at S = 8192. K6 (f32
+              and bf16): T = 1, 63, 4096 with D x V of 64 x 256 (with and
+              without a masked tail), 64 x 1000, 2048 x 1000 (masked) and
+              2048 x 32000; int32 labels; a tied head (D contiguous); and
+              Gemma3-4B's tied head embed.T (2560, 262144) at T = 512.
   4. path 1   the ivfpq path at full size: build_engine over a
               1,000,000 x 384 clustered f32 corpus made with numpy from a
               seed, spec qpad64>ivf1024x16>pq16x256:i8@kernel>rr64, then
@@ -65,9 +69,36 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               peak; decode ms a step (p50) and tokens/s; peak memory.
   14. trace   the card's busy share over one prefill and over 10 decode
               steps (torch.profiler).
+  15. K5 Function  flash_attention's gradients against the all-plain route
+              (chunked forward and backward) at TinyLlama's heads, B 2,
+              S 1024, bf16.
+  16. path 4  the LM training path: TinyLlama-1.1B's CONFIG at full width
+              and depth, bf16, random weights from lm_init_params(cfg,
+              seed=0), attn_impl="flash", on lm_token_batches(0, 4, 4096,
+              32000). Step 0's loss and gradient against the reference
+              route (attn_impl="chunked", the plain materialized-logits
+              CE): |dloss| within TRAIN_LOSS_ATOL, the relative L2 of the
+              gradients of lm_head, runs[0]['wq'] and embed within
+              TRAIN_GRAD_REL. Then 4 steps of make_train_step(lm_train_
+              forward, AdamW(lr 1e-3, warmup 5)), counts zeroed just
+              before: each step must launch K5 44 times (forward and remat
+              recompute of 22 layers) and K6 4 times (S / seq_chunk); loss
+              and parameters finite. Step time (p50 of steps 1-3),
+              tokens/s, share of the bf16 peak, peak memory.
+  17. trace   one more training step under torch.profiler.
+  18. K6 main K6 against its plain version on path 4's own first sequence
+              chunk (T 4096, D 2048, V 32000) at bf16 and upcast to f32;
+              its time beside its plain version's, its bound and the
+              cross_entropy((h @ w).float()) yardstick (two calls; the
+              port never calls it).
+  19. drill   run_with_restarts at TinyLlama's SMOKE size on the card: 8
+              steps, a checkpoint every 2, a failure injected at step 5;
+              the final parameters must match an uninterrupted run within
+              DRILL_ATOL.
 
 Before those, one line {"result": {...}} holds every measurement of the
-run. The line before the last is {"kernels": [...]}; the last line is
+run (``result.path4`` for the training path). The line before the last is
+{"kernels": [...]} (K1, K2, K4, K5, K6); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import dataclasses
@@ -104,6 +135,42 @@ LM_BATCH, LM_SEQ, LM_MAX_LEN, LM_DECODE = 4, 4096, 4160, 64
 # ulps of the hidden state, and greedy tokens may flip only on near-ties
 LM_LOGIT_ATOL = 0.25
 LM_AGREE_FLOOR = 0.75
+# K6 against its plain version: the same f32 products (a bf16 product is
+# exact in f32) summed in another order; losses are ~ln V ~ 10
+K6_TOL = dict(atol=1e-4, rtol=1e-5)
+# K5's Function against the all-plain route: the same chunked backward on
+# the same cotangent, so the gradients agree to f32 rounding
+K5_GRAD_RTOL = 1e-5
+# path 4: TinyLlama-1.1B training at train_4k's sequence 4096, its batch
+# 256 cut to 4 (one card's memory and the run's time), 4 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 4
+# flash + K6 against chunked + the plain CE on step 0: both routes in bf16,
+# differing in the f32 summation order inside attention (rounded to bf16
+# once a layer, through 22 layers and back) and inside the CE; at SMOKE
+# size the port and JAX, which round bf16 at more places, differ by 1.4e-3
+# in the loss and 1.5-3% in gradient L2
+TRAIN_LOSS_ATOL = 0.01
+TRAIN_GRAD_REL = 0.05
+# the restart drill at TinyLlama's SMOKE size (f32): not bit for bit on the
+# card, since the embedding gather's backward accumulates with atomics, in
+# an order that changes from run to run; a ulp of a gradient moves an
+# AdamW update by far less than lr = 1e-3
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 8, 2, 5
+DRILL_ATOL = 1e-4
+
+
+# kernel-name fragments for a trace's device time by group (first match)
+KERNEL_GROUPS = (
+    ("K5 flash_fwd", ("flash_fwd",)),
+    ("K6 ce_partial/ce_merge", ("ce_partial", "ce_merge")),
+    ("K1/K2/K4", ("adc_", "pair_")),
+    ("GEMM f32", ("f32f32_f32f32",)),
+    ("GEMM bf16", ("gemm", "xmma", "cutlass", "nvjet")),
+    ("elementwise", ("elementwise",)),
+    ("reduce", ("reduce_kernel",)),
+    ("index/scatter/gather", ("index", "scatter", "gather")),
+    ("copy", ("copy", "cat")),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -210,7 +277,7 @@ def compare_k1(torch, ops, ref, name, tables, codes, base, k, lut, scale):
     return err
 
 
-def busy_share(torch, fn, reps, label):
+def busy_share(torch, fn, reps, label, top=6):
     """Share of a window of ``reps`` calls of ``fn`` in which the card runs
     a kernel: the kernels' device time (one stream, so no overlap) from a
     torch.profiler trace over the host time of the window, which ends in
@@ -232,15 +299,23 @@ def busy_share(torch, fn, reps, label):
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     check(busy_us > 0, "the profiler saw no device time")
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    groups = {}
+    for e in kern:
+        g = next((g for g, keys in KERNEL_GROUPS if any(k in e.key
+                                                        for k in keys)),
+                 "other")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / reps
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:top]
     out = {"busy_share": busy_us / wall_us,
+           "device_us_per_call": busy_us / reps,
            "kernels_per_call": sum(e.count for e in kern) / reps,
-           "top_kernels_us": [(e.key[:60], e.self_device_time_total / reps)
-                              for e in top]}
+           "top_kernels_us": [(e.key[:60], e.self_device_time_total / reps,
+                               e.count / reps) for e in top],
+           "device_us_by_group": groups}
     log(f"[trace] {label}: device busy {out['busy_share']:.3f} of the "
         f"window, {out['kernels_per_call']:.0f} kernels a call; top kernels "
         f"(us per call): "
-        f"{[(n, round(t, 1)) for n, t in out['top_kernels_us']]}")
+        f"{[(n, round(t, 1), c) for n, t, c in out['top_kernels_us']]}")
     return out
 
 
@@ -440,6 +515,426 @@ def lm_path(torch, tf, fa, lm_param_count, rms_norm, base_cfg, counters):
             torch, lambda: tf.lm_decode_step(params, cfg, nxt, next(step),
                                              cache), 10, "path 3 decode")}
     return out, launches, err, k5
+
+
+def k6_inputs(torch, seed, t, d, v, vocab, dtype, tied=False):
+    """h (T, D) ~ N(0, 1) and a head w (D, V) ~ N(0, 1/D), so logits are
+    ~N(0, 1) as at initialisation; labels (T,) int64 below ``vocab``. A
+    tied head is the transposed view of a (V, D) embedding, D contiguous."""
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((t, d), dtype=np.float32)
+    w = (rng.standard_normal((v, d) if tied else (d, v), dtype=np.float32)
+         / np.sqrt(d))
+    labels = rng.integers(0, vocab, t)
+    h, w, labels = (torch.from_numpy(a).to("cuda") for a in (h, w, labels))
+    w = w.to(dtype)
+    return h.to(dtype), (w.T if tied else w), labels
+
+
+def compare_k6(torch, fce, name, h, w, labels, vocab):
+    """K6 against its plain version on the same CUDA tensors: per-token
+    loss within K6_TOL (the same f32 products, summed in another order; a
+    bf16 product is exact in f32, so bf16 inputs take the same tolerance),
+    and bit-equal on a second call (no atomics). Returns max |err|."""
+    got = fce.fused_ce_fwd(h, w, labels, vocab)
+    torch.cuda.synchronize()
+    want = fce.fused_ce_fwd_plain(h, w, labels, vocab)
+    check(got.dtype == torch.float32 and got.shape == labels.shape,
+          f"{name}: output {got.dtype} {tuple(got.shape)}")
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ok = bool((diff <= K6_TOL["atol"] + K6_TOL["rtol"] * want.abs()).all())
+    check(ok and bool(torch.isfinite(got).all()),
+          f"{name}: beyond {K6_TOL} (max err {err})")
+    check(torch.equal(fce.fused_ce_fwd(h, w, labels, vocab), got),
+          f"{name}: a second call differs")
+    log(f"  {name}: ok, max |err| {err:.3e} (loss up to "
+        f"{float(want.abs().max()):.2f})")
+    return err
+
+
+def edge_cases_k6(torch, fce):
+    """K6 on T = 1, 63 (ragged) and 4096; (D, V, vocab) of 64 x 256 with
+    and without a masked tail, a ragged V (1000), D 2048 with V 1000 and a
+    masked tail, and TinyLlama's 2048 x 32000; f32 and bf16; int32 labels
+    once; a tied head (D contiguous); and Gemma3-4B's tied head, embed.T
+    (2560, 262144) bf16, at T = 512."""
+    err = 0.0
+    i = 0
+    for t in (1, 63, 4096):
+        for d, v, vocab in ((64, 256, 256), (64, 256, 200), (64, 1000, 1000),
+                            (2048, 1000, 937), (2048, 32000, 32000)):
+            for name, dt in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+                i += 1
+                h, w, labels = k6_inputs(torch, 20 + i, t, d, v, vocab, dt)
+                err = max(err, compare_k6(
+                    torch, fce, f"K6 edge {name} T={t} D={d} V={v} "
+                    f"vocab={vocab}", h, w, labels, vocab))
+    h, w, labels = k6_inputs(torch, 5, 63, 64, 1000, 900, torch.float32)
+    err = max(err, compare_k6(torch, fce, "K6 edge int32 labels", h, w,
+                              labels.int(), 900))
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        h, w, labels = k6_inputs(torch, 6, 300, 2048, 32000, 31000, dt,
+                                 tied=True)
+        err = max(err, compare_k6(torch, fce, f"K6 edge tied {name} T=300 "
+                                  "D=2048 V=32000 vocab=31000", h, w, labels,
+                                  31000))
+    h, w, labels = k6_inputs(torch, 7, 512, 2560, 262144, 262144,
+                             torch.bfloat16, tied=True)
+    err = max(err, compare_k6(torch, fce, "K6 edge gemma3-4b tied head "
+                              "embed.T (2560, 262144) bf16 T=512", h, w,
+                              labels, None))
+    return err
+
+
+def k6_bound(t, d, v, h_bytes, w_bytes):
+    """The least time of one K6 call: the larger of its operations (a
+    multiply-add per (row, column, depth)) at the bf16 tensor peak and its
+    bytes (h, w and the int64 labels read once, the f32 loss written
+    once) at the HBM rate. Returns (ms, by, ops, bytes)."""
+    nops = 2 * t * d * v
+    nbytes = t * d * h_bytes + d * v * w_bytes + t * 8 + t * 4
+    t_ops, t_bytes = nops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", nops, nbytes)
+
+
+def train_flops(cfg, lm_param_count, k5_nops):
+    """Model FLOPs of one training step of TRAIN_BATCH x TRAIN_SEQ tokens:
+    6 * params * tokens (every parameter, the embedding and the head
+    included: forward 2, backward 4), plus each layer's causal attention
+    (``k5_nops``, the multiply-adds of q.k and p.v over the pairs the mask
+    keeps) four times: the forward, the backward (twice the forward) and
+    the remat recompute."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return 6 * lm_param_count(cfg) * tokens + 4 * cfg.n_layers * k5_nops
+
+
+def k5_function_check(torch, fa, cfg):
+    """K5's autograd.Function against the all-plain route (the chunked
+    forward and its autograd backward) at ``cfg``'s heads, B 2, S 1024,
+    bf16. The loss is linear in the output (sum(out * r)), so the
+    cotangent does not depend on which forward ran, and both backwards
+    are the same chunked recompute: the gradients agree to
+    K5_GRAD_RTOL of their largest entry. Returns the max relative err."""
+    rng = np.random.default_rng(8)
+    shapes = ((2, 1024, cfg.n_heads, cfg.d_head),
+              (2, 1024, cfg.n_kv_heads, cfg.d_head),
+              (2, 1024, cfg.n_kv_heads, cfg.d_head))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to("cuda").to(torch.bfloat16) for s in shapes)
+    r = torch.from_numpy(rng.standard_normal(shapes[0], dtype=np.float32)
+                         ).to("cuda")
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_fwd_plain):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        grads.append(torch.autograd.grad((out.float() * r).sum(), leaves))
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, got, want in zip("qkv", *grads):
+        scale = float(want.float().abs().max())
+        e = float((got.float() - want.float()).abs().max()) / scale
+        check(got.dtype == torch.bfloat16 and e <= K5_GRAD_RTOL,
+              f"K5 Function d{name}: max |err| {e} of max |grad| {scale}")
+        err = max(err, e)
+    log(f"[K5 Function] B=2 S=1024 H={cfg.n_heads} KV={cfg.n_kv_heads} "
+        f"dh={cfg.d_head} bf16: dq, dk, dv within {err:.3e} of the "
+        "all-plain route (relative to max |grad|)")
+    return err
+
+
+def rel_l2(torch, a, b):
+    return float(torch.linalg.vector_norm((a.float() - b.float()))
+                 / torch.linalg.vector_norm(b.float()))
+
+
+def reference_loss(torch, tf, fce, cfg, params, batch):
+    """The reference route of lm_loss: ``cfg``'s attention (chunked) and
+    the plain materialized-logits CE (``ce_ref``) over the same sequence
+    chunks."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    h = tf._final_hidden(cfg, params, tokens)
+    ck = min(cfg.seq_chunk, s)
+    total = 0.0
+    for c0 in range(0, s, ck):
+        total = total + fce.ce_ref(h[:, c0:c0 + ck].reshape(-1, cfg.d_model),
+                                   params["lm_head"],
+                                   labels[:, c0:c0 + ck].reshape(-1),
+                                   cfg.vocab).sum()
+    return total / (b * s)
+
+
+def restart_drill(torch, tf, optim, data, runtime, smoke_cfg):
+    """run_with_restarts at ``smoke_cfg`` (TinyLlama's SMOKE, flash) on the
+    card: DRILL_STEPS steps, a checkpoint every DRILL_EVERY, once with a
+    failure injected at DRILL_FAIL and once without. Returns (max |param
+    diff|, bit-equal?, restarts seen)."""
+    import tempfile
+    cfg = dataclasses.replace(smoke_cfg, attn_impl="flash")
+    batches = list(data.lm_token_batches(SEED, 4, 64, cfg.vocab,
+                                         n_steps=DRILL_STEPS))
+    step = optim.make_train_step(
+        lambda p, b: tf.lm_train_forward(p, cfg, b),
+        optim.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=DRILL_STEPS))
+    calls = []
+
+    def step_fn(state, i):
+        calls.append(i)
+        _, p, o = step(state["params"], state["opt"], batches[i])
+        return {"params": p, "opt": o}
+
+    finals = []
+    build_dir = os.path.join(HERE, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    for fail_at in ((), (DRILL_FAIL,)):
+        params = tf.lm_init_params(cfg, seed=SEED)
+        with tempfile.TemporaryDirectory(dir=build_dir) as ckpt:
+            finals.append(runtime.run_with_restarts(
+                step_fn, {"params": params,
+                          "opt": optim.init_opt_state(params)},
+                DRILL_STEPS, ckpt, ckpt_every=DRILL_EVERY,
+                injector=runtime.FailureInjector(fail_at)))
+    # the faulty run replays from the checkpoint after step DRILL_FAIL - 1
+    # rounded down to the checkpoint period
+    replayed = len(calls) - 2 * DRILL_STEPS
+    leaves = [(k, a.detach(), b.detach()) for (k, a), (_, b) in zip(
+        _keyed(finals[0]), _keyed(finals[1]))]
+    diff = max(float((a.float() - b.float()).abs().max())
+               for _, a, b in leaves)
+    same = all(torch.equal(a, b) for _, a, b in leaves)
+    check(int(finals[1]["opt"]["step"]) == DRILL_STEPS,
+          "the drill did not reach its last step")
+    check(diff <= DRILL_ATOL, f"restart drill: params differ by {diff} > "
+          f"{DRILL_ATOL}")
+    log(f"[path 4] restart drill ({cfg.name}, {DRILL_STEPS} steps, "
+        f"checkpoint every {DRILL_EVERY}, failure at step {DRILL_FAIL}): "
+        f"{replayed} steps replayed; final params within {diff:.3e} of the "
+        f"uninterrupted run (bit-equal: {same})")
+    return diff, same, replayed
+
+
+def train_parts(torch, fa, fce, optim, cfg, params, opt):
+    """Device time (CUDA events) of the parts of a step at path 4's
+    shapes: one layer's attention backward (the Function's chunked
+    recompute and autograd), one K6 forward and one CE backward (T =
+    B * seq_chunk), and one AdamW update of every parameter (on the
+    trained state, which it moves once more)."""
+    rng = np.random.default_rng(9)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, s, n, cfg.d_head), dtype=np.float32)).to("cuda")
+        .to(torch.bfloat16).requires_grad_()
+        for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    ct = torch.ones_like(q)
+    out = fa.flash_attention(q, k, v)
+    attn_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (q, k, v), ct, retain_graph=True), reps=2, warmup=1)
+    del out
+    t = b * cfg.seq_chunk
+    h = torch.from_numpy(rng.standard_normal((t, cfg.d_model),
+                                             dtype=np.float32)).to("cuda")
+    h = h.to(torch.bfloat16).requires_grad_()
+    head = params["lm_head"]
+    lab = torch.from_numpy(rng.integers(0, cfg.vocab, t)).to("cuda")
+    loss = fce.fused_ce(h, head, lab, cfg.vocab).sum()
+    ce_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        loss, (h, head), retain_graph=True), reps=2, warmup=1)
+    # the parameters stand in for a gradient: bf16, of the right shapes
+    adam = cuda_ms(torch, lambda: optim.adamw_update(
+        params, opt, params, optim.AdamWConfig()), reps=2, warmup=1)
+    parts = {"attention_backward_one_layer": attn_bwd,
+             "ce_backward_one_call": ce_bwd, "adamw_update": adam}
+    log(f"[timings] path 4 parts (ms): attention backward of one layer "
+        f"{attn_bwd:.1f} (x {cfg.n_layers} a step), CE backward of one "
+        f"chunk {ce_bwd:.1f} (x {TRAIN_SEQ // cfg.seq_chunk}), AdamW "
+        f"update {adam:.1f}")
+    return parts
+
+
+def _keyed(tree):
+    from repro_torch._tree import keyed_leaves
+    return keyed_leaves(tree)
+
+
+def train_path(torch, mods, base_cfg, smoke_cfg, counters):
+    """Path 4: ``base_cfg`` (TinyLlama-1.1B) at full width and depth, bf16,
+    random weights from seed 0, trained with attn_impl="flash" (K5 forward
+    and its remat recompute in every layer, K6 for each sequence chunk's
+    CE) and AdamW, held against the chunked route with the plain CE.
+    Returns (result dict, K6 launches on the main run, K5 launches on the
+    main run, K6's max |err| on the path's own inputs, K6 timing dict,
+    the K5 Function's max relative err)."""
+    import torch.nn.functional as F
+    tf, fa, fce, optim, data, runtime, lm_param_count = mods
+    cfg = dataclasses.replace(base_cfg, attn_impl="flash")
+    cfg_c = dataclasses.replace(base_cfg, attn_impl="chunked")
+    out = {"config": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "seq_chunk": cfg.seq_chunk,
+           "remat": cfg.remat}
+    k5_fn_err = k5_function_check(torch, fa, base_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["mem_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    params = tf.lm_init_params(cfg, seed=SEED)
+    batches = list(data.lm_token_batches(SEED, TRAIN_BATCH, TRAIN_SEQ,
+                                         cfg.vocab, n_steps=TRAIN_STEPS + 1))
+    n_chunks = TRAIN_SEQ // cfg.seq_chunk
+    want5, want6 = 2 * cfg.n_layers, n_chunks
+
+    # step 0's loss and gradient on both routes, before any update
+    def loss_fn(p, b):
+        return tf.lm_train_forward(p, cfg, b)
+
+    n5, n6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
+    loss_f, grads = optim.value_and_grad(loss_fn, params, batches[0])
+    torch.cuda.synchronize()
+    check(fa.flash_attention_fwd.launches - n5 == want5
+          and fce.fused_ce_fwd.launches - n6 == want6,
+          "step 0's gradient: K5 / K6 launched "
+          f"{fa.flash_attention_fwd.launches - n5} / "
+          f"{fce.fused_ce_fwd.launches - n6} times")
+    gnorm0 = float(optim.global_norm(grads))
+    keep = {"lm_head": grads["lm_head"], "runs[0].wq": grads["runs"][0]["wq"],
+            "embed": grads["embed"]}
+    del grads
+    n5, n6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
+    loss_r, grads_r = optim.value_and_grad(
+        lambda p, b: reference_loss(torch, tf, fce, cfg_c, p, b), params,
+        batches[0])
+    torch.cuda.synchronize()
+    check(fa.flash_attention_fwd.launches == n5
+          and fce.fused_ce_fwd.launches == n6, "a kernel ran on the "
+          "reference route")
+    ref = {"lm_head": grads_r["lm_head"],
+           "runs[0].wq": grads_r["runs"][0]["wq"], "embed": grads_r["embed"]}
+    gnorm_r = float(optim.global_norm(grads_r))
+    del grads_r
+    dloss = abs(float(loss_f) - float(loss_r))
+    rels = {k: rel_l2(torch, keep[k], ref[k]) for k in keep}
+    del keep, ref
+    out["step0"] = {"loss": float(loss_f), "loss_reference": float(loss_r),
+                    "abs_dloss": dloss, "grad_norm": gnorm0,
+                    "grad_norm_reference": gnorm_r, "grad_rel_l2": rels,
+                    "tolerance": {"loss_atol": TRAIN_LOSS_ATOL,
+                                  "grad_rel_l2": TRAIN_GRAD_REL}}
+    log(f"[path 4] step 0: loss {float(loss_f):.5f} (flash + K6) vs "
+        f"{float(loss_r):.5f} (chunked + plain CE), |dloss| {dloss:.3e}; "
+        f"grad norm {gnorm0:.4f} vs {gnorm_r:.4f}; grad rel L2 "
+        f"{ {k: round(v, 6) for k, v in rels.items()} }")
+    check(np.isfinite(float(loss_f)) and np.isfinite(gnorm0),
+          "step 0: non-finite loss or grad norm")
+    check(dloss <= TRAIN_LOSS_ATOL, f"|dloss| {dloss} > {TRAIN_LOSS_ATOL}")
+    check(all(v <= TRAIN_GRAD_REL for v in rels.values()),
+          f"grad rel L2 {rels} beyond {TRAIN_GRAD_REL}")
+
+    # the main run: TRAIN_STEPS steps, counts zeroed just before
+    step = optim.make_train_step(loss_fn, optim.AdamWConfig(
+        lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS))
+    opt = optim.init_opt_state(params)
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    losses, step_ms, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        n5, n6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append((fa.flash_attention_fwd.launches - n5,
+                         fce.fused_ce_fwd.launches - n6))
+        log(f"[path 4] step {i}: loss {losses[-1]:.5f}, {step_ms[-1]:.1f} "
+            f"ms, K5 {per_step[-1][0]} / K6 {per_step[-1][1]} launches")
+    k5_launches = fa.flash_attention_fwd.launches
+    k6_launches = fce.fused_ce_fwd.launches
+    others = {fn.__name__: fn.launches for fn in counters
+              if fn not in (fa.flash_attention_fwd, fce.fused_ce_fwd)}
+    check(all(p == (want5, want6) for p in per_step),
+          f"launches per step {per_step}, want ({want5}, {want6})")
+    check(not any(others.values()), f"a search kernel ran on path 4: "
+          f"{others}")
+    check(all(np.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    with torch.no_grad():
+        pnorm = float(optim.global_norm(params))
+    check(np.isfinite(pnorm) and int(opt["step"]) == TRAIN_STEPS,
+          "non-finite parameters after training")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    p50 = float(np.median(step_ms[1:]))
+    _, _, k5_nops, _ = k5_bound(TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.d_head, None, 2)
+    flops = train_flops(cfg, lm_param_count, k5_nops)
+    out.update({
+        "losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+        "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+        "model_flops": flops, "peak_share": flops / (p50 / 1e3)
+        / BF16_OPS_PER_S, "launches_per_step": per_step,
+        "param_norm_after": pnorm})
+    log(f"[path 4] {cfg.name} train {TRAIN_BATCH} x {TRAIN_SEQ}: step p50 "
+        f"{p50:.1f} ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
+        f"{step_ms[0]:.1f}), {out['tok_per_s']:.0f} tok/s, {flops:.4g} model "
+        f"FLOPs = {out['peak_share']:.4f} of the bf16 peak; peak memory "
+        f"{out['peak_mem_gb']:.2f} GB (before path 4: "
+        f"{out['mem_before_gb']:.2f} GB); K5 {k5_launches}, K6 {k6_launches} "
+        "launches")
+
+    # one more step under the profiler: where the step's time goes
+    out["busy"] = busy_share(
+        torch, lambda: step(params, opt, batches[TRAIN_STEPS]), 1,
+        "path 4 train step", top=12)
+    by_group = out["busy"]["device_us_by_group"]
+    log(f"[trace] path 4 device ms by group: "
+        f"{ {k: round(v / 1e3, 1) for k, v in by_group.items()} }")
+
+    # K6 on the path's own inputs: the first sequence chunk of batch 0
+    log("[K6 main]")
+    with torch.no_grad():
+        h = tf._final_hidden(cfg, params, batches[0]["tokens"])
+        hc = h[:, :cfg.seq_chunk].reshape(-1, cfg.d_model)
+        del h
+        head = params["lm_head"].detach()
+        lab = batches[0]["labels"][:, :cfg.seq_chunk].reshape(-1)
+        err = compare_k6(torch, fce, "K6 main bf16", hc, head, lab,
+                         cfg.vocab)
+        err = max(err, compare_k6(torch, fce, "K6 main f32", hc.float(),
+                                  head.float(), lab, cfg.vocab))
+        t = hc.shape[0]
+        k6_ms = cuda_ms(torch, lambda: fce.fused_ce_fwd(hc, head, lab,
+                                                        cfg.vocab), reps=10)
+        plain_ms = cuda_ms(torch, lambda: fce.fused_ce_fwd_plain(
+            hc, head, lab, cfg.vocab), reps=3, warmup=1)
+        ce = F.cross_entropy((hc @ head).float(), lab, reduction="none")
+        ce_diff = float((ce - fce.fused_ce_fwd(hc, head, lab,
+                                               cfg.vocab)).abs().max())
+        yard_ms = cuda_ms(torch, lambda: F.cross_entropy(
+            (hc @ head).float(), lab, reduction="none"), reps=10)
+    bound, by, nops, nbytes = k6_bound(t, cfg.d_model, head.shape[1], 2, 2)
+    log(f"[timings] K6 {k6_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}: {nops:.4g} ops, {nbytes} B) at T={t} "
+        f"D={cfg.d_model} V={head.shape[1]} bf16; no single PyTorch call "
+        f"computes K6; yardstick cross_entropy((h @ w).float()) "
+        f"{yard_ms:.4f} ms (two calls, bf16 logits; max |diff| to K6 "
+        f"{ce_diff:.3e})")
+    k6 = {"ms": k6_ms, "plain_ms": plain_ms, "bound_ms": bound,
+          "bound_by": by, "ops": nops, "bytes": nbytes,
+          "yardstick_cross_entropy_ms": yard_ms,
+          "yardstick_max_abs_diff": ce_diff, "shape": [t, cfg.d_model,
+                                                       head.shape[1]]}
+    del hc, head
+    out["parts_ms"] = train_parts(torch, fa, fce, optim, cfg, params, opt)
+    del params, opt
+    torch.cuda.empty_cache()
+
+    diff, same, replayed = restart_drill(torch, tf, optim, data, runtime,
+                                         smoke_cfg)
+    out["restart_drill"] = {"steps": DRILL_STEPS, "ckpt_every": DRILL_EVERY,
+                            "fail_at": DRILL_FAIL, "replayed": replayed,
+                            "max_abs_param_diff": diff, "bit_equal": same,
+                            "tolerance": DRILL_ATOL}
+    return out, k6_launches, k5_launches, err, k6, k5_fn_err
 
 
 def edge_cases(torch, ops, ref):
@@ -691,6 +1186,9 @@ def main():
         from repro_torch.search.spec import parse_spec
         from repro_torch.models import transformer as tf
         from repro_torch.models.layers import rms_norm
+        from repro_torch.configs.tinyllama_1_1b import SMOKE as TINY_SMOKE
+        from repro_torch.kernels import fused_ce as fce
+        from repro_torch import data, optim, runtime
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -728,6 +1226,8 @@ def main():
     k4_err = edge_cases_k4(torch, pw)
     log("[K5 edges]")
     k5_err = edge_cases_k5(torch, fa)
+    log("[K6 edges]")
+    k6_err = edge_cases_k6(torch, fce)
     torch.cuda.synchronize()
 
     # 4. the main path
@@ -740,7 +1240,7 @@ def main():
     qd = torch.from_numpy(q_all).to(dev)
     del x
     counters = (ops.pq_adc_gather_topk, ops.pq_adc_topk, pw.pairwise_stats,
-                fa.flash_attention_fwd)
+                fa.flash_attention_fwd, fce.fused_ce_fwd)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1021,6 +1521,17 @@ def main():
     result["k5_timing"] = k5
     k5_err = max(k5_err, k5_main_err)
 
+    # 15-19. path 4: the LM training path on K5 (forward + Function) and K6
+    del eng, jeng, eng_pq, eng_opq, je, e, state, ix, pix, xd, sample, xs
+    torch.cuda.empty_cache()
+    train, k6_launches, k5_train_launches, k6_main_err, k6, k5_fn_err = \
+        train_path(torch, (tf, fa, fce, optim, data, runtime, lm_param_count),
+                   TINYLLAMA, TINY_SMOKE, counters)
+    result["path4"] = train
+    result["path4"]["k5_function_max_rel_err"] = k5_fn_err
+    result["k6_timing"] = k6
+    k6_err = max(k6_err, k6_main_err)
+
     kernels = [{
         "name": "pq_adc_gather_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/pq_adc/csrc/pq_adc_gather_topk.cu",
@@ -1047,7 +1558,16 @@ def main():
         "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
         "launches": k5_launches, "max_abs_err": k5_err, "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
-        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}]
+        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
+        "note": "forward + autograd.Function; launches: path 3's prefill "
+                "and decode; launches_path4: path 4's training steps",
+        "launches_path4": k5_train_launches}, {
+        "name": "fused_ce_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce_fwd.cu",
+        "replaces": "src/repro/kernels/fused_ce/kernel.py:64",
+        "launches": k6_launches, "max_abs_err": k6_err, "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"], "library_ms": None}]
     result["wall_s"] = time.perf_counter() - wall0
     log(f"[done] wall time {result['wall_s']:.1f} s")
     print(json.dumps({"result": result}))

@@ -9,7 +9,8 @@ engine's state (``.corpus``, ``.proj.params[0]``, ...). The port cannot
 reproduce ``jax.random`` streams, so this is how a test serves the very
 arrays the JAX package built. ``lm_params_from_arrays`` does the same for
 the parameters of ``repro.models.transformer`` (``['embed']``,
-``['runs'][0]['wq']``, ...).
+``['runs'][0]['wq']``, ...), and ``opt_state_from_arrays`` for the AdamW
+state of ``repro.optim`` (``['step']``, ``['m']['embed']``, ...).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._tree import keyed_leaves, tree_unflatten
 from repro_torch.models.transformer import LMConfig, Params, layer_runs
 from repro_torch.search.ivfpq import IVFPQIndex
 from repro_torch.search.pq import PQIndex
@@ -27,7 +29,8 @@ from repro_torch.search.registry import Index, OPQIndex
 from repro_torch.search.serve import EngineState
 from repro_torch.search.spec import IndexSpec, parse_spec
 
-__all__ = ["state_from_arrays", "lm_params_from_arrays"]
+__all__ = ["state_from_arrays", "lm_params_from_arrays",
+           "opt_state_from_arrays"]
 
 _SNAPSHOT_PREFIX = "['state']"
 # the NamedTuple payloads, carried field by field
@@ -121,3 +124,31 @@ def lm_params_from_arrays(arrays: Mapping[str, np.ndarray], cfg: LMConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = get("['lm_head']", (d, cfg.vocab_padded))
     return params
+
+
+def opt_state_from_arrays(arrays: Mapping[str, np.ndarray], params: Params,
+                          device: DeviceLike = None) -> Dict[str, object]:
+    """The port's AdamW state beside ``params`` from the JAX state of
+    ``init_opt_state`` / ``adamw_update`` keyed by ``keystr`` paths: the
+    int32 ``['step']`` and, for each parameter path P, the f32 moments
+    ``['m']P`` and ``['v']P`` of that parameter's shape."""
+    dev = resolve_device(device)
+
+    def get(key, shape, dtype):
+        if key not in arrays:
+            raise KeyError(f"no array under {key}")
+        t = _tensor(np.asarray(arrays[key]))
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{key}: {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(shape)} {dtype}")
+        return t.to(dev)
+
+    leaves = keyed_leaves(params)
+
+    def moments(name):
+        return tree_unflatten(params, [
+            get(f"['{name}']{path}", p.shape, torch.float32)
+            for path, p in leaves])
+
+    return {"step": get("['step']", (), torch.int32), "m": moments("m"),
+            "v": moments("v")}

@@ -29,7 +29,7 @@ _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# every CUDA source of the port (K1, K2, K4, K5), one library each
+# every CUDA source of the port (K1, K2, K4, K5, K6), one library each
 SOURCES = tuple(sorted(_KERNELS.glob("*/csrc/*.cu")))
 
 _loaded: Dict[Path, ctypes.CDLL] = {}

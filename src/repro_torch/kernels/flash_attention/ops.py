@@ -1,12 +1,17 @@
-"""Wrapper of the causal GQA flash-attention forward kernel (K5; port of
-``repro.kernels.flash_attention.kernel.flash_attention_fwd``).
+"""Causal GQA flash attention (kernel K5; port of
+``repro.kernels.flash_attention``): the wrapper that launches the forward
+kernel, and the ``autograd.Function`` that the JAX package's custom VJP
+corresponds to.
 
 ``flash_attention_fwd`` takes its plain version for tensors on the CPU,
 and only for those; for CUDA tensors it launches the CUDA kernel
 (``csrc/flash_attention_fwd.cu``) or raises. Each launch adds one to
-``flash_attention_fwd.launches``. It is forward only: the
-``autograd.Function`` (a backward through the chunked path, as the JAX
-package's custom VJP does) comes with the training path.
+``flash_attention_fwd.launches``. ``flash_attention`` runs that forward
+and saves only q, k and v; its backward recomputes the attention through
+the plain ``chunked_attention`` and differentiates it with
+``torch.autograd.grad``, as the JAX ``_bwd`` does with ``jax.vjp`` (the
+serve-fast / train-correct split: the backward is not a kernel in either
+package).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from repro_torch.models.layers import chunked_attention
 
 from .build import library
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "flash_attention_fwd",
+__all__ = ["SUPPORTED_HEAD_DIMS", "flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain"]
 
 # one compiled instance of the kernel per head dim
@@ -105,3 +110,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        ctx.window = window
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_fwd(q, k, v, window)
+
+    @staticmethod
+    def backward(ctx, ct):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip((q, k, v), ctx.needs_input_grad)]
+            out = flash_attention_fwd_plain(*leaves, ctx.window)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, ct))
+        return (*(next(grads) if t.requires_grad else None for t in leaves),
+                None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention_fwd`` with a gradient for q, k and v (``window``
+    is not differentiable): K5 forward on the card, and a backward through
+    the plain chunked path."""
+    return _FlashAttention.apply(q, k, v, window)

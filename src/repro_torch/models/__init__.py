@@ -1,3 +1,3 @@
 """Models of the port (port of ``repro.models``): so far the dense
-decoder-only LM's serving path, in ``transformer`` on the layers of
-``layers``."""
+decoder-only LM (its training loss and serving path), in ``transformer``
+on the layers of ``layers``."""

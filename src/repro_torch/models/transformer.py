@@ -1,5 +1,5 @@
-"""Decoder-only LM, serving path (port of ``repro.models.transformer``):
-dense configurations, prefill, decode and the embedding hook.
+"""Decoder-only LM (port of ``repro.models.transformer``): dense
+configurations, the training loss, prefill, decode and the embedding hook.
 
 The structure is the JAX package's:
 
@@ -11,31 +11,44 @@ The structure is the JAX package's:
 * **Position-based masking**: causality, sliding windows and ring-buffer
   cache validity are all expressed through absolute positions, so prefill
   and decode share one attention code path (``layers.chunked_attention``).
-* ``attn_impl="flash"`` routes the prefill's self-attention to kernel K5
-  (``kernels.flash_attention.flash_attention_fwd``); decode attends over
-  the cache through ``chunked_attention``, as in JAX.
+* ``attn_impl="flash"`` routes self-attention (training, prefill,
+  embedding) to kernel K5 through
+  ``kernels.flash_attention.flash_attention``, whose backward recomputes
+  through the chunked path; decode attends over the cache through
+  ``chunked_attention``, as in JAX.
+* **Chunked cross-entropy**: ``lm_loss`` runs the head and the CE per
+  sequence chunk of ``seq_chunk`` tokens through ``kernels.fused_ce``
+  (kernel K6 on the card), so neither the (B, S, vocab) logits nor a
+  chunk's (B * seq_chunk, vocab) logits are ever materialized.
+* **Remat**: with ``remat`` set and grad enabled, each layer runs under
+  ``torch.utils.checkpoint`` (the port of ``jax.checkpoint``): the
+  backward keeps only each layer's input and recomputes the rest.
 
 Parameters are a dict of tensors with the JAX pytree's names and shapes
 (``{"embed", "final_norm", "runs": [per-run dict of (length, ...) stacks],
 "lm_head"?}``), so ``bridge.lm_params_from_arrays`` is a copy. Unlike JAX,
 ``lm_prefill`` and ``lm_decode_step`` update the cache in place (and
-return it), and run under ``torch.inference_mode()``. MoE configurations,
-the loss and the training forward wait for later slices (ROADMAP.md).
+return it), and run under ``torch.inference_mode()``. MoE configurations
+wait for a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.fused_ce import fused_ce
 
 from .layers import chunked_attention, he_init, rms_norm, rope, swiglu
 
-__all__ = ["LMConfig", "lm_init_params", "lm_prefill", "lm_decode_step",
-           "init_cache", "lm_embed", "layer_runs"]
+__all__ = ["LMConfig", "lm_init_params", "lm_loss", "lm_train_forward",
+           "lm_prefill", "lm_decode_step", "init_cache", "lm_embed",
+           "layer_runs"]
 
 _NEG_INF = -1e30
 
@@ -47,9 +60,9 @@ Cache = List[Dict[str, torch.Tensor]]
 class LMConfig:
     """The JAX ``LMConfig``, field for field. ``dtype`` is a torch dtype.
     ``moe`` must stay None here (the MoE block is not ported yet).
-    ``remat`` is kept so a configuration carries over unchanged; without
-    autograd it has no effect. ``seq_chunk`` serves the chunked loss of
-    the training path, not ported yet."""
+    ``seq_chunk`` is the sequence chunk of ``lm_loss``'s cross-entropy;
+    ``remat`` checkpoints each layer of the training forward (it changes
+    nothing when grad is disabled, as in serving)."""
     name: str
     n_layers: int
     d_model: int
@@ -161,13 +174,13 @@ def _mlp(cfg: LMConfig, h, lp):
 
 
 def _layer_self(cfg: LMConfig, window, h, lp, q_pos):
-    """Self-contained segment attention (prefill, embedding).
+    """Self-contained segment attention (training, prefill, embedding).
 
     Returns (h_out, k, v)."""
     b, sq, _ = h.shape
     q, k, v = _qkv(cfg, rms_norm(h, lp["ln1"]), lp, q_pos, window)
     if cfg.attn_impl == "flash":
-        attn = flash_attention_fwd(q, k, v, window)
+        attn = flash_attention(q, k, v, window)
     else:
         attn = chunked_attention(q, k, v, q_pos, q_pos, window=window,
                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
@@ -190,8 +203,14 @@ def _layer_cached(cfg: LMConfig, window, h, lp, q_pos, ck, cv, kv_pos,
     return _mlp(cfg, h, lp)
 
 
-def _layer(run: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    return {key: stack[i] for key, stack in run.items()}
+def _layers(run: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """A run's (length, ...) stacks as one parameter dict per layer. One
+    ``unbind`` per stack, so the backward builds each stacked gradient
+    once (indexing layer by layer would write a full-size zero gradient
+    per layer)."""
+    keys = list(run)
+    return [dict(zip(keys, per_layer))
+            for per_layer in zip(*(run[key].unbind(0) for key in keys))]
 
 
 def _window(cfg: LMConfig, kind: str) -> Optional[int]:
@@ -199,20 +218,72 @@ def _window(cfg: LMConfig, kind: str) -> Optional[int]:
 
 
 def _forward_no_cache(cfg: LMConfig, params, h, q_pos):
-    """Embedding forward over all runs; no cache."""
-    for ri, (kind, length) in enumerate(layer_runs(cfg)):
-        for i in range(length):
-            h, _, _ = _layer_self(cfg, _window(cfg, kind), h,
-                                  _layer(params["runs"][ri], i), q_pos)
+    """Training / embedding forward over all runs; no cache. With
+    ``cfg.remat`` and grad enabled, each layer is checkpointed."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for ri, (kind, _) in enumerate(layer_runs(cfg)):
+        window = _window(cfg, kind)
+
+        def body(h, lp, _w=window):
+            return _layer_self(cfg, _w, h, lp, q_pos)[0]
+
+        for lp in _layers(params["runs"][ri]):
+            # the layer draws no random numbers: no RNG state to replay
+            h = (checkpoint(body, h, lp, use_reentrant=False,
+                            preserve_rng_state=False) if remat
+                 else body(h, lp))
     return h
 
 
+def _final_hidden(cfg: LMConfig, params, tokens):
+    """The final-normed hidden states (B, S, d_model) of ``tokens``."""
+    h = params["embed"][tokens].to(cfg.dtype)
+    h = _forward_no_cache(cfg, params, h,
+                          torch.arange(tokens.shape[1], device=tokens.device))
+    return rms_norm(h, params["final_norm"])
+
+
+def _head(cfg: LMConfig, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def _logits_head(cfg: LMConfig, params, h):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = h @ head
+    """Serving logits (the loss never forms them: it goes through
+    ``fused_ce``), so the padded tail is masked in place."""
+    logits = h @ _head(cfg, params)
     if cfg.vocab_padded != cfg.vocab:       # mask the padded vocab tail
         logits[..., cfg.vocab:] = _NEG_INF
     return logits
+
+
+def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over the (B, S) tokens, with chunked
+    (never materialized) logits: each chunk of ``seq_chunk`` positions
+    (the gcd with S when it does not divide S) of every sequence goes
+    through ``fused_ce`` over the head with the padded vocab masked. The
+    per-token losses are summed and divided by B * S. Differentiable in
+    ``params``; where JAX rounds the logits to ``cfg.dtype`` before the
+    f32 CE, K6 forms them in f32 from the same inputs."""
+    _dense_only(cfg)
+    b, s = tokens.shape
+    h = _final_hidden(cfg, params, tokens)
+    ck = min(cfg.seq_chunk, s)
+    if s % ck:
+        ck = math.gcd(ck, s)
+    head = _head(cfg, params)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, ck):
+        hc = h[:, c0:c0 + ck].reshape(-1, cfg.d_model)
+        total = total + fused_ce(hc, head, labels[:, c0:c0 + ck].reshape(-1),
+                                 cfg.vocab).sum()
+    return total / (b * s)
+
+
+def lm_train_forward(params: Params, cfg: LMConfig,
+                     batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``lm_loss`` on a ``{"tokens", "labels"}`` batch."""
+    return lm_loss(params, cfg, batch["tokens"], batch["labels"])
 
 
 # ------------------------------------------------------- serving path
@@ -252,15 +323,14 @@ def lm_prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     dev = tokens.device
     h = params["embed"][tokens].to(cfg.dtype)
     q_pos = torch.arange(s, device=dev)
-    for ri, (kind, length) in enumerate(layer_runs(cfg)):
+    for ri, (kind, _) in enumerate(layer_runs(cfg)):
         rc = cache[ri]
         s_run = rc["k"].shape[2]
         n_write = min(s, s_run)
         src = torch.arange(s - n_write, s, device=dev)   # positions written
         dst = src % s_run                   # ring slots (identity if s <= s_run)
-        for i in range(length):
-            h, k, v = _layer_self(cfg, _window(cfg, kind), h,
-                                  _layer(params["runs"][ri], i), q_pos)
+        for i, lp in enumerate(_layers(params["runs"][ri])):
+            h, k, v = _layer_self(cfg, _window(cfg, kind), h, lp, q_pos)
             rc["k"][i][:, dst] = k[:, src].to(rc["k"].dtype)
             rc["v"][i][:, dst] = v[:, src].to(rc["v"].dtype)
         rc["pos"][dst] = src.to(torch.int32)
@@ -281,7 +351,7 @@ def lm_decode_step(params: Params, cfg: LMConfig, token: torch.Tensor,
     dev = token.device
     h = params["embed"][token][:, None, :].to(cfg.dtype)
     q_pos = torch.tensor([cur_len], dtype=torch.int32, device=dev)
-    for ri, (kind, length) in enumerate(layer_runs(cfg)):
+    for ri, (kind, _) in enumerate(layer_runs(cfg)):
         rc = cache[ri]
         s_run = rc["k"].shape[2]
         window = _window(cfg, kind)
@@ -292,10 +362,9 @@ def lm_decode_step(params: Params, cfg: LMConfig, token: torch.Tensor,
                              f"{s_run} slots")
         rc["pos"][slot] = cur_len
         slots = torch.tensor([slot], device=dev)
-        for i in range(length):
-            h = _layer_cached(cfg, window, h, _layer(params["runs"][ri], i),
-                              q_pos, rc["k"][i], rc["v"][i], rc["pos"],
-                              slots)
+        for i, lp in enumerate(_layers(params["runs"][ri])):
+            h = _layer_cached(cfg, window, h, lp, q_pos, rc["k"][i],
+                              rc["v"][i], rc["pos"], slots)
     h = rms_norm(h, params["final_norm"])
     logits = _logits_head(cfg, params, h)
     return logits[:, 0], cache
@@ -307,7 +376,4 @@ def lm_embed(params: Params, cfg: LMConfig,
     """Mean-pooled final hidden states (B, d_model): the hook that turns
     the LM into an embedder for the vector index."""
     _dense_only(cfg)
-    h = params["embed"][tokens].to(cfg.dtype)
-    h = _forward_no_cache(cfg, params, h,
-                          torch.arange(tokens.shape[1], device=tokens.device))
-    return rms_norm(h, params["final_norm"]).mean(dim=1)
+    return _final_hidden(cfg, params, tokens).mean(dim=1)

@@ -1,8 +1,10 @@
 """Port parity: the plain version of kernel K5 (causal GQA flash attention)
 against repro.kernels.flash_attention's flash_attention_fwd (the Pallas
-kernel in interpret mode) and attention_ref; the port's layers against
-repro.models.layers; the wrapper's CPU contract; and the CUDA kernel
-against its plain version (on the card only)."""
+kernel in interpret mode) and attention_ref; the flash_attention
+Function's gradients against jax.grad of the JAX custom VJP; the port's
+layers against repro.models.layers; the wrapper's CPU contract; and the
+CUDA kernel and the Function's gradients against the plain route (on the
+card only)."""
 import numpy as np
 import pytest
 
@@ -101,6 +103,41 @@ def test_plain_window_edges_match_oracle(s, window):
     if window == 1:
         np.testing.assert_allclose(got.numpy(),
                                    np.repeat(v, 2, axis=2), **F32_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,win", [
+    (1, 32, 4, 2, 8, None),              # tests/test_flash_attention.py:44
+    (2, 48, 4, 1, 16, 10),
+])
+def test_function_grads_match_jax_custom_vjp(b, s, h, kv, dh, win):
+    """The Function's q, k, v gradients of sum(out ** 2) against jax.grad
+    of the JAX flash_attention (interpret-mode forward, chunked
+    recompute backward). Both backwards are the chunked path's autodiff;
+    the forward outputs that feed the cotangent differ by f32 summation
+    order."""
+    jnp, jfa, _ = _jax()
+    jax = pytest.importorskip("jax")
+    q, k, v = _qkv(s + dh + 1, b, s, h, kv, dh)
+    gj = jax.grad(lambda q_, k_, v_: jnp.sum(jfa.flash_attention(
+        q_, k_, v_, win) ** 2), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    before = fa.flash_attention_fwd.launches
+    out = fa.flash_attention(*leaves, win)
+    gt = torch.autograd.grad((out ** 2).sum(), leaves)
+    assert fa.flash_attention_fwd.launches == before      # CPU: plain route
+    for got, want in zip(gt, gj):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_function_grads_only_where_asked():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 16, 4, 2, 8))
+    k.requires_grad_()
+    (gk,) = torch.autograd.grad(fa.flash_attention(q, k, v).sum(), (k,))
+    want = torch.autograd.grad(
+        fa.flash_attention_fwd_plain(q, k, v).sum(), (k,))[0]
+    torch.testing.assert_close(gk, want, rtol=0, atol=0)
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -222,3 +259,27 @@ def test_cuda_kernel_matches_plain_version(dtype, b, s, h, kv, dh, window):
     else:
         torch.testing.assert_close(got.float(), want.float(),
                                    atol=BF16_ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 64])
+def test_cuda_function_grads_match_plain_route(window):
+    """The Function (K5 forward) against the all-plain route (chunked
+    forward and backward) on the card, at TinyLlama's heads. With a linear
+    loss the cotangent does not depend on the forward output, and both
+    backwards are the same chunked recompute: the gradients agree to the
+    f32 rounding of one route's sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+               for a in _qkv(11, 1, 600, 32, 4, 64))
+    r = torch.from_numpy(_qkv(12, 1, 600, 32, 4, 64)[0]).cuda()
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_fwd_plain):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, window)
+        grads.append(torch.autograd.grad((out.float() * r).sum(), leaves))
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=1e-6 * float(want.abs().max()) + 1e-6)
