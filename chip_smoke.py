@@ -5,8 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. device   CUDA must be present; prints the card's name and power limit.
-  2. build    builds every CUDA kernel of the port (K1, K2, K4, K5, K6)
-              from the checkout's sources, one nvcc per source, all at
+  2. build    builds every CUDA kernel of the port (K1, K2, K3, K4, K5,
+              K6) from the checkout's sources, one nvcc per source, all at
               once (sm_90a), and times the build.
   3. edges    each kernel against its plain PyTorch version on edge
               cases. K1: ragged C, masked slots, k > #finite, exact int8
@@ -22,6 +22,11 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               without a masked tail), 64 x 1000, 2048 x 1000 (masked) and
               2048 x 32000; int32 labels; a tied head (D contiguous); and
               Gemma3-4B's tied head embed.T (2560, 262144) at T = 512.
+              K3 (exact k-NN): Q = 1 and ragged Q; N = 1, N under a
+              tile, ragged N; k = 1, k = N, k > N, k = MAX_K; D = 1, 19,
+              38, 64, 384; duplicate rows and queries; small-integer data
+              (bit-equal, ties included) in f32 and bf16; bf16 inputs;
+              N = 1,000,000 at D = 384; Q = 1,000,000 against N = 2048.
   4. path 1   the ivfpq path at full size: build_engine over a
               1,000,000 x 384 clustered f32 corpus made with numpy from a
               seed, spec qpad64>ivf1024x16>pq16x256:i8@kernel>rr64, then
@@ -95,10 +100,39 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               steps, a checkpoint every 2, a failure injected at step 5;
               the final parameters must match an uninterrupted run within
               DRILL_ATOL.
+  20. path 5  the paper's evaluation path, run after phase 10 (before
+              path 3 frees the search tensors) on path 1's corpus: 4096
+              test queries clustered_corpus(4096, 384, SEED + 2), a
+              2048-row fit sample, m = 38 (ratio 0.1 of TARGET_RATIOS).
+              The MPAD fit (MPADConfig(m=38, b=80, alpha=25, iters=48))
+              and the six BASELINE_FITTERS, each fit and each transform of
+              the 1M rows timed; then amk_accuracy(reducer, corpus,
+              queries, k) for every k of K_VALUES, counts zeroed just
+              before and read just after (K3 at least twice a call: the
+              truth and the reduced space; the Isomap and UMAP transforms
+              add theirs). Prints the Fig. 1 row. mpad's and pca's A_m(10)
+              against the same reduced vectors through K3's plain
+              version, within AMK_TOL.
+  21. K3 main K3 against its plain version on the path's own inputs: the
+              truth (Q 4096, N 1M, D 384, k 15), the reduced space (D 38),
+              the Isomap transform's neighbours (Q 1M, N 2048, k 10).
+  22. engines pca64>rr64 (the flat kind, its scan K3 over 1M x 64, ids
+              equal to the plain scan route's) and
+              mlp64>ivf1024x16>pq16x256:i8@kernel>rr64 (the mlp reducer on
+              the ivfpq path, K1), each searched at 1, 8, 64 and 256
+              queries: p50, QPS, recall@10 against K3's exact truth.
+  23. exact   the exact fit backend's phi and gradient beside the fast
+              backend's on the fit sample at one w (value rtol 1e-5,
+              gradient atol 5e-3, tests/test_objective.py's tolerance);
+              a short exact fit (m 4, 5 iterations) must be finite.
+  24. timings K3, its plain version and its bound at the path's four
+              shapes, and the two-call topk(cdist) yardstick at the flat
+              engine's (Q 256).
 
 Before those, one line {"result": {...}} holds every measurement of the
-run (``result.path4`` for the training path). The line before the last is
-{"kernels": [...]} (K1, K2, K4, K5, K6); the last line is
+run (``result.path4`` for the training path, ``result.path5`` for the
+evaluation path). The line before the last is {"kernels": [...]} (K1, K2,
+K4, K5, K6, K3); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import dataclasses
@@ -125,6 +159,17 @@ BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor peak (data sheet)
 LUTS = ("f32", "bf16", "int8")
 RECALL_FLOOR = 0.5               # a broken scan or re-rank lands far below
 RERANK = 64                      # candidates the pq / opq scans return
+# path 5: the paper's evaluation path (A_m(k) of MPAD and the six
+# baselines at ratio 0.1) over the 1M corpus, with test queries from its
+# distribution, and two engines on the port's new reducers
+EVAL_Q = 4096
+SPEC_FLAT = "pca64>rr64"
+SPEC_MLP = "mlp64>ivf1024x16>pq16x256:i8@kernel>rr64"
+# A_m(10) through K3 against its plain version on the same reduced
+# vectors: the two compute d2 with sums in other orders (~1e-6 apart), so a
+# neighbour at a near-tie with the 10th may flip; 1e-3 is 41 of the 40,960
+# (query, neighbour) slots
+AMK_TOL = 1e-3
 # path 3: TinyLlama-1.1B serving, prefill B x S (train_4k's sequence;
 # prefill_32k's batch 32 and sequence 32768 are cut to fit the time limit),
 # then greedy decode steps into a cache of LM_MAX_LEN slots
@@ -164,6 +209,7 @@ KERNEL_GROUPS = (
     ("K5 flash_fwd", ("flash_fwd",)),
     ("K6 ce_partial/ce_merge", ("ce_partial", "ce_merge")),
     ("K1/K2/K4", ("adc_", "pair_")),
+    ("K3 knn_select", ("knn_select", "row_sqnorms")),
     ("GEMM f32", ("f32f32_f32f32",)),
     ("GEMM bf16", ("gemm", "xmma", "cutlass", "nvjet")),
     ("elementwise", ("elementwise",)),
@@ -1049,6 +1095,368 @@ def edge_cases_k4(torch, pw):
     return err
 
 
+def k3_plain(torch, kt, q, x, k, chunk=1 << 28):
+    """K3's plain version on the card, over query chunks of at most
+    ``chunk`` distances each (the full (Q, N) matrix of the path's shapes
+    does not fit): each query's row is independent, so the result is the
+    plain version's."""
+    rows = max(1, chunk // max(1, x.shape[0]))
+    outs = [kt.knn_topk_plain(q[i:i + rows], x, k)
+            for i in range(0, q.shape[0], rows)]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def k3_tolerance(torch, q, x):
+    """d2 tolerance per query: 4e-6 of |q|^2 + max |x|^2, the magnitude of
+    the summands. K3 and its plain version compute the same f32 products
+    and norms and add them in other orders (FMAs over 16-dim chunks against
+    torch's matmul and reductions); each d2 is rounded from sums of that
+    magnitude, so the two differ by a few of its ulps (about 1e-5 absolute
+    for unit-norm rows, where d2 itself is at most 4)."""
+    qf, xf = q.float(), x.float()
+    qq = (qf * qf).sum(dim=1)
+    xmax = float((xf * xf).sum(dim=1).max()) if x.shape[0] else 0.0
+    return 4e-6 * (qq + xmax)                     # (Q,)
+
+
+def compare_k3(torch, kt, name, q, x, k, exact=False):
+    """K3 against its plain version on the same CUDA tensors. ``exact``
+    (small-integer data, every product and sum exact in f32): d2 and ids
+    bit-equal, ties included. Else: finite masks and unfilled slots equal,
+    d2 within ``k3_tolerance``, every id the kernel returns has that d2 in
+    the plain formula (within the tolerance), and the ids equal wherever the
+    plain d2 lies more than the tolerance below the k-th (the rest are
+    near-ties that either order may keep). Returns max |d2 err|."""
+    dk, ik = kt.knn_topk_d2(q, x, k)
+    torch.cuda.synchronize()
+    dp, ip = k3_plain(torch, kt, q, x, k)
+    check(dk.shape == dp.shape and ik.dtype == torch.int64,
+          f"{name}: shape {tuple(dk.shape)} {ik.dtype}")
+    fin = torch.isfinite(dp)
+    check(torch.equal(torch.isfinite(dk), fin), f"{name}: finite mask")
+    check(torch.equal(ik[~fin], ip[~fin]), f"{name}: unfilled slots")
+    err = float((dk[fin] - dp[fin]).abs().max()) if fin.any() else 0.0
+    if exact:
+        check(torch.equal(dk, dp), f"{name}: d2 not bit-equal (max err {err})")
+        check(torch.equal(ik, ip), f"{name}: ids differ")
+        log(f"  {name}: ok, bit-equal")
+        return err
+    tol = k3_tolerance(torch, q, x)[:, None].expand_as(dp)
+    check(bool(((dk - dp).abs()[fin] <= tol[fin]).all()),
+          f"{name}: d2 beyond the tolerance (max err {err})")
+    qf, xf = q.float(), x.float()
+    own = torch.zeros_like(dk)
+    for i in range(0, q.shape[0], 4096):        # the kernel's ids, re-scored
+        g = xf[ik[i:i + 4096].clamp_min(0)]        # (rows, k, D)
+        qi = qf[i:i + 4096]
+        own[i:i + 4096] = ((qi * qi).sum(1)[:, None] + (g * g).sum(2)
+                           - 2.0 * (g @ qi[:, :, None])[..., 0]).clamp_min(0.0)
+    check(bool(((own - dk).abs()[fin] <= tol[fin]).all()),
+          f"{name}: an id does not have its distance")
+    kth = torch.where(fin, dp, -float("inf")).amax(dim=1, keepdim=True)
+    clear = fin & (dp < kth - tol)
+    present = torch.cat([(ip[i:i + 65536, :, None]
+                          == ik[i:i + 65536, None, :]).any(dim=2)
+                         for i in range(0, q.shape[0], 65536)])
+    check(bool((present | ~clear).all()), f"{name}: a neighbour well inside "
+          "the k-th distance is missing")
+    same = float((ik == ip).float().mean())
+    log(f"  {name}: ok, max |d2 err| {err:.3e}, ids equal on {same:.6f} "
+        "of slots")
+    return err
+
+
+def edge_cases_k3(torch, kt):
+    """K3 against its plain version on edge cases: Q = 1 and ragged Q; N = 1,
+    N under one tile, ragged N; k = 1, k = N, k > N, k = MAX_K; D = 1, 19,
+    38, 64, 384; duplicate rows and queries; small-integer data (bit-equal);
+    bf16 inputs; N = 1,000,000 at D = 384; Q = 1,000,000 against N = 2048."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    err = 0.0
+
+    def unit(n, d):
+        a = rng.standard_normal((n, d), dtype=np.float32)
+        a /= np.maximum(np.linalg.norm(a, axis=1, keepdims=True), 1e-12)
+        return torch.from_numpy(a).to(dev)
+
+    for (nq, n, d, k) in ((1, 5003, 38, 10), (100, 5003, 19, 15),
+                          (130, 1, 64, 1), (7, 50, 384, 50), (9, 50, 38, 64),
+                          (65, 777, 1, 5), (3, 20_000, 64, kt.MAX_K),
+                          (33, 4099, 384, 64), (257, 3000, 38, 200)):
+        err = max(err, compare_k3(torch, kt, f"K3 edge f32 Q={nq} N={n} "
+                                  f"D={d} k={k}", unit(nq, d), unit(n, d), k))
+    # duplicate database rows and duplicate queries (exact ties in d2)
+    x = unit(600, 38)
+    x = torch.cat([x, x[:300], x[::7]])
+    q = unit(40, 38)
+    q = torch.cat([q, q[:10], x[:5]])
+    err = max(err, compare_k3(torch, kt, "K3 edge duplicates", q, x, 20))
+    # small integers: every product and sum exact, ties everywhere
+    for (nq, n, d, k) in ((70, 3001, 19, 40), (5, 70_000, 38, 64),
+                          (64, 128, 1, 128), (130, 5000, 384, 15)):
+        qi = torch.from_numpy(rng.integers(-3, 4, (nq, d)).astype(
+            np.float32)).to(dev)
+        xi = torch.from_numpy(rng.integers(-3, 4, (n, d)).astype(
+            np.float32)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            compare_k3(torch, kt, f"K3 edge integers {dt} Q={nq} N={n} "
+                       f"D={d} k={k}", qi.to(dt), xi.to(dt), k, exact=True)
+    # bf16 inputs on float data
+    err = max(err, compare_k3(torch, kt, "K3 edge bf16 Q=77 N=9000 D=384",
+                              unit(77, 384).bfloat16(),
+                              unit(9000, 384).bfloat16(), 15))
+    # the path's extremes: N = 1,000,000 at D = 384; Q = 1,000,000 vs 2048
+    big = unit(1_000_000, 384)
+    err = max(err, compare_k3(torch, kt, "K3 edge Q=64 N=1M D=384",
+                              unit(64, 384), big, 15))
+    err = max(err, compare_k3(torch, kt, "K3 edge Q=1M N=2048 D=384", big,
+                              unit(2048, 384), 10))
+    return err
+
+
+def k3_bound(nq, n, d, k, elem_bytes=4):
+    """The least time of one K3 call: the larger of its operations (a
+    multiply-add per dim per (query, row) pair, 2 Q N D, at the f32 rate
+    outside the tensor cores: the kernel must not round products as TF32
+    or bf16) and its bytes (q and x read once, (d2, idx) written once) at
+    the HBM rate. Returns (ms, by, ops, bytes)."""
+    nops = 2 * nq * n * d
+    nbytes = (nq + n) * d * elem_bytes + nq * k * 8
+    t_ops, t_bytes = nops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", nops, nbytes)
+
+
+def k3_timing(torch, kt, name, q, x, k, reps=3, library=False):
+    """K3, its plain version and the bound at one of the path's shapes
+    (with the two-call topk(cdist) yardstick where its (Q, N) fits)."""
+    ms = cuda_ms(torch, lambda: kt.knn_topk_d2(q, x, k), reps=reps, warmup=1)
+    plain = cuda_ms(torch, lambda: k3_plain(torch, kt, q, x, k), reps=1,
+                    warmup=1)
+    bound, by, nops, nbytes = k3_bound(q.shape[0], x.shape[0], q.shape[1], k)
+    out = {"Q": q.shape[0], "N": x.shape[0], "D": q.shape[1], "k": k,
+           "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+           "ops": nops, "bytes": nbytes, "tflops": nops / ms / 1e9,
+           "library_ms": None}
+    if library:
+        out["library_ms"] = cuda_ms(torch, lambda: torch.topk(
+            torch.cdist(q, x), k, largest=False), reps=reps, warmup=1)
+    log(f"[timings] K3 {name} (Q {q.shape[0]}, N {x.shape[0]}, D "
+        f"{q.shape[1]}, k {k}): {ms:.3f} ms ({out['tflops']:.1f} TFLOP/s), "
+        f"plain {plain:.3f} ms, bound {bound:.3f} ms ({by}), topk(cdist) "
+        f"{out['library_ms']}")
+    return out
+
+
+def eval_path(torch, mods, xd, counters):
+    """Path 5: the paper's evaluation path on the 1M x 384 corpus. Test
+    queries from the corpus's distribution, a 2048-row fit sample, m = 38
+    (ratio 0.1), the MPAD fit and the six baselines, A_m(k) over the whole
+    corpus for every k of K_VALUES (K3 at least twice a call); then the
+    pca64>rr64 flat engine (K3 scans) and the mlp64 ivfpq engine (K1), the
+    exact fit backend against the fast one, K3 on the path's own inputs
+    and its timings. Returns (result dict, K3 launches on the main run,
+    K3's max |err| on the path's inputs, the kernels-line timing)."""
+    (kt, knn, MPADConfig, fit_mpad, fast_objective, objective, mpad_mod,
+     baselines, paper, cpu_generator, build_engine, reduce_vectors,
+     exact_rerank, recall_at_k) = mods
+    dev = xd.device
+    out = {"queries": EVAL_Q, "fit_sample": FIT_SAMPLE}
+    m = int(paper.TARGET_RATIOS[1] * DIM)               # 38
+    out["m"] = m
+    qd = torch.from_numpy(clustered_corpus(EVAL_Q, DIM, SEED + 2)).to(dev)
+    rows = torch.randperm(N, generator=cpu_generator(SEED))[:FIT_SAMPLE]
+    sample = xd[rows.to(dev)].contiguous()
+
+    # the fits, timed (host clock, synchronized)
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        return val, time.perf_counter() - t0
+
+    for fn in counters:
+        fn.launches = 0
+    reducers, fit_s = {}, {}
+    reducers["mpad"], fit_s["mpad"] = timed(lambda: fit_mpad(
+        sample, MPADConfig(m=m, b=80.0, alpha=25.0, iters=48), device=dev))
+    for name, fit in baselines.BASELINE_FITTERS.items():
+        reducers[name], fit_s[name] = timed(
+            lambda: fit(sample, m, cpu_generator(SEED)))
+    fit_launches = kt.knn_topk_d2.launches
+    out["fit_s"] = fit_s
+    log(f"[path 5] fits on {FIT_SAMPLE} rows to m = {m} (s): "
+        f"{ {k: round(v, 2) for k, v in fit_s.items()} }; K3 launches in "
+        f"the fits: {fit_launches}")
+    check(fit_launches == 0, "K3 ran in a fit (the fits' neighbour sets "
+          "are plain)")
+    transform_s = {}
+    for name, red in reducers.items():
+        y, transform_s[name] = timed(lambda: red(xd))
+        check(tuple(y.shape) == (N, m) and bool(torch.isfinite(y).all()),
+              f"{name}: bad transform of the corpus")
+        del y
+    out["transform_1m_s"] = transform_s
+    log(f"[path 5] transforms of the {N} rows (s): "
+        f"{ {k: round(v, 3) for k, v in transform_s.items()} }")
+
+    # the main run: A_m(k) for every method and k, counts zeroed just
+    # before and read just after
+    for fn in counters:
+        fn.launches = 0
+    amk, amk_s, amk_launches = {}, {}, {}
+    for k in paper.K_VALUES:
+        for name, red in reducers.items():
+            n0 = kt.knn_topk_d2.launches
+            acc, amk_s[f"{name}@{k}"] = timed(
+                lambda: knn.amk_accuracy(red, xd, qd, k))
+            got = kt.knn_topk_d2.launches - n0
+            amk.setdefault(name, {})[k] = acc
+            amk_launches[f"{name}@{k}"] = got
+            check(got >= 2, f"A_m({k}) of {name} launched K3 {got} times")
+            check(0.0 <= acc <= 1.0, f"A_m({k}) of {name} = {acc}")
+    launches = kt.knn_topk_d2.launches
+    others = {fn.__name__: fn.launches for fn in counters
+              if fn is not kt.knn_topk_d2}
+    check(not any(others.values()), f"another kernel ran in path 5 {others}")
+    out["amk"] = amk
+    out["amk_mean_over_k"] = {n: float(np.mean(list(v.values())))
+                              for n, v in amk.items()}
+    out["amk_s"] = amk_s
+    out["k3_launches_per_amk"] = amk_launches
+    out["k3_launches"] = launches
+    log(f"[path 5] Fig. 1 row (A_m(k), {EVAL_Q} queries, N {N}, D {DIM} -> "
+        f"{m}); K3 launches {launches}")
+    log("  method  " + " ".join(f"k={k:<5d}" for k in paper.K_VALUES)
+        + " mean")
+    for name in reducers:
+        log(f"  {name:7s} " + " ".join(f"{amk[name][k]:.4f} "
+                                      for k in paper.K_VALUES)
+            + f"{out['amk_mean_over_k'][name]:.4f}")
+    log(f"[path 5] amk_accuracy s per call: "
+        f"{ {k: round(v, 3) for k, v in amk_s.items()} }")
+
+    # mpad and pca A_m(10) against the same reduced vectors run through
+    # K3's plain version on the card
+    truth10 = k3_plain(torch, kt, qd, xd, 10)[1]
+    ref = {}
+    for name in ("mpad", "pca"):
+        red = reducers[name]
+        found = k3_plain(torch, kt, red(qd).contiguous(),
+                         red(xd).contiguous(), 10)[1]
+        ref[name] = recall_at_k(found, truth10)
+        check(abs(ref[name] - amk[name][10]) <= AMK_TOL,
+              f"{name} A_m(10) {amk[name][10]} vs the plain version's "
+              f"{ref[name]}")
+    out["amk10_plain"] = ref
+    log(f"[path 5] A_m(10) through K3's plain version: {ref} (K3: "
+        f"{ {n: amk[n][10] for n in ref} }, tolerance {AMK_TOL})")
+
+    # K3 on the path's own inputs, then its timings at the path's shapes
+    log("[K3 main]")
+    mp = reducers["mpad"]
+    xr, qr = mp(xd).contiguous(), mp(qd).contiguous()
+    err = 0.0
+    err = max(err, compare_k3(torch, kt, "K3 main truth", qd, xd, 15))
+    err = max(err, compare_k3(torch, kt, "K3 main reduced", qr, xr, 15))
+    err = max(err, compare_k3(torch, kt, "K3 main transform", xd, sample, 10))
+
+    # the flat engine: pca64>rr64, its scan K3 over 1M x 64; recall@10
+    # against K3's exact truth in 384-d
+    truth = knn.knn_scan(qd[:max(BATCHES)], xd, K)[1]
+    for fn in counters:
+        fn.launches = 0
+    eng_flat, out["flat_build_s"] = timed(
+        lambda: build_engine(xd, SPEC_FLAT, device=dev, seed=SEED))
+    lat, found = search_timed(torch, eng_flat, qd, BATCHES)
+    flat_launches = kt.knn_topk_d2.launches
+    others = sum(fn.launches for fn in counters if fn is not kt.knn_topk_d2)
+    check(flat_launches > 0 and others == 0, f"the flat engine's searches: "
+          f"K3 {flat_launches}, other kernels {others}")
+    rec = {b: recall_at_k(found[b], truth[:b]) for b in BATCHES}
+    out["flat"] = {"spec": SPEC_FLAT, "latency": lat, "recall_at_10": rec,
+                   "k3_launches": flat_launches}
+    for b in BATCHES:
+        log(f"[path 5] {SPEC_FLAT} batch {b:4d}: p50 {lat[b]['p50_ms']:.3f} "
+            f"ms qps {lat[b]['qps']:.0f} recall@10 {rec[b]:.4f}")
+    check(rec[256] >= RECALL_FLOOR, f"flat recall@10 {rec[256]}")
+    st = eng_flat.state
+    qf = reduce_vectors(st.proj, qd[:256]).contiguous()
+    cand = kt.knn_topk_plain(qf, st.index.payload, RERANK)[1]
+    _, ids_plain = exact_rerank(qd[:256], st.corpus, cand, K)
+    same = float((ids_plain == found[256]).float().mean())
+    out["flat"]["ids_equal_plain_route"] = same
+    log(f"[path 5] flat: ids equal to the plain scan route's on {same:.6f} "
+        "of slots at batch 256")
+    check(same >= 0.999, f"flat ids differ from the plain route ({same})")
+    log("[K3 main flat scan]")
+    err = max(err, compare_k3(torch, kt, "K3 main flat", qf,
+                              st.index.payload, RERANK))
+
+    # the mlp reducer on the main ivfpq path (K1)
+    for fn in counters:
+        fn.launches = 0
+    eng_mlp, out["mlp_build_s"] = timed(
+        lambda: build_engine(xd, SPEC_MLP, device=dev, seed=SEED))
+    lat, found = search_timed(torch, eng_mlp, qd, BATCHES)
+    k1 = next(fn.launches for fn in counters
+              if fn.__name__ == "pq_adc_gather_topk")
+    check(k1 > 0, "K1 never launched on the mlp engine")
+    rec = {b: recall_at_k(found[b], truth[:b]) for b in BATCHES}
+    out["mlp"] = {"spec": SPEC_MLP, "latency": lat, "recall_at_10": rec,
+                  "k1_launches": k1, "build_stages_s": eng_mlp.build_seconds,
+                  "residual_kept": bool(
+                      eng_mlp.state.proj.params["w2"].abs().max() > 0)}
+    for b in BATCHES:
+        log(f"[path 5] {SPEC_MLP} batch {b:4d}: p50 {lat[b]['p50_ms']:.3f} "
+            f"ms qps {lat[b]['qps']:.0f} recall@10 {rec[b]:.4f}")
+    check(rec[256] >= RECALL_FLOOR, f"mlp recall@10 {rec[256]}")
+    del eng_mlp
+
+    # the exact fit backend on the fit sample at one w, beside the fast
+    # one: value rtol 1e-5, gradient atol 5e-3 (tests/test_objective.py's
+    # tolerance: f32 rounding may swap a pair at the b% cut)
+    xs = sample - sample.mean(dim=0)
+    w = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        DIM).astype(np.float32)).to(dev)
+    w = w / w.norm()
+    prev = torch.zeros((2, DIM), device=dev)
+    prev[0] = reducers["mpad"].matrix[0]
+    mask = torch.tensor([1.0, 0.0], device=dev)
+    (ve, ge), exact_s = timed(lambda: mpad_mod._phi_exact_value_and_grad(
+        w, xs, prev, mask, b=80.0, alpha=25.0))
+    vf, gf = fast_objective.phi_fast_value_and_grad(w, xs, prev, mask,
+                                                    b=80.0, alpha=25.0)
+    rel = abs(float(ve) - float(vf)) / abs(float(vf))
+    gerr = float((ge - gf).abs().max())
+    check(rel <= 1e-5 and gerr <= 5e-3, f"exact phi {float(ve)} vs fast "
+          f"{float(vf)}, gradient max |diff| {gerr}")
+    fit_e, fit_e_s = timed(lambda: fit_mpad(
+        sample, MPADConfig(m=4, iters=5, backend="exact"), device=dev))
+    check(bool(torch.isfinite(fit_e.matrix).all()), "exact fit not finite")
+    out["exact_backend"] = {"phi_rel_diff": rel, "grad_max_abs_diff": gerr,
+                            "step_s": exact_s, "fit_m4_iters5_s": fit_e_s,
+                            "n_pairs": FIT_SAMPLE * (FIT_SAMPLE - 1) // 2,
+                            "selected": objective.num_selected_pairs(
+                                FIT_SAMPLE, 80.0)}
+    log(f"[path 5] exact backend vs fast on the fit sample: phi rel "
+        f"{rel:.2e}, gradient max |diff| {gerr:.2e}; one step "
+        f"{exact_s * 1e3:.1f} ms, a fit of 4 x 5 {fit_e_s:.2f} s")
+
+    # K3 timings at the path's shapes
+    timings = {
+        "truth": k3_timing(torch, kt, "truth", qd, xd, 15),
+        "reduced": k3_timing(torch, kt, "reduced", qr, xr, 15),
+        "flat": k3_timing(torch, kt, "flat", qf, st.index.payload, RERANK,
+                          library=True),
+        "transform": k3_timing(torch, kt, "transform", xd, sample, 10)}
+    out["k3_timings"] = timings
+    del eng_flat, st, xr, qr
+    return out, launches, err, timings["flat"]
+
+
 def k5_tolerance(dtype_name):
     """K5 against its plain version: the tolerances of
     tests/test_flash_attention.py. f32: the same f32 sums in another order
@@ -1188,7 +1596,11 @@ def main():
         from repro_torch.models.layers import rms_norm
         from repro_torch.configs.tinyllama_1_1b import SMOKE as TINY_SMOKE
         from repro_torch.kernels import fused_ce as fce
+        from repro_torch.kernels import knn_topk
         from repro_torch import data, optim, runtime
+        from repro_torch.configs import mpad_paper as paper
+        from repro_torch.core import baselines, fit_mpad, objective
+        from repro_torch.core import mpad as mpad_mod
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -1228,6 +1640,8 @@ def main():
     k5_err = edge_cases_k5(torch, fa)
     log("[K6 edges]")
     k6_err = edge_cases_k6(torch, fce)
+    log("[K3 edges]")
+    k3_err = edge_cases_k3(torch, knn_topk)
     torch.cuda.synchronize()
 
     # 4. the main path
@@ -1240,7 +1654,8 @@ def main():
     qd = torch.from_numpy(q_all).to(dev)
     del x
     counters = (ops.pq_adc_gather_topk, ops.pq_adc_topk, pw.pairwise_stats,
-                fa.flash_attention_fwd, fce.fused_ce_fwd)
+                fa.flash_attention_fwd, fce.fused_ce_fwd,
+                knn_topk.knn_topk_d2)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1514,6 +1929,16 @@ def main():
         b: device_busy(torch, eng_pq, qd[:b], f"pq batch {b}")
         for b in (1, 256)}
 
+    # 20-24. path 5: the evaluation path on K3, before path 3 frees the
+    # search tensors
+    path5, k3_launches, k3_main_err, k3 = eval_path(
+        torch, (knn_topk, knn, MPADConfig, fit_mpad, fast_objective,
+                objective, mpad_mod, baselines, paper, cpu_generator, build_engine,
+                reduce_vectors, exact_rerank, recall_at_k),
+        xd, counters)
+    result["path5"] = path5
+    k3_err = max(k3_err, k3_main_err)
+
     # 11-14. path 3: the LM serving path on K5
     lm, k5_launches, k5_main_err, k5 = lm_path(
         torch, tf, fa, lm_param_count, rms_norm, TINYLLAMA, counters)
@@ -1567,7 +1992,18 @@ def main():
         "replaces": "src/repro/kernels/fused_ce/kernel.py:64",
         "launches": k6_launches, "max_abs_err": k6_err, "ms": k6["ms"],
         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
-        "bound_by": k6["bound_by"], "library_ms": None}]
+        "bound_by": k6["bound_by"], "library_ms": None}, {
+        "name": "knn_topk", "route": "cuda",
+        "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
+        "replaces": "src/repro/kernels/knn_topk/kernel.py:72",
+        "launches": k3_launches, "max_abs_err": k3_err, "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+        "note": "times at the flat engine's scan (Q 256, N 1M, D 64, k 64; "
+                "result.path5.k3_timings has the truth, reduced and "
+                "transform shapes); launches: path 5's 35 amk_accuracy "
+                "calls; library_ms: the two-call yardstick topk(cdist(q, "
+                "x), k, largest=False), which the port never calls"}]
     result["wall_s"] = time.perf_counter() - wall0
     log(f"[done] wall time {result['wall_s']:.1f} s")
     print(json.dumps({"result": result}))

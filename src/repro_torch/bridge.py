@@ -11,6 +11,9 @@ arrays the JAX package built. ``lm_params_from_arrays`` does the same for
 the parameters of ``repro.models.transformer`` (``['embed']``,
 ``['runs'][0]['wq']``, ...), and ``opt_state_from_arrays`` for the AdamW
 state of ``repro.optim`` (``['step']``, ``['m']['embed']``, ...).
+``affine_reducer`` wraps a linear baseline's fitted ``(matrix, mean)``
+pair (``repro.core.baselines`` pca, rp and mds) as the port's baselines
+``Reducer``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import keyed_leaves, tree_unflatten
+from repro_torch.core import baselines
 from repro_torch.models.transformer import LMConfig, Params, layer_runs
 from repro_torch.search.ivfpq import IVFPQIndex
 from repro_torch.search.pq import PQIndex
@@ -29,12 +33,13 @@ from repro_torch.search.registry import Index, OPQIndex
 from repro_torch.search.serve import EngineState
 from repro_torch.search.spec import IndexSpec, parse_spec
 
-__all__ = ["state_from_arrays", "lm_params_from_arrays",
+__all__ = ["state_from_arrays", "affine_reducer", "lm_params_from_arrays",
            "opt_state_from_arrays"]
 
 _SNAPSHOT_PREFIX = "['state']"
 # the NamedTuple payloads, carried field by field
 _PAYLOADS = {"pq": PQIndex, "opq": OPQIndex, "ivfpq": IVFPQIndex}
+_MLP_PARAMS = ("mean", "lin", "w1", "b1", "w2")
 
 
 def state_from_arrays(arrays: Mapping[str, np.ndarray],
@@ -58,12 +63,15 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray],
         raise KeyError(f"no array under {' or '.join(keys)}")
 
     proj = None
-    if spec.reduce is not None:
-        if spec.reduce.kind != "qpad":
-            raise NotImplementedError(
-                f"reducer kind {spec.reduce.kind!r} is not ported yet")
-        proj = Reducer("qpad", (get(".proj.params[0]", ".proj[0]"),
-                                get(".proj.params[1]", ".proj[1]")))
+    if spec.reduce is not None and spec.reduce.kind == "mlp":
+        proj = Reducer("mlp", {name: get(f".proj.params['{name}']")
+                               for name in _MLP_PARAMS})
+    elif spec.reduce is not None:
+        # qpad and pca: the affine (matrix, mean) pair, under the live or
+        # the snapshot path (pre-zoo snapshots keep the bare tuple)
+        proj = Reducer(spec.reduce.kind,
+                       (get(".proj.params[0]", ".proj[0]"),
+                        get(".proj.params[1]", ".proj[1]")))
     if spec.kind == "flat":
         payload = get(".index.payload")
     elif spec.kind in _PAYLOADS:
@@ -74,6 +82,19 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray],
             f"index kind {spec.kind!r} is not ported yet (see ROADMAP.md)")
     return EngineState(corpus=get(".corpus"), proj=proj,
                        index=Index(spec.kind, payload))
+
+
+def affine_reducer(name: str, matrix: np.ndarray, mean: np.ndarray,
+                   device: DeviceLike = None) -> baselines.Reducer:
+    """The port's baselines ``Reducer`` for an affine map given as JAX's
+    ``params`` pair: matrix (m, D) and mean (D,), mapping y to
+    ``(y - mean) @ matrix.T`` (pca, rp and mds expose this pair)."""
+    dev = resolve_device(device)
+    mat = torch.from_numpy(np.array(matrix, np.float32, copy=True)).to(dev)
+    mu = torch.from_numpy(np.array(mean, np.float32, copy=True)).to(dev)
+    return baselines.Reducer(
+        name, lambda y: (torch.as_tensor(y, dtype=torch.float32) - mu)
+        @ mat.T, params=(mat, mu))
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:

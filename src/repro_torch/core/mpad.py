@@ -1,5 +1,5 @@
 """MPAD trainer: greedy direction selection by Riemannian Adam on the
-sphere (port of ``repro.core.mpad``, ``fast`` and ``kernel`` backends).
+sphere (port of ``repro.core.mpad``).
 
   for k = 1..m:
       w = start direction k, normalized
@@ -11,6 +11,12 @@ sphere (port of ``repro.core.mpad``, ``fast`` and ``kernel`` backends).
 The start directions are an explicit (m, n) argument (``w0``), so a test
 can feed in the JAX package's ``jax.random.normal`` draws; without it they
 come from a ``torch.Generator`` seeded with ``MPADConfig.seed``.
+
+Backends:
+  * ``fast``   — O(N log N) sorted-threshold path (default)
+  * ``exact``  — the paper-faithful O(N^2) oracle, autograd through the
+                 selection of the smallest b% of pairs
+  * ``kernel`` — the fast path's pair statistics on kernel K4
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch
 
 from repro_torch._device import DeviceLike, cpu_generator, resolve_device
 
-from . import fast_objective
+from . import fast_objective, objective
 
 __all__ = ["MPADConfig", "MPADResult", "fit_mpad", "greedy_fit_loop",
            "transform"]
@@ -34,7 +40,7 @@ class MPADConfig:
     alpha: float = 25.0         # orthogonality penalty factor
     iters: int = 64             # optimization iterations per direction (T)
     lr: float = 0.05
-    backend: str = "fast"       # fast | kernel (K4) | exact (not ported)
+    backend: str = "fast"       # fast | exact | kernel (K4)
     seed: int = 0
     center: bool = True
     batch_size: Optional[int] = None   # stochastic MPAD row-subsample
@@ -65,16 +71,29 @@ def transform(result: MPADResult, x: torch.Tensor) -> torch.Tensor:
     return (x - result.mean) @ result.matrix.T
 
 
+def _phi_exact_value_and_grad(w, x, prev, prev_mask, *, b, alpha):
+    """Paper-faithful phi by autograd: the normalizing oracle ``mu_b_exact``
+    minus the masked penalty on the normalized w (so the gradient is
+    tangent to the sphere)."""
+    with torch.enable_grad():
+        w = w.detach().requires_grad_(True)
+        mu = objective.mu_b_exact(w, x, b=b)
+        wn = w / torch.linalg.vector_norm(w)
+        dots = (prev @ wn) * prev_mask
+        phi = mu - alpha * (dots * dots).sum()
+        (grad,) = torch.autograd.grad(phi, w)
+    return phi.detach(), grad
+
+
 def _get_backend(name: str):
     if name == "fast":
         return fast_objective.phi_fast_value_and_grad
+    if name == "exact":
+        return _phi_exact_value_and_grad
     if name == "kernel":
         from repro_torch.kernels.mpad_pairwise import ops as kernel_ops
         return kernel_ops.phi_kernel_value_and_grad
-    raise NotImplementedError(
-        f"MPADConfig(backend={name!r}) is not ported yet: the port has the "
-        "'fast' and 'kernel' (kernel K4) backends; 'exact' is in "
-        "ROADMAP.md, 'Modules still to port', item 6 (fit path)")
+    raise ValueError(name)
 
 
 def greedy_fit_loop(x: torch.Tensor, w0: torch.Tensor, phi_vg, *, m: int,

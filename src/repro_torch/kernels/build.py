@@ -6,8 +6,10 @@ shared library with a plain C interface, which ``ctypes`` loads (no
 PyTorch headers, so a build takes seconds). A library is built at first
 use from the sources in the checkout only, into ``build/repro_torch_kernels/``
 at the root of the checkout (listed in ``.gitignore``), under a name keyed
-by the content of the source and of the ``*.cuh`` headers beside it: an
-edited source is rebuilt, an unchanged one is loaded as it is.
+by the content of the source and of every header it includes with
+``#include "..."`` (directly or through another such header, wherever it
+lives in the checkout): an edited source or header is rebuilt, an
+unchanged one is loaded as it is.
 ``build_libraries`` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -15,21 +17,22 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "library_path",
-           "build_libraries", "load_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "local_headers",
+           "library_path", "build_libraries", "load_library"]
 
 _KERNELS = Path(__file__).resolve().parent
 # src/repro_torch/kernels/build.py -> the checkout's root
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# every CUDA source of the port (K1, K2, K4, K5, K6), one library each
+# every CUDA source of the port (K1, K2, K3, K4, K5, K6), one library each
 SOURCES = tuple(sorted(_KERNELS.glob("*/csrc/*.cu")))
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
@@ -46,11 +49,30 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> List[Path]:
+    """Every file ``source`` includes with ``#include "..."``, directly or
+    through another such header, each resolved against the directory of
+    the file that includes it (the compiler's rule for quoted includes)."""
+    found: List[Path] = []
+    todo = [Path(source)]
+    while todo:
+        f = todo.pop()
+        for name in _LOCAL_INCLUDE.findall(f.read_text()):
+            header = (f.parent / name).resolve()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return sorted(found)
+
+
 def library_path(source: Path) -> Path:
     """Where ``source``'s library lives: named by the hash of the source
-    and of the headers in its directory."""
+    and of every header it includes (``local_headers``)."""
     h = hashlib.sha1(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
+    for header in local_headers(source):
         h.update(header.read_bytes())
     return BUILD_DIR / f"libqpad_{source.stem}_{h.hexdigest()[:12]}.so"
 

@@ -99,35 +99,6 @@ inline Plan plan_for(int mode, int nq, int n, int m, int kc, int k) {
   return p;
 }
 
-// (ka, sa) sorts before (kb, sb) in (key, row) order.
-__device__ __forceinline__ bool sorts_before(float ka, int sa, float kb,
-                                             int sb) {
-  return ka < kb || (ka == kb && sa < sb);
-}
-
-// Ascending bitonic sort of n (a power of two) pairs by one warp.
-__device__ void warp_bitonic_sort(float* key, int* slot, int n) {
-  const int lane = threadIdx.x & 31;
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = lane; i < (n >> 1); i += 32) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const float klo = key[lo], khi = key[hi];
-        const int slo = slot[lo], shi = slot[hi];
-        if (sorts_after(klo, slo, khi, shi) == up) {
-          key[lo] = khi;
-          key[hi] = klo;
-          slot[lo] = shi;
-          slot[hi] = slo;
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
 template <int MODE, int QB>
 __global__ void __launch_bounds__(kThreads)
 adc_shared_select(const void* __restrict__ tables,

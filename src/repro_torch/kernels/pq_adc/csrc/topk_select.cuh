@@ -1,9 +1,12 @@
 // Top-k selection shared by the ADC kernels K1 (pq_adc_gather_topk.cu) and
-// K2 (pq_adc_topk.cu): (key, slot) pairs order lexicographically, so among
-// equal keys the lower slot comes first, the order of lax.top_k. A list of
-// per-block winners is cut to k by select_topk passes: each block sorts one
-// chunk of a query's list with a bitonic sort in shared memory and keeps its
-// k best, and merge_lists repeats that until one list of k is left.
+// K2 (pq_adc_topk.cu) and by the exact k-NN kernel K3
+// (../../knn_topk/csrc/knn_topk.cu): (key, slot) pairs order
+// lexicographically, so among equal keys the lower slot comes first, the
+// order of lax.top_k. A list of per-block winners is cut to k by
+// select_topk passes: each block sorts one chunk of a query's list with a
+// bitonic sort in shared memory and keeps its k best, and merge_lists
+// repeats that until one list of k is left. K2 and K3 also keep running
+// per-query lists sorted with warp_bitonic_sort.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +32,36 @@ inline int chunk_for(int k) {
 __device__ __forceinline__ bool sorts_after(float ka, int sa, float kb,
                                             int sb) {
   return ka > kb || (ka == kb && sa > sb);
+}
+
+// (ka, sa) sorts before (kb, sb): a smaller key, or the same key and a
+// smaller slot.
+__device__ __forceinline__ bool sorts_before(float ka, int sa, float kb,
+                                             int sb) {
+  return ka < kb || (ka == kb && sa < sb);
+}
+
+// Ascending bitonic sort of n (a power of two) pairs by one warp.
+__device__ void warp_bitonic_sort(float* key, int* slot, int n) {
+  const int lane = threadIdx.x & 31;
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = lane; i < (n >> 1); i += 32) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool up = (lo & size) == 0;
+        const float klo = key[lo], khi = key[hi];
+        const int slo = slot[lo], shi = slot[hi];
+        if (sorts_after(klo, slo, khi, shi) == up) {
+          key[lo] = khi;
+          key[hi] = klo;
+          slot[lo] = shi;
+          slot[hi] = slo;
+        }
+      }
+      __syncwarp();
+    }
+  }
 }
 
 // Ascending bitonic sort of n (a power of two) pairs in shared memory by

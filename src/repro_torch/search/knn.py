@@ -1,4 +1,10 @@
-"""Brute-force k-NN, masked top-k and recall (port of ``repro.search.knn``).
+"""Brute-force k-NN, masked top-k, recall and the paper's A_m(k) metric
+(port of ``repro.search.knn``).
+
+On a CUDA tensor every exact search (``knn_scan``, ``knn_search``,
+``knn_search_blocked``, and so ``amk_accuracy``) runs kernel K3
+(``repro_torch.kernels.knn_topk``), which launches or raises; on the CPU
+each keeps its plain form, the blocked scan's running merge included.
 
 ``topk_smallest`` is the one selection every plain path of the port goes
 through. It reproduces ``lax.top_k(-d2, k)`` exactly, ties included: the k
@@ -9,9 +15,12 @@ query), so the ids the port returns depend on this order.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["knn_scan", "masked_topk", "recall_at_k", "topk_smallest"]
+__all__ = ["knn_scan", "knn_search", "knn_search_blocked", "masked_topk",
+           "recall_at_k", "amk_accuracy", "topk_smallest"]
 
 # rows at most this wide are selected by one stable sort; wider rows (exact
 # ground truth over a whole corpus) by torch.topk plus an exact tie repair
@@ -54,11 +63,22 @@ def _sq_dists(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (qq + xx - 2.0 * (q @ x.T)).clamp_min(0.0)
 
 
+def _k3():
+    # imported at the first call: the kernel's plain version imports
+    # ``topk_smallest`` from this module
+    from repro_torch.kernels.knn_topk import ops
+    return ops
+
+
 def knn_scan(q: torch.Tensor, x: torch.Tensor, k: int):
     """Exact k-NN: (dists (Q, k), indices (Q, k)) by L2 distance.
 
-    Tolerates k > N: short rows are right-padded with (inf, -1).
+    Tolerates k > N: short rows are right-padded with (inf, -1). On a CUDA
+    tensor this is kernel K3 (k up to its ``MAX_K``).
     """
+    if q.device.type == "cuda":
+        d2, idx = _k3().knn_topk_d2(q.contiguous(), x.contiguous(), k)
+        return d2.sqrt(), idx
     d2 = _sq_dists(q, x)
     k_eff = min(k, x.shape[0])
     vals, idx = topk_smallest(d2, k_eff)
@@ -67,6 +87,47 @@ def knn_scan(q: torch.Tensor, x: torch.Tensor, k: int):
         vals = torch.nn.functional.pad(vals, (0, pad), value=float("inf"))
         idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
     return vals.clamp_min(0.0).sqrt(), idx
+
+
+def knn_search(q: torch.Tensor, x: torch.Tensor, k: int):
+    """Exact k-NN: returns (dists (Q, k), indices (Q, k)) by L2 distance
+    (``knn_scan``)."""
+    return knn_scan(q, x, k)
+
+
+def knn_search_blocked(q: torch.Tensor, x: torch.Tensor, k: int,
+                       block: int = 1024):
+    """Streaming exact k-NN with a running top-k over database blocks.
+
+    The database is padded with +inf rows to whole blocks and the running
+    list starts at (inf, 0), so where fewer than k rows exist the slots
+    pad with (inf, 0), as in the JAX version. On a CUDA tensor this is
+    kernel K3 (which needs no blocks; ``block`` shapes the CPU scan only).
+    """
+    if q.device.type == "cuda":
+        d2, idx = _k3().knn_topk_d2(q.contiguous(), x.contiguous(), k)
+        return d2.sqrt(), idx.clamp_min(0)
+    nq, n = q.shape[0], x.shape[0]
+    pad = (-n) % block
+    if pad:
+        x = torch.cat([x, x.new_full((pad, x.shape[1]), float("inf"))])
+    qq = (q * q).sum(dim=-1)[:, None]
+    best_d = torch.full((nq, k), float("inf"), dtype=q.dtype,
+                        device=q.device)
+    best_i = torch.zeros((nq, k), dtype=torch.int64, device=q.device)
+    cols = torch.arange(block, device=q.device)
+    for off in range(0, x.shape[0], block):
+        xblk = x[off:off + block]
+        xx = (xblk * xblk).sum(dim=-1)[None, :]
+        d2 = qq + xx - 2.0 * (q @ xblk.T)                 # (Q, block)
+        # the padding rows make q @ inf, NaN where q has a zero: masked
+        d2 = torch.where(torch.isfinite(xx), d2.clamp_min(0.0),
+                         float("inf"))
+        cand_d = torch.cat([best_d, d2], dim=1)
+        cand_i = torch.cat([best_i, (off + cols).expand(nq, block)], dim=1)
+        best_d, sel = topk_smallest(cand_d, k)
+        best_i = torch.gather(cand_i, 1, sel)
+    return best_d.clamp_min(0.0).sqrt(), best_i
 
 
 def masked_topk(d2: torch.Tensor, ids: torch.Tensor, k: int):
@@ -92,3 +153,24 @@ def recall_at_k(found: torch.Tensor, truth: torch.Tensor) -> float:
     inter = (found[:, :, None] == truth[:, None, :]).any(dim=2)
     return float((inter.sum(dim=1).to(torch.float64)
                   / truth.shape[1]).mean())
+
+
+def amk_accuracy(reducer, x_train: torch.Tensor, y_test: torch.Tensor,
+                 k: int, block=None) -> float:
+    """The paper's A_m(k) (Section 3.2).
+
+    For each test vector y_i: k-NN in the *original* space X vs k-NN of
+    f(y_i) in the *reduced* set f(X); A_m(k) = mean fraction retained.
+    ``reducer`` is a callable or has a ``.transform``. On CUDA tensors both
+    searches run kernel K3.
+    """
+    if block is None:
+        search = knn_search
+    else:
+        search = functools.partial(knn_search_blocked, block=block)
+    _, truth = search(y_test, x_train, k)
+    apply = reducer if callable(reducer) else reducer.transform
+    xr = apply(x_train).to(torch.float32)
+    yr = apply(y_test).to(torch.float32)
+    _, found = search(yr, xr, k)
+    return recall_at_k(found, truth)

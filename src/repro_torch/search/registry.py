@@ -2,9 +2,10 @@
 ``repro.search.registry``, with the hooks the single-device read-only
 path uses: ``build`` and ``scan``).
 
-Registered kinds: ``flat`` (exact scan of the reduced rows), ``pq``,
-``opq`` (a learned rotation, then the pq scan on the rotated query) and
-``ivfpq``. ``ivf`` raises with a pointer to ``ROADMAP.md``.
+Registered kinds: ``flat`` (exact scan of the reduced rows, kernel K3 on
+the card), ``pq``, ``opq`` (a learned rotation, then the pq scan on the
+rotated query) and ``ivfpq``. ``ivf`` raises with a pointer to
+``ROADMAP.md``.
 """
 from __future__ import annotations
 

@@ -14,7 +14,8 @@ does, so both packages run the same scan shapes; small ivfpq buckets take
 the compact scan when the posting-mass bound allows it. The index kinds
 served are those of ``registry`` (flat, pq, opq, ivfpq).
 
-Not ported yet (see ROADMAP.md): the ivf kind, the re-rank pre-filter
+The Reduce stage is any registered reducer kind (qpad, pca, mlp). Not
+ported yet (see ROADMAP.md): the ivf kind, the re-rank pre-filter
 (``prefilter_batch``), streaming, sharding, snapshots, the WAL, metrics and
 tracing.
 """
@@ -190,7 +191,8 @@ class SearchEngine:
     device is present and none was named). ``inits`` (``BuildInits``)
     replaces the engine's random draws with explicit ones; the rest come
     from a CPU ``torch.Generator`` seeded with ``config.seed``: the fit
-    sample rows, then the coarse k-means start, then the PQ starts.
+    sample rows, then the mlp reducer's draws (for that kind), then the
+    coarse k-means start, then the PQ starts.
     ``build_seconds`` records the host time of each build stage.
     """
 
@@ -217,7 +219,7 @@ class SearchEngine:
             sample = corpus if rows is None else corpus[
                 torch.as_tensor(rows, dtype=torch.int64).to(self.device)]
             proj = fit_reducer(spec.reduce.kind, sample, spec.reduce.m, mcfg,
-                               w0=inits.w0)
+                               w0=inits.w0, generator=gen)
             _sync(self.device)
             times["fit"] = time.perf_counter() - t0
             t0 = time.perf_counter()

@@ -162,4 +162,4 @@ def test_unported_kinds_raise_with_a_pointer():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_engine(x, "ivf4x2", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_engine(x, "pca4>ivf4x2>pq2x4", device="cpu")
+        build_engine(x, "pca4>ivf4x2", device="cpu")

@@ -23,7 +23,7 @@ def _imported_roots(path):
 
 
 def test_the_port_has_files_to_scan():
-    assert len(FILES) >= 57
+    assert len(FILES) >= 65
     assert all(f.exists() for f in FILES)
 
 
