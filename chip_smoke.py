@@ -10,12 +10,15 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               once (sm_90a), and times the build.
   3. edges    each kernel against its plain PyTorch version on edge
               cases. K1: ragged C, masked slots, k > #finite, exact int8
-              ties, a deep merge. K2: ragged N, k > N, Q = 1, M not a
-              multiple of 16, a large k, exact int8 ties, N = 1,000,000.
+              ties, a deep merge, int32 codes at K 512 and 1024 (M 8 and
+              6, k = 1 and k = C). K2: ragged N, k > N, Q = 1, M not a
+              multiple of 16, a large k, exact int8 ties, N = 1,000,000,
+              int32 codes at K 512 and 1024 (k = 1 and k = N).
               K4: N = 1, 2, ragged N, N = 2048, a multi-tile N, repeated
               values, tau = 0 and tau = +inf. K5 (f32 and bf16): S = 1,
               16, 80 (ragged), 4096; G = 1 and 8; dh = 8 to 256; window
-              16 at S = 1000, a window wider than S, window 1; and at bf16
+              16 at S = 1000, a window wider than S, window 1 (bf16 on the
+              tensor-core kernel, f32 on the CUDA-core one); and at bf16
               TinyLlama's heads at S = 32768 and Gemma3-4B's local layers
               (H 8 / KV 4 / dh 256, window 1024) at S = 8192. K6 (f32
               and bf16): T = 1, 63, 4096 with D x V of 64 x 256 (with and
@@ -23,10 +26,13 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               2048 x 32000; int32 labels; a tied head (D contiguous); and
               Gemma3-4B's tied head embed.T (2560, 262144) at T = 512.
               K3 (exact k-NN): Q = 1 and ragged Q; N = 1, N under a
-              tile, ragged N; k = 1, k = N, k > N, k = MAX_K; D = 1, 19,
-              38, 64, 384; duplicate rows and queries; small-integer data
-              (bit-equal, ties included) in f32 and bf16; bf16 inputs;
-              N = 1,000,000 at D = 384; Q = 1,000,000 against N = 2048.
+              tile, ragged N; k = 1, k = N, k > N, k 512, 513, 1500 and
+              4096 (lists in shared memory, then in global scratch),
+              k = N + 3; D = 1, 19, 38, 64, 384; duplicate rows and
+              queries; small-integer data (bit-equal, ties included) in
+              f32 and bf16; bf16 inputs; N = 1,000,000 at D = 384;
+              Q = 1,000,000 against N = 2048; one call repeated, bit for
+              bit.
   4. path 1   the ivfpq path at full size: build_engine over a
               1,000,000 x 384 clustered f32 corpus made with numpy from a
               seed, spec qpad64>ivf1024x16>pq16x256:i8@kernel>rr64, then
@@ -39,6 +45,8 @@ Phases (any failure exits nonzero; no phase's failure is caught):
   6. timings  K1, its plain version and the bound at batch 256; per-stage
               search times.
   7. trace    the card's busy share while searching (torch.profiler).
+              Then F2: k-means of path 1's reduced 1M x 64 vectors into its
+              1024 cells, twice from the same rows: centroids bit for bit.
   8. path 2   the pq and opq kinds on the same corpus: build_engine with
               spec qpad64>pq16x256:i8@kernel>rr64 and the QPAD fit on
               MPADConfig(backend="kernel") (K4; counts zeroed just before
@@ -54,7 +62,10 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               sample.
   10. timings K2 and K4 beside their plain versions and bounds; p50
               latency and QPS of the pq and opq engines; the pq build's
-              stage times.
+              stage times. Then F3: pq8x1024:i8@kernel>rr64 (int32 codes
+              through K2) on the first 200,000 rows, searched at every
+              batch: recall@10 against exact search on the cut, and the
+              @jnp route's ids.
   11. path 3  the LM serving path: TinyLlama-1.1B's CONFIG at full width
               and depth (22 layers), bf16, random weights from
               lm_init_params(cfg, seed=0) on the card, attn_impl="flash".
@@ -68,7 +79,8 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               be finite, (4, 2048).
   12. K5 main K5 against its plain version on path 3's own layer-0 q, k,
               v, at bf16 and upcast to f32.
-  13. timings K5, its plain version, scaled_dot_product_attention (the
+  13. timings K5 (bf16: the tensor-core route, every launch of the main
+              run counted on it), its plain version, scaled_dot_product_attention (the
               library yardstick; the port never calls it) and the bound at
               path 3's shape; prefill ms, tokens/s and share of the bf16
               peak; decode ms a step (p50) and tokens/s; peak memory.
@@ -106,7 +118,8 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               2048-row fit sample, m = 38 (ratio 0.1 of TARGET_RATIOS).
               The MPAD fit (MPADConfig(m=38, b=80, alpha=25, iters=48))
               and the six BASELINE_FITTERS, each fit and each transform of
-              the 1M rows timed; then amk_accuracy(reducer, corpus,
+              the 1M rows timed; UMAP fitted again from the same draws (F2:
+              its map of the queries bit for bit); then amk_accuracy(reducer, corpus,
               queries, k) for every k of K_VALUES, counts zeroed just
               before and read just after (K3 at least twice a call: the
               truth and the reduced space; the Isomap and UMAP transforms
@@ -120,7 +133,9 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               equal to the plain scan route's) and
               mlp64>ivf1024x16>pq16x256:i8@kernel>rr64 (the mlp reducer on
               the ivfpq path, K1), each searched at 1, 8, 64 and 256
-              queries: p50, QPS, recall@10 against K3's exact truth.
+              queries: p50, QPS, recall@10 against K3's exact truth. F1:
+              pca64>rr1024 at batch 64 (K3 at k 1024), ids against the
+              plain scan route's, and K3 on that scan's inputs.
   23. exact   the exact fit backend's phi and gradient beside the fast
               backend's on the fit sample at one w (value rtol 1e-5,
               gradient atol 5e-3, tests/test_objective.py's tolerance);
@@ -165,6 +180,10 @@ RERANK = 64                      # candidates the pq / opq scans return
 EVAL_Q = 4096
 SPEC_FLAT = "pca64>rr64"
 SPEC_MLP = "mlp64>ivf1024x16>pq16x256:i8@kernel>rr64"
+# F1: a flat engine whose re-rank budget needs K3 at k = 1024
+SPEC_FLAT_WIDE, WIDE_RERANK, WIDE_BATCH = "pca64>rr1024", 1024, 64
+# F3: int32 codes (K 1024) through K2, on a cut of the corpus
+SPEC_PQ1024, PQ1024_ROWS = "pq8x1024:i8@kernel>rr64", 200_000
 # A_m(10) through K3 against its plain version on the same reduced
 # vectors: the two compute d2 with sums in other orders (~1e-6 apart), so a
 # neighbour at a near-tie with the 10th may flip; 1e-3 is 41 of the 40,960
@@ -429,9 +448,14 @@ def lm_path(torch, tf, fa, lm_param_count, rms_norm, base_cfg, counters):
     # the main run: counts zeroed just before, read just after
     for fn in counters:
         fn.launches = 0
+    fa.flash_attention_fwd.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
     logits, toks, n_pre, n_dec, pre_ms, step_ms = lm_serve(
         torch, tf, fa, params, cfg, tokens, LM_DECODE)
     launches = fa.flash_attention_fwd.launches
+    routes = dict(fa.flash_attention_fwd.launches_by_route)
+    out["k5_launches_by_route"] = routes
+    check(routes["mma_bf16"] == launches, f"K5's bf16 launches did not all "
+          f"take the tensor-core route: {routes}")
     others = {fn.__name__: fn.launches for fn in counters
               if fn is not fa.flash_attention_fwd}
     log(f"[path 3] {cfg.name} prefill {LM_BATCH} x {LM_SEQ} + {LM_DECODE} "
@@ -494,9 +518,12 @@ def lm_path(torch, tf, fa, lm_param_count, rms_norm, base_cfg, counters):
         x = rms_norm(params["embed"][tokens].to(cfg.dtype), lp0["ln1"])
         q, k, v = tf._qkv(cfg, x, lp0, torch.arange(LM_SEQ, device=dev),
                           None)
-    err = compare_k5(torch, fa, "K5 main bf16", q, k, v, None)
+    out["k5_main_checks"] = {}
+    err = compare_k5(torch, fa, "K5 main bf16", q, k, v, None,
+                     out["k5_main_checks"])
     err = max(err, compare_k5(torch, fa, "K5 main f32", q.float(),
-                              k.float(), v.float(), None))
+                              k.float(), v.float(), None,
+                              out["k5_main_checks"]))
 
     # timings, second call on
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -1012,6 +1039,19 @@ def edge_cases(torch, ops, ref):
     compare_k1(torch, ops, ref, "edge int8 exact ties", put(t), put(codes),
                put(np.zeros((6, 3000), np.float32)), 50, "int8",
                torch.ones(6, device=dev))
+    # int32 codes (K > 256): ragged C, k = 1 and k = C, M 8 (16-byte loads)
+    # and M 6 (one code at a time)
+    for lut in LUTS:
+        for (nq, c, m, kc, k) in ((7, 3001, 8, 512, 1), (5, 1337, 8, 1024, 64),
+                                  (3, 777, 6, 1024, 777)):
+            t = (rng.uniform(size=(nq, m, kc)) * 5).astype(np.float32)
+            codes = rng.integers(0, kc, (nq, c, m)).astype(np.int32)
+            base = rng.uniform(size=(nq, c)).astype(np.float32)
+            base[:, -5:] = np.inf
+            err = max(err, compare_k1(torch, ops, ref,
+                                      f"edge int32 {lut} Q={nq} C={c} M={m} "
+                                      f"K={kc} k={k}", put(t), put(codes),
+                                      put(base), k, lut, None))
     return err
 
 
@@ -1060,6 +1100,16 @@ def edge_cases_k2(torch, ops):
     check(int((dp[:, 1:] == dp[:, :-1]).sum()) > 50, "K2 ties are not real")
     compare_k2(torch, ops, "K2 edge int8 exact ties", put(t), put(codes),
                50, "int8", torch.ones(6, device=dev))
+    # int32 codes (K > 256): ragged N, k = 1 and k = N, M 8 and M 6
+    for lut in LUTS:
+        for (nq, n, m, kc, k) in ((9, 5003, 8, 512, 1), (5, 20_001, 8, 1024, 64),
+                                  (3, 700, 6, 1024, 700)):
+            t = (rng.uniform(size=(nq, m, kc)) * 5).astype(np.float32)
+            codes = rng.integers(0, kc, (n, m)).astype(np.int32)
+            err = max(err, compare_k2(torch, ops,
+                                      f"K2 edge int32 {lut} Q={nq} N={n} "
+                                      f"M={m} K={kc} k={k}", put(t),
+                                      put(codes), k, lut))
     return err
 
 
@@ -1168,9 +1218,11 @@ def compare_k3(torch, kt, name, q, x, k, exact=False):
 
 def edge_cases_k3(torch, kt):
     """K3 against its plain version on edge cases: Q = 1 and ragged Q; N = 1,
-    N under one tile, ragged N; k = 1, k = N, k > N, k = MAX_K; D = 1, 19,
+    N under one tile, ragged N; k = 1, k = N, k > N, k 512, 513 and 4096 (the
+    lists in shared memory, then in global scratch), k = N + 3; D = 1, 19,
     38, 64, 384; duplicate rows and queries; small-integer data (bit-equal);
-    bf16 inputs; N = 1,000,000 at D = 384; Q = 1,000,000 against N = 2048."""
+    bf16 inputs; N = 1,000,000 at D = 384; Q = 1,000,000 against N = 2048;
+    and a repeat of one call, bit for bit."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     err = 0.0
@@ -1182,8 +1234,10 @@ def edge_cases_k3(torch, kt):
 
     for (nq, n, d, k) in ((1, 5003, 38, 10), (100, 5003, 19, 15),
                           (130, 1, 64, 1), (7, 50, 384, 50), (9, 50, 38, 64),
-                          (65, 777, 1, 5), (3, 20_000, 64, kt.MAX_K),
-                          (33, 4099, 384, 64), (257, 3000, 38, 200)):
+                          (65, 777, 1, 5), (3, 20_000, 64, 512),
+                          (33, 4099, 384, 64), (257, 3000, 38, 200),
+                          (40, 20_000, 64, 513), (5, 20_000, 38, 4096),
+                          (17, 700, 19, 703)):
         err = max(err, compare_k3(torch, kt, f"K3 edge f32 Q={nq} N={n} "
                                   f"D={d} k={k}", unit(nq, d), unit(n, d), k))
     # duplicate database rows and duplicate queries (exact ties in d2)
@@ -1194,7 +1248,8 @@ def edge_cases_k3(torch, kt):
     err = max(err, compare_k3(torch, kt, "K3 edge duplicates", q, x, 20))
     # small integers: every product and sum exact, ties everywhere
     for (nq, n, d, k) in ((70, 3001, 19, 40), (5, 70_000, 38, 64),
-                          (64, 128, 1, 128), (130, 5000, 384, 15)):
+                          (64, 128, 1, 128), (130, 5000, 384, 15),
+                          (20, 9000, 64, 1500)):
         qi = torch.from_numpy(rng.integers(-3, 4, (nq, d)).astype(
             np.float32)).to(dev)
         xi = torch.from_numpy(rng.integers(-3, 4, (n, d)).astype(
@@ -1212,6 +1267,12 @@ def edge_cases_k3(torch, kt):
                               unit(64, 384), big, 15))
     err = max(err, compare_k3(torch, kt, "K3 edge Q=1M N=2048 D=384", big,
                               unit(2048, 384), 10))
+    # a call repeats bit for bit (no float atomics)
+    q, x = unit(300, 38), big[:200_000, :38].contiguous()
+    a, b = kt.knn_topk_d2(q, x, 15), kt.knn_topk_d2(q, x, 15)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "K3 does not repeat bit for bit")
+    log("  K3 edge repeat: ok, bit for bit")
     return err
 
 
@@ -1299,6 +1360,16 @@ def eval_path(torch, mods, xd, counters):
               f"{name}: bad transform of the corpus")
         del y
     out["transform_1m_s"] = transform_s
+    # F2: UMAP's fit again from the same draws, its map of the test queries
+    # bit for bit (its updates are fixed-order segment sums)
+    umap2, out["umap_refit_s"] = timed(
+        lambda: baselines.BASELINE_FITTERS["umap"](sample, m,
+                                                   cpu_generator(SEED)))
+    check(torch.equal(umap2(qd), reducers["umap"](qd)),
+          "UMAP's fit does not repeat bit for bit")
+    log(f"[path 5] UMAP refit: the same map of the queries, bit for bit "
+        f"({out['umap_refit_s']:.2f} s)")
+    del umap2
     log(f"[path 5] transforms of the {N} rows (s): "
         f"{ {k: round(v, 3) for k, v in transform_s.items()} }")
 
@@ -1395,6 +1466,32 @@ def eval_path(torch, mods, xd, counters):
     err = max(err, compare_k3(torch, kt, "K3 main flat", qf,
                               st.index.payload, RERANK))
 
+    # F1: a re-rank budget past what K3's lists hold in shared memory: the
+    # flat scan takes k = 1024 (global-scratch lists), ids against the
+    # plain scan route's
+    eng_wide = build_engine(xd, SPEC_FLAT_WIDE, device=dev, seed=SEED)
+    n0 = kt.knn_topk_d2.launches
+    (_, found_w), wide_s = timed(lambda: eng_wide.search(qd[:WIDE_BATCH], K))
+    check(kt.knn_topk_d2.launches - n0 == 1, "the wide flat search did not "
+          "launch K3 once")
+    sw = eng_wide.state
+    qw = reduce_vectors(sw.proj, qd[:WIDE_BATCH]).contiguous()
+    cand = kt.knn_topk_plain(qw, sw.index.payload, WIDE_RERANK)[1]
+    _, ids_w = exact_rerank(qd[:WIDE_BATCH], sw.corpus, cand, K)
+    same_w = float((ids_w == found_w).float().mean())
+    rec_w = recall_at_k(found_w, truth[:WIDE_BATCH])
+    out["flat_wide"] = {"spec": SPEC_FLAT_WIDE, "batch": WIDE_BATCH,
+                        "search_s": wide_s, "recall_at_10": rec_w,
+                        "ids_equal_plain_route": same_w}
+    log(f"[path 5] {SPEC_FLAT_WIDE} batch {WIDE_BATCH}: {wide_s * 1e3:.2f} "
+        f"ms (first call), recall@10 {rec_w:.4f}, ids equal to the plain "
+        f"scan route's on {same_w:.6f} of slots")
+    check(same_w >= 0.999, f"wide flat ids differ from the plain route "
+          f"({same_w})")
+    err = max(err, compare_k3(torch, kt, "K3 main flat k=1024", qw,
+                              sw.index.payload, WIDE_RERANK))
+    del eng_wide, sw, qw, cand
+
     # the mlp reducer on the main ivfpq path (K1)
     for fn in counters:
         fn.launches = 0
@@ -1462,14 +1559,51 @@ def k5_tolerance(dtype_name):
     tests/test_flash_attention.py. f32: the same f32 sums in another order
     (atol 2e-5, rtol 1e-4). bf16: both round one f32 result to bf16 once,
     so they differ by at most one bf16 ulp where the f32 sums straddle a
-    rounding boundary (atol 3e-2: an ulp of values below 4)."""
-    return (dict(atol=2e-5, rtol=1e-4) if dtype_name == "f32"
-            else dict(atol=3e-2, rtol=0.0))
+    rounding boundary (atol 3e-2: an ulp of values below 4).
+
+    ``row_rel`` bounds each (query, head) row's ||got - want|| / ||want||,
+    a check scaled to the row beside the elementwise one: the output at
+    row i of standard-normal inputs has a std of about sqrt(e / i), under
+    atol from row 4096 on, so atol alone cannot see a fault in a late K/V
+    tile. bf16: 2^-6, two bf16 ulps of the row (an element that straddles
+    a rounding boundary moves by at most 2^-7 of itself, P's bf16 rounding
+    by about 2^-9 of the row). f32: the rtol. ``edge_cases_k5`` shows that
+    one K/V tile left out breaks the bf16 bound."""
+    return (dict(atol=2e-5, rtol=1e-4, row_rel=1e-4) if dtype_name == "f32"
+            else dict(atol=3e-2, rtol=0.0, row_rel=2.0 ** -6))
 
 
-def compare_k5(torch, fa, name, q, k, v, window):
+def k5_row_rel(torch, got, want):
+    """The largest ||got - want|| / ||want|| over (query, head) rows."""
+    got, want = got.float(), want.float()
+    num = torch.linalg.vector_norm(got - want, dim=-1)
+    den = torch.linalg.vector_norm(want, dim=-1).clamp_min(1e-30)
+    return float((num / den).max())
+
+
+def k5_fault_row_rel(torch, q, k, v, window, want):
+    """The row check's reading of a planted fault: the plain version with
+    the 64-row K/V tile at S/2 left out for every query (its kv_pos set to
+    -1, an unwritten slot), as a kernel that skipped that tile would
+    return. Its error at row i is about (64 / i) * O(1), the size of a
+    double-buffer race or a wrong rescale in a late tile."""
+    from repro_torch.models.layers import chunked_attention
+    s = q.shape[1]
+    pos = torch.arange(s, device=q.device)
+    kv_pos = pos.clone()
+    t0 = s // 2 // 64 * 64
+    kv_pos[t0:t0 + 64] = -1
+    fault = chunked_attention(q, k, v, pos, kv_pos, window=window)
+    return k5_row_rel(torch, fault, want)
+
+
+def compare_k5(torch, fa, name, q, k, v, window, readings=None,
+               fault=False):
     """K5 against its plain version on the same CUDA tensors, at
-    ``k5_tolerance``. Returns max |err|."""
+    ``k5_tolerance``, elementwise and by row. With ``fault``, also reads a
+    planted fault (``k5_fault_row_rel``) and checks that the row bound
+    rejects it. Writes the readings into ``readings[name]``; returns max
+    |err|."""
     got = fa.flash_attention_fwd(q, k, v, window)
     torch.cuda.synchronize()
     want = fa.flash_attention_fwd_plain(q, k, v, window)
@@ -1481,7 +1615,21 @@ def compare_k5(torch, fa, name, q, k, v, window):
     ok = bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
     check(ok and bool(torch.isfinite(got).all()),
           f"{name}: beyond {tol} (max err {err})")
-    log(f"  {name}: ok, max |err| {err:.3e}")
+    row = k5_row_rel(torch, got, want)
+    check(row <= tol["row_rel"], f"{name}: a row's relative error {row:.3e} "
+          f"beyond {tol['row_rel']:.3e}")
+    reading = {"max_abs_err": err, "row_rel": row}
+    msg = f"  {name}: ok, max |err| {err:.3e}, row rel {row:.3e}"
+    if fault:
+        reading["fault_row_rel"] = k5_fault_row_rel(torch, q, k, v, window,
+                                                    want)
+        check(reading["fault_row_rel"] > tol["row_rel"],
+              f"{name}: the row bound misses one K/V tile left out "
+              f"({reading['fault_row_rel']:.3e})")
+        msg += f"; one tile left out reads {reading['fault_row_rel']:.3e}"
+    if readings is not None:
+        readings[name] = reading
+    log(msg)
     return err
 
 
@@ -1504,13 +1652,17 @@ K5_EDGES = ((1, 1, 4, 4, 64, None), (2, 16, 8, 1, 8, None),
 
 
 def edge_cases_k5(torch, fa):
-    err = 0.0
+    """K5's edge cases on both routes, then the bf16 LM shapes at full
+    length; a planted fault read at S 4096 and 32768 (bf16). Returns (max
+    |err|, {case: readings})."""
+    err, readings = 0.0, {}
     for i, (b, s, h, kv, dh, win) in enumerate(K5_EDGES):
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             q, k, v = k5_inputs(torch, 10 + i, b, s, h, kv, dh, dt)
             err = max(err, compare_k5(
                 torch, fa, f"K5 edge {name} B={b} S={s} H={h} KV={kv} "
-                f"dh={dh} window={win}", q, k, v, win))
+                f"dh={dh} window={win}", q, k, v, win, readings,
+                fault=name == "bf16" and s == 4096))
     # the LM shapes at full length, bf16, against the chunked plain version:
     # TinyLlama at prefill_32k's sequence (batch 32 cut to 1), and
     # Gemma3-4B's local layers (H 8 / KV 4 / dh 256, window 1024)
@@ -1519,8 +1671,8 @@ def edge_cases_k5(torch, fa):
             ("gemma3-4b local S=8192", (1, 8192, 8, 4, 256, 1024))):
         q, k, v = k5_inputs(torch, 7, b, s, h, kv, dh, torch.bfloat16)
         err = max(err, compare_k5(torch, fa, f"K5 edge bf16 {name}", q, k, v,
-                                  win))
-    return err
+                                  win, readings, fault=s == 32768))
+    return err, readings
 
 
 def k5_bound(b, s, h, kv, dh, window, elem_bytes):
@@ -1564,6 +1716,66 @@ def search_timed(torch, eng, qd, batches):
     return lat, found
 
 
+def kmeans_repeat(torch, ivf, xr, nlist, gen):
+    """F2: k-means at the path's cell count, twice on one input from the
+    same starting rows; the centroids must match bit for bit (the cluster
+    sums are fixed-order segment sums, not float atomics). Returns the
+    result dict."""
+    init = torch.randperm(xr.shape[0], generator=gen)[:nlist]
+    cents, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cents.append(ivf.kmeans(xr, nlist, init=init))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    check(torch.equal(cents[0], cents[1]), "k-means does not repeat bit for "
+          "bit on the card")
+    check(bool(torch.isfinite(cents[0]).all()), "k-means centroids not "
+          "finite")
+    log(f"[F2] k-means of {tuple(xr.shape)} into {nlist} cells, twice: "
+        f"centroids bit for bit ({[round(t, 3) for t in secs]} s)")
+    return {"rows": xr.shape[0], "dim": xr.shape[1], "nlist": nlist,
+            "seconds": secs, "bit_equal": True}
+
+
+def pq1024_path(torch, mods, xd, qd, counters):
+    """F3: the pq kind with K 1024 (int32 codes) on K2 over a cut of the
+    corpus: build, searches at every batch, recall@10 against exact search
+    on the cut, and the @jnp (plain scan) route's ids."""
+    ops, knn, build_engine, SearchEngine, recall_at_k = mods
+    dev = xd.device
+    xc = xd[:PQ1024_ROWS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = build_engine(xc, SPEC_PQ1024, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    out = {"spec": SPEC_PQ1024, "rows": PQ1024_ROWS,
+           "build_s": time.perf_counter() - t0}
+    codes = eng.state.index.payload.codes
+    check(codes.dtype == torch.int32, f"K 1024 codes are {codes.dtype}")
+    for fn in counters:
+        fn.launches = 0
+    lat, found = search_timed(torch, eng, qd, BATCHES)
+    k2 = ops.pq_adc_topk.launches
+    check(k2 > 0, "K2 never launched on the K 1024 engine")
+    truth = knn.knn_scan(qd, xc, K)[1]
+    rec = {b: recall_at_k(found[b], truth[:b]) for b in BATCHES}
+    je = SearchEngine.from_state(
+        eng.state, dataclasses.replace(eng.config, pq_backend="jnp"))
+    _, ij = je.search(qd, K)
+    check(torch.equal(ij, found[256]), "K 1024: @jnp and @kernel ids differ")
+    out.update(latency=lat, recall_at_10=rec, k2_launches=k2,
+               ids_equal_plain_route=1.0)
+    for b in BATCHES:
+        log(f"[F3] {SPEC_PQ1024} on {PQ1024_ROWS} rows, batch {b:4d}: p50 "
+            f"{lat[b]['p50_ms']:.3f} ms recall@10 {rec[b]:.4f}")
+    log(f"[F3] build {out['build_s']:.2f} s; K2 launches {k2}; @jnp returns "
+        "the @kernel ids at batch 256")
+    check(rec[256] >= RECALL_FLOOR, f"K 1024 recall@10 {rec[256]}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1584,6 +1796,7 @@ def main():
         from repro_torch.search import ivfpq, knn
         from repro_torch.search import (SearchEngine, build_engine,
                                         recall_at_k)
+        from repro_torch.search import ivf
         from repro_torch.search.ivf import probe_cells
         from repro_torch.search.pq import adc_tables
         from repro_torch.search.registry import (BuildInits, Index,
@@ -1637,7 +1850,7 @@ def main():
     log("[K4 edges]")
     k4_err = edge_cases_k4(torch, pw)
     log("[K5 edges]")
-    k5_err = edge_cases_k5(torch, fa)
+    k5_err, result["k5_edges"] = edge_cases_k5(torch, fa)
     log("[K6 edges]")
     k6_err = edge_cases_k6(torch, fce)
     log("[K3 edges]")
@@ -1757,6 +1970,11 @@ def main():
     # 7. device busy share of the search path (torch.profiler)
     result["device_busy"] = {b: device_busy(torch, eng, qd[:b], f"batch {b}")
                              for b in (1, 256)}
+
+    # F2: k-means over path 1's reduced 1M x 64 vectors at its 1024 cells
+    result["kmeans_repeat"] = kmeans_repeat(
+        torch, ivf, reduce_vectors(state.proj, xd),
+        int(ix.centroids.shape[0]), cpu_generator(SEED))
 
     # 8. path 2: pq with the QPAD fit on K4, then opq on the same reducer
     for fn in counters:
@@ -1929,6 +2147,11 @@ def main():
         b: device_busy(torch, eng_pq, qd[:b], f"pq batch {b}")
         for b in (1, 256)}
 
+    # F3: int32 codes (K 1024) through K2
+    result["pq1024"] = pq1024_path(
+        torch, (ops, knn, build_engine, SearchEngine, recall_at_k), xd, qd,
+        counters)
+
     # 20-24. path 5: the evaluation path on K3, before path 3 frees the
     # search tensors
     path5, k3_launches, k3_main_err, k3 = eval_path(
@@ -1979,13 +2202,15 @@ def main():
         "library_ms": None}, {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_fwd.cu",
+                  "flash_attention_bf16.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
         "launches": k5_launches, "max_abs_err": k5_err, "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
-        "note": "forward + autograd.Function; launches: path 3's prefill "
-                "and decode; launches_path4: path 4's training steps",
+        "note": "forward + autograd.Function; bf16 on the tensor cores "
+                "(mma.sync), f32 inputs on flash_attention_fwd.cu (the "
+                "edge cases); launches: path 3's prefill and decode; "
+                "launches_path4: path 4's training steps",
         "launches_path4": k5_train_launches}, {
         "name": "fused_ce_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce_fwd.cu",

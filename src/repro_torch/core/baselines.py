@@ -38,6 +38,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch._device import cpu_generator
+from repro_torch._segment import SegmentSum
 from repro_torch.kernels.knn_topk import knn_topk
 
 __all__ = [
@@ -271,9 +272,10 @@ def fit_umap_lite(x, m: int, k: int = 15, epochs: int = 150, *,
     ``negatives`` (epochs, n_neg, n * k * 2) int: the random rows each
     epoch's repulsion rounds push away from (drawn from ``generator`` when
     absent). The scatter-adds run in sequence (attraction, then each
-    negative round on the updated embedding), as in JAX; on the card
-    ``index_add_`` accumulates with atomics, in an order that changes from
-    run to run.
+    negative round on the updated embedding), as in JAX; each adds its
+    edges' updates into the embedding through a ``SegmentSum`` of its edge
+    list, made once a fit: ``index_add`` on the CPU, a fixed-order sum on
+    the card, so a fit repeats bit for bit there.
     """
     from repro_torch.search.knn import topk_smallest
 
@@ -319,21 +321,21 @@ def fit_umap_lite(x, m: int, k: int = 15, epochs: int = 150, *,
     negatives = torch.as_tensor(negatives, device=dev).long()
     alphas = lr * (1.0 - torch.arange(epochs, dtype=torch.float32,
                                       device=dev) / epochs)
+    add_src, add_dst = SegmentSum(src, n), SegmentSum(dst, n)
     for ep in range(epochs):
         alpha = alphas[ep]
         e = emb[src] - emb[dst]
         d2 = (e * e).sum(dim=1, keepdim=True).clamp_min(1e-8)
         grad_coef = (-2.0 * a * b * d2 ** (b - 1.0)) / (1.0 + a * d2 ** b)
         att = (grad_coef * e).clamp(-4.0, 4.0) * ew
-        emb = emb.index_add(0, src, alpha * att)
-        emb = emb.index_add(0, dst, -alpha * att)
+        emb = add_src(alpha * att, emb)
+        emb = add_dst(-alpha * att, emb)
         for t in range(n_neg):
             neg = negatives[ep, t]
             e = emb[src] - emb[neg]
             d2 = (e * e).sum(dim=1, keepdim=True).clamp_min(1e-8)
             rep = (2.0 * b) / ((1e-3 + d2) * (1.0 + a * d2 ** b))
-            emb = emb.index_add(0, src,
-                                alpha * (rep * e).clamp(-4.0, 4.0) * ew)
+            emb = add_src(alpha * (rep * e).clamp(-4.0, 4.0) * ew, emb)
 
     def transform(q):
         q = _f32(q).contiguous()

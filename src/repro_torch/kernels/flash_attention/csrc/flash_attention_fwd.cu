@@ -1,4 +1,6 @@
-// Causal GQA flash attention, forward, for Hopper (sm_90a).
+// Causal GQA flash attention, forward, for Hopper (sm_90a): the f32 route.
+// bf16 inputs take the tensor-core kernel in flash_attention_bf16.cu; the
+// wrapper picks the route by dtype alone (ops.py, kernel_route).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_attention_fwd
 // (body _flash_kernel). For q (B, S, H, dh) and k, v (B, S, KV, dh), with
@@ -7,8 +9,8 @@
 //   out[b,s,h] = sum_{t <= s, s - t < window} softmax_t(q.k[b,t,h/G] / sqrt(dh))
 //                                              * v[b,t,h/G]
 //
-// with the sums and the softmax in f32 and the output in q's dtype (f32 or
-// bf16), without materialising the S x S score matrix.
+// with the sums, the softmax and the output in f32, without materialising
+// the S x S score matrix.
 //
 // What bounds it: operations. A causal call does ~4 * dh * S^2 / 2 flops
 // per (b, h) and moves each of q, k, v and out once: at the LM prefill's
@@ -18,7 +20,7 @@
 //
 // What the design does about it: this first version is simple, and runs
 // every product in f32 on the CUDA cores (P stays f32 for P.V, as in the
-// TPU kernel; rounding P to bf16 for an mma is a later design). The TPU
+// TPU kernel; the bf16 route rounds P to bf16 for its mma). The TPU
 // kernel folds the GQA groups into one (B*KV, G*S, dh) view and carries the
 // running (m, l, acc) across a sequential kv grid axis in revisited output
 // blocks. Blocks on the card run in no order, so here a block owns one
@@ -51,21 +53,7 @@ __device__ __forceinline__ void load16(const float* src, float* dst) {
   dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 a = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Rows [row0, row0 + R) of one head's (S, D) matrix, row r at
 // base + r * row_stride, into tile (row stride D + kPad) as f32; rows at
@@ -308,15 +296,15 @@ cudaError_t dispatch(int dh, const Args& a) {
 
 extern "C" {
 
-// q (B, S, H, dh), k and v (B, S, KV, dh), all f32 (is_bf16 = 0) or all
-// bf16 (is_bf16 = 1), each with the head dim contiguous, 16-byte aligned
-// rows and element strides (batch, sequence, head) in strides[0..2] (q),
-// [3..5] (k), [6..8] (v). out (B, S, H, dh) contiguous, in the same dtype.
+// q (B, S, H, dh), k and v (B, S, KV, dh), all f32, each with the head dim
+// contiguous, 16-byte aligned rows and element strides (batch, sequence,
+// head) in strides[0..2] (q), [3..5] (k), [6..8] (v). out (B, S, H, dh)
+// contiguous f32.
 // window <= 0: no window. scale = 1 / sqrt(dh) as f32. Launches on
 // ``stream``, allocates nothing, and returns cudaGetLastError() (0 when
 // the launch was accepted).
 int qpad_flash_attention_fwd(const void* q, const void* k, const void* v,
-                             void* out, int is_bf16, int b, int s, int h,
+                             void* out, int b, int s, int h,
                              int kvh, int dh, int window, float scale,
                              long long qsb, long long qss, long long qsh,
                              long long ksb, long long kss, long long ksh,
@@ -328,7 +316,7 @@ int qpad_flash_attention_fwd(const void* q, const void* k, const void* v,
   const Args a{q, k, v, out, b, s, h, kvh, window, scale,
                {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh},
                static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? dispatch<__nv_bfloat16>(dh, a) : dispatch<float>(dh, a);
+  return dispatch<float>(dh, a);
 }
 
 }  // extern "C"

@@ -4,9 +4,13 @@ kernel, and the ``autograd.Function`` that the JAX package's custom VJP
 corresponds to.
 
 ``flash_attention_fwd`` takes its plain version for tensors on the CPU,
-and only for those; for CUDA tensors it launches the CUDA kernel
-(``csrc/flash_attention_fwd.cu``) or raises. Each launch adds one to
-``flash_attention_fwd.launches``. ``flash_attention`` runs that forward
+and only for those; for CUDA tensors it launches a CUDA kernel or raises.
+``kernel_route`` picks the kernel from the dtype alone: bf16 goes to the
+tensor-core kernel (``csrc/flash_attention_bf16.cu``, ``mma.sync`` with
+f32 accumulators, dh 8 zero-padded to 16 in shared memory), f32 to the
+CUDA-core kernel (``csrc/flash_attention_fwd.cu``). Each launch adds one
+to ``flash_attention_fwd.launches`` and to its route's entry of
+``flash_attention_fwd.launches_by_route``. ``flash_attention`` runs that forward
 and saves only q, k and v; its backward recomputes the attention through
 the plain ``chunked_attention`` and differentiates it with
 ``torch.autograd.grad``, as the JAX ``_bwd`` does with ``jax.vjp`` (the
@@ -22,14 +26,30 @@ import torch
 
 from repro_torch.models.layers import chunked_attention
 
-from .build import library
+from .build import bf16_library, library
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "flash_attention", "flash_attention_fwd",
+__all__ = ["SUPPORTED_HEAD_DIMS", "ROUTES", "kernel_route",
+           "flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain"]
 
-# one compiled instance of the kernel per head dim
+# one compiled instance of each kernel per head dim
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ("mma_bf16", "simt_f32")
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call takes (one of ``ROUTES``), a function of
+    dtype and head dim alone: bf16 -> the tensor-core kernel (which pads
+    dh 8 to the mma's k of 16 itself), f32 -> the CUDA-core kernel."""
+    if head_dim not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {SUPPORTED_HEAD_DIMS}, "
+                         f"not {head_dim}")
+    if dtype == torch.bfloat16:
+        return "mma_bf16"
+    if dtype == torch.float32:
+        return "simt_f32"
+    raise TypeError(f"no kernel for dtype {dtype}")
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -86,30 +106,34 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     b, s, h, dh = q.shape
-    if dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {SUPPORTED_HEAD_DIMS}, "
-                         f"not {dh}")
+    route = kernel_route(q.dtype, dh)
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     scale = 1.0 / math.sqrt(dh)             # rounded to f32 as JAX does
-    lib = library()
+    win = 0 if window is None else int(window)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.qpad_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, s, h, k.shape[2], dh,
-            0 if window is None else int(window), scale,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
+        if route == "mma_bf16":
+            err = bf16_library().qpad_flash_attention_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                s, h, k.shape[2], dh, win, scale, *strides, stream)
+        else:
+            err = library().qpad_flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                s, h, k.shape[2], dh, win, scale, *strides, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attention_fwd ({route}) launch "
+                           f"failed: CUDA error {err}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[route] += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -16,12 +16,11 @@ _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _declare(lib: ctypes.CDLL):
-    lib.qpad_knn_topk.argtypes = [_VP, _VP] + [_I32] * 5 + [_VP] * 6
+    lib.qpad_knn_topk.argtypes = ([_VP, _VP] + [_I32] * 5 + [_VP, _VP, _I64]
+                                  + [_VP] * 3)
     lib.qpad_knn_topk.restype = _I32
-    lib.qpad_knn_topk_scratch.argtypes = [_I32] * 3
+    lib.qpad_knn_topk_scratch.argtypes = [_I32] * 5
     lib.qpad_knn_topk_scratch.restype = _I64
-    lib.qpad_knn_topk_smem.argtypes = [_I32]
-    lib.qpad_knn_topk_smem.restype = _I64
 
 
 def library() -> ctypes.CDLL:

@@ -20,8 +20,8 @@ _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 def _declare_gather_topk(lib: ctypes.CDLL):
     lib.qpad_pq_adc_gather_topk.argtypes = [
-        _VP, _I32, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP,
-        _VP, _VP, _VP]
+        _VP, _I32, _VP, _VP, _I32, _VP, _I32, _I32, _I32, _I32, _I32, _VP,
+        _VP, _VP, _VP, _VP]
     lib.qpad_pq_adc_gather_topk.restype = _I32
     lib.qpad_pq_adc_gather_topk_scratch.argtypes = [_I32, _I32, _I32]
     lib.qpad_pq_adc_gather_topk_scratch.restype = _I64
@@ -31,8 +31,8 @@ def _declare_gather_topk(lib: ctypes.CDLL):
 
 def _declare_topk(lib: ctypes.CDLL):
     lib.qpad_pq_adc_topk.argtypes = [
-        _VP, _I32, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP,
-        _VP, _VP]
+        _VP, _I32, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP,
+        _VP, _VP, _VP]
     lib.qpad_pq_adc_topk.restype = _I32
     lib.qpad_pq_adc_topk_scratch.argtypes = [_I32] * 6
     lib.qpad_pq_adc_topk_scratch.restype = _I64

@@ -8,7 +8,9 @@
 //
 // and returns the k smallest (d2, slot) pairs of each query in
 // lexicographic order (ties go to the lower slot, the order of lax.top_k),
-// with (+inf, -1) where fewer than k candidates are finite. int8 tables sum
+// with (+inf, -1) where fewer than k candidates are finite. Codes are uint8
+// (K <= 256) or int32 (K > 256), read as stored and widened in registers,
+// as the Pallas kernel does. int8 tables sum
 // exactly in int32 and take one per-query scale; bf16 and f32 tables sum in
 // f32. The int8 rescale is one fused multiply-add, base + sum * scale,
 // rounded once (__fmaf_rn), which is what XLA computes inside jit and what
@@ -24,9 +26,9 @@
 // one-hot contraction because the TPU has no fast gather; here the query's
 // (M, K) table sits in shared memory (16 KB in f32 at M=16, K=256; 4 KB in
 // int8) and a lookup is one shared-memory load. Each block owns one query
-// and one chunk of candidates; a candidate's codes are one 16-byte load
-// when M is a multiple of 16, so code bytes stream through in full
-// sectors. Each block sorts its chunk's (d2, slot) pairs with a bitonic
+// and one chunk of candidates; a candidate's codes are 16-byte loads
+// when its row is a whole number of them (M a multiple of 16 uint8 or 4
+// int32 codes), so code bytes stream through in full sectors. Each block sorts its chunk's (d2, slot) pairs with a bitonic
 // sort in shared memory and keeps its k best; a second kernel merges the
 // per-chunk lists the same way until one list of k is left (the sort and
 // the merge are shared with K2, in topk_select.cuh). The kernel
@@ -38,6 +40,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adc_codes.cuh"
 #include "topk_select.cuh"
 
 namespace {
@@ -49,11 +52,11 @@ __host__ __device__ inline size_t table_bytes(int mode, int m, int kc) {
   return (b + 15) & ~static_cast<size_t>(15);
 }
 
-template <int MODE>
+template <int MODE, typename CT>
 __global__ void __launch_bounds__(kThreads)
 adc_score_select(const void* __restrict__ tables,
                  const float* __restrict__ scale,
-                 const uint8_t* __restrict__ codes,
+                 const CT* __restrict__ codes,
                  const float* __restrict__ base, int n_cand, int m, int kc,
                  int k, int chunk, int vec16, float* __restrict__ out_key,
                  int* __restrict__ out_slot, int out_stride, int final_pass) {
@@ -93,37 +96,21 @@ adc_score_select(const void* __restrict__ tables,
     int sl = kPadSlot;
     if (c < n_cand) {
       const size_t row = static_cast<size_t>(q) * n_cand + c;
-      const uint8_t* cc = codes + row * m;
+      const CT* cc = codes + row * m;
       const float b = base[row];
       if (MODE == kInt8) {
         const int8_t* t = reinterpret_cast<const int8_t*>(smem);
         int acc = 0;
-        if (vec16) {
-          for (int m0 = 0; m0 < m; m0 += 16) {
-            const uint4 v = *reinterpret_cast<const uint4*>(cc + m0);
-            const uint8_t* b8 = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-            for (int u = 0; u < 16; ++u) acc += t[(m0 + u) * kc + b8[u]];
-          }
-        } else {
-          for (int mm = 0; mm < m; ++mm) acc += t[mm * kc + cc[mm]];
-        }
+        for_codes(cc, m, vec16, [&](int mm, int code) {
+          acc += t[mm * kc + code];
+        });
         d = __fmaf_rn(static_cast<float>(acc), s, b);
       } else {
         const float* t = reinterpret_cast<const float*>(smem);
         float acc = 0.f;
-        if (vec16) {
-          for (int m0 = 0; m0 < m; m0 += 16) {
-            const uint4 v = *reinterpret_cast<const uint4*>(cc + m0);
-            const uint8_t* b8 = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-            for (int u = 0; u < 16; ++u)
-              acc = __fadd_rn(acc, t[(m0 + u) * kc + b8[u]]);
-          }
-        } else {
-          for (int mm = 0; mm < m; ++mm)
-            acc = __fadd_rn(acc, t[mm * kc + cc[mm]]);
-        }
+        for_codes(cc, m, vec16, [&](int mm, int code) {
+          acc = __fadd_rn(acc, t[mm * kc + code]);
+        });
         d = __fadd_rn(b, acc);
       }
       sl = c;
@@ -138,23 +125,48 @@ adc_score_select(const void* __restrict__ tables,
   emit(key, slot, k, out_key + off, out_slot + off, final_pass != 0);
 }
 
-template <int MODE>
+template <int MODE, typename CT>
 cudaError_t launch_score(const void* tables, const float* scale,
-                         const uint8_t* codes, const float* base, int nq,
+                         const CT* codes, const float* base, int nq,
                          int n_cand, int m, int kc, int k, int chunk,
                          int parts, float* out_key, int* out_slot,
                          int out_stride, int final_pass, cudaStream_t stream) {
   const size_t smem = table_bytes(MODE, m, kc) + 8 * static_cast<size_t>(chunk);
   cudaError_t err = cudaFuncSetAttribute(
-      adc_score_select<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      adc_score_select<MODE, CT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int vec16 = (m % 16 == 0) &&
-                    (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
-  adc_score_select<MODE><<<dim3(nq, parts), kThreads, smem, stream>>>(
+  const int vec16 = codes_vec16(codes, m);
+  adc_score_select<MODE, CT><<<dim3(nq, parts), kThreads, smem, stream>>>(
       tables, scale, codes, base, n_cand, m, kc, k, chunk, vec16, out_key,
       out_slot, out_stride, final_pass);
   return cudaGetLastError();
+}
+
+template <typename CT>
+cudaError_t run(const void* tables, int lut_mode, const float* scale,
+                const CT* codes, const float* base, int nq, int n_cand, int m,
+                int kc, int k, float* scratch_key, int* scratch_slot,
+                float* out_d, int* out_i, cudaStream_t stream) {
+  const int ch = chunk_for(k);
+  const int parts = (n_cand + ch - 1) / ch;
+  const bool one = parts == 1;
+  float* dk = one ? out_d : scratch_key;
+  int* ds = one ? out_i : scratch_slot;
+  const int stride = one ? k : parts * k;
+  cudaError_t err;
+  if (lut_mode == kInt8)
+    err = launch_score<kInt8>(tables, scale, codes, base, nq, n_cand, m, kc,
+                              k, ch, parts, dk, ds, stride, one, stream);
+  else if (lut_mode == kBF16)
+    err = launch_score<kBF16>(tables, scale, codes, base, nq, n_cand, m, kc,
+                              k, ch, parts, dk, ds, stride, one, stream);
+  else
+    err = launch_score<kF32>(tables, scale, codes, base, nq, n_cand, m, kc,
+                             k, ch, parts, dk, ds, stride, one, stream);
+  if (err != cudaSuccess || one) return err;
+  return merge_lists(scratch_key, scratch_slot, nq, parts, k, out_d, out_i,
+                     stream);
 }
 
 }  // namespace
@@ -176,39 +188,29 @@ long long qpad_pq_adc_gather_topk_scratch(int nq, int n_cand, int k) {
 }
 
 // tables (Q, M, K) f32 / bf16 / int8 per lut_mode (0 / 1 / 2); scale (Q,)
-// f32 (read for int8 only); codes (Q, C, M) uint8; base (Q, C) f32; out_d
-// (Q, k) f32 and out_i (Q, k) int32. Returns cudaGetLastError() of the
-// first launch that fails, else 0.
+// f32 (read for int8 only); codes (Q, C, M) uint8 (code_bytes 1) or int32
+// (code_bytes 4); base (Q, C) f32; out_d (Q, k) f32 and out_i (Q, k)
+// int32. Returns cudaGetLastError() of the first launch that fails, else 0.
 int qpad_pq_adc_gather_topk(const void* tables, int lut_mode,
-                            const float* scale, const uint8_t* codes,
-                            const float* base, int nq, int n_cand, int m,
-                            int kc, int k, float* scratch_key,
-                            int* scratch_slot, float* out_d, int* out_i,
-                            void* stream_ptr) {
+                            const float* scale, const void* codes,
+                            int code_bytes, const float* base, int nq,
+                            int n_cand, int m, int kc, int k,
+                            float* scratch_key, int* scratch_slot,
+                            float* out_d, int* out_i, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int ch = chunk_for(k);
-  if (ch > kMaxChunk || nq <= 0 || n_cand <= 0 || k <= 0)
+  if (chunk_for(k) > kMaxChunk || nq <= 0 || n_cand <= 0 || k <= 0 ||
+      lut_mode < kF32 || lut_mode > kInt8 ||
+      (code_bytes != 1 && code_bytes != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int parts = (n_cand + ch - 1) / ch;
-  const bool one = parts == 1;
-  float* dk = one ? out_d : scratch_key;
-  int* ds = one ? out_i : scratch_slot;
-  const int stride = one ? k : parts * k;
-  cudaError_t err;
-  if (lut_mode == kInt8)
-    err = launch_score<kInt8>(tables, scale, codes, base, nq, n_cand, m, kc,
-                              k, ch, parts, dk, ds, stride, one, stream);
-  else if (lut_mode == kBF16)
-    err = launch_score<kBF16>(tables, scale, codes, base, nq, n_cand, m, kc,
-                              k, ch, parts, dk, ds, stride, one, stream);
-  else if (lut_mode == kF32)
-    err = launch_score<kF32>(tables, scale, codes, base, nq, n_cand, m, kc,
-                             k, ch, parts, dk, ds, stride, one, stream);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (err != cudaSuccess || one) return static_cast<int>(err);
-  return static_cast<int>(merge_lists(scratch_key, scratch_slot, nq, parts,
-                                       k, out_d, out_i, stream));
+  if (code_bytes == 4)
+    return static_cast<int>(run(tables, lut_mode, scale,
+                                static_cast<const int32_t*>(codes), base, nq,
+                                n_cand, m, kc, k, scratch_key, scratch_slot,
+                                out_d, out_i, stream));
+  return static_cast<int>(run(tables, lut_mode, scale,
+                              static_cast<const uint8_t*>(codes), base, nq,
+                              n_cand, m, kc, k, scratch_key, scratch_slot,
+                              out_d, out_i, stream));
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@
 // over one (N, M) code matrix that every query scans (plain PQ, and OPQ on
 // the rotated query), and returns the k smallest (d2, row) pairs of each
 // query in lexicographic order (ties go to the lower row, the order of
-// lax.top_k), with (+inf, -1) where fewer than k rows exist. int8 tables
+// lax.top_k), with (+inf, -1) where fewer than k rows exist. Codes are
+// uint8 (K <= 256) or int32 (K > 256), widened in registers. int8 tables
 // sum exactly in int32 and take one per-query scale, one rounding
 // (__fmul_rn); bf16 and f32 tables sum in f32 from 0 in ascending m with
 // __fadd_rn, the order of the plain version (ref.py) and of the JAX
@@ -40,6 +41,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adc_codes.cuh"
 #include "topk_select.cuh"
 
 namespace {
@@ -99,11 +101,11 @@ inline Plan plan_for(int mode, int nq, int n, int m, int kc, int k) {
   return p;
 }
 
-template <int MODE, int QB>
+template <int MODE, int QB, typename CT>
 __global__ void __launch_bounds__(kThreads)
 adc_shared_select(const void* __restrict__ tables,
                   const float* __restrict__ scale,
-                  const uint8_t* __restrict__ codes, int nq, int n_rows,
+                  const CT* __restrict__ codes, int nq, int n_rows,
                   int m, int kc, int k, int rows_per_part, int vec16,
                   float* __restrict__ out_key, int* __restrict__ out_slot,
                   int out_stride, int final_pass) {
@@ -164,31 +166,18 @@ adc_shared_select(const void* __restrict__ tables,
       bar_slot[qi] = slots[qi * w + k - 1];
     }
     for (int r = t0 + threadIdx.x; r < t1; r += blockDim.x) {
-      const uint8_t* cc = codes + static_cast<size_t>(r) * m;
+      const CT* cc = codes + static_cast<size_t>(r) * m;
       float d[QB];
       if (MODE == kInt8) {
         const int8_t* t = reinterpret_cast<const int8_t*>(smem);
         int acc[QB];
 #pragma unroll
         for (int qi = 0; qi < QB; ++qi) acc[qi] = 0;
-        if (vec16) {
-          for (int m0 = 0; m0 < m; m0 += 16) {
-            const uint4 v = *reinterpret_cast<const uint4*>(cc + m0);
-            const uint8_t* b8 = reinterpret_cast<const uint8_t*>(&v);
+        for_codes(cc, m, vec16, [&](int mm, int code) {
+          const int off = mm * kc + code;
 #pragma unroll
-            for (int u = 0; u < 16; ++u) {
-              const int off = (m0 + u) * kc + b8[u];
-#pragma unroll
-              for (int qi = 0; qi < QB; ++qi) acc[qi] += t[qi * tb + off];
-            }
-          }
-        } else {
-          for (int mm = 0; mm < m; ++mm) {
-            const int off = mm * kc + cc[mm];
-#pragma unroll
-            for (int qi = 0; qi < QB; ++qi) acc[qi] += t[qi * tb + off];
-          }
-        }
+          for (int qi = 0; qi < QB; ++qi) acc[qi] += t[qi * tb + off];
+        });
 #pragma unroll
         for (int qi = 0; qi < QB; ++qi)
           d[qi] = __fmul_rn(static_cast<float>(acc[qi]), s[qi]);
@@ -197,26 +186,12 @@ adc_shared_select(const void* __restrict__ tables,
         const int tq = static_cast<int>(tb / sizeof(float));
 #pragma unroll
         for (int qi = 0; qi < QB; ++qi) d[qi] = 0.f;
-        if (vec16) {
-          for (int m0 = 0; m0 < m; m0 += 16) {
-            const uint4 v = *reinterpret_cast<const uint4*>(cc + m0);
-            const uint8_t* b8 = reinterpret_cast<const uint8_t*>(&v);
+        for_codes(cc, m, vec16, [&](int mm, int code) {
+          const int off = mm * kc + code;
 #pragma unroll
-            for (int u = 0; u < 16; ++u) {
-              const int off = (m0 + u) * kc + b8[u];
-#pragma unroll
-              for (int qi = 0; qi < QB; ++qi)
-                d[qi] = __fadd_rn(d[qi], t[qi * tq + off]);
-            }
-          }
-        } else {
-          for (int mm = 0; mm < m; ++mm) {
-            const int off = mm * kc + cc[mm];
-#pragma unroll
-            for (int qi = 0; qi < QB; ++qi)
-              d[qi] = __fadd_rn(d[qi], t[qi * tq + off]);
-          }
-        }
+          for (int qi = 0; qi < QB; ++qi)
+            d[qi] = __fadd_rn(d[qi], t[qi * tq + off]);
+        });
       }
 #pragma unroll
       for (int qi = 0; qi < QB; ++qi) {
@@ -264,29 +239,28 @@ adc_shared_select(const void* __restrict__ tables,
   }
 }
 
-template <int MODE, int QB>
+template <int MODE, int QB, typename CT>
 cudaError_t launch_select(const void* tables, const float* scale,
-                          const uint8_t* codes, int nq, int n, int m, int kc,
+                          const CT* codes, int nq, int n, int m, int kc,
                           int k, const Plan& p, float* out_key, int* out_slot,
                           int out_stride, int final_pass,
                           cudaStream_t stream) {
   const size_t smem = smem_bytes(MODE, QB, m, kc, k);
   cudaError_t err = cudaFuncSetAttribute(
-      adc_shared_select<MODE, QB>,
+      adc_shared_select<MODE, QB, CT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int vec16 = (m % 16 == 0) &&
-                    (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
+  const int vec16 = codes_vec16(codes, m);
   const dim3 grid((nq + QB - 1) / QB, p.parts);
-  adc_shared_select<MODE, QB><<<grid, kThreads, smem, stream>>>(
+  adc_shared_select<MODE, QB, CT><<<grid, kThreads, smem, stream>>>(
       tables, scale, codes, nq, n, m, kc, k, p.rows_per_part, vec16, out_key,
       out_slot, out_stride, final_pass);
   return cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, typename CT>
 cudaError_t dispatch_qb(const void* tables, const float* scale,
-                        const uint8_t* codes, int nq, int n, int m, int kc,
+                        const CT* codes, int nq, int n, int m, int kc,
                         int k, const Plan& p, float* out_key, int* out_slot,
                         int out_stride, int final_pass, cudaStream_t stream) {
   switch (p.qb) {
@@ -307,6 +281,30 @@ cudaError_t dispatch_qb(const void* tables, const float* scale,
                                     out_key, out_slot, out_stride,
                                     final_pass, stream);
   }
+}
+
+template <typename CT>
+cudaError_t run(const void* tables, int lut_mode, const float* scale,
+                const CT* codes, int nq, int n, int m, int kc, int k,
+                const Plan& p, float* scratch_key, int* scratch_slot,
+                float* out_d, int* out_i, cudaStream_t stream) {
+  const bool one = p.parts == 1;
+  float* dk = one ? out_d : scratch_key;
+  int* ds = one ? out_i : scratch_slot;
+  const int stride = one ? k : p.parts * k;
+  cudaError_t err;
+  if (lut_mode == kInt8)
+    err = dispatch_qb<kInt8>(tables, scale, codes, nq, n, m, kc, k, p, dk,
+                             ds, stride, one, stream);
+  else if (lut_mode == kBF16)
+    err = dispatch_qb<kBF16>(tables, scale, codes, nq, n, m, kc, k, p, dk,
+                             ds, stride, one, stream);
+  else
+    err = dispatch_qb<kF32>(tables, scale, codes, nq, n, m, kc, k, p, dk,
+                            ds, stride, one, stream);
+  if (err != cudaSuccess || one) return err;
+  return merge_lists(scratch_key, scratch_slot, nq, p.parts, k, out_d, out_i,
+                     stream);
 }
 
 }  // namespace
@@ -330,35 +328,25 @@ long long qpad_pq_adc_topk_scratch(int lut_mode, int nq, int n, int m,
 }
 
 // tables (Q, M, K) f32 / bf16 / int8 per lut_mode (0 / 1 / 2); scale (Q,)
-// f32 (read for int8 only); codes (N, M) uint8; out_d (Q, k) f32 and
-// out_i (Q, k) int32. Returns cudaGetLastError() of the first launch that
-// fails, else 0.
+// f32 (read for int8 only); codes (N, M) uint8 (code_bytes 1) or int32
+// (code_bytes 4); out_d (Q, k) f32 and out_i (Q, k) int32. Returns
+// cudaGetLastError() of the first launch that fails, else 0.
 int qpad_pq_adc_topk(const void* tables, int lut_mode, const float* scale,
-                     const uint8_t* codes, int nq, int n, int m, int kc,
-                     int k, float* scratch_key, int* scratch_slot,
+                     const void* codes, int code_bytes, int nq, int n, int m,
+                     int kc, int k, float* scratch_key, int* scratch_slot,
                      float* out_d, int* out_i, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (chunk_for(k) > kMaxChunk || nq <= 0 || n <= 0 || k <= 0 ||
-      lut_mode < kF32 || lut_mode > kInt8)
+      lut_mode < kF32 || lut_mode > kInt8 ||
+      (code_bytes != 1 && code_bytes != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = plan_for(lut_mode, nq, n, m, kc, k);
-  const bool one = p.parts == 1;
-  float* dk = one ? out_d : scratch_key;
-  int* ds = one ? out_i : scratch_slot;
-  const int stride = one ? k : p.parts * k;
-  cudaError_t err;
-  if (lut_mode == kInt8)
-    err = dispatch_qb<kInt8>(tables, scale, codes, nq, n, m, kc, k, p, dk,
-                             ds, stride, one, stream);
-  else if (lut_mode == kBF16)
-    err = dispatch_qb<kBF16>(tables, scale, codes, nq, n, m, kc, k, p, dk,
-                             ds, stride, one, stream);
-  else
-    err = dispatch_qb<kF32>(tables, scale, codes, nq, n, m, kc, k, p, dk,
-                            ds, stride, one, stream);
-  if (err != cudaSuccess || one) return static_cast<int>(err);
-  return static_cast<int>(merge_lists(scratch_key, scratch_slot, nq, p.parts,
-                                       k, out_d, out_i, stream));
+  cudaError_t err = code_bytes == 4
+      ? run(tables, lut_mode, scale, static_cast<const int32_t*>(codes), nq,
+            n, m, kc, k, p, scratch_key, scratch_slot, out_d, out_i, stream)
+      : run(tables, lut_mode, scale, static_cast<const uint8_t*>(codes), nq,
+            n, m, kc, k, p, scratch_key, scratch_slot, out_d, out_i, stream);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

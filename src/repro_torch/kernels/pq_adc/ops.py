@@ -67,15 +67,16 @@ def _check_common(tables, k, lut_dtype, scale, *others):
         raise ValueError(f"inputs on different devices: {devs}")
 
 
+_CODE_DTYPES = (torch.uint8, torch.int32)
+
+
 def _check_cuda_codes(tables, codes):
-    """What both kernels take: CUDA tensors, contiguous uint8 codes."""
+    """What both kernels take: CUDA tensors, contiguous uint8 codes (K <=
+    256) or int32 codes (K > 256)."""
     if tables.device.type != "cuda":
         raise ValueError(f"no kernel for device {tables.device}")
-    if codes.dtype == torch.int32:
-        raise NotImplementedError(
-            "int32 codes (K > 256) are not supported by the CUDA kernels yet")
-    if codes.dtype != torch.uint8:
-        raise TypeError(f"codes must be uint8, got {codes.dtype}")
+    if codes.dtype not in _CODE_DTYPES:
+        raise TypeError(f"codes must be uint8 or int32, got {codes.dtype}")
     if not codes.is_contiguous():
         raise ValueError("codes must be contiguous")
 
@@ -104,9 +105,9 @@ def pq_adc_gather_topk(tables: torch.Tensor, codes: torch.Tensor,
 
     tables (Q, M, K) f32, quantized here per ``lut_dtype`` with
     ``quantize_lut`` (``scale`` optionally overrides the per-query int8
-    scale with a caller-certified bound); codes (Q, C, M) uint8; base
-    (Q, C) f32, +inf masking pads. Returns (d2 (Q, k) f32, slot (Q, k)
-    int64).
+    scale with a caller-certified bound); codes (Q, C, M) uint8 (int32
+    for K > 256); base (Q, C) f32, +inf masking pads. Returns (d2 (Q, k)
+    f32, slot (Q, k) int64).
     """
     _check_common(tables, k, lut_dtype, scale, codes, base)
     if tables.ndim != 3 or codes.ndim != 3 or base.ndim != 2:
@@ -143,7 +144,7 @@ def pq_adc_gather_topk(tables: torch.Tensor, codes: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qpad_pq_adc_gather_topk(
             qt.data_ptr(), mode, s.data_ptr(), codes.data_ptr(),
-            base.data_ptr(), nq, c, m, kc, k, sk.data_ptr(), ss.data_ptr(),
+            codes.element_size(), base.data_ptr(), nq, c, m, kc, k, sk.data_ptr(), ss.data_ptr(),
             out_d.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pq_adc_gather_topk launch failed: CUDA error "
@@ -160,7 +161,8 @@ def pq_adc_topk(tables: torch.Tensor, codes: torch.Tensor, k: int,
     """ADC scan over one shared code matrix plus top-k (K2).
 
     tables (Q, M, K) f32, quantized here per ``lut_dtype`` as in
-    ``pq_adc_gather_topk``; codes (N, M) uint8, scanned by every query.
+    ``pq_adc_gather_topk``; codes (N, M) uint8 (int32 for K > 256),
+    scanned by every query.
     Returns (d2 (Q, k) f32 ascending, row (Q, k) int64).
     """
     _check_common(tables, k, lut_dtype, scale, codes)
@@ -189,8 +191,8 @@ def pq_adc_topk(tables: torch.Tensor, codes: torch.Tensor, k: int,
         ss = torch.empty(n_scratch, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qpad_pq_adc_topk(
-            qt.data_ptr(), mode, s.data_ptr(), codes.data_ptr(), nq, n, m,
-            kc, k, sk.data_ptr(), ss.data_ptr(), out_d.data_ptr(),
+            qt.data_ptr(), mode, s.data_ptr(), codes.data_ptr(),
+            codes.element_size(), nq, n, m, kc, k, sk.data_ptr(), ss.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pq_adc_topk launch failed: CUDA error {err}")

@@ -8,9 +8,10 @@ Writes go to a temp file, are fsynced, and are renamed into place with
 ``os.replace``: a crash mid-write never corrupts the latest good step.
 
 numpy has no bfloat16, so a bf16 leaf is stored as its uint16 bit
-pattern and restored by the template's dtype, bit for bit. (Reading a
-checkpoint the JAX package wrote is not this module's job yet: see
-ROADMAP.md, item 7.)
+pattern and restored by the template's dtype, bit for bit. A bf16 leaf the
+JAX package wrote (``np.asarray`` of a bf16 array, which ``np.load`` reads
+back as the two-byte void dtype ``|V2``) is read into a bf16 template the
+same way, bit for bit.
 """
 from __future__ import annotations
 
@@ -44,8 +45,10 @@ def _from_numpy(arr: np.ndarray, leaf):
     tensor)."""
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(arr, leaf.dtype)
-    if leaf.dtype == torch.bfloat16 and arr.dtype == np.uint16:
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    if leaf.dtype == torch.bfloat16 and arr.dtype.itemsize == 2 and \
+            arr.dtype.kind in "uV":          # the port's uint16, JAX's |V2
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()
+                             ).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr)).to(leaf.dtype)
     return t.to(leaf.device)

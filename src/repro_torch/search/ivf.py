@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch._segment import segment_sum
+
 from .knn import topk_smallest
 
 __all__ = ["sq_dists", "nearest", "kmeans", "posting_lists", "probe_cells"]
@@ -44,8 +46,10 @@ def kmeans(x: torch.Tensor, nlist: int, iters: int = 12, *,
     ``init`` (nlist,) row indices of the starting centroids; without it
     ``nlist`` distinct rows are drawn from ``generator`` (the JAX version
     draws them with ``jax.random.choice(key, n, (nlist,), replace=False)``).
-    Cluster sums use ``index_add_`` instead of JAX's (N, nlist) one-hot
-    matmul, which at 1M x 1024 would be 4 GB.
+    Cluster sums go through ``segment_sum``: on the card JAX's one-hot
+    matmul taken in row chunks (the whole (N, nlist) one-hot at 1M x 1024
+    would be 4 GB), so a build repeats bit for bit there; on the CPU
+    ``index_add_`` in row order.
     """
     n = x.shape[0]
     if init is None:
@@ -54,7 +58,7 @@ def kmeans(x: torch.Tensor, nlist: int, iters: int = 12, *,
     for _ in range(iters):
         assign = nearest(x, cent)
         counts = torch.bincount(assign, minlength=nlist).to(x.dtype)
-        sums = torch.zeros_like(cent).index_add_(0, assign, x)
+        sums = segment_sum(x, assign, nlist)
         new = sums / counts.clamp_min(1.0)[:, None]
         cent = torch.where((counts > 0)[:, None], new, cent)
     return cent

@@ -74,7 +74,7 @@ def knn_scan(q: torch.Tensor, x: torch.Tensor, k: int):
     """Exact k-NN: (dists (Q, k), indices (Q, k)) by L2 distance.
 
     Tolerates k > N: short rows are right-padded with (inf, -1). On a CUDA
-    tensor this is kernel K3 (k up to its ``MAX_K``).
+    tensor this is kernel K3, for any k.
     """
     if q.device.type == "cuda":
         d2, idx = _k3().knn_topk_d2(q.contiguous(), x.contiguous(), k)

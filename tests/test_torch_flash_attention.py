@@ -21,6 +21,10 @@ from repro_torch.models import layers  # noqa: E402
 # below ~4)
 F32_TOL = dict(atol=2e-5, rtol=1e-4)
 BF16_ATOL = 3e-2
+# on the card, beside the bf16 atol: each (query, head) row's
+# ||got - want|| / ||want|| within two bf16 ulps of the row, which holds
+# the long rows whose values lie below atol (chip_smoke.k5_tolerance)
+BF16_ROW_REL = 2.0 ** -6
 
 
 def _jax():
@@ -233,11 +237,27 @@ def test_he_init_draws_from_its_generator():
     assert abs(float(a.std()) - 0.25) < 0.02
 
 
+@pytest.mark.parametrize("dh", fa.SUPPORTED_HEAD_DIMS)
+def test_kernel_route_is_a_function_of_dtype_and_head_dim(dh):
+    """bf16 takes the tensor-core kernel at every supported dh, dh 8
+    included (the kernel pads it to the mma's k of 16 itself: the gpu
+    edge case at dh 8 checks that), f32 the CUDA-core kernel; no other
+    dtype or head dim has a kernel. No card needed."""
+    assert fa.kernel_route(torch.bfloat16, dh) == "mma_bf16"
+    assert fa.kernel_route(torch.float32, dh) == "simt_f32"
+    with pytest.raises(TypeError, match="dtype"):
+        fa.kernel_route(torch.float16, dh)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.kernel_route(torch.bfloat16, dh + 4)
+    assert set(fa.flash_attention_fwd.launches_by_route) == set(fa.ROUTES)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("b,s,h,kv,dh,window", [
     (2, 80, 4, 2, 8, None), (1, 300, 8, 1, 64, 16), (1, 257, 4, 4, 128, 1),
-    (1, 200, 8, 4, 256, 1024), (1, 1, 2, 2, 32, None)])
+    (1, 200, 8, 4, 256, 1024), (1, 1, 2, 2, 32, None),
+    (2, 80, 4, 2, 16, 24), (1, 4096, 32, 4, 64, None)])
 def test_cuda_kernel_matches_plain_version(dtype, b, s, h, kv, dh, window):
     """K5 on the card against its plain version on the same CUDA inputs."""
     if not torch.cuda.is_available():
@@ -246,9 +266,12 @@ def test_cuda_kernel_matches_plain_version(dtype, b, s, h, kv, dh, window):
     if dtype == "bf16":
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     before = fa.flash_attention_fwd.launches
+    route = fa.kernel_route(q.dtype, dh)
+    by_route = fa.flash_attention_fwd.launches_by_route[route]
     got = fa.flash_attention_fwd(q, k, v, window)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == before + 1
+    assert fa.flash_attention_fwd.launches_by_route[route] == by_route + 1
     assert got.dtype == q.dtype
     z = torch.zeros((1, 4, 2, 12), dtype=q.dtype, device="cuda")
     with pytest.raises(ValueError, match="head dims"):   # no dh 12 instance
@@ -259,6 +282,9 @@ def test_cuda_kernel_matches_plain_version(dtype, b, s, h, kv, dh, window):
     else:
         torch.testing.assert_close(got.float(), want.float(),
                                    atol=BF16_ATOL, rtol=0)
+        rows = (torch.linalg.vector_norm((got - want).float(), dim=-1)
+                / torch.linalg.vector_norm(want.float(), dim=-1))
+        assert float(rows.max()) <= BF16_ROW_REL
 
 
 @pytest.mark.gpu

@@ -74,6 +74,28 @@ def test_knn_search_blocked_matches_jax(nq, n, d, k, block):
         assert torch.isinf(dt[:, n:]).all() and (it[:, n:] == 0).all()
 
 
+@pytest.mark.parametrize("nq,n,d,k", [(6, 900, 12, 600), (5, 40, 9, 45),
+                                      (3, 700, 38, 705)])
+def test_large_k_matches_jax(nq, n, d, k):
+    """Any k >= 1, as JAX's knn_scan serves it (k 600, and k = N + 5): the
+    K3 wrapper's plain route and knn_scan pad (inf, -1), and
+    knn_search_blocked (inf, 0), against repro.search.knn."""
+    jnp, jknn = _jax()
+    q, x = _data(nq + n + k, nq, n, d)
+    qt, xt = torch.from_numpy(q), torch.from_numpy(x)
+    dj, ij = jknn.knn_scan(jnp.asarray(q), jnp.asarray(x), k)
+    dt, it = knn.knn_scan(qt, xt, k)
+    _assert_search_equal(dt, it, dj, ij)
+    d2, i2 = k3.knn_topk_d2(qt, xt, k)
+    _assert_search_equal(d2.clamp_min(0).sqrt(), i2, dj, ij)
+    if k > n:
+        assert (it[:, n:] == -1).all() and (i2[:, n:] == -1).all()
+    dj, ij = jknn.knn_search_blocked(jnp.asarray(q), jnp.asarray(x), k,
+                                     block=256)
+    dt, it = knn.knn_search_blocked(qt, xt, k, block=256)
+    _assert_search_equal(dt, it, dj, ij)
+
+
 def test_blocked_and_full_search_agree_below_n():
     q, x = _data(4, 20, 500, 24)
     qt, xt = torch.from_numpy(q), torch.from_numpy(x)
@@ -149,3 +171,26 @@ def test_cuda_exact_searches_launch_k3():
     assert k3.knn_topk_d2.launches == n0 + 3
     acc = knn.amk_accuracy(lambda v: v[:, :19].contiguous(), xc, qc, 10)
     assert k3.knn_topk_d2.launches == n0 + 5 and 0.0 <= acc <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1024, 2003])
+def test_cuda_large_k_scan_matches_plain(k):
+    """knn_scan on the card at k past what shared memory holds (K3's lists
+    in global scratch) and at k = N + 3: one K3 launch, ids equal to the
+    plain version's and (inf, -1) past N."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(k)
+    q = torch.from_numpy(rng.integers(-3, 4, (70, 24)).astype(np.float32))
+    x = torch.from_numpy(rng.integers(-3, 4, (2000, 24)).astype(np.float32))
+    q, x = q.to(dev), x.to(dev)
+    n0 = k3.knn_topk_d2.launches
+    d, i = knn.knn_scan(q, x, k)
+    torch.cuda.synchronize()
+    assert k3.knn_topk_d2.launches == n0 + 1
+    dp, ip = k3.knn_topk_plain(q, x, k)
+    assert torch.equal(i, ip) and torch.equal(d, dp.sqrt())
+    if k > 2000:
+        assert (i[:, 2000:] == -1).all()

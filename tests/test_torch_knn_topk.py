@@ -140,14 +140,26 @@ def test_wrapper_pads_past_n_and_takes_the_square_root():
 def test_wrapper_checks_its_arguments():
     qt = torch.zeros((4, 3))
     xt = torch.zeros((9, 3))
-    for k in (0, kt.MAX_K + 1):
-        with pytest.raises(ValueError, match="outside"):
+    for k in (0, -1):
+        with pytest.raises(ValueError, match="at least 1"):
             kt.knn_topk_d2(qt, xt, k)
     with pytest.raises(ValueError, match="expected q"):
         kt.knn_topk_d2(qt, torch.zeros((9, 4)), 2)
     with pytest.raises(ValueError, match="no kernel"):
         kt.knn_topk_d2(qt.to("meta"), xt.to("meta"), 2)
-    assert kt.MAX_K >= 64                  # the flat engine's re-rank budget
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    """Both routes take what the kernel takes: contiguous inputs of one
+    dtype, f32 or bf16 (any k >= 1 since the kernel serves any k)."""
+    qt = torch.zeros((4, 3))
+    xt = torch.zeros((9, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        kt.knn_topk_d2(torch.zeros((3, 4)).T, xt, 2)
+    with pytest.raises(TypeError, match="both"):
+        kt.knn_topk_d2(qt, xt.to(torch.bfloat16), 2)
+    with pytest.raises(TypeError, match="both"):
+        kt.knn_topk_d2(qt.double(), xt.double(), 2)
 
 
 def test_library_hash_covers_included_headers(tmp_path):
@@ -163,19 +175,28 @@ def test_library_hash_covers_included_headers(tmp_path):
     first = build.library_path(copy).name
     header.write_text(header.read_text() + "\n// edited\n")
     assert build.library_path(copy).name != first
-    assert k3 in src and len(src) == 6                 # K1-K6, one each
+    # K1-K6, one each, and K5's f32 route beside its bf16 one
+    assert k3 in src and len(src) == 7
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nq,n,d,k", [(1, 5003, 38, 10), (100, 5003, 19, 15),
                                       (130, 1, 64, 1), (7, 50, 384, 50),
                                       (3, 20_000, 64, 512),
-                                      (257, 3000, 38, 200)])
+                                      (257, 3000, 38, 200),
+                                      (40, 20_000, 64, 513),
+                                      (5, 20_000, 38, 4096),
+                                      (17, 700, 19, 703),
+                                      (3, 20_000, 64, 9000),
+                                      (2, 8500, 38, 9000)])
 def test_cuda_kernel_matches_plain_version(nq, n, d, k):
     """K3 on the card against its plain version on the same CUDA inputs:
     small-integer data, so every product and sum is exact and d2 and ids
     are bit-equal, ties included (Q = 1 and ragged, N = 1 and ragged,
-    k = 1, k = N, k = MAX_K, D = 19, 38, 64, 384)."""
+    k = 1, k = N, k 512, 513 and 4096 (lists in shared memory, then in
+    global scratch), k 9000 (past the split merge: one split walks the
+    database), k = N + 3 and k = 9000 > N (the (inf, -1) padding),
+    D = 19, 38, 64, 384)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     rng = np.random.default_rng(nq + n + d)
@@ -191,3 +212,36 @@ def test_cuda_kernel_matches_plain_version(nq, n, d, k):
         dp, ip = kt.knn_topk_plain(q.to(dt), x.to(dt), k)
         assert torch.equal(dk, dp)
         assert torch.equal(ik, ip)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,n,d,k", [(37, 5000, 38, 2000),
+                                      (5, 3000, 64, 3100)])
+def test_cuda_kernel_runs_queries_in_halves_past_the_scratch_cap(
+        monkeypatch, nq, n, d, k):
+    """A call whose k-best lists need more scratch than ``_SCRATCH_CAP``
+    runs its queries in halves, down to one query a launch: with the cap
+    at one byte every query goes alone, and the result is still bit-equal
+    to the plain version (one counted launch, the (inf, -1) padding past
+    N included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    monkeypatch.setattr(ops, "_SCRATCH_CAP", 1)
+    calls, launch = [], ops._launch
+
+    def counted(lib, q, *rest):
+        calls.append(q.shape[0])
+        return launch(lib, q, *rest)
+
+    monkeypatch.setattr(ops, "_launch", counted)
+    rng = np.random.default_rng(nq + k)
+    q, x = (torch.from_numpy(rng.integers(-3, 4, shape).astype(np.float32))
+            .cuda() for shape in ((nq, d), (n, d)))
+    before = ops.knn_topk_d2.launches
+    dk, ik = kt.knn_topk_d2(q, x, k)
+    torch.cuda.synchronize()
+    assert ops.knn_topk_d2.launches == before + 1
+    # halved down to single queries: a binary tree of 2 Q - 1 calls
+    assert len(calls) == 2 * nq - 1 and calls.count(1) == nq
+    dp, ip = kt.knn_topk_plain(q, x, k)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)

@@ -130,6 +130,38 @@ def test_topk_smallest_matches_lax_top_k_under_ties(c, k):
     np.testing.assert_array_equal(vals.numpy(), -np.asarray(neg))
 
 
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("nq,c,m,kc,k", [(5, 300, 8, 1024, 20),
+                                         (3, 100, 4, 512, 1)])
+def test_int32_codes_match_interpret_mode_pallas(lut_dtype, nq, c, m, kc, k):
+    """int32 codes (K > 256), as the TPU kernel takes them: the plain
+    version and the CPU wrapper against pq_adc_gather_topk_pallas in
+    interpret mode, d2 within the file's tolerance and ids equal below
+    the k-th score (masked slots at both ends)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.pq_adc import pq_adc_gather_topk_pallas
+    rng = np.random.default_rng(nq + kc)
+    tables = (rng.uniform(size=(nq, m, kc)) * 5).astype(np.float32)
+    codes = rng.integers(0, kc, size=(nq, c, m)).astype(np.int32)
+    base = rng.uniform(size=(nq, c)).astype(np.float32)
+    base[:, -7:] = np.inf
+    dj, ij = pq_adc_gather_topk_pallas(
+        jnp.asarray(tables), jnp.asarray(codes), jnp.asarray(base), k,
+        block_q=8, block_n=128, interpret=True, lut_dtype=lut_dtype)
+    dj, ij = np.asarray(dj), np.asarray(ij)
+    order = np.lexsort((ij, dj), axis=1)
+    dj, ij = (np.take_along_axis(dj, order, axis=1),
+              np.take_along_axis(ij, order, axis=1))
+    below = dj < dj[:, -1:]
+    args = (torch.from_numpy(tables), torch.from_numpy(codes),
+            torch.from_numpy(base), k, lut_dtype)
+    for dt, it in (ops.pq_adc_gather_topk_plain(*args),
+                   ops.pq_adc_gather_topk(*args)):
+        _assert_d2(dt.numpy(), dj, lut_dtype)
+        np.testing.assert_array_equal(it.numpy()[below], ij[below])
+
+
 def test_wrapper_rejects_bad_inputs():
     t = torch.zeros(2, 4, 16)
     codes = torch.zeros(2, 10, 4, dtype=torch.uint8)
@@ -166,3 +198,29 @@ def test_cuda_kernel_matches_plain_version(lut_dtype):
         same = i == ir
         # ids may differ only where the two scores are a near-tie
         assert same.float().mean() > 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("m,kc,k", [(8, 1024, 64), (6, 512, 1)])
+def test_cuda_int32_codes_match_plain_version(lut_dtype, m, kc, k):
+    """K1 with int32 codes (K > 256) on the card against its plain version:
+    int8 bit-equal, f32 / bf16 d2 within rtol 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(kc + m)
+    dev = torch.device("cuda")
+    tables = (rng.uniform(size=(9, m, kc)) * 5).astype(np.float32)
+    codes = rng.integers(0, kc, size=(9, 3001, m)).astype(np.int32)
+    base = rng.uniform(size=(9, 3001)).astype(np.float32)
+    base[:, -5:] = np.inf
+    args = tuple(torch.from_numpy(a).to(dev) for a in (tables, codes, base))
+    before = ops.pq_adc_gather_topk.launches
+    d, i = ops.pq_adc_gather_topk(*args, k, lut_dtype)
+    torch.cuda.synchronize()
+    assert ops.pq_adc_gather_topk.launches == before + 1
+    dr, ir = ops.pq_adc_gather_topk_plain(*args, k, lut_dtype, None)
+    if lut_dtype == "int8":
+        assert torch.equal(d, dr) and torch.equal(i, ir)
+    else:
+        torch.testing.assert_close(d, dr, rtol=1e-6, atol=0)

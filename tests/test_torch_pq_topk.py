@@ -91,6 +91,28 @@ def test_plain_matches_interpret_mode_pallas(lut_dtype, nq, n, m, kc, k):
     np.testing.assert_array_equal(it.numpy()[below], ij[below])
 
 
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("nq,n,m,kc,k", [(5, 300, 8, 1024, 20),
+                                         (3, 200, 4, 512, 1)])
+def test_int32_codes_match_interpret_mode_pallas(lut_dtype, nq, n, m, kc, k):
+    """int32 codes (K > 256), as the TPU kernel takes them: the same d2 and
+    the same ids below the k-th score as pq_adc_topk_pallas in interpret
+    mode, on both the plain version and the CPU wrapper."""
+    jnp, _, pallas = _jax()
+    rng = np.random.default_rng(nq + kc)
+    tables = (rng.uniform(size=(nq, m, kc)) * 5).astype(np.float32)
+    codes = rng.integers(0, kc, size=(n, m)).astype(np.int32)
+    dj, ij = pallas(jnp.asarray(tables), jnp.asarray(codes), k, block_q=8,
+                    block_n=128, interpret=True, lut_dtype=lut_dtype)
+    dj, ij = _lex(np.asarray(dj), np.asarray(ij))
+    below = dj < dj[:, -1:]
+    t, c = torch.from_numpy(tables), torch.from_numpy(codes)
+    for dt, it in (ops.pq_adc_topk_plain(t, c, k, lut_dtype),
+                   ops.pq_adc_topk(t, c, k, lut_dtype)):
+        _assert_d2(dt.numpy(), dj, lut_dtype)
+        np.testing.assert_array_equal(it.numpy()[below], ij[below])
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_int8_exact_ties_keep_lax_order(seed):
     """Integer tables with a caller scale of 1 make many rows score exactly
@@ -161,3 +183,26 @@ def test_cuda_kernel_matches_plain_version(lut_dtype):
     dr, ir = ops.pq_adc_topk_plain(t, c, 64, lut_dtype)
     assert torch.equal(d, dr)
     assert torch.equal(i, ir)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("m,kc,k", [(8, 1024, 64), (6, 512, 1)])
+def test_cuda_int32_codes_match_plain_version(lut_dtype, m, kc, k):
+    """K2 with int32 codes (K > 256) on the card: d2 and ids bit-equal to
+    the plain version (16-byte code loads at M 8, one code at a time at M
+    6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(kc + m)
+    dev = torch.device("cuda")
+    t = torch.from_numpy((rng.uniform(size=(7, m, kc)) * 5).astype(
+        np.float32)).to(dev)
+    c = torch.from_numpy(rng.integers(0, kc, (20_001, m)).astype(
+        np.int32)).to(dev)
+    before = ops.pq_adc_topk.launches
+    d, i = ops.pq_adc_topk(t, c, k, lut_dtype)
+    torch.cuda.synchronize()
+    assert ops.pq_adc_topk.launches == before + 1
+    dr, ir = ops.pq_adc_topk_plain(t, c, k, lut_dtype)
+    assert torch.equal(d, dr) and torch.equal(i, ir)

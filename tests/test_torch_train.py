@@ -355,6 +355,39 @@ def test_checkpoint_round_trip_and_keys(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b), k
 
 
+def test_restore_reads_a_jax_written_bf16_checkpoint(tmp_path):
+    """A checkpoint the JAX package wrote holds a bf16 leaf as numpy's
+    two-byte void dtype (``|V2`` after ``np.load``); the port restores it
+    into a bf16 template bit for bit, beside f32 and int leaves."""
+    jax, jnp = _jax()
+    from repro.runtime.checkpoint import save_checkpoint as jsave
+    bits = np.arange(-300, 300, 7, dtype=np.int16).view(np.uint16)
+    h = jnp.asarray(bits.view(np.int16)).view(jnp.bfloat16)
+    jtree = {"w": jnp.arange(6, dtype=jnp.float32).reshape(2, 3), "h": h,
+             "opt": {"step": jnp.int32(5), "m": [jnp.ones((2, 3))]}}
+    path = jsave(str(tmp_path), 4, jtree)
+    with np.load(path) as d:
+        assert d["['h']"].dtype.kind == "V" and d["['h']"].dtype.itemsize == 2
+    r = restore_checkpoint(path, _state() | {"h": torch.zeros(
+        bits.shape, dtype=torch.bfloat16)})
+    assert r["h"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(r["h"].view(torch.int16).numpy()
+                                  .view(np.uint16), bits)
+    assert torch.equal(r["w"], torch.arange(6.0).reshape(2, 3))
+    assert int(r["opt"]["step"]) == 5
+
+
+def test_jax_restore_refuses_its_own_bf16_leaf(tmp_path):
+    """The reference behaviour the port does not copy: JAX's own
+    restore_checkpoint cannot read back the bf16 leaf it wrote."""
+    jax, jnp = _jax()
+    from repro.runtime import checkpoint as jck
+    tree = {"w": jnp.ones(3, jnp.bfloat16)}
+    path = jck.save_checkpoint(str(tmp_path), 0, tree)
+    with pytest.raises((ValueError, TypeError)):
+        jck.restore_checkpoint(path, tree)
+
+
 def test_checkpoint_retention_mismatch_and_overlay(tmp_path):
     s = _state()
     for i in range(6):
