@@ -2,6 +2,7 @@
 """Chip smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``python3 chip_smoke.py --k2-timings`` times K2 alone: see k2_alone.)
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. device   CUDA must be present; prints the card's name and power limit.
@@ -11,9 +12,12 @@ Phases (any failure exits nonzero; no phase's failure is caught):
   3. edges    each kernel against its plain PyTorch version on edge
               cases. K1: ragged C, masked slots, k > #finite, exact int8
               ties, a deep merge, int32 codes at K 512 and 1024 (M 8 and
-              6, k = 1 and k = C). K2: ragged N, k > N, Q = 1, M not a
-              multiple of 16, a large k, exact int8 ties, N = 1,000,000,
-              int32 codes at K 512 and 1024 (k = 1 and k = N).
+              6, k = 1 and k = C). K2 (every call also repeated, bit for
+              bit): ragged N, k > N, Q = 1, Q = 3 at k = 1, M not a
+              multiple of 16, a large k, k = N + 3, exact int8 ties, int8
+              entries of +-127 at M = 300 (the 16-bit lanes flushed
+              mid-row), N = 1,000,000, int32 codes at K 512 and 1024
+              (k = 1 and k = N).
               K4: N = 1, 2, ragged N, N = 2048, a multi-tile N, repeated
               values, tau = 0 and tau = +inf. K5 (f32 and bf16): S = 1,
               16, 80 (ragged), 4096; G = 1 and 8; dh = 8 to 256; window
@@ -21,10 +25,12 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               tensor-core kernel, f32 on the CUDA-core one); and at bf16
               TinyLlama's heads at S = 32768 and Gemma3-4B's local layers
               (H 8 / KV 4 / dh 256, window 1024) at S = 8192. K6 (f32
-              and bf16): T = 1, 63, 4096 with D x V of 64 x 256 (with and
-              without a masked tail), 64 x 1000, 2048 x 1000 (masked) and
-              2048 x 32000; int32 labels; a tied head (D contiguous); and
-              Gemma3-4B's tied head embed.T (2560, 262144) at T = 512.
+              on the CUDA-core kernel, bf16 on the tensor-core one, each
+              launch counted on its route): T = 1, 63, 4096 with D x V of
+              64 x 256 (with and without a masked tail), 64 x 1000, 2048 x
+              1000 (masked) and 2048 x 32000; int32 labels; a tied head (D
+              contiguous); and Gemma3-4B's tied head embed.T (2560,
+              262144) at T = 512.
               K3 (exact k-NN): Q = 1 and ragged Q; N = 1, N under a
               tile, ragged N; k = 1, k = N, k > N, k 512, 513, 1500 and
               4096 (lists in shared memory, then in global scratch),
@@ -60,9 +66,12 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               codes (batch 256, f32, bf16, int8); the kernel backend's phi
               value and gradient against the fast backend's on the fit
               sample.
-  10. timings K2 and K4 beside their plain versions and bounds; p50
-              latency and QPS of the pq and opq engines; the pq build's
-              stage times. Then F3: pq8x1024:i8@kernel>rr64 (int32 codes
+  10. timings K2 (int8 at batches 1, 8, 64 and 256, f32 and bf16 at
+              256, each a call's time, its kernels' device time, its
+              bound and the plan it launched: queries a block, occupancy,
+              row parts, waves) and K4 beside their plain versions and
+              bounds; p50 latency and QPS of the pq and opq engines; the
+              pq build's stage times. Then F3: pq8x1024:i8@kernel>rr64 (int32 codes
               through K2) on the first 200,000 rows, searched at every
               batch: recall@10 against exact search on the cut, and the
               @jnp route's ids.
@@ -99,15 +108,16 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               TRAIN_GRAD_REL. Then 4 steps of make_train_step(lm_train_
               forward, AdamW(lr 1e-3, warmup 5)), counts zeroed just
               before: each step must launch K5 44 times (forward and remat
-              recompute of 22 layers) and K6 4 times (S / seq_chunk); loss
+              recompute of 22 layers) and K6 4 times (S / seq_chunk), every
+              K6 launch on its bf16 tensor-core route; loss
               and parameters finite. Step time (p50 of steps 1-3),
               tokens/s, share of the bf16 peak, peak memory.
   17. trace   one more training step under torch.profiler.
   18. K6 main K6 against its plain version on path 4's own first sequence
               chunk (T 4096, D 2048, V 32000) at bf16 and upcast to f32;
-              its time beside its plain version's, its bound and the
-              cross_entropy((h @ w).float()) yardstick (two calls; the
-              port never calls it).
+              its time on both routes beside its plain version's, its
+              bound and the cross_entropy((h @ w).float()) yardstick (two
+              calls; the port never calls it).
   19. drill   run_with_restarts at TinyLlama's SMOKE size on the card: 8
               steps, a checkpoint every 2, a failure injected at step 5;
               the final parameters must match an uninterrupted run within
@@ -291,9 +301,11 @@ def cuda_ms(torch, fn, reps, warmup=2):
 
 def device_ms(torch, fn, reps, match):
     """Device time per call, in ms, of the kernels whose names contain
-    ``match``, from a torch.profiler trace of ``reps`` calls. For a kernel
-    shorter than its launch, CUDA events around back-to-back calls time
-    the host's launches instead (``cuda_ms`` is kept beside it)."""
+    ``match`` (a name fragment, or a tuple of them), from a torch.profiler
+    trace of ``reps`` calls. For a kernel shorter than its launch, CUDA
+    events around back-to-back calls time the host's launches instead
+    (``cuda_ms`` is kept beside it)."""
+    matches = (match,) if isinstance(match, str) else tuple(match)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -304,7 +316,8 @@ def device_ms(torch, fn, reps, match):
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and match in e.key)
+             if e.device_type == DeviceType.CUDA
+             and any(mm in e.key for mm in matches))
     check(us > 0, f"the profiler saw no device time of {match!r}")
     return us / reps / 1e3
 
@@ -605,12 +618,18 @@ def k6_inputs(torch, seed, t, d, v, vocab, dtype, tied=False):
 
 
 def compare_k6(torch, fce, name, h, w, labels, vocab):
-    """K6 against its plain version on the same CUDA tensors: per-token
-    loss within K6_TOL (the same f32 products, summed in another order; a
-    bf16 product is exact in f32, so bf16 inputs take the same tolerance),
-    and bit-equal on a second call (no atomics). Returns max |err|."""
+    """K6 against its plain version on the same CUDA tensors: the launch
+    counted on the route ``kernel_route`` names (bf16 h and w on the
+    tensor cores, else the f32 kernel), per-token loss within K6_TOL (the
+    same f32 products, summed in another order; a bf16 product is exact in
+    f32, so bf16 inputs take the same tolerance), and bit-equal on a
+    second call (no atomics). Returns max |err|."""
+    route = fce.kernel_route(h.dtype, w.dtype)
+    n0 = fce.fused_ce_fwd.launches_by_route[route]
     got = fce.fused_ce_fwd(h, w, labels, vocab)
     torch.cuda.synchronize()
+    check(fce.fused_ce_fwd.launches_by_route[route] == n0 + 1,
+          f"{name}: not launched on the {route} route")
     want = fce.fused_ce_fwd_plain(h, w, labels, vocab)
     check(got.dtype == torch.float32 and got.shape == labels.shape,
           f"{name}: output {got.dtype} {tuple(got.shape)}")
@@ -621,8 +640,8 @@ def compare_k6(torch, fce, name, h, w, labels, vocab):
           f"{name}: beyond {K6_TOL} (max err {err})")
     check(torch.equal(fce.fused_ce_fwd(h, w, labels, vocab), got),
           f"{name}: a second call differs")
-    log(f"  {name}: ok, max |err| {err:.3e} (loss up to "
-        f"{float(want.abs().max()):.2f})")
+    log(f"  {name}: ok on the {route} route, max |err| {err:.3e} (loss up "
+        f"to {float(want.abs().max()):.2f})")
     return err
 
 
@@ -910,6 +929,7 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
+    fce.fused_ce_fwd.launches_by_route = dict.fromkeys(fce.ROUTES, 0)
     losses, step_ms, per_step = [], [], []
     for i in range(TRAIN_STEPS):
         n5, n6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
@@ -928,6 +948,12 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
               if fn not in (fa.flash_attention_fwd, fce.fused_ce_fwd)}
     check(all(p == (want5, want6) for p in per_step),
           f"launches per step {per_step}, want ({want5}, {want6})")
+    k6_routes = dict(fce.fused_ce_fwd.launches_by_route)
+    out["k6_launches_by_route"] = k6_routes
+    check(k6_routes == {"bf16": k6_launches, "f32": 0},
+          f"K6 launches by route {k6_routes}: path 4 must take the bf16 "
+          "tensor-core route only")
+    log(f"[path 4] K6 launches by route: {k6_routes}")
     check(not any(others.values()), f"a search kernel ran on path 4: "
           f"{others}")
     check(all(np.isfinite(x) for x in losses), f"non-finite loss {losses}")
@@ -977,6 +1003,10 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
         t = hc.shape[0]
         k6_ms = cuda_ms(torch, lambda: fce.fused_ce_fwd(hc, head, lab,
                                                         cfg.vocab), reps=10)
+        hc32, head32 = hc.float(), head.float()
+        k6_f32_ms = cuda_ms(torch, lambda: fce.fused_ce_fwd(
+            hc32, head32, lab, cfg.vocab), reps=5)
+        del hc32, head32
         plain_ms = cuda_ms(torch, lambda: fce.fused_ce_fwd_plain(
             hc, head, lab, cfg.vocab), reps=3, warmup=1)
         ce = F.cross_entropy((hc @ head).float(), lab, reduction="none")
@@ -985,14 +1015,19 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
         yard_ms = cuda_ms(torch, lambda: F.cross_entropy(
             (hc @ head).float(), lab, reduction="none"), reps=10)
     bound, by, nops, nbytes = k6_bound(t, cfg.d_model, head.shape[1], 2, 2)
-    log(f"[timings] K6 {k6_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({by}: {nops:.4g} ops, {nbytes} B) at T={t} "
+    f32_bound = max(nops / F32_OPS_PER_S,
+                    (nbytes * 2 - t * 12) / HBM_BYTES_PER_S) * 1e3
+    log(f"[timings] K6 bf16 route {k6_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}: {nops:.4g} ops, {nbytes} B) at T={t} "
         f"D={cfg.d_model} V={head.shape[1]} bf16; no single PyTorch call "
         f"computes K6; yardstick cross_entropy((h @ w).float()) "
         f"{yard_ms:.4f} ms (two calls, bf16 logits; max |diff| to K6 "
-        f"{ce_diff:.3e})")
-    k6 = {"ms": k6_ms, "plain_ms": plain_ms, "bound_ms": bound,
-          "bound_by": by, "ops": nops, "bytes": nbytes,
+        f"{ce_diff:.3e}); the f32 route on the same values upcast "
+        f"{k6_f32_ms:.4f} ms (its bound at the f32 CUDA-core peak "
+        f"{f32_bound:.4f} ms)")
+    k6 = {"ms": k6_ms, "f32_route_ms": k6_f32_ms,
+          "f32_route_bound_ms": f32_bound, "plain_ms": plain_ms,
+          "bound_ms": bound, "bound_by": by, "ops": nops, "bytes": nbytes,
           "yardstick_cross_entropy_ms": yard_ms,
           "yardstick_max_abs_diff": ce_diff, "shape": [t, cfg.d_model,
                                                        head.shape[1]]}
@@ -1059,7 +1094,8 @@ def compare_k2(torch, ops, name, tables, codes, k, lut, scale=None):
     """K2 against its plain version on the same CUDA tensors: d2 and ids
     bit-equal at every LUT type (the kernel adds the M terms from 0 in
     ascending m with __fadd_rn, the plain version's order; int8 sums are
-    exact and take the scale once). Returns max |err|."""
+    exact and take the scale once), and a second call bit for bit.
+    Returns max |err|."""
     dk, ik = ops.pq_adc_topk(tables, codes, k, lut, scale)
     torch.cuda.synchronize()
     dp, ip = ops.pq_adc_topk_plain(tables, codes, k, lut, scale)
@@ -1068,8 +1104,115 @@ def compare_k2(torch, ops, name, tables, codes, k, lut, scale=None):
     err = float((dk[fin] - dp[fin]).abs().max()) if fin.any() else 0.0
     check(torch.equal(dk, dp), f"{name}: d2 not bit-equal (max err {err})")
     check(torch.equal(ik, ip), f"{name}: ids differ")
-    log(f"  {name}: ok, bit-equal")
+    d2, i2 = ops.pq_adc_topk(tables, codes, k, lut, scale)
+    check(torch.equal(d2, dk) and torch.equal(i2, ik),
+          f"{name}: a second call differs")
+    log(f"  {name}: ok, bit-equal, repeats")
     return err
+
+
+def k2_bound(nq, n, m, kc, k):
+    """The least time of one K2 call: the larger of its bytes (the uint8
+    codes, the f32 tables it is handed and the (d2, row) pairs out, each
+    once) at the HBM rate and its operations (M adds and one rescale a
+    (query, row)) at the f32 peak. Returns (ms, by)."""
+    nbytes = n * m + nq * m * kc * 4 + nq * k * 8
+    nops = nq * n * (m + 1)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+K2_RUNS = (("int8", BATCHES), ("bf16", (256,)), ("f32", (256,)))
+
+
+def k2_time_one(torch, ops, t, codes, lut):
+    """One K2 shape: the call's time by CUDA events over back-to-back
+    calls (``ms``; at small batches the host's launches dominate it), the
+    median of 100 single calls each synchronized, on the host's clock
+    (``host_ms``: what one call costs a caller that waits for it), the
+    device time of K2's own kernels from a profiler trace (the scan and
+    the merge), the plain version's time and the bound."""
+    b, m, kc = t.shape
+    ms = cuda_ms(torch, lambda: ops.pq_adc_topk(t, codes, RERANK, lut),
+                 reps=10)
+    one = []
+    for _ in range(100):
+        t0 = time.perf_counter()
+        ops.pq_adc_topk(t, codes, RERANK, lut)
+        torch.cuda.synchronize()
+        one.append((time.perf_counter() - t0) * 1e3)
+    dev_ms = device_ms(torch, lambda: ops.pq_adc_topk(t, codes, RERANK,
+                                                      lut), reps=5,
+                       match=("adc_shared_select", "select_topk"))
+    plain_ms = cuda_ms(torch, lambda: ops.pq_adc_topk_plain(
+        t, codes, RERANK, lut), reps=3, warmup=1)
+    bound, by = k2_bound(b, codes.shape[0], m, kc, RERANK)
+    return {"ms": ms, "host_ms": float(np.median(one)), "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
+
+def k2_timings(torch, ops, tables, codes):
+    """K2 on path 2's own tables and codes: int8 at every batch of
+    BATCHES, f32 and bf16 at 256 (``k2_time_one``), with the plan the
+    kernel launched (queries a block, occupancy, blocks, waves)."""
+    kc = tables["int8"].shape[2]
+    out = {}
+    for lut, batches in K2_RUNS:
+        for b in batches:
+            t = tables[lut][:b]
+            run = k2_time_one(torch, ops, t, codes, lut)
+            plan = ops.pq_adc_topk_plan(codes, b, kc, RERANK, lut)
+            out[f"{lut} Q={b}"] = dict(run, plan=plan)
+            log(f"[timings] K2 {lut} Q={b}: {run['ms']:.4f} ms a call, "
+                f"{run['host_ms']:.4f} ms a synchronized call, "
+                f"{run['device_ms']:.4f} ms of its kernels, plain "
+                f"{run['plain_ms']:.4f} ms, bound {run['bound_ms']:.4f} ms "
+                f"({run['bound_by']}); plan QB {plan['qb']} "
+                f"({plan['entry']} entries, {plan['smem']} B shared a "
+                f"block), {plan['parts']} row parts, "
+                f"{plan['blocks_per_sm']} blocks an SM (occupancy) x "
+                f"{plan['sms']} SMs, {plan['blocks']} blocks = "
+                f"{plan['waves']:.3f} waves")
+    return out
+
+
+def k2_alone():
+    """``python3 chip_smoke.py --k2-timings``: K2 alone at path 2's shapes
+    (N 1,000,000, M 16, K 256, k 64, uint8 codes) on codes and positive
+    tables drawn from a seed, at K2_RUNS, each with ``k2_time_one``'s
+    times. It calls nothing of the port but ``pq_adc_topk`` and
+    ``pq_adc_topk_plain``, whose signatures every version of K2 shares,
+    so a copy of this script at the root of another checkout times that
+    checkout's K2 on the same inputs. Prints the card's line and one JSON
+    line {"k2_alone": {...}}; exits nonzero without a card."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.kernels.pq_adc import ops
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    codes = torch.from_numpy(rng.integers(0, 256, (N, 16)).astype(
+        np.uint8)).to(dev)
+    tables = torch.from_numpy((rng.uniform(size=(256, 16, 256)) * 5).astype(
+        np.float32)).to(dev)
+    out = {"card": smi}
+    for lut, batches in K2_RUNS:
+        for b in batches:
+            run = k2_time_one(torch, ops, tables[:b], codes, lut)
+            out[f"{lut} Q={b}"] = run
+            log(f"[k2 alone] {lut} Q={b}: {run['ms']:.4f} ms a call, "
+                f"{run['host_ms']:.4f} ms a synchronized call, "
+                f"{run['device_ms']:.4f} ms of its kernels, plain "
+                f"{run['plain_ms']:.4f} ms, bound {run['bound_ms']:.4f} ms")
+    print(json.dumps({"k2_alone": out}))
+    return 0
 
 
 def edge_cases_k2(torch, ops):
@@ -1084,8 +1227,10 @@ def edge_cases_k2(torch, ops):
         for (nq, n, m, kc, k) in ((9, 5003, 16, 256, 12),    # ragged N
                                   (5, 40, 16, 256, 64),      # k > N
                                   (1, 100_000, 16, 256, 64),  # Q = 1
+                                  (3, 50_000, 16, 256, 1),   # QB 4, k = 1
                                   (13, 3000, 8, 64, 20),     # byte loads
                                   (4, 20_000, 16, 256, 1000),  # large k
+                                  (9, 5003, 6, 256, 5006),   # k = N + 3
                                   (16, N, 16, 256, 64)):     # N = 1M
             t = (rng.uniform(size=(nq, m, kc)) * 5).astype(np.float32)
             codes = rng.integers(0, kc, (n, m)).astype(np.uint8)
@@ -1100,6 +1245,12 @@ def edge_cases_k2(torch, ops):
     check(int((dp[:, 1:] == dp[:, :-1]).sum()) > 50, "K2 ties are not real")
     compare_k2(torch, ops, "K2 edge int8 exact ties", put(t), put(codes),
                50, "int8", torch.ones(6, device=dev))
+    # int8 entries of +-127 past 256 subspaces: the 16-bit lanes flushed
+    # into int32 mid-row
+    t = rng.choice([-1.0, 1.0], size=(5, 300, 4)).astype(np.float32)
+    codes = rng.integers(0, 4, (3000, 300)).astype(np.uint8)
+    compare_k2(torch, ops, "K2 edge int8 M=300 lane flush", put(t),
+               put(codes), 10, "int8")
     # int32 codes (K > 256): ragged N, k = 1 and k = N, M 8 and M 6
     for lut in LUTS:
         for (nq, n, m, kc, k) in ((9, 5003, 8, 512, 1), (5, 20_001, 8, 1024, 64),
@@ -2077,23 +2228,18 @@ def main():
     result["phi_kernel_vs_fast"] = phi_err
     log(f"[K4 main] phi kernel vs fast on the fit sample: {phi_err}")
 
-    # 10. timings: K2 at batch 256, K4 at the fit's N, path 2's searches
+    # 10. timings: K2 at every batch, K4 at the fit's N, path 2's searches
     m2, kc2 = pix.cbnorm.shape
-    k2_ms = cuda_ms(torch, lambda: ops.pq_adc_topk(
-        tc, pix.codes, RERANK, "int8"), reps=10)
-    k2_plain_ms = cuda_ms(torch, lambda: ops.pq_adc_topk_plain(
-        tc, pix.codes, RERANK, "int8"), reps=3, warmup=1)
-    k2_bytes = (N * m2                      # codes, uint8
-                + 256 * m2 * kc2 * 4        # tables, f32 (quantized inside)
-                + 256 * RERANK * 8)         # (d2, row) out
-    k2_ops = 256 * N * (m2 + 1)             # M adds + one rescale per row
-    k2_bound = max(k2_bytes / HBM_BYTES_PER_S, k2_ops / F32_OPS_PER_S) * 1e3
-    k2_by = ("bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S
-             else "operations")
-    log(f"[timings] K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
-        f"{k2_bound:.4f} ms ({k2_by}: {k2_bytes} B, {k2_ops} ops) at Q=256 "
-        f"N={N} M={m2} K={kc2} k={RERANK} int8; no single PyTorch call "
-        "computes K2, so no library time")
+    k2_runs = k2_timings(torch, ops, {"f32": t32, "bf16": tc, "int8": tc},
+                         pix.codes)
+    k2_main = k2_runs["int8 Q=256"]
+    k2_ms, k2_bound, k2_by, k2_plain_ms = (
+        k2_main["ms"], k2_main["bound_ms"], k2_main["bound_by"],
+        k2_main["plain_ms"])
+    log(f"[timings] K2 {k2_ms:.4f} ms ({k2_main['device_ms']:.4f} ms of "
+        f"its kernels), plain {k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms "
+        f"({k2_by}) at Q=256 N={N} M={m2} K={kc2} k={RERANK} int8; no "
+        "single PyTorch call computes K2, so no library time")
     p = xs @ w
     tau = fast_objective.find_quantile_threshold(
         p, num_selected_pairs(FIT_SAMPLE, FIT["b"]))  # the fit's threshold
@@ -2113,7 +2259,7 @@ def main():
         f"{k4_bound:.6f} ms ({k4_by}: {k4_bytes} B, {k4_ops} ops) at "
         f"N={n4}; no single PyTorch call computes K4, so no library time")
     result["k2_timing"] = {"ms": k2_ms, "plain_ms": k2_plain_ms,
-                           "bound_ms": k2_bound}
+                           "bound_ms": k2_bound, "runs": k2_runs}
     result["k4_timing"] = {"ms": k4_ms, "call_ms": k4_call_ms,
                            "plain_ms": k4_plain_ms, "bound_ms": k4_bound}
     log(f"[timings] path 2 pq build stages (s): "
@@ -2192,7 +2338,11 @@ def main():
         "replaces": "src/repro/kernels/pq_adc/kernel.py:120",
         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-        "library_ms": None}, {
+        "library_ms": None,
+        "note": "ms: one call at Q 256 int8 on path 2's tables; "
+                "result.k2_timing.runs has int8 at batches 1/8/64/256 and "
+                "f32/bf16 at 256, each with its kernels' device time and "
+                "the plan (queries a block, occupancy, waves)"}, {
         "name": "pairwise_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/mpad_pairwise/csrc/"
                   "pairwise_stats.cu",
@@ -2213,11 +2363,15 @@ def main():
                 "launches_path4: path 4's training steps",
         "launches_path4": k5_train_launches}, {
         "name": "fused_ce_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce_fwd.cu",
+        "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce_bf16.cu",
         "replaces": "src/repro/kernels/fused_ce/kernel.py:64",
         "launches": k6_launches, "max_abs_err": k6_err, "ms": k6["ms"],
         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
-        "bound_by": k6["bound_by"], "library_ms": None}, {
+        "bound_by": k6["bound_by"], "library_ms": None,
+        "note": "bf16 on the tensor cores (mma.sync), every launch of path "
+                "4 on it; f32 and mixed inputs on fused_ce_fwd.cu (the "
+                "edge cases; result.k6_timing.f32_route_ms at path 4's "
+                "shape)"}, {
         "name": "knn_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
         "replaces": "src/repro/kernels/knn_topk/kernel.py:72",
@@ -2240,4 +2394,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(k2_alone() if sys.argv[1:] == ["--k2-timings"] else main())

@@ -1,15 +1,19 @@
 """Fused cross-entropy (kernel K6; port of ``repro.kernels.fused_ce``):
-the wrapper that launches the CUDA kernel, and the ``autograd.Function``
+the wrapper that launches the CUDA kernels, and the ``autograd.Function``
 that the JAX package's custom VJP corresponds to.
 
 ``fused_ce_fwd`` takes its plain version for tensors on the CPU, and only
-for those; for CUDA tensors it launches the CUDA kernel
-(``csrc/fused_ce_fwd.cu``) or raises. Each launch adds one to
-``fused_ce_fwd.launches``. ``fused_ce``'s backward is the JAX ``_bwd``: an
-lse pass over vocab chunks of ``gcd(4096, V)`` columns, then a pass that
-forms ``dh`` and ``dw`` chunk by chunk; neither writes a (T, V) tensor. Its
-products are ``torch.matmul``, as JAX leaves them to XLA outside any
-kernel.
+for those; for CUDA tensors it launches a CUDA kernel or raises.
+``kernel_route`` picks the kernel from the dtypes alone: bf16 h and w go
+to the tensor-core kernel (``csrc/fused_ce_bf16.cu``, ``mma.sync`` with
+f32 accumulators), f32 and mixed inputs to the CUDA-core kernel
+(``csrc/fused_ce_fwd.cu``, f32 FMAs; TF32 products would not be exact).
+Each launch adds one to ``fused_ce_fwd.launches`` and to its route's entry
+of ``fused_ce_fwd.launches_by_route``. ``fused_ce``'s backward is the JAX
+``_bwd``: an lse pass over vocab chunks of ``gcd(4096, V)`` columns, then
+a pass that forms ``dh`` and ``dw`` chunk by chunk; neither writes a
+(T, V) tensor. Its products are ``torch.matmul``, as JAX leaves them to
+XLA outside any kernel.
 """
 from __future__ import annotations
 
@@ -18,25 +22,43 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import library
+from .build import bf16_library, library
 from .ref import fused_ce_fwd_plain
 
-__all__ = ["fused_ce", "fused_ce_fwd", "split_vocab"]
+__all__ = ["fused_ce", "fused_ce_fwd", "split_vocab", "kernel_route",
+           "ROUTES"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _LABEL_DTYPES = (torch.int32, torch.int64)
 _NEG_INF = -1e30
-BT, BV = 64, 128          # the kernel's row tile and vocab tile
-_TARGET_BLOCKS = 528      # two waves of 2 blocks on each of 132 SMs
+ROUTES = ("bf16", "f32")
+# each route's row tile and vocab tile, and the blocks its grid aims at:
+# the f32 kernel two waves of 2 blocks on each of 132 SMs, the bf16 kernel
+# one wave of 1
+_ROW_TILE = {"f32": 64, "bf16": 128}
+_COL_TILE = {"f32": 128, "bf16": 256}
+_TARGET_BLOCKS = {"f32": 528, "bf16": 132}
 
 
-def split_vocab(t: int, v: int) -> Tuple[int, int]:
+def kernel_route(h_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
+    """The kernel a CUDA call takes (one of ``ROUTES``), a function of the
+    dtypes alone: bf16 h and w -> the tensor-core kernel; f32 or mixed ->
+    the CUDA-core kernel."""
+    for dt in (h_dtype, w_dtype):
+        if dt not in _DTYPES:
+            raise TypeError(f"no kernel for dtype {dt}")
+    if h_dtype == w_dtype == torch.bfloat16:
+        return "bf16"
+    return "f32"
+
+
+def split_vocab(t: int, v: int, route: str) -> Tuple[int, int]:
     """(n_split, tiles_per_split): the vocab slices K6 spreads over its
-    grid's second axis, so that T / 64 row tiles times the slices give the
-    card about two waves of blocks."""
-    row_tiles = -(-t // BT)
-    n_vtiles = -(-v // BV)
-    n_split = max(1, min(n_vtiles, _TARGET_BLOCKS // row_tiles))
+    grid's second axis, so that the row tiles times the slices give the
+    card the blocks ``route``'s kernel aims at."""
+    row_tiles = -(-t // _ROW_TILE[route])
+    n_vtiles = -(-v // _COL_TILE[route])
+    n_split = max(1, min(n_vtiles, _TARGET_BLOCKS[route] // row_tiles))
     per = -(-n_vtiles // n_split)
     return -(-n_vtiles // per), per
 
@@ -73,29 +95,76 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"no kernel for device {h.device}")
     t, d = h.shape
     v = w.shape[1]
+    route = kernel_route(h.dtype, w.dtype)
     out = torch.empty((t,), dtype=torch.float32, device=h.device)
     if t == 0:
         return out
-    n_split, per = split_vocab(t, v)
+    n_split, per = split_vocab(t, v, route)
     partial = torch.empty((3, n_split, t), dtype=torch.float32,
                           device=h.device)
     labels = labels.contiguous()
-    lib = library()
+    voc = v if vocab is None else int(vocab)
+    i64 = int(labels.dtype == torch.int64)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.qpad_fused_ce_fwd(
-            h.data_ptr(), w.data_ptr(), labels.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), int(h.dtype == torch.bfloat16),
-            int(w.dtype == torch.bfloat16), int(labels.dtype == torch.int64),
-            t, d, v, v if vocab is None else int(vocab), n_split, per,
-            *h.stride(), *w.stride(), stream)
+        if route == "bf16":
+            hb, wb, tied = _bf16_operands(h, w)
+            err = bf16_library().qpad_fused_ce_bf16(
+                hb.data_ptr(), wb.data_ptr(), labels.data_ptr(),
+                out.data_ptr(), partial.data_ptr(), int(tied), i64, t,
+                hb.shape[1], v, voc, n_split, per, hb.stride(0),
+                wb.stride(1) if tied else wb.stride(0), stream)
+        else:
+            err = library().qpad_fused_ce_fwd(
+                h.data_ptr(), w.data_ptr(), labels.data_ptr(),
+                out.data_ptr(), partial.data_ptr(),
+                int(h.dtype == torch.bfloat16),
+                int(w.dtype == torch.bfloat16), i64, t, d, v, voc, n_split,
+                per, *h.stride(), *w.stride(), stream)
     if err != 0:
-        raise RuntimeError(f"fused_ce_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_ce_fwd ({route}) launch failed: CUDA "
+                           f"error {err}")
     fused_ce_fwd.launches += 1
+    fused_ce_fwd.launches_by_route[route] += 1
     return out
 
 
+def _aligned_rows(x: torch.Tensor) -> bool:
+    """Rows of 16-byte aligned, contiguous bf16 (8 elements per chunk)."""
+    return (x.stride(1) == 1 and x.stride(0) % 8 == 0
+            and x.data_ptr() % 16 == 0)
+
+
+def _bf16_operands(h, w):
+    """(h, w, tied) as the bf16 kernel reads them: h (T, Dp) and the head
+    either untied, (Dp, V) with V contiguous, or tied, w.T a (V, Dp) matrix
+    with D contiguous; Dp is D rounded up to 8 and every row 16-byte
+    aligned. Returns the inputs themselves when they already are (the LM's
+    heads are); otherwise zero-padded copies, whose extra depth adds 0 to
+    every product and whose extra columns the kernel masks."""
+    t, d = h.shape
+    v = w.shape[1]
+    dp = -(-d // 8) * 8
+    if dp != d or not _aligned_rows(h):
+        hp = torch.zeros((t, dp), dtype=h.dtype, device=h.device)
+        hp[:, :d] = h
+        h = hp
+    tied = w.stride(0) == 1 and w.stride(1) != 1
+    if tied:
+        if dp != d or not _aligned_rows(w.T):
+            wp = torch.zeros((v, dp), dtype=w.dtype, device=w.device)
+            wp[:, :d] = w.T
+            w = wp.T
+    elif dp != d or v % 8 or not _aligned_rows(w):
+        wp = torch.zeros((dp, -(-v // 8) * 8), dtype=w.dtype,
+                         device=w.device)
+        wp[:d, :v] = w
+        w = wp
+    return h, w, tied
+
+
 fused_ce_fwd.launches = 0
+fused_ce_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _masked_logits(h32, wv, c0, voc):

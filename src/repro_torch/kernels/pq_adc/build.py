@@ -31,13 +31,10 @@ def _declare_gather_topk(lib: ctypes.CDLL):
 
 def _declare_topk(lib: ctypes.CDLL):
     lib.qpad_pq_adc_topk.argtypes = [
-        _VP, _I32, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP,
-        _VP, _VP, _VP]
+        _VP, _I32, _I32, _I64, _VP, _VP] + [_I32] * 9 + [_VP] * 5
     lib.qpad_pq_adc_topk.restype = _I32
-    lib.qpad_pq_adc_topk_scratch.argtypes = [_I32] * 6
-    lib.qpad_pq_adc_topk_scratch.restype = _I64
-    lib.qpad_pq_adc_topk_smem.argtypes = [_I32] * 4
-    lib.qpad_pq_adc_topk_smem.restype = _I64
+    lib.qpad_pq_adc_topk_plan.argtypes = [_I32] * 9 + [_VP]
+    lib.qpad_pq_adc_topk_plan.restype = _I32
 
 
 def gather_topk_library() -> ctypes.CDLL:

@@ -11,7 +11,7 @@
 // query in lexicographic order (ties go to the lower row, the order of
 // lax.top_k), with (+inf, -1) where fewer than k rows exist. Codes are
 // uint8 (K <= 256) or int32 (K > 256), widened in registers. int8 tables
-// sum exactly in int32 and take one per-query scale, one rounding
+// sum exactly in integers and take one per-query scale, one rounding
 // (__fmul_rn); bf16 and f32 tables sum in f32 from 0 in ascending m with
 // __fadd_rn, the order of the plain version (ref.py) and of the JAX
 // reference, so all three agree bit for bit.
@@ -19,23 +19,53 @@
 // What bounds it: operations. At the engine's shapes (Q=256, N=1M, M=16,
 // K=256) it reads 16 MB of codes and 4 MB of tables but does Q*N*M table
 // lookups and adds, 4.1 G, which the card's f32 rate bounds at ~0.065 ms.
+// In practice the lookups are shared-memory gathers at random codes, and
+// the shared-memory pipe is the limit: a warp's gather of random entries
+// costs more cycles the more bytes each lane reads.
 //
 // What the design does about that: the TPU kernel turns each lookup into a
 // one-hot MXU contraction; here the tables sit in shared memory and a
-// lookup is one shared-memory load. The codes are shared by all queries, so
-// each block holds the tables of QB queries (8 when they fit: 4 KB each in
-// int8 at M=16, K=256) and every code row it loads (one 16-byte load when M
-// is a multiple of 16) serves all QB of them: the code bytes are read
-// Q/QB times, not Q times. The rows are split over the blocks of a second
-// grid axis so that a batch of one query still fills the card. Selection
-// is a running threshold rather than a sort of every score: each block
-// keeps, per query, its current k best in shared memory, sorted; a row
-// enters only if it sorts before the k-th of them. After a tile of rows
-// the warp that owns the query sorts the newcomers into its list (warp-
-// level bitonic sort, no block barrier); past the first tile few rows
-// pass, so the sort work falls with the number of rows seen. The per-block
-// lists are merged by topk_select.cuh's passes, as in K1. Not yet: a
-// cp.async / TMA ring for the code stream, bank-conflict-free tables.
+// lookup is a shared-memory load. The codes are shared by all queries, so
+// a block holds the tables of QB queries (8, 4, 2 or 1: no more than the
+// batch has) and every code row it loads serves all QB of them. The
+// tables are staged query-interleaved, [m][code][qi] (the wrapper packs
+// them so: ops.pack_shared_tables), so the QB entries of one (m, code) are
+// one vector and ONE load serves every query of the block: for 8 queries
+// 8 bytes of int8 (LDS.64), 16 of bf16 (LDS.128), 32 of f32. That replaces
+// QB byte-wide loads, each with its own bank conflicts. Random codes still
+// conflict (the bank group a lane hits is set by its code); no padding or
+// swizzle of the code stride spreads random codes further. int8 entries q
+// are staged as the bytes q + 128 in [1, 255] (the int8 bits with the sign
+// bit flipped); in registers one byte permute spreads two queries' bytes
+// into the 16-bit lanes of a word, and one integer add sums both lanes (no
+// carry crosses a lane for up to 256 terms, 256 * 255 < 65536). Every 256
+// terms the lanes are flushed into int32 sums and the bias taken off, so
+// the sum stays exact at any M. One byte an entry halves the bytes a
+// gather moves against 16-bit staging, which timed slower on the card.
+//
+// Selection is a running threshold rather than a sort of every score:
+// each block keeps, per query, its current k best in shared memory,
+// sorted; a row enters only if it sorts before the k-th of them (the
+// bar). The rows are scanned in chunks of one row a thread. A query's
+// newcomers wait in its list room (``work`` - k pairs, from the wrapper)
+// and are sorted into its list (a warp's bitonic sort, by the warp that
+// owns the query) only when the next chunk could overflow a room, not
+// after every chunk, and then all lists at once. The block learns that at
+// the chunk's own barrier (__syncthreads_or), from the insertions that
+// found a count at the limit, so no thread reads a count that another may
+// already be raising for the next chunk. The bars are refreshed after each
+// sort. A stale bar lets a few more rows in, never a row of the k best
+// out, and a block stops for a handful of sorts instead of one every chunk
+// (sorting every chunk took most of the kernel's time on the card). Lists of up to 512 pairs (k <= 256) are sorted in registers, with
+// shuffles between lanes (warp_sort512), which reads and writes shared
+// memory once where the shared-memory sort does at every stage; longer
+// lists take topk_select.cuh's shared-memory sort. The rows are split
+// over the blocks of a second grid axis so that a batch of one query
+// still fills the card; the split is planned from the occupancy the kernel
+// really gets (cudaOccupancyMaxActiveBlocksPerMultiprocessor) so that the
+// blocks fill whole waves. The per-block lists are merged by
+// topk_select.cuh's fixed-order passes, as in K1: no atomics on scores, so
+// a call repeats bit for bit. Not yet: sorts that do not stop the block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,99 +76,208 @@
 
 namespace {
 
-enum LutMode { kF32 = 0, kBF16 = 1, kInt8 = 2 };
+// How one table entry is staged (ops.py's ENTRY_MODES)
+enum Entry { kEF32 = 0, kEBF16 = 1, kEU8 = 2 };
 
-constexpr int kMinWork = 1024;      // list + newcomers per query (pow2)
 constexpr int kSmemLimit = 232448;  // bytes a Hopper block may use
-constexpr int kBlocksPerSm = 4;     // grid target: blocks per SM
+constexpr int kU8Bias = 128;        // int8 q staged as the byte q + 128
+constexpr int kLaneFlush = 256;     // terms a 16-bit lane sums exactly
 
-// Work length per query: a power of two >= 2k and >= kMinWork. Its first k
-// entries are the list; a tile of (work - k) rows can add at most that
-// many newcomers, so it never overflows.
-__host__ __device__ inline int work_for(int k) {
-  int w = kMinWork;
-  while (w < 2 * k) w <<= 1;
-  return w;
+__host__ __device__ constexpr int entry_bytes(int e) {
+  return e == kEF32 ? 4 : (e == kEBF16 ? 2 : 1);
 }
 
-// Bytes of one query's table in shared memory: int8 stays int8, bf16 and
-// f32 are staged as f32.
-__host__ __device__ inline size_t table_bytes(int mode, int m, int kc) {
-  size_t b = static_cast<size_t>(m) * kc * (mode == kInt8 ? 1 : 4);
+// Bytes of one group's packed tables: QB queries x M x K entries, padded
+// to 16 (the wrapper pads each group the same way).
+inline size_t table_bytes(int e, int qb, int m, int kc) {
+  const size_t b = static_cast<size_t>(qb) * m * kc * entry_bytes(e);
   return (b + 15) & ~static_cast<size_t>(15);
 }
 
-inline size_t smem_bytes(int mode, int qb, int m, int kc, int k) {
-  return qb * (table_bytes(mode, m, kc) + 8 * static_cast<size_t>(
-      work_for(k))) + 16 * sizeof(int);
+inline size_t smem_bytes(int e, int qb, int m, int kc, int work) {
+  return table_bytes(e, qb, m, kc) +
+         static_cast<size_t>(qb) * 8 * work + 16 * sizeof(int);
 }
 
-// Queries per block: the most of 8, 4, 2, 1 whose tables and lists fit.
-inline int queries_per_block(int mode, int m, int kc, int k) {
-  int qb = 8;
-  while (qb > 1 && smem_bytes(mode, qb, m, kc, k) > kSmemLimit) qb >>= 1;
-  return qb;
+// Ascending sort of the 512 (key, slot) pairs at key / slot by one warp,
+// in registers: lane l holds pairs 16 l .. 16 l + 15. The network is the
+// bitonic one of topk_select.cuh's warp_bitonic_sort (so the order is the
+// same); its stages with a stride below 16 swap within a lane's
+// registers, the 15 with a larger stride trade with the partner lane by
+// shuffles. Shared memory is read and written once, where the
+// shared-memory sort reads and writes every pair at each of 45 stages.
+constexpr int kRegSort = 512;
+
+__device__ __forceinline__ void warp_sort512(float* key, int* slot) {
+  const int lane = threadIdx.x & 31;
+  float k[16];
+  int sl[16];
+#pragma unroll
+  for (int r = 0; r < 16; r += 4) {
+    const float4 kv = *reinterpret_cast<const float4*>(key + lane * 16 + r);
+    const int4 sv = *reinterpret_cast<const int4*>(slot + lane * 16 + r);
+    k[r] = kv.x; k[r + 1] = kv.y; k[r + 2] = kv.z; k[r + 3] = kv.w;
+    sl[r] = sv.x; sl[r + 1] = sv.y; sl[r + 2] = sv.z; sl[r + 3] = sv.w;
+  }
+#pragma unroll
+  for (int size = 2; size <= kRegSort; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      if (j >= 16) {
+        const int pl = j >> 4;                 // the partner lane's offset
+        const bool keep_min = ((lane & pl) == 0) == (((lane * 16) & size) == 0);
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float ok = __shfl_xor_sync(0xffffffffu, k[r], pl);
+          const int os = __shfl_xor_sync(0xffffffffu, sl[r], pl);
+          if (sorts_before(ok, os, k[r], sl[r]) == keep_min) {
+            k[r] = ok;
+            sl[r] = os;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          if ((r & j) == 0) {
+            const int q = r | j;
+            const bool up = ((lane * 16 + r) & size) == 0;
+            if (sorts_after(k[r], sl[r], k[q], sl[q]) == up) {
+              const float tk = k[r];
+              const int ts = sl[r];
+              k[r] = k[q];
+              sl[r] = sl[q];
+              k[q] = tk;
+              sl[q] = ts;
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 16; r += 4) {
+    *reinterpret_cast<float4*>(key + lane * 16 + r) =
+        make_float4(k[r], k[r + 1], k[r + 2], k[r + 3]);
+    *reinterpret_cast<int4*>(slot + lane * 16 + r) =
+        make_int4(sl[r], sl[r + 1], sl[r + 2], sl[r + 3]);
+  }
 }
 
-struct Plan {
-  int qb, parts, rows_per_part;
-};
-
-inline Plan plan_for(int mode, int nq, int n, int m, int kc, int k) {
-  Plan p;
-  p.qb = queries_per_block(mode, m, kc, k);
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int groups = (nq + p.qb - 1) / p.qb;
-  const int tile = work_for(k) - k;
-  const long long max_parts = (static_cast<long long>(n) + tile - 1) / tile;
-  const long long want = (kBlocksPerSm * sms + groups - 1) / groups;
-  long long parts = want < max_parts ? want : max_parts;
-  if (parts < 1) parts = 1;
-  p.rows_per_part = static_cast<int>((n + parts - 1) / parts);
-  p.parts = (n + p.rows_per_part - 1) / p.rows_per_part;
-  return p;
+// The QB entries of code ``code`` at subspace ``mm``: NB bytes as words.
+template <int NB>
+__device__ __forceinline__ void load_entry(const unsigned char* t, int idx,
+                                           uint32_t (&w)[(NB + 3) / 4]) {
+  if constexpr (NB >= 16) {
+#pragma unroll
+    for (int j = 0; j < NB / 16; ++j) {
+      const uint4 v = reinterpret_cast<const uint4*>(t)[idx * (NB / 16) + j];
+      w[4 * j] = v.x;
+      w[4 * j + 1] = v.y;
+      w[4 * j + 2] = v.z;
+      w[4 * j + 3] = v.w;
+    }
+  } else if constexpr (NB == 8) {
+    const uint2 v = reinterpret_cast<const uint2*>(t)[idx];
+    w[0] = v.x;
+    w[1] = v.y;
+  } else if constexpr (NB == 4) {
+    w[0] = reinterpret_cast<const uint32_t*>(t)[idx];
+  } else if constexpr (NB == 2) {
+    w[0] = reinterpret_cast<const unsigned short*>(t)[idx];
+  } else {
+    w[0] = t[idx];
+  }
 }
 
-template <int MODE, int QB, typename CT>
-__global__ void __launch_bounds__(kThreads)
-adc_shared_select(const void* __restrict__ tables,
+// The QB scores of one code row: f32 / bf16 added from 0 in ascending m;
+// int8 summed exactly and scaled once. ``each(m0, mc, f)`` feeds the row's
+// codes m0 .. m0 + mc - 1 to f(m, code) in ascending m.
+template <int E, int QB, typename Each>
+__device__ __forceinline__ void score_codes(const unsigned char* t, int m,
+                                            int kc, Each&& each,
+                                            const float (&s)[QB],
+                                            float (&d)[QB]) {
+  constexpr int NB = QB * entry_bytes(E);
+  constexpr int NW = (NB + 3) / 4;
+  if constexpr (E == kEF32 || E == kEBF16) {
+#pragma unroll
+    for (int qi = 0; qi < QB; ++qi) d[qi] = 0.f;
+    each(0, m, [&](int mm, int code) {
+      uint32_t w[NW];
+      load_entry<NB>(t, mm * kc + code, w);
+#pragma unroll
+      for (int qi = 0; qi < QB; ++qi) {
+        float x;
+        if constexpr (E == kEF32) {
+          x = __uint_as_float(w[qi]);
+        } else {                       // bf16 widened exactly to f32
+          x = __uint_as_float((qi & 1) ? (w[qi >> 1] & 0xffff0000u)
+                                       : (w[qi >> 1] << 16));
+        }
+        d[qi] = __fadd_rn(d[qi], x);
+      }
+    });
+  } else {
+    // int8 staged as biased bytes: two queries' bytes are spread into the
+    // 16-bit lanes of one word by one byte permute, and one integer add
+    // sums both lanes; every kLaneFlush terms the lanes are flushed into
+    // int32 sums and the bias taken off
+    constexpr int NL = (QB + 1) / 2;           // words of 16-bit lanes
+    int acc[QB];
+#pragma unroll
+    for (int qi = 0; qi < QB; ++qi) acc[qi] = 0;
+    for (int m0 = 0; m0 < m; m0 += kLaneFlush) {
+      const int mc = min(kLaneFlush, m - m0);
+      uint32_t lane[NL];
+#pragma unroll
+      for (int j = 0; j < NL; ++j) lane[j] = 0;
+      each(m0, mc, [&](int mm, int code) {
+        uint32_t w[NW];
+        load_entry<NB>(t, mm * kc + code, w);
+#pragma unroll
+        for (int j = 0; j < NL; ++j)
+          lane[j] += __byte_perm(w[j >> 1], 0, (j & 1) ? 0x5352 : 0x5150);
+      });
+#pragma unroll
+      for (int qi = 0; qi < QB; ++qi)
+        acc[qi] += static_cast<int>((lane[qi >> 1] >> (16 * (qi & 1))) &
+                                    0xffffu) - kU8Bias * mc;
+    }
+#pragma unroll
+    for (int qi = 0; qi < QB; ++qi)
+      d[qi] = __fmul_rn(static_cast<float>(acc[qi]), s[qi]);
+  }
+}
+
+// Grid (query groups, row parts). Block (x, y) scans rows y*rows_per_part
+// .. of the code matrix for the QB queries of group x, whose packed tables
+// are the group_bytes at packed + x * group_bytes.
+template <int E, int QB, typename CT>
+__global__ void __launch_bounds__(kThreads, 2)
+adc_shared_select(const unsigned char* __restrict__ packed,
+                  long long group_bytes,
                   const float* __restrict__ scale,
-                  const CT* __restrict__ codes, int nq, int n_rows,
-                  int m, int kc, int k, int rows_per_part, int vec16,
+                  const CT* __restrict__ codes, int nq, int n_rows, int m,
+                  int kc, int k, int work, int rows_per_part, int vec16,
                   float* __restrict__ out_key, int* __restrict__ out_slot,
                   int out_stride, int final_pass) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int q0 = blockIdx.x * QB;
   const int qn = min(QB, nq - q0);
-  const int mk = m * kc;
-  const int w = work_for(k);
-  const size_t tb = table_bytes(MODE, m, kc);
-  float* keys = reinterpret_cast<float*>(smem + QB * tb);
+  const int w = work;
+  float* keys = reinterpret_cast<float*>(smem + group_bytes);
   int* slots = reinterpret_cast<int*>(keys + QB * w);
   int* cnt = slots + QB * w;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  // stage the QB queries' (M, K) tables; bf16 widens exactly to f32
-  for (int qi = 0; qi < qn; ++qi) {
-    const size_t src0 = static_cast<size_t>(q0 + qi) * mk;
-    if (MODE == kInt8) {
-      const int8_t* src = static_cast<const int8_t*>(tables) + src0;
-      int8_t* t = reinterpret_cast<int8_t*>(smem + qi * tb);
-      for (int i = threadIdx.x; i < mk; i += blockDim.x) t[i] = src[i];
-    } else if (MODE == kBF16) {
-      const __nv_bfloat16* src =
-          static_cast<const __nv_bfloat16*>(tables) + src0;
-      float* t = reinterpret_cast<float*>(smem + qi * tb);
-      for (int i = threadIdx.x; i < mk; i += blockDim.x)
-        t[i] = __bfloat162float(src[i]);
-    } else {
-      const float* src = static_cast<const float*>(tables) + src0;
-      float* t = reinterpret_cast<float*>(smem + qi * tb);
-      for (int i = threadIdx.x; i < mk; i += blockDim.x) t[i] = src[i];
-    }
+  // stage the group's packed [m][code][qi] tables, 16 bytes at a time
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        packed + static_cast<long long>(blockIdx.x) * group_bytes);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < group_bytes / 16; i += blockDim.x)
+      dst[i] = src[i];
   }
   for (int i = threadIdx.x; i < QB * w; i += blockDim.x) {
     keys[i] = __int_as_float(0x7f800000);     // +inf: an empty list
@@ -150,65 +289,62 @@ adc_shared_select(const void* __restrict__ tables,
   float s[QB];
 #pragma unroll
   for (int qi = 0; qi < QB; ++qi)
-    s[qi] = (MODE == kInt8 && qi < qn) ? scale[q0 + qi] : 1.f;
+    s[qi] = (E == kEU8 && qi < qn) ? scale[q0 + qi] : 1.f;
 
   const int r_begin = blockIdx.y * rows_per_part;
   const int r_end = min(n_rows, r_begin + rows_per_part);
-  const int tile = w - k;
-  for (int t0 = r_begin; t0 < r_end; t0 += tile) {
-    const int t1 = min(r_end, t0 + tile);
-    // the k-th entry of each list: the bar a row of this tile must clear
-    float bar_key[QB];
-    int bar_slot[QB];
+  const int room = w - k;                    // newcomers a list can hold
+  const int chunk = min(room, static_cast<int>(blockDim.x));
+  // the k-th entry of each list: the bar a row must clear. It is only
+  // refreshed after a sort; a stale bar lets more rows in, never fewer.
+  float bar_key[QB];
+  int bar_slot[QB];
 #pragma unroll
-    for (int qi = 0; qi < QB; ++qi) {
-      bar_key[qi] = keys[qi * w + k - 1];
-      bar_slot[qi] = slots[qi * w + k - 1];
-    }
-    for (int r = t0 + threadIdx.x; r < t1; r += blockDim.x) {
-      const CT* cc = codes + static_cast<size_t>(r) * m;
+  for (int qi = 0; qi < QB; ++qi) {
+    bar_key[qi] = __int_as_float(0x7f800000);
+    bar_slot[qi] = kPadSlot;
+  }
+  const int tid = threadIdx.x;
+  // a list is sorted once its count passes ``limit`` (the next chunk could
+  // then overflow its room). Counts only grow between sorts and start
+  // each chunk at or below the limit, so a count passes it in a chunk
+  // exactly when one insertion of the chunk finds it at the limit.
+  const int limit = room - chunk;
+  for (int c0 = r_begin; c0 < r_end; c0 += chunk) {
+    const int c1 = min(r_end, c0 + chunk);
+    const int r = c0 + tid;
+    bool crossed = false;
+    if (r < c1) {
       float d[QB];
-      if (MODE == kInt8) {
-        const int8_t* t = reinterpret_cast<const int8_t*>(smem);
-        int acc[QB];
-#pragma unroll
-        for (int qi = 0; qi < QB; ++qi) acc[qi] = 0;
-        for_codes(cc, m, vec16, [&](int mm, int code) {
-          const int off = mm * kc + code;
-#pragma unroll
-          for (int qi = 0; qi < QB; ++qi) acc[qi] += t[qi * tb + off];
-        });
-#pragma unroll
-        for (int qi = 0; qi < QB; ++qi)
-          d[qi] = __fmul_rn(static_cast<float>(acc[qi]), s[qi]);
-      } else {
-        const float* t = reinterpret_cast<const float*>(smem);
-        const int tq = static_cast<int>(tb / sizeof(float));
-#pragma unroll
-        for (int qi = 0; qi < QB; ++qi) d[qi] = 0.f;
-        for_codes(cc, m, vec16, [&](int mm, int code) {
-          const int off = mm * kc + code;
-#pragma unroll
-          for (int qi = 0; qi < QB; ++qi)
-            d[qi] = __fadd_rn(d[qi], t[qi * tq + off]);
-        });
-      }
+      const CT* cc = codes + static_cast<size_t>(r) * m;
+      score_codes<E, QB>(smem, m, kc, [&](int m0, int mc, auto&& f) {
+        for_codes(cc + m0, mc, vec16,
+                  [&](int mm, int code) { f(m0 + mm, code); });
+      }, s, d);
 #pragma unroll
       for (int qi = 0; qi < QB; ++qi) {
         if (qi < qn && sorts_before(d[qi], r, bar_key[qi], bar_slot[qi])) {
-          const int pos = k + atomicAdd(&cnt[qi], 1);
-          keys[qi * w + pos] = d[qi];
-          slots[qi * w + pos] = r;
+          const int old = atomicAdd(&cnt[qi], 1);
+          crossed |= old >= limit;
+          keys[qi * w + k + old] = d[qi];
+          slots[qi * w + k + old] = r;
         }
       }
     }
-    __syncthreads();
+    // the lists are sorted when a count passed the limit, and after the
+    // last chunk; the barrier hands every thread the same answer, and no
+    // count is read before every insertion of the chunk is done
+    if (!__syncthreads_or(crossed || c1 >= r_end)) continue;
     // warp qi sorts query qi's newcomers into its list; its first k
-    // entries are then the k best of every row seen so far
+    // entries are then the k best of every row seen so far. Every list
+    // with newcomers sorts at once, so the block stops for one sort where
+    // it would stop for one per query.
     if (warp < qn) {
       const int c = cnt[warp];
       if (c > 0) {
-        int n = 1;
+        // up to 512 pairs (every list room of k <= 256) sort in
+        // registers; longer lists in shared memory
+        int n = kRegSort;
         while (n < k + c) n <<= 1;
         float* kq = keys + warp * w;
         int* sq = slots + warp * w;
@@ -217,11 +353,21 @@ adc_shared_select(const void* __restrict__ tables,
           sq[i] = kPadSlot;
         }
         __syncwarp();
-        warp_bitonic_sort(kq, sq, n);
+        if (n == kRegSort) {
+          warp_sort512(kq, sq);
+        } else {
+          warp_bitonic_sort(kq, sq, n);
+        }
+        __syncwarp();
         if (lane == 0) cnt[warp] = 0;
       }
     }
     __syncthreads();
+#pragma unroll
+    for (int qi = 0; qi < QB; ++qi) {
+      bar_key[qi] = keys[qi * w + k - 1];
+      bar_slot[qi] = slots[qi * w + k - 1];
+    }
   }
 
   if (warp < qn) {
@@ -239,114 +385,164 @@ adc_shared_select(const void* __restrict__ tables,
   }
 }
 
-template <int MODE, int QB, typename CT>
-cudaError_t launch_select(const void* tables, const float* scale,
-                          const CT* codes, int nq, int n, int m, int kc,
-                          int k, const Plan& p, float* out_key, int* out_slot,
-                          int out_stride, int final_pass,
-                          cudaStream_t stream) {
-  const size_t smem = smem_bytes(MODE, QB, m, kc, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      adc_shared_select<MODE, QB, CT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int vec16 = codes_vec16(codes, m);
-  const dim3 grid((nq + QB - 1) / QB, p.parts);
-  adc_shared_select<MODE, QB, CT><<<grid, kThreads, smem, stream>>>(
-      tables, scale, codes, nq, n, m, kc, k, p.rows_per_part, vec16, out_key,
-      out_slot, out_stride, final_pass);
-  return cudaGetLastError();
-}
-
-template <int MODE, typename CT>
-cudaError_t dispatch_qb(const void* tables, const float* scale,
-                        const CT* codes, int nq, int n, int m, int kc,
-                        int k, const Plan& p, float* out_key, int* out_slot,
-                        int out_stride, int final_pass, cudaStream_t stream) {
-  switch (p.qb) {
-    case 8:
-      return launch_select<MODE, 8>(tables, scale, codes, nq, n, m, kc, k, p,
-                                    out_key, out_slot, out_stride,
-                                    final_pass, stream);
-    case 4:
-      return launch_select<MODE, 4>(tables, scale, codes, nq, n, m, kc, k, p,
-                                    out_key, out_slot, out_stride,
-                                    final_pass, stream);
-    case 2:
-      return launch_select<MODE, 2>(tables, scale, codes, nq, n, m, kc, k, p,
-                                    out_key, out_slot, out_stride,
-                                    final_pass, stream);
-    default:
-      return launch_select<MODE, 1>(tables, scale, codes, nq, n, m, kc, k, p,
-                                    out_key, out_slot, out_stride,
-                                    final_pass, stream);
+template <int E, typename CT>
+const void* by_qb(int qb) {
+  switch (qb) {
+    case 1: return reinterpret_cast<const void*>(
+        &adc_shared_select<E, 1, CT>);
+    case 2: return reinterpret_cast<const void*>(
+        &adc_shared_select<E, 2, CT>);
+    case 4: return reinterpret_cast<const void*>(
+        &adc_shared_select<E, 4, CT>);
+    case 8: return reinterpret_cast<const void*>(
+        &adc_shared_select<E, 8, CT>);
+    default: return nullptr;
   }
 }
 
 template <typename CT>
-cudaError_t run(const void* tables, int lut_mode, const float* scale,
-                const CT* codes, int nq, int n, int m, int kc, int k,
-                const Plan& p, float* scratch_key, int* scratch_slot,
-                float* out_d, int* out_i, cudaStream_t stream) {
-  const bool one = p.parts == 1;
-  float* dk = one ? out_d : scratch_key;
-  int* ds = one ? out_i : scratch_slot;
-  const int stride = one ? k : p.parts * k;
-  cudaError_t err;
-  if (lut_mode == kInt8)
-    err = dispatch_qb<kInt8>(tables, scale, codes, nq, n, m, kc, k, p, dk,
-                             ds, stride, one, stream);
-  else if (lut_mode == kBF16)
-    err = dispatch_qb<kBF16>(tables, scale, codes, nq, n, m, kc, k, p, dk,
-                             ds, stride, one, stream);
-  else
-    err = dispatch_qb<kF32>(tables, scale, codes, nq, n, m, kc, k, p, dk,
-                            ds, stride, one, stream);
-  if (err != cudaSuccess || one) return err;
-  return merge_lists(scratch_key, scratch_slot, nq, p.parts, k, out_d, out_i,
-                     stream);
+const void* kernel_for_codes(int e, int qb) {
+  switch (e) {
+    case kEF32: return by_qb<kEF32, CT>(qb);
+    case kEBF16: return by_qb<kEBF16, CT>(qb);
+    case kEU8: return by_qb<kEU8, CT>(qb);
+    default: return nullptr;
+  }
+}
+
+// The instance for (entry, QB, code width), with its dynamic shared memory
+// granted; nullptr for a combination the kernel does not take.
+const void* kernel_for(int e, int qb, int code_bytes, size_t smem) {
+  const void* f = code_bytes == 4 ? kernel_for_codes<int32_t>(e, qb)
+                                  : kernel_for_codes<uint8_t>(e, qb);
+  if (f == nullptr ||
+      cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return nullptr;
+  return f;
+}
+
+struct Plan {
+  int parts, rows_per_part, blocks_per_sm, sms;
+};
+
+// Row parts for ``groups`` query groups: the count that minimises
+// (waves) x (rows a block scans + a block's fixed cost, counted as four
+// list rooms of rows), so that the blocks fill whole waves of the blocks
+// the card really holds at once.
+cudaError_t plan_for(const void* f, size_t smem, int groups, int n, int k,
+                     int work, Plan* p) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&p->sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->blocks_per_sm, f,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (p->blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long slots = static_cast<long long>(p->blocks_per_sm) * p->sms;
+  const long long room = work - k;
+  const long long max_parts = (n + room - 1) / room;
+  long long cap = 4 * slots / groups + 1;
+  if (cap > max_parts) cap = max_parts;
+  long long best = 1;
+  double best_cost = -1.0;
+  for (long long parts = 1; parts <= cap; ++parts) {
+    const long long waves = (groups * parts + slots - 1) / slots;
+    const double cost = static_cast<double>(waves) *
+        (static_cast<double>((n + parts - 1) / parts) + 4.0 * room);
+    if (best_cost < 0.0 || cost < best_cost) {
+      best_cost = cost;
+      best = parts;
+    }
+  }
+  p->rows_per_part = static_cast<int>((n + best - 1) / best);
+  p->parts = (n + p->rows_per_part - 1) / p->rows_per_part;
+  return cudaSuccess;
+}
+
+bool bad_args(int entry, int qb, int code_bytes, int nq, int n, int m,
+              int kc, int k, int work) {
+  return chunk_for(k) > kMaxChunk || nq <= 0 || n <= 0 || m <= 0 ||
+         kc <= 0 || k <= 0 || entry < kEF32 || entry > kEU8 ||
+         (code_bytes != 1 && code_bytes != 4) || work < 2 * k ||
+         work < kRegSort ||
+         (work & (work - 1)) != 0 || work - k < 1 ||
+         smem_bytes(entry, qb, m, kc, work) > kSmemLimit;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of the scan kernel needs at the largest number
-// of queries per block that fits, in bytes (above the limit when not even
-// one query's table and list fit).
-long long qpad_pq_adc_topk_smem(int lut_mode, int m, int kc, int k) {
-  return static_cast<long long>(smem_bytes(
-      lut_mode, queries_per_block(lut_mode, m, kc, k), m, kc, k));
-}
-
-// Length of each of the two scratch arrays (keys f32, rows int32) the
-// caller allocates; 0 when one block's rows cover the whole matrix.
-long long qpad_pq_adc_topk_scratch(int lut_mode, int nq, int n, int m,
-                                   int kc, int k) {
-  const Plan p = plan_for(lut_mode, nq, n, m, kc, k);
-  return p.parts <= 1 ? 0 : 2LL * nq * p.parts * k;
-}
-
-// tables (Q, M, K) f32 / bf16 / int8 per lut_mode (0 / 1 / 2); scale (Q,)
-// f32 (read for int8 only); codes (N, M) uint8 (code_bytes 1) or int32
-// (code_bytes 4); out_d (Q, k) f32 and out_i (Q, k) int32. Returns
-// cudaGetLastError() of the first launch that fails, else 0.
-int qpad_pq_adc_topk(const void* tables, int lut_mode, const float* scale,
-                     const void* codes, int code_bytes, int nq, int n, int m,
-                     int kc, int k, float* scratch_key, int* scratch_slot,
-                     float* out_d, int* out_i, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (chunk_for(k) > kMaxChunk || nq <= 0 || n <= 0 || k <= 0 ||
-      lut_mode < kF32 || lut_mode > kInt8 ||
-      (code_bytes != 1 && code_bytes != 4))
+// The launch plan for one call, with ``qb`` queries' tables staged as
+// ``entry`` (0 f32, 1 bf16, 2 int8 as biased bytes) and lists of ``work``
+// pairs a query: out[0] row parts, out[1] rows a part, out[2] blocks an SM
+// holds (occupancy), out[3] SMs, out[4] the length of each of the two
+// scratch arrays the caller allocates (0 when one part covers the
+// matrix). Returns a CUDA error code (0 on success).
+int qpad_pq_adc_topk_plan(int entry, int qb, int code_bytes, int nq, int n,
+                          int m, int kc, int k, int work, long long* out) {
+  if (bad_args(entry, qb, code_bytes, nq, n, m, kc, k, work))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = plan_for(lut_mode, nq, n, m, kc, k);
-  cudaError_t err = code_bytes == 4
-      ? run(tables, lut_mode, scale, static_cast<const int32_t*>(codes), nq,
-            n, m, kc, k, p, scratch_key, scratch_slot, out_d, out_i, stream)
-      : run(tables, lut_mode, scale, static_cast<const uint8_t*>(codes), nq,
-            n, m, kc, k, p, scratch_key, scratch_slot, out_d, out_i, stream);
-  return static_cast<int>(err);
+  const size_t smem = smem_bytes(entry, qb, m, kc, work);
+  const void* f = kernel_for(entry, qb, code_bytes, smem);
+  if (f == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  const cudaError_t err = plan_for(f, smem, (nq + qb - 1) / qb, n, k, work,
+                                   &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = p.parts;
+  out[1] = p.rows_per_part;
+  out[2] = p.blocks_per_sm;
+  out[3] = p.sms;
+  out[4] = p.parts <= 1 ? 0 : 2LL * nq * p.parts * k;
+  return 0;
+}
+
+// packed: ceil(nq / qb) groups of group_bytes (ops.pack_shared_tables's
+// [m][code][qi] layout, padded to 16 bytes; the wrapper's table_bytes);
+// scale (Q,) f32 (read for int8 only); codes (N, M) uint8 (code_bytes 1)
+// or int32 (code_bytes 4); parts and rows_per_part
+// from qpad_pq_adc_topk_plan; scratch of the length it gave; out_d (Q, k)
+// f32 and out_i (Q, k) int32. Returns cudaGetLastError() of the first
+// launch that fails, else 0.
+int qpad_pq_adc_topk(const void* packed, int entry, int qb,
+                     long long group_bytes, const float* scale,
+                     const void* codes, int code_bytes, int nq,
+                     int n, int m, int kc, int k, int work, int parts,
+                     int rows_per_part, float* scratch_key,
+                     int* scratch_slot, float* out_d, int* out_i,
+                     void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  int vec16 = code_bytes == 4
+      ? codes_vec16(static_cast<const int32_t*>(codes), m)
+      : codes_vec16(static_cast<const uint8_t*>(codes), m);
+  if (bad_args(entry, qb, code_bytes, nq, n, m, kc, k, work) ||
+      group_bytes != static_cast<long long>(table_bytes(entry, qb, m, kc)) ||
+      parts < 1 || rows_per_part < 1 ||
+      static_cast<long long>(parts) * rows_per_part < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(entry, qb, m, kc, work);
+  const void* f = kernel_for(entry, qb, code_bytes, smem);
+  if (f == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const bool one = parts == 1;
+  float* dk = one ? out_d : scratch_key;
+  int* ds = one ? out_i : scratch_slot;
+  int stride = one ? k : parts * k;
+  int final_pass = one;
+  const unsigned char* pk = static_cast<const unsigned char*>(packed);
+  void* args[] = {&pk, &group_bytes, &scale, &codes,
+                  &nq, &n, &m, &kc, &k, &work, &rows_per_part, &vec16,
+                  &dk, &ds, &stride, &final_pass};
+  const dim3 grid((nq + qb - 1) / qb, parts);
+  cudaError_t err = cudaLaunchKernel(f, grid, dim3(kThreads), args, smem,
+                                     stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || one) return static_cast<int>(err);
+  return static_cast<int>(merge_lists(scratch_key, scratch_slot, nq, parts,
+                                      k, out_d, out_i, stream));
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@
 // order of lax.top_k. A list of per-block winners is cut to k by
 // select_topk passes: each block sorts one chunk of a query's list with a
 // bitonic sort in shared memory and keeps its k best, and merge_lists
-// repeats that until one list of k is left. K2 and K3 also keep running
+// repeats that until one list of k is left. K2 also keeps running
 // per-query lists sorted with warp_bitonic_sort.
 #pragma once
 
@@ -41,22 +41,42 @@ __device__ __forceinline__ bool sorts_before(float ka, int sa, float kb,
   return ka < kb || (ka == kb && sa < sb);
 }
 
-// Ascending bitonic sort of n (a power of two) pairs by one warp.
+// Ascending bitonic sort of n (a power of two) pairs by one warp. A lane
+// loads its pairs of a stage kSortBatch at a time before it stores any
+// (the pairs of a stage are disjoint), so a stage waits for one
+// shared-memory round trip a batch, not one a pair: that matters while
+// other blocks of the SM keep the shared-memory pipe busy.
+constexpr int kSortBatch = 8;
+
 __device__ void warp_bitonic_sort(float* key, int* slot, int n) {
   const int lane = threadIdx.x & 31;
+  const int half = n >> 1;
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = lane; i < (n >> 1); i += 32) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const float klo = key[lo], khi = key[hi];
-        const int slo = slot[lo], shi = slot[hi];
-        if (sorts_after(klo, slo, khi, shi) == up) {
-          key[lo] = khi;
-          key[hi] = klo;
-          slot[lo] = shi;
-          slot[hi] = slo;
+      for (int i0 = lane; i0 < half; i0 += 32 * kSortBatch) {
+        float klo[kSortBatch], khi[kSortBatch];
+        int slo[kSortBatch], shi[kSortBatch], lo[kSortBatch];
+#pragma unroll
+        for (int b = 0; b < kSortBatch; ++b) {
+          const int i = i0 + 32 * b;
+          lo[b] = 2 * i - (i & (stride - 1));
+          if (i < half) {
+            klo[b] = key[lo[b]];
+            khi[b] = key[lo[b] + stride];
+            slo[b] = slot[lo[b]];
+            shi[b] = slot[lo[b] + stride];
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kSortBatch; ++b) {
+          const bool up = (lo[b] & size) == 0;
+          if (i0 + 32 * b < half &&
+              sorts_after(klo[b], slo[b], khi[b], shi[b]) == up) {
+            key[lo[b]] = khi[b];
+            key[lo[b] + stride] = klo[b];
+            slot[lo[b]] = shi[b];
+            slot[lo[b] + stride] = slo[b];
+          }
         }
       }
       __syncwarp();

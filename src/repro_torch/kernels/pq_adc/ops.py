@@ -8,8 +8,21 @@ the CPU, and only for those; for CUDA tensors it launches its CUDA kernel
 Contract (both routes): (d2 (Q, k) f32 ascending, slot or row (Q, k)
 int64) with ties to the lower slot and (+inf, -1) where fewer than k
 candidates are finite (k above the candidate count pads the same way).
+
+K2 reads its tables in a layout this module makes: ``shared_layout``
+picks the queries a block serves (QB) and how an entry is staged,
+``pack_shared_tables`` packs the quantized tables query-interleaved,
+[group][m][code][qi], so that one shared-memory load serves all QB
+queries of a block, and ``packed_scores`` is the plain scorer over that
+layout, with the kernel's arithmetic (int8 as biased bytes summed in
+16-bit lanes, flushed into int32 every 256 terms). ``shared_smem_bytes``
+is a block's shared memory as the kernel counts it; the kernel checks the
+group size it is handed and refuses a call past the Hopper limit.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Optional
 
 import torch
 
@@ -18,11 +31,22 @@ from .lut import LUT_DTYPES, quantize_lut
 from .ref import pq_adc_gather_topk_ref, pq_adc_topk_ref
 
 __all__ = ["pq_adc_gather_topk", "pq_adc_gather_topk_plain", "pq_adc_topk",
-           "pq_adc_topk_plain", "MAX_K"]
+           "pq_adc_topk_plain", "pq_adc_topk_plan", "shared_layout",
+           "pack_shared_tables", "packed_scores", "shared_smem_bytes",
+           "list_work", "MAX_K"]
 
 MAX_K = 8192                     # the kernels' largest chunk holds 2k pairs
 _LUT_MODE = {"f32": 0, "bf16": 1, "int8": 2}
 _SMEM_LIMIT = 232_448            # bytes of shared memory a Hopper block may use
+
+# K2's staged table entries: the kernel's Entry modes and their bytes
+ENTRY_MODES = {"f32": 0, "bf16": 1, "uint8": 2}
+_ENTRY_BYTES = {"f32": 4, "bf16": 2, "uint8": 1}
+_ENTRY = {"f32": "f32", "bf16": "bf16", "int8": "uint8"}
+U8_BIAS = 128            # an int8 entry q is staged as the byte q + 128
+LANE_FLUSH = 256         # terms a 16-bit lane sums exactly (256 * 255 < 2^16)
+MAX_QB = 8               # queries a K2 block serves at most
+LIST_MIN_WORK = 512      # K2's list room a query: k best + newcomers (pow2)
 
 
 def _pad_contract(d2, idx, k):
@@ -96,6 +120,102 @@ def _empty(nq, k, dev):
 def _quantized(tables, lut_dtype, scale):
     qt, s = quantize_lut(tables, lut_dtype, scale)
     return qt.contiguous(), s.to(torch.float32).contiguous()
+
+
+def list_work(k: int) -> int:
+    """K2's list a query, in (key, row) pairs: a power of two >= 2k and
+    >= LIST_MIN_WORK. Its first k pairs are the query's k best, the other
+    (work - k) the room where rows that beat the k-th wait for a sort."""
+    w = LIST_MIN_WORK
+    while w < 2 * k:
+        w <<= 1
+    return w
+
+
+def _table_bytes(entry: str, qb: int, m: int, kc: int) -> int:
+    """Bytes of one group's packed tables, padded to 16."""
+    return -(-qb * m * kc * _ENTRY_BYTES[entry] // 16) * 16
+
+
+def shared_smem_bytes(entry: str, qb: int, m: int, kc: int, k: int) -> int:
+    """Shared memory of one K2 block: the group's packed tables, QB lists
+    of ``list_work(k)`` pairs and 16 counters (the kernel's smem_bytes)."""
+    return _table_bytes(entry, qb, m, kc) + qb * 8 * list_work(k) + 64
+
+
+def shared_layout(nq: int, m: int, kc: int, k: int, lut_dtype: str):
+    """K2's layout for a call: (QB, entry). QB is the largest of 8, 4, 2, 1
+    that is no more than the batch needs (the next power of two >= nq) and
+    whose tables and lists fit a block's shared memory. The entry is f32 /
+    bf16 as the LUT is, and int8 as a biased byte ("uint8")."""
+    entry = _ENTRY[lut_dtype]
+    qb = 1
+    while qb < min(MAX_QB, nq):
+        qb <<= 1
+    while qb > 1 and shared_smem_bytes(entry, qb, m, kc, k) > _SMEM_LIMIT:
+        qb >>= 1
+    return qb, entry
+
+
+def pack_shared_tables(tables_q: torch.Tensor, lut_dtype: str,
+                       qb: int) -> torch.Tensor:
+    """Quantized (Q, M, K) tables (``quantize_lut``'s: f32, bf16 or int8)
+    in K2's staged layout: (G, M, K, QB) with G = ceil(Q / QB) groups, the
+    QB queries of a group interleaved innermost, so that the entries of
+    one (m, code) are one vector (8 queries: 8 bytes of int8, 16 of bf16,
+    32 of f32). f32 and bf16 stay as they are; int8 entries q become the
+    bytes q + U8_BIAS in [1, 255] (the int8 bits with the sign bit
+    flipped, one elementwise op). Absent queries of the last group hold
+    entries that score 0."""
+    want = {"f32": torch.float32, "bf16": torch.bfloat16,
+            "int8": torch.int8}[lut_dtype]
+    if tables_q.dtype != want:
+        raise TypeError(f"{lut_dtype} tables must be {want}, got "
+                        f"{tables_q.dtype}")
+    if qb not in (1, 2, 4, 8):
+        raise ValueError(f"no K2 layout for QB {qb}")
+    nq, m, kc = tables_q.shape
+    g = -(-nq // qb)
+    t = tables_q
+    fill = 0
+    if lut_dtype == "int8":
+        t = t.view(torch.uint8) ^ U8_BIAS
+        fill = U8_BIAS
+    pad = g * qb - nq
+    if pad:
+        t = torch.cat([t, torch.full((pad, m, kc), fill, dtype=t.dtype,
+                                     device=t.device)])
+    return t.reshape(g, qb, m, kc).permute(0, 2, 3, 1).contiguous()
+
+
+def packed_scores(packed: torch.Tensor, scale: torch.Tensor,
+                  codes: torch.Tensor, lut_dtype: str,
+                  nq: int) -> torch.Tensor:
+    """The plain scorer over ``pack_shared_tables``'s layout, with K2's
+    arithmetic: f32 and bf16 entries added in f32 from 0 in ascending m;
+    int8's biased bytes summed in 16-bit lanes for at most LANE_FLUSH
+    terms at a time (each lane sum checked to fit 16 bits), flushed into
+    int32 with the bias taken off, then one f32 multiply by the scale.
+    Returns (nq, N) f32."""
+    g, m, kc, qb = packed.shape
+    t = packed.permute(0, 3, 1, 2).reshape(g * qb, m, kc)[:nq]
+    idx = codes.to(torch.int64)
+    n = codes.shape[0]
+    if lut_dtype in ("f32", "bf16"):
+        d = torch.zeros((nq, n), dtype=torch.float32, device=packed.device)
+        for j in range(m):
+            d.add_(t[:, j, :].float().index_select(1, idx[:, j]))
+        return d
+    acc = torch.zeros((nq, n), dtype=torch.int32, device=packed.device)
+    for m0 in range(0, m, LANE_FLUSH):
+        mc = min(LANE_FLUSH, m - m0)
+        lane = torch.zeros((nq, n), dtype=torch.int32, device=packed.device)
+        for j in range(m0, m0 + mc):
+            lane.add_(t[:, j, :].to(torch.int32).index_select(1, idx[:, j]))
+        if int(lane.max()) >= 1 << 16:
+            raise AssertionError("a 16-bit lane overflowed")
+        acc.add_(lane - U8_BIAS * mc)
+    return acc.to(torch.float32) * scale.to(torch.float32)[:, None]
 
 
 def pq_adc_gather_topk(tables: torch.Tensor, codes: torch.Tensor,
@@ -175,29 +295,71 @@ def pq_adc_topk(tables: torch.Tensor, codes: torch.Tensor, k: int,
     if tables.device.type == "cpu":
         return pq_adc_topk_plain(tables, codes, k, lut_dtype, scale)
     _check_cuda_codes(tables, codes)
-    lib = topk_library()
-    mode = _LUT_MODE[lut_dtype]
-    _check_smem(lib.qpad_pq_adc_topk_smem(mode, m, kc, k), m, kc, k)
     n = codes.shape[0]
     dev = codes.device
+    qb, entry = shared_layout(nq, m, kc, k, lut_dtype)
+    _check_smem(shared_smem_bytes(entry, qb, m, kc, k), m, kc, k)
     if nq == 0 or n == 0:
         return _empty(nq, k, dev)
     qt, s = _quantized(tables, lut_dtype, scale)
+    packed = pack_shared_tables(qt, lut_dtype, qb)
+    g = packed.shape[0]
+    group = packed.reshape(g, -1).view(torch.uint8)
+    gbytes = _table_bytes(entry, qb, m, kc)
+    if group.shape[1] != gbytes:
+        group = torch.nn.functional.pad(group, (0, gbytes - group.shape[1]))
+    plan = pq_adc_topk_plan(codes, nq, kc, k, lut_dtype)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    sk = torch.empty(plan["scratch"], dtype=torch.float32, device=dev)
+    ss = torch.empty(plan["scratch"], dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        n_scratch = lib.qpad_pq_adc_topk_scratch(mode, nq, n, m, kc, k)
-        sk = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-        ss = torch.empty(n_scratch, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.qpad_pq_adc_topk(
-            qt.data_ptr(), mode, s.data_ptr(), codes.data_ptr(),
-            codes.element_size(), nq, n, m, kc, k, sk.data_ptr(), ss.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), stream)
+        err = topk_library().qpad_pq_adc_topk(
+            group.data_ptr(), ENTRY_MODES[entry], qb, gbytes, s.data_ptr(),
+            codes.data_ptr(), codes.element_size(), nq, n, m, kc, k, plan["work"], plan["parts"], plan["rows_per_part"],
+            sk.data_ptr(), ss.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"pq_adc_topk launch failed: CUDA error {err}")
     pq_adc_topk.launches += 1
     return out_d, out_i.long()
+
+
+_plans = {}
+
+
+def pq_adc_topk_plan(codes: torch.Tensor, nq: int, kc: int, k: int,
+                     lut_dtype: str) -> dict:
+    """K2's launch plan for ``nq`` queries over the CUDA ``codes`` (N, M)
+    (cached per shape and device): the layout (``qb``, ``entry``,
+    ``smem`` bytes a block), the row ``parts`` of its second grid axis and
+    ``rows_per_part``, the ``blocks_per_sm`` its occupancy allows on the
+    ``sms`` SMs, the ``blocks`` launched, the ``waves`` they make, and the
+    ``scratch`` length of each merge array."""
+    n, m = codes.shape
+    code_bytes = codes.element_size()
+    dev = codes.device
+    key = (nq, n, m, kc, k, lut_dtype, code_bytes, dev)
+    plan = _plans.get(key)
+    if plan is None:
+        qb, entry = shared_layout(nq, m, kc, k, lut_dtype)
+        out = (ctypes.c_longlong * 5)()
+        with torch.cuda.device(dev):
+            err = topk_library().qpad_pq_adc_topk_plan(
+                ENTRY_MODES[entry], qb, code_bytes, nq, n, m, kc, k,
+                list_work(k), out)
+        if err != 0:
+            raise RuntimeError(f"pq_adc_topk_plan failed: CUDA error {err}")
+        parts, rows, per_sm, sms, scratch = (int(v) for v in out)
+        blocks = -(-nq // qb) * parts
+        plan = {"qb": qb, "entry": entry, "work": list_work(k),
+                "smem": shared_smem_bytes(entry, qb, m, kc, k),
+                "parts": parts, "rows_per_part": rows,
+                "blocks_per_sm": per_sm, "sms": sms, "blocks": blocks,
+                "waves": blocks / (per_sm * sms), "scratch": scratch}
+        _plans[key] = plan
+    return plan
 
 
 pq_adc_topk.launches = 0

@@ -143,13 +143,70 @@ def test_label_dtypes_agree():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_split_vocab_covers_every_tile():
-    assert fce.split_vocab(4096, 32000) == (8, 32)     # the LM loss's call
+@pytest.mark.parametrize("route,want", [("f32", (8, 32)), ("bf16", (4, 32))])
+def test_split_vocab_covers_every_tile(route, want):
+    # the LM loss's call: 64 row tiles x 8 slices of 128-column tiles on
+    # the f32 route (two waves of 2 blocks an SM), 32 x 4 slices of
+    # 256-column tiles on the bf16 route (one wave of 1 block an SM)
+    assert fce.split_vocab(4096, 32000, route) == want
     for t, v in ((1, 256), (63, 1000), (4096, 32000), (512, 262144),
                  (100_000, 50)):
-        n, per = fce.split_vocab(t, v)
-        tiles = -(-v // 128)
+        n, per = fce.split_vocab(t, v, route)
+        tiles = -(-v // fce.ops._COL_TILE[route])
         assert 1 <= n <= tiles and (n - 1) * per < tiles <= n * per
+
+
+@pytest.mark.parametrize("h_dtype,w_dtype,want", [
+    (torch.bfloat16, torch.bfloat16, "bf16"),
+    (torch.float32, torch.float32, "f32"),
+    (torch.bfloat16, torch.float32, "f32"),
+    (torch.float32, torch.bfloat16, "f32"),
+])
+def test_kernel_route(h_dtype, w_dtype, want):
+    """bf16 h and w take the tensor-core kernel; f32 and mixed inputs the
+    CUDA-core kernel (TF32 products would not be exact)."""
+    assert fce.kernel_route(h_dtype, w_dtype) == want
+    assert want in fce.ROUTES
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int32])
+def test_kernel_route_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="no kernel"):
+        fce.kernel_route(dtype, torch.bfloat16)
+    with pytest.raises(TypeError, match="no kernel"):
+        fce.kernel_route(torch.bfloat16, dtype)
+
+
+@pytest.mark.parametrize("t,d,v,tied", [(5, 100, 300, False),
+                                        (5, 100, 300, True),
+                                        (7, 64, 256, False),
+                                        (7, 64, 256, True)])
+def test_bf16_operands_keep_the_loss(t, d, v, tied):
+    """The operands the bf16 kernel reads: h (T, D rounded up to 8) and the
+    head untied (V contiguous, V rounded up to 8) or tied (D contiguous),
+    16-byte aligned rows; aligned inputs pass as they are, and zero
+    padding leaves the loss of the first V columns unchanged."""
+    from repro_torch.kernels.fused_ce.ops import _bf16_operands
+    h, w, labels = (torch.from_numpy(a) for a in _inputs(t + v, t, d, v,
+                                                           None))
+    h, w = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    if tied:
+        w = w.T.contiguous().T                        # (D, V), D contiguous
+    hb, wb, is_tied = _bf16_operands(h, w)
+    assert is_tied == tied
+    dp = -(-d // 8) * 8
+    assert hb.shape == (t, dp) and hb.stride(1) == 1 and hb.stride(0) % 8 == 0
+    assert wb.shape[0] == dp and wb.shape[1] >= v
+    if tied:
+        assert wb.stride(0) == 1 and wb.stride(1) % 8 == 0
+    else:
+        assert wb.stride(1) == 1 and wb.stride(0) % 8 == 0
+        assert wb.shape[1] % 8 == 0
+    if dp == d and v % 8 == 0:
+        assert hb.data_ptr() == h.data_ptr() and wb.data_ptr() == w.data_ptr()
+    want = fce.fused_ce_fwd_plain(h, w, labels)
+    got = fce.fused_ce_fwd_plain(hb, wb[:, :v], labels)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -178,6 +235,40 @@ def test_wrapper_rejects_bad_inputs():
 GPU_CASES = [(1, 64, 256, 256, False), (63, 64, 1000, 900, False),
              (300, 2048, 1000, 1000, True), (130, 64, 32000, 32000, False),
              (70, 100, 300, 257, True)]
+
+
+# the bf16 route at the sizes the LM loss and Gemma3's tied head give it:
+# T 1, 63 and 4096, ragged V, masked vocab tails, D not a multiple of 64
+BF16_CASES = [(1, 2048, 32000, 32000, False), (63, 2048, 1000, 937, False),
+              (4096, 2048, 32000, 32000, False), (4096, 64, 300, 257, True),
+              (63, 2560, 5000, 4999, True), (130, 200, 1000, 1000, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("t,d,v,vocab,tied", BF16_CASES)
+def test_cuda_bf16_route_matches_plain_version(t, d, v, vocab, tied,
+                                               label_dtype):
+    """K6's tensor-core route within K6_TOL of the plain version on untied
+    and tied heads, its launch counted on the bf16 route, and a second call
+    bit for bit (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h, w, labels = (torch.from_numpy(a).cuda()
+                    for a in _inputs(t + d, t, d, v, vocab, d ** -0.5))
+    if tied:
+        w = w.T.contiguous().T                        # (D, V), D contiguous
+    h, w = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    labels = labels.to(label_dtype)
+    before = dict(fce.fused_ce_fwd.launches_by_route)
+    got = fce.fused_ce_fwd(h, w, labels, vocab)
+    torch.cuda.synchronize()
+    assert fce.fused_ce_fwd.launches_by_route["bf16"] == before["bf16"] + 1
+    assert fce.fused_ce_fwd.launches_by_route["f32"] == before["f32"]
+    want = fce.fused_ce_fwd_plain(h, w, labels, vocab)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(fce.fused_ce_fwd(h, w, labels, vocab), got,
+                               rtol=0, atol=0)
 
 
 @pytest.mark.gpu

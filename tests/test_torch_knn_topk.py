@@ -175,8 +175,8 @@ def test_library_hash_covers_included_headers(tmp_path):
     first = build.library_path(copy).name
     header.write_text(header.read_text() + "\n// edited\n")
     assert build.library_path(copy).name != first
-    # K1-K6, one each, and K5's f32 route beside its bf16 one
-    assert k3 in src and len(src) == 7
+    # K1-K6, one each, and K5's and K6's f32 routes beside their bf16 ones
+    assert k3 in src and len(src) == 8
 
 
 @pytest.mark.gpu

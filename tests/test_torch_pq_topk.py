@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.kernels.pq_adc import ops  # noqa: E402
+from repro_torch.kernels.pq_adc.lut import quantize_lut  # noqa: E402
 from repro_torch.kernels.pq_adc.ref import (pq_adc_scores_ref,  # noqa: E402
                                             pq_adc_topk_ref)
 
@@ -165,6 +166,172 @@ def test_wrapper_rejects_bad_inputs():
         ops.pq_adc_topk(t, codes, 0)
 
 
+# K2's staged layout: (nq, N, M, K, code dtype, table values); the last
+# case has int8 entries of +-127 past 256 subspaces, so the kernel's 16-bit
+# lanes are flushed into int32 mid-row
+LAYOUT_CASES = [
+    (5, 300, 16, 256, np.uint8, "uniform"),     # nq not a multiple of 2, 4, 8
+    (9, 200, 6, 64, np.uint8, "uniform"),       # M 6: one code at a time
+    (3, 150, 8, 1024, np.int32, "uniform"),     # int32 codes
+    (4, 120, 300, 4, np.uint8, "sign"),         # the lane flush at M 256
+]
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("qb", [1, 2, 4, 8])
+@pytest.mark.parametrize("nq,n,m,kc,code_dtype,values", LAYOUT_CASES)
+def test_packed_layout_scores_bit_equal(lut_dtype, qb, nq, n, m, kc,
+                                        code_dtype, values):
+    """The plain scorer over pack_shared_tables's layout, with the kernel's
+    arithmetic (int8 as biased bytes in 16-bit lanes, flushed into int32
+    every 256 terms), is bit-equal to pq_adc_scores_ref: the layout loses
+    nothing."""
+    rng = np.random.default_rng(nq * m + qb)
+    if values == "sign":
+        tables = rng.choice([-1.0, 1.0], size=(nq, m, kc)).astype(np.float32)
+    else:
+        tables = (rng.uniform(size=(nq, m, kc)) * 5).astype(np.float32)
+    codes = rng.integers(0, kc, size=(n, m)).astype(code_dtype)
+    t, c = torch.from_numpy(tables), torch.from_numpy(codes)
+    qt, scale = quantize_lut(t, lut_dtype)
+    if values == "sign" and lut_dtype == "int8":
+        assert int(qt.abs().min()) == 127           # every entry is +-127
+    packed = ops.pack_shared_tables(qt, lut_dtype, qb)
+    g = -(-nq // qb)
+    assert tuple(packed.shape) == (g, m, kc, qb)
+    assert packed.dtype == {"f32": torch.float32, "bf16": torch.bfloat16,
+                            "int8": torch.uint8}[lut_dtype]
+    got = ops.packed_scores(packed, scale, c, lut_dtype, nq)
+    want = pq_adc_scores_ref(t, c, lut_dtype)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.numpy().view(np.uint32))
+
+
+def test_packed_layout_interleaves_queries():
+    """Entry (g, m, code, qi) is query g * QB + qi's table entry; int8
+    entries q are stored as the bytes q + 128, absent queries as 128 (a
+    score of 0)."""
+    assert ops.U8_BIAS == 128
+    qt = torch.arange(-60, 60, dtype=torch.int8).reshape(5, 4, 6)
+    qt[0, 0, :2] = torch.tensor([-127, 127], dtype=torch.int8)
+    p = ops.pack_shared_tables(qt, "int8", 4)
+    assert tuple(p.shape) == (2, 4, 6, 4)
+    for q in range(5):
+        assert torch.equal(p[q // 4, :, :, q % 4].to(torch.int16) - 128,
+                           qt[q].to(torch.int16))
+    assert bool((p[1, :, :, 1:] == 128).all())
+
+
+@pytest.mark.parametrize("nq,want", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8),
+                                     (8, 8), (9, 8), (256, 8)])
+def test_queries_per_block_follow_the_batch(nq, want):
+    """QB is the next power of two >= nq, at most 8: a batch of one stages
+    no absent query."""
+    for lut in ("f32", "bf16", "int8"):
+        assert ops.shared_layout(nq, 16, 256, 64, lut) == \
+            (want, {"f32": "f32", "bf16": "bf16", "int8": "uint8"}[lut])
+
+
+def test_queries_per_block_shrink_to_fit_shared_memory():
+    """Where 8 queries' tables and lists do not fit a block, QB halves;
+    k 1000 needs 2048-pair lists (16 KB a query)."""
+    assert ops.list_work(64) == 512 and ops.list_work(1000) == 2048
+    assert ops.shared_layout(256, 16, 256, 1000, "f32")[0] == 4
+    assert ops.shared_layout(256, 16, 256, 1000, "int8")[0] == 8
+    assert ops.shared_layout(256, 8, 25_000, 64, "int8")[0] == 1
+    for nq, m, kc, k, lut in ((256, 16, 256, 1000, "f32"),
+                              (9, 16, 4096, 64, "bf16")):
+        qb, entry = ops.shared_layout(nq, m, kc, k, lut)
+        assert ops.shared_smem_bytes(entry, qb, m, kc, k) <= 232_448
+        assert ops.shared_smem_bytes(entry, 2 * qb, m, kc, k) > 232_448
+
+
+def _parent_smem(lut_dtype, m, kc, k):
+    """The shared memory the parent K2 needed for one query (its
+    _check_smem): int8 tables at one byte, f32 and bf16 at four, and lists
+    of max(1024, 2k rounded up to a power of two) pairs."""
+    work = 1024
+    while work < 2 * k:
+        work <<= 1
+    tb = -(-m * kc * (1 if lut_dtype == "int8" else 4) // 16) * 16
+    return tb + 8 * work + 64
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+def test_every_shape_the_parent_accepted_still_fits(lut_dtype):
+    """No (M, K, k) that the parent K2 accepted is refused now: its layout
+    at QB 1 needs no more shared memory than the parent's did."""
+    for m in (1, 4, 6, 8, 16, 32, 64, 128, 300, 1024):
+        for kc in (16, 256, 1024, 4096, 8192, 50_000):
+            for k in (1, 64, 500, 1000, 4096, 8192):
+                if _parent_smem(lut_dtype, m, kc, k) > 232_448:
+                    continue
+                qb, entry = ops.shared_layout(1, m, kc, k, lut_dtype)
+                assert qb == 1
+                assert ops.shared_smem_bytes(entry, 1, m, kc, k) <= \
+                    _parent_smem(lut_dtype, m, kc, k)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("nq", [1, 3, 8, 9, 256])
+@pytest.mark.parametrize("k", [1, 64, 1000, "N+3"])
+def test_cuda_packed_layout_matches_plain_version(lut_dtype, nq, k):
+    """K2 on the card on every QB its layout picks (1, 4, 8; a ragged last
+    group at 9), from k 1 to past N: d2 and ids bit-equal to the plain
+    version, and a second call bit for bit."""
+    dev = _cuda_or_skip()
+    n = 4001
+    k = n + 3 if k == "N+3" else k
+    tables, codes = _inputs(nq + 7, nq, n, 16, 256)
+    t, c = torch.from_numpy(tables).to(dev), torch.from_numpy(codes).to(dev)
+    d, i = ops.pq_adc_topk(t, c, k, lut_dtype)
+    torch.cuda.synchronize()
+    dr, ir = ops.pq_adc_topk_plain(t, c, k, lut_dtype)
+    assert torch.equal(d, dr) and torch.equal(i, ir)
+    d2, i2 = ops.pq_adc_topk(t, c, k, lut_dtype)
+    assert torch.equal(d2, d) and torch.equal(i2, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+def test_cuda_largest_tables_the_parent_accepted(lut_dtype):
+    """The largest (M, K) of int32 codes the parent K2 took for one query
+    at k 64 (M 8): bit-equal to the plain version."""
+    dev = _cuda_or_skip()
+    m, k = 8, 64
+    kc = 1
+    while _parent_smem(lut_dtype, m, kc + 1, k) <= 232_448:
+        kc += 1
+    rng = np.random.default_rng(kc)
+    t = torch.from_numpy((rng.uniform(size=(2, m, kc)) * 5).astype(
+        np.float32)).to(dev)
+    c = torch.from_numpy(rng.integers(0, kc, (3000, m)).astype(
+        np.int32)).to(dev)
+    d, i = ops.pq_adc_topk(t, c, k, lut_dtype)
+    torch.cuda.synchronize()
+    dr, ir = ops.pq_adc_topk_plain(t, c, k, lut_dtype)
+    assert torch.equal(d, dr) and torch.equal(i, ir)
+
+
+@pytest.mark.gpu
+def test_cuda_plan_fills_whole_waves():
+    """K2's plan fills whole waves of the blocks its occupancy allows."""
+    dev = _cuda_or_skip()
+    codes = torch.zeros((1_000_000, 16), dtype=torch.uint8, device=dev)
+    for nq in (1, 8, 64, 256):
+        plan = ops.pq_adc_topk_plan(codes, nq, 256, 64, "int8")
+        assert plan["qb"] == min(nq, 8) and plan["blocks_per_sm"] >= 1
+        assert plan["waves"] >= 0.9 * -(-plan["waves"] // 1)
+        assert plan["parts"] * plan["rows_per_part"] >= 1_000_000
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
 def test_cuda_kernel_matches_plain_version(lut_dtype):
@@ -205,4 +372,85 @@ def test_cuda_int32_codes_match_plain_version(lut_dtype, m, kc, k):
     torch.cuda.synchronize()
     assert ops.pq_adc_topk.launches == before + 1
     dr, ir = ops.pq_adc_topk_plain(t, c, k, lut_dtype)
+    assert torch.equal(d, dr) and torch.equal(i, ir)
+
+
+def _planted_scores(starts, ends, n, rng):
+    """Scores in [0, 65535] a row, planted so that in every row part of at
+    least three chunks the list counts of k 64 meet the kernel's sort
+    limit exactly: K2's block of 256 threads scans 256 rows a chunk, a
+    list of list_work(64) = 512 pairs holds 448 newcomers, and a list is
+    sorted once its count passes 448 - 256 = 192. Chunk 0 fills the
+    lists (256 newcomers: a sort); in chunk 1, 192 rows beat the new bar
+    (the count ends at the limit: no sort); in chunk 2 one row does (the
+    count passes it: a sort). The rest of each part is random."""
+    threads, k = 256, 64
+    room = ops.list_work(k) - k
+    assert room - threads == 192
+    s = rng.integers(0, 65536, n)
+    planted = 0
+    for a, b in zip(starts, ends):
+        if b - a < 3 * threads + 1:
+            continue
+        s[a:a + threads] = 60_000 + np.arange(threads)     # bar -> 60063
+        s[a + threads:a + 2 * threads] = 65_000 + np.arange(threads)
+        s[a + threads:a + threads + 192] = 50_000 + np.arange(192)
+        s[a + 2 * threads:a + 3 * threads] = 65_300
+        s[a + 2 * threads] = 40_000
+        planted += 1
+    return s, planted
+
+
+def test_planted_rows_meet_the_sort_limit():
+    """The premise of the gpu test below, by a plain model of K2's
+    selection over one row part (chunks of 256 rows, a row enters when it
+    beats the k-th of its list, a sort once the count passes 192 and after
+    the last chunk): the counts end chunks 0, 1 and 2 at 256, 192 (the
+    limit, no sort) and 193."""
+    k, threads, limit = 64, 256, 192
+    n = 2000
+    scores, planted = _planted_scores([0], [n], n, np.random.default_rng(3))
+    assert planted == 1
+    best, bar, cnt, ends = [], (np.inf, -1), 0, []
+    for c0 in range(0, n, threads):
+        rows = range(c0, min(n, c0 + threads))
+        new = [(float(scores[r]), r) for r in rows if (scores[r], r) < bar]
+        best += new
+        cnt += len(new)
+        ends.append(cnt)
+        if cnt > limit or c0 + threads >= n:
+            best = sorted(best)[:k]
+            bar = best[-1] if len(best) == k else (np.inf, -1)
+            cnt = 0
+    assert ends[:3] == [256, 192, 193]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16"])
+def test_cuda_list_counts_at_the_sort_limit(lut_dtype):
+    """Rows planted so that a list's count ends a chunk exactly at the sort
+    limit, then passes it by one (``_planted_scores``): K2 decides to sort
+    at the chunk's barrier from the insertion that found the count at the
+    limit, and its d2 and ids stay bit-equal to the plain version. M 2
+    tables 256 * c0 and c1 give each row the exact score 256 * c0 + c1 in
+    f32 and bf16 (int8 would round them); odd queries see the scores
+    reversed."""
+    dev = _cuda_or_skip()
+    nq, n, k = 256, 100_000, 64
+    codes = torch.zeros((n, 2), dtype=torch.uint8, device=dev)
+    plan = ops.pq_adc_topk_plan(codes, nq, 256, k, lut_dtype)
+    starts = np.arange(plan["parts"]) * plan["rows_per_part"]
+    ends = np.minimum(starts + plan["rows_per_part"], n)
+    scores, planted = _planted_scores(starts, ends, n,
+                                      np.random.default_rng(17))
+    assert planted >= 1
+    c = np.stack([scores // 256, scores % 256], axis=1).astype(np.uint8)
+    codes.copy_(torch.from_numpy(c))
+    up = np.stack([256.0 * np.arange(256), np.arange(256.0)])
+    tables = np.where((np.arange(nq) % 2 == 0)[:, None, None], up[None],
+                      up[None, :, ::-1]).astype(np.float32)
+    t = torch.from_numpy(tables).to(dev)
+    d, i = ops.pq_adc_topk(t, codes, k, lut_dtype)
+    torch.cuda.synchronize()
+    dr, ir = ops.pq_adc_topk_plain(t, codes, k, lut_dtype)
     assert torch.equal(d, dr) and torch.equal(i, ir)
