@@ -2,7 +2,9 @@
 """Chip smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``python3 chip_smoke.py --k2-timings`` times K2 alone: see k2_alone.)
+(``python3 chip_smoke.py --k1-timings``, ``--k2-timings`` and
+``--k4-timings`` time K1, K2 or K4 alone: see k1_alone, k2_alone and
+k4_alone.)
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. device   CUDA must be present; prints the card's name and power limit.
@@ -10,16 +12,27 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               K6) from the checkout's sources, one nvcc per source, all at
               once (sm_90a), and times the build.
   3. edges    each kernel against its plain PyTorch version on edge
-              cases. K1: ragged C, masked slots, k > #finite, exact int8
-              ties, a deep merge, int32 codes at K 512 and 1024 (M 8 and
-              6, k = 1 and k = C). K2 (every call also repeated, bit for
+              cases. K1's gathered entry (every call also repeated, bit
+              for bit): ragged C, masked slots, k > #finite, exact int8
+              ties, a deep merge, runs of many chunks a block at k 1,
+              256 and 1024, a batch of one query over 400,000 slots,
+              int32 codes at K 512 and 1024 (M 8 and 6, k = 1 and k =
+              C). K1's cell-major entry, on its cells' fills and on the
+              candidate ids, against its plain version and bit for bit
+              against the gathered entry on the gathered inputs: empty
+              cells, ragged Q and Q 1, cand wider and narrower than
+              P * max_cell, k past a cell, int32 codes (K 1024, M 8 and
+              6), posting lists with holes (ids only). K2 (every call also repeated, bit for
               bit): ragged N, k > N, Q = 1, Q = 3 at k = 1, M not a
               multiple of 16, a large k, k = N + 3, exact int8 ties, int8
               entries of +-127 at M = 300 (the 16-bit lanes flushed
               mid-row), N = 1,000,000, int32 codes at K 512 and 1024
               (k = 1 and k = N).
               K4: N = 1, 2, ragged N, N = 2048, a multi-tile N, repeated
-              values, tau = 0 and tau = +inf. K5 (f32 and bf16): S = 1,
+              values, tau = 0 and tau = +inf; its fused entry at the same
+              N (20,000 on its global-scratch route) with k_pairs 1, the
+              fit's b 80 and all pairs: tau bit-equal to
+              find_quantile_threshold's, count and coeff equal. K5 (f32 and bf16): S = 1,
               16, 80 (ragged), 4096; G = 1 and 8; dh = 8 to 256; window
               16 at S = 1000, a window wider than S, window 1 (bf16 on the
               tensor-core kernel, f32 on the CUDA-core one); and at bf16
@@ -45,18 +58,22 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               searches of 1, 8, 64 and 256 queries (k=10). Launch counts
               are zeroed just before and read just after; recall@10 is
               held against exact search on the card, and the same engine
-              with @jnp must return the same ids.
-  5. K1 main  K1 against its plain version on path 1's own scan inputs
-              (batch 256) at f32, bf16 and int8.
-  6. timings  K1, its plain version and the bound at batch 256; per-stage
-              search times.
+              with @jnp must return the same ids. Which K1 entry each
+              batch launched (k1_entries: the padded scan the cell-major
+              one, a compact bucket the gathered one).
+  5. K1 main  K1's two entries against their plain versions on path 1's
+              own scan inputs (batch 256) at f32, bf16 and int8.
+  6. timings  the gather and K1's two entries at batch 256 (k1_time),
+              their plain versions, plans and bounds, the L2 read rate;
+              per-stage search times.
   7. trace    the card's busy share while searching (torch.profiler).
               Then F2: k-means of path 1's reduced 1M x 64 vectors into its
               1024 cells, twice from the same rows: centroids bit for bit.
   8. path 2   the pq and opq kinds on the same corpus: build_engine with
               spec qpad64>pq16x256:i8@kernel>rr64 and the QPAD fit on
-              MPADConfig(backend="kernel") (K4; counts zeroed just before
-              the build and read just after: 64 x 48 = 3,072 launches),
+              MPADConfig(backend="kernel") (K4's fused entry; counts
+              zeroed just before the build and read just after: 64 x 48
+              = 3,072 launches, none of the entry at a given tau),
               then an opq index over the same reduced corpus and reducer
               (get_ops("opq").build, SearchEngine.from_state). Both
               engines search 1, 8, 64 and 256 queries (K2 counted the
@@ -65,12 +82,15 @@ Phases (any failure exits nonzero; no phase's failure is caught):
   9. K2, K4 main  K2 against its plain version on path 2's own tables and
               codes (batch 256, f32, bf16, int8); the kernel backend's phi
               value and gradient against the fast backend's on the fit
-              sample.
+              sample; the fused K4 on the sample's projections; a fit of
+              8 x 48 steps fused and on the two-step route (bisection,
+              then K4 at tau): directions bit for bit.
   10. timings K2 (int8 at batches 1, 8, 64 and 256, f32 and bf16 at
               256, each a call's time, its kernels' device time, its
               bound and the plan it launched: queries a block, occupancy,
-              row parts, waves) and K4 beside their plain versions and
-              bounds; p50 latency and QPS of the pq and opq engines; the
+              row parts, waves) and K4 (fused and at a given tau, the
+              launch floor, kernel launches a fit step) beside their
+              plain versions and bounds; p50 latency and QPS of the pq and opq engines; the
               pq build's stage times. Then F3: pq8x1024:i8@kernel>rr64 (int32 codes
               through K2) on the first 200,000 rows, searched at every
               batch: recall@10 against exact search on the cut, and the
@@ -142,7 +162,8 @@ Phases (any failure exits nonzero; no phase's failure is caught):
   22. engines pca64>rr64 (the flat kind, its scan K3 over 1M x 64, ids
               equal to the plain scan route's) and
               mlp64>ivf1024x16>pq16x256:i8@kernel>rr64 (the mlp reducer on
-              the ivfpq path, K1), each searched at 1, 8, 64 and 256
+              the ivfpq path, K1; its entry by batch, and the @jnp
+              route's ids), each searched at 1, 8, 64 and 256
               queries: p50, QPS, recall@10 against K3's exact truth. F1:
               pca64>rr1024 at batch 64 (K3 at k 1024), ids against the
               plain scan route's, and K3 on that scan's inputs.
@@ -175,6 +196,7 @@ SPEC_PQ = "qpad64>pq16x256:i8@kernel>rr64"
 SPEC_OPQ = "qpad64>opq16x256:i8@kernel>rr64"
 FIT = dict(m=64, b=80.0, alpha=25.0, iters=48, seed=0)   # path 2's QPAD fit
 FIT_SAMPLE = 2048                # rows the engine fits on (its default)
+FIT_CHECK_M = 8                  # directions of the fused-vs-two-step fit check
 N, DIM, SEED = 1_000_000, 384, 0
 BATCHES = (1, 8, 64, 256)
 K = 10
@@ -323,14 +345,28 @@ def device_ms(torch, fn, reps, match):
 
 
 def compare_k1(torch, ops, ref, name, tables, codes, base, k, lut, scale):
-    """K1 against its plain version on the same CUDA tensors. int8: d2 and
-    ids equal. f32/bf16: d2 within 1e-6 relative to the magnitude of the
-    summands (|base| + sum_m max|T|, per query: the table terms and the
-    base cancel, so the result itself can be far smaller), and every id
-    the kernel returns scores, under the plain scorer, within that of the
-    kernel's d2 (ids differ only on such near-ties). Returns max |err|."""
+    """K1's gathered entry against its plain version on the same CUDA
+    tensors (``check_k1``'s rules), and a second call bit for bit.
+    Returns max |err|."""
     dk, ik = ops.pq_adc_gather_topk(tables, codes, base, k, lut, scale)
     torch.cuda.synchronize()
+    err = check_k1(torch, ops, ref, name, dk, ik, tables, codes, base, k, lut,
+                   scale)
+    d2, i2 = ops.pq_adc_gather_topk(tables, codes, base, k, lut, scale)
+    check(torch.equal(d2, dk) and torch.equal(i2, ik),
+          f"{name}: a second call differs")
+    return err
+
+
+def check_k1(torch, ops, ref, name, dk, ik, tables, codes, base, k, lut,
+             scale):
+    """K1's (dk, ik) against its plain version on the gathered inputs.
+    int8: d2 and ids equal. f32/bf16: d2 within 1e-6 relative to the
+    magnitude of the summands (|base| + sum_m max|T|, per query: the table
+    terms and the base cancel, so the result itself can be far smaller),
+    and every id the kernel returns scores, under the plain scorer, within
+    that of the kernel's d2 (ids differ only on such near-ties). The
+    (+inf, -1) slots must match. Returns max |err|."""
     dp, ip = ops.pq_adc_gather_topk_plain(tables, codes, base, k, lut, scale)
     fin = torch.isfinite(dp)
     check(torch.equal(torch.isfinite(dk), fin), f"{name}: finite mask")
@@ -353,6 +389,62 @@ def compare_k1(torch, ops, ref, name, tables, codes, base, k, lut, scale):
         log(f"  {name}: ids equal on {same:.6f} of slots")
     log(f"  {name}: ok, max |d2 err| {err:.3e}")
     return err
+
+
+def compare_k1_cells(torch, ops, ref, name, tables, probe, cd2p, codes_cell,
+                     bias_cell, cand, k, lut, scale, cell_len=None):
+    """K1's cell-major entry: against its plain version (the padded scan's
+    gather, then K1's plain version) under ``check_k1``'s rules, bit for
+    bit against K1's gathered entry on the gathered inputs (at every LUT
+    type), and a second call bit for bit. Returns max |err|."""
+    dk, ik = ops.pq_adc_cells_topk(tables, probe, cd2p, codes_cell,
+                                   bias_cell, cand, k, lut, scale, cell_len)
+    torch.cuda.synchronize()
+    codes, base = ref.gather_cells(probe, cand, cd2p, codes_cell, bias_cell)
+    err = check_k1(torch, ops, ref, name, dk, ik, tables, codes, base, k, lut,
+                   scale)
+    da, ia = ops.pq_adc_gather_topk(tables, codes, base, k, lut, scale)
+    check(torch.equal(dk, da) and torch.equal(ik, ia),
+          f"{name}: not bit-equal to the gathered entry")
+    d2, i2 = ops.pq_adc_cells_topk(tables, probe, cd2p, codes_cell,
+                                   bias_cell, cand, k, lut, scale, cell_len)
+    check(torch.equal(d2, dk) and torch.equal(i2, ik),
+          f"{name}: a second call differs")
+    log(f"  {name}: bit-equal to the gathered entry, repeats")
+    return err
+
+
+def cell_index(rng, nlist, sizes, m, kc, code_dtype=np.uint8):
+    """A synthetic IVF-PQ cell layout from a seeded ``rng``: left-packed
+    posting lists of the given cell ``sizes`` (ids 0.. in cell order), its
+    cell-major codes and bias (0 on pads) and the cells' fills."""
+    max_cell = int(max(1, sizes.max()))
+    lists = np.full((nlist, max_cell), -1, np.int64)
+    start = 0
+    for c, n in enumerate(sizes):
+        lists[c, :n] = np.arange(start, start + n)
+        start += n
+    codes_cell = rng.integers(0, kc, (nlist, max_cell, m)).astype(code_dtype)
+    bias_cell = np.where(lists >= 0,
+                         rng.uniform(-1, 1, (nlist, max_cell)), 0.0).astype(
+                             np.float32)
+    return lists, codes_cell, bias_cell, sizes.astype(np.int64)
+
+
+def cell_probe(rng, nq, sizes, nprobe, lists, n_cand):
+    """Seeded probes of ``nprobe`` distinct cells a query (denser cells
+    more often, as real queries find them), ascending coarse distances, and
+    the candidate ids of the probed slots padded with -1 to ``n_cand``
+    (what ``probe_cells`` returns)."""
+    w = sizes.astype(np.float64) + 1.0
+    probe = np.stack([rng.choice(len(sizes), nprobe, replace=False,
+                                 p=w / w.sum()) for _ in range(nq)])
+    cd2p = np.sort(rng.uniform(0, 4, (nq, nprobe)).astype(np.float32), axis=1)
+    cand = lists[probe].reshape(nq, -1)
+    if cand.shape[1] < n_cand:
+        cand = np.pad(cand, ((0, 0), (0, n_cand - cand.shape[1])),
+                      constant_values=-1)
+    return probe.astype(np.int64), cd2p, cand
 
 
 def busy_share(torch, fn, reps, label, top=6):
@@ -1053,11 +1145,18 @@ def edge_cases(torch, ops, ref):
     def put(a):
         return torch.from_numpy(a).to(dev)
 
+    # the block plan: runs of many chunks a block (k 1 to 1024, the list
+    # sorted in registers up to k 256 and in shared memory past it), and a
+    # batch of one query split over many blocks
     for lut in ("f32", "bf16", "int8"):
         for (nq, c, m, kc, k, masked) in ((9, 517, 8, 64, 12, 5),
                                           (5, 130, 16, 256, 40, 110),
                                           (33, 5003, 16, 256, 64, 700),
-                                          (4, 300_000, 16, 256, 100, 0)):
+                                          (4, 300_000, 16, 256, 100, 0),
+                                          (3, 200_000, 16, 256, 1, 0),
+                                          (2, 150_000, 16, 256, 256, 1000),
+                                          (2, 60_000, 16, 256, 1024, 0),
+                                          (1, 400_000, 16, 256, 64, 5000)):
             t = (rng.uniform(size=(nq, m, kc)) * 5).astype(np.float32)
             codes = rng.integers(0, kc, (nq, c, m)).astype(np.uint8)
             base = rng.uniform(size=(nq, c)).astype(np.float32)
@@ -1090,6 +1189,66 @@ def edge_cases(torch, ops, ref):
     return err
 
 
+def edge_cases_k1_cells(torch, ops, ref):
+    """K1's cell-major entry on synthetic cell layouts (``cell_index``,
+    ``cell_probe``) at every LUT type, with the cells' fills (left-packed
+    lists) and with the candidate ids (``cand``): empty cells, ragged Q and
+    Q 1, cand wider than P * max_cell and narrower, k larger than a cell,
+    int32 codes (K 1024, M 8 and M 6), and lists with holes (cand only)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    err = 0.0
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = (  # nq, nlist, max size, nprobe, m, kc, k, extra slots, dtype
+        (9, 64, 300, 8, 16, 256, 40, 0, np.uint8),     # ragged Q, empties
+        (1, 64, 300, 8, 16, 256, 64, 0, np.uint8),     # Q 1
+        (5, 32, 90, 4, 16, 256, 256, 0, np.uint8),     # k > a cell, k > #
+        (6, 48, 200, 6, 16, 256, 30, 513, np.uint8),   # cand wider
+        (6, 48, 200, 6, 16, 256, 30, -50, np.uint8),   # cand narrower
+        (7, 40, 150, 5, 8, 1024, 64, 0, np.int32),     # int32, 16-byte rows
+        (4, 40, 150, 5, 6, 1024, 1, 0, np.int32))      # int32, M 6
+    for lut in LUTS:
+        for (nq, nlist, top, nprobe, m, kc, k, extra, cdt) in cases:
+            sizes = rng.integers(0, top + 1, nlist)
+            sizes[::7] = 0                               # empty cells
+            lists, codes_cell, bias_cell, fill = cell_index(rng, nlist, sizes,
+                                                            m, kc, cdt)
+            max_cell = lists.shape[1]
+            n_cand = nprobe * max_cell + max(extra, 0)
+            probe, cd2p, cand = cell_probe(rng, nq, sizes, nprobe, lists,
+                                           n_cand)
+            if extra < 0:
+                cand = cand[:, :nprobe * max_cell + extra]
+            t = (rng.uniform(size=(nq, m, kc)) * 5).astype(np.float32)
+            args = (put(t), put(probe), put(cd2p), put(codes_cell),
+                    put(bias_cell), put(cand))
+            tag = (f"K1 cells {lut} Q={nq} P={nprobe} max_cell={max_cell} "
+                   f"M={m} K={kc} k={k} C={cand.shape[1]}")
+            err = max(err, compare_k1_cells(
+                torch, ops, ref, tag + " fills", *args, k, lut, None,
+                put(fill)))
+            err = max(err, compare_k1_cells(torch, ops, ref, tag + " cand",
+                                            *args, k, lut, None))
+    # posting lists with holes: only the cand route may read them
+    sizes = rng.integers(50, 200, 32)
+    lists, codes_cell, bias_cell, _ = cell_index(rng, 32, sizes, 16, 256)
+    holes = rng.uniform(size=lists.shape) < 0.2
+    lists = np.where(holes, -1, lists)
+    bias_cell = np.where(lists >= 0, bias_cell, 0.0).astype(np.float32)
+    probe, cd2p, cand = cell_probe(rng, 5, sizes, 6, lists,
+                                   6 * lists.shape[1])
+    t = (rng.uniform(size=(5, 16, 256)) * 5).astype(np.float32)
+    for lut in LUTS:
+        err = max(err, compare_k1_cells(
+            torch, ops, ref, f"K1 cells {lut} lists with holes, cand",
+            put(t), put(probe), put(cd2p), put(codes_cell), put(bias_cell),
+            put(cand), 50, lut, None))
+    return err
+
+
 def compare_k2(torch, ops, name, tables, codes, k, lut, scale=None):
     """K2 against its plain version on the same CUDA tensors: d2 and ids
     bit-equal at every LUT type (the kernel adds the M terms from 0 in
@@ -1109,6 +1268,361 @@ def compare_k2(torch, ops, name, tables, codes, k, lut, scale=None):
           f"{name}: a second call differs")
     log(f"  {name}: ok, bit-equal, repeats")
     return err
+
+
+def l2_read_rate(torch):
+    """The L2 read rate one torch reduction reaches on this card, in
+    bytes/s: the best of an 8 MB and a 24 MB f32 tensor (each inside the
+    50 MB L2) broadcast 64 times and summed, so that one kernel reads the
+    tensor 64 times over, after a warm-up. A rate the card reached, so a
+    time computed from it bounds the L2 traffic's least time from above."""
+    best = 0.0
+    for mb in (8, 24):
+        x = torch.ones(mb << 18, device="cuda")
+        xe = x.expand(64, -1)
+        ms = cuda_ms(torch, lambda: xe.sum(), reps=50, warmup=5)
+        best = max(best, xe.numel() * 4 / (ms / 1e3))
+    return best
+
+
+def k1_bounds(torch, tables, probe, codes_cell, cell_len, k, base):
+    """Bounds of K1's two entries on one scan (Q queries, P probes), each
+    the larger of its bytes at the HBM rate and its operations (M adds and
+    one fma a scored candidate) at the f32 peak, counting what this data
+    needs. Gathered: the codes of every slot with a finite base, the base
+    of every slot, the f32 tables and scales in, (d2, slot) out. Cell-major:
+    the filled rows of the distinct probed cells (codes and bias) once,
+    probe, cd2p and the fills, the tables, (d2, slot) out; ``l2_bytes`` is
+    what its blocks read of the cells, every probe of a cell once
+    (Q * C' * (M + 4) bytes, C' the filled slots a query probes)."""
+    nq, m, kc = tables.shape
+    cb = codes_cell.element_size()
+    row = m * cb + 4
+    fin = int(torch.isfinite(base).sum())
+    side = nq * m * kc * 4 + nq * 4 + nq * k * 8
+    a_bytes = fin * m * cb + base.numel() * 4 + side
+    a_ops = fin * (m + 2)
+    used = cell_len[torch.unique(probe)]
+    filled = int(cell_len[probe].sum())            # Q * C'
+    b_bytes = (int(used.sum()) * row + probe.numel() * 12
+               + cell_len.numel() * 8 + side)
+    b_ops = filled * (m + 2)
+
+    def bound(nbytes, nops):
+        tb, to = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+        return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+    (a_ms, a_by), (b_ms, b_by) = bound(a_bytes, a_ops), bound(b_bytes, b_ops)
+    return {"gathered": {"bound_ms": a_ms, "bound_by": a_by,
+                         "bytes": a_bytes, "ops": a_ops, "finite_slots": fin},
+            "cells": {"bound_ms": b_ms, "bound_by": b_by, "bytes": b_bytes,
+                      "ops": b_ops, "distinct_cells": int(used.numel()),
+                      "filled_slots": filled, "l2_bytes": filled * row}}
+
+
+def k1_time(torch, ops, ivfpq, tables, scale, probe, cd2p, codes_cell,
+            bias_cell, cand, cell_len, k, lut="int8"):
+    """One padded ivfpq scan's K1 work at its shape: the candidate gather
+    (``ivfpq_scan_inputs``), K1's gathered entry on its output, the two
+    together, and (where the checkout has it) K1's cell-major entry on the
+    cells in place; each a call's time by CUDA events over back-to-back
+    calls, the entries' kernels' device time from a profiler trace, their
+    plain versions' times, their plans and bounds. Calls only functions
+    every version of K1 has, beside the cell-major entry."""
+    nq = probe.shape[0]
+    ccodes, base = ivfpq.ivfpq_scan_inputs(probe, cand, cd2p, codes_cell,
+                                           bias_cell)
+    a = lambda: ops.pq_adc_gather_topk(tables, ccodes, base, k, lut, scale)
+    out = {"Q": nq, "P": int(probe.shape[1]), "C": int(ccodes.shape[1]),
+           "M": int(tables.shape[1]), "K": int(tables.shape[2]), "k": k,
+           "lut": lut}
+    out["gather_ms"] = cuda_ms(torch, lambda: ivfpq.ivfpq_scan_inputs(
+        probe, cand, cd2p, codes_cell, bias_cell), reps=10)
+    out["gathered_ms"] = cuda_ms(torch, a, reps=20)
+    out["gathered_device_ms"] = device_ms(torch, a, reps=5,
+                                          match=("adc_", "select_topk"))
+    out["gather_and_gathered_ms"] = cuda_ms(torch, lambda: ops.pq_adc_gather_topk(
+        tables, *ivfpq.ivfpq_scan_inputs(probe, cand, cd2p, codes_cell,
+                                         bias_cell), k, lut, scale), reps=10)
+    out["gathered_plain_ms"] = cuda_ms(torch, lambda: (
+        ops.pq_adc_gather_topk_plain(tables, ccodes, base, k, lut, scale)),
+        reps=3, warmup=1)
+    if hasattr(ops, "pq_adc_cells_topk"):
+        b = lambda: ops.pq_adc_cells_topk(tables, probe, cd2p, codes_cell,
+                                          bias_cell, cand, k, lut, scale,
+                                          cell_len)
+        out["cells_ms"] = cuda_ms(torch, b, reps=20)
+        out["cells_device_ms"] = device_ms(torch, b, reps=5,
+                                           match=("adc_", "select_topk"))
+        out["cells_plain_ms"] = cuda_ms(torch, lambda: (
+            ops.pq_adc_cells_topk_plain(tables, probe, cd2p, codes_cell,
+                                        bias_cell, cand, k, lut, scale)),
+            reps=3, warmup=1)
+        m, kc = tables.shape[1:]
+        cb = codes_cell.element_size()
+        out["plans"] = {
+            "gathered": ops.pq_adc_select_plan(
+                "gathered", nq, out["C"], 1, m, kc, k, lut, cb,
+                tables.device),
+            "cells": ops.pq_adc_select_plan(
+                "cells", nq, out["P"], int(codes_cell.shape[1]), m, kc, k,
+                lut, cb, tables.device)}
+        out["bounds"] = k1_bounds(torch, tables, probe, codes_cell, cell_len,
+                                  k, base)
+    return out
+
+
+def log_k1_time(tag, r):
+    log(f"[{tag}] K1 at Q {r['Q']} P {r['P']} C {r['C']} ({r['lut']}): "
+        f"gather {r['gather_ms']:.4f} ms, gathered entry "
+        f"{r['gathered_ms']:.4f} ms a call ({r['gathered_device_ms']:.4f} of "
+        f"its kernels), gather + gathered {r['gather_and_gathered_ms']:.4f} "
+        f"ms, plain {r['gathered_plain_ms']:.4f} ms")
+    if "cells_ms" in r:
+        bd = r["bounds"]
+        log(f"[{tag}] K1 cell-major entry {r['cells_ms']:.4f} ms a call "
+            f"({r['cells_device_ms']:.4f} of its kernels), plain "
+            f"{r['cells_plain_ms']:.4f} ms; bounds: gathered "
+            f"{bd['gathered']['bound_ms']:.4f} ms "
+            f"({bd['gathered']['bound_by']}), cell-major "
+            f"{bd['cells']['bound_ms']:.4f} ms ({bd['cells']['bound_by']}; "
+            f"{bd['cells']['distinct_cells']} distinct cells, L2 "
+            f"{bd['cells']['l2_bytes']} B); plans "
+            f"{ {n: (p['parts'], p['blocks_per_sm'], round(p['waves'], 3)) for n, p in r['plans'].items()} } "
+            "(parts, blocks an SM, waves)")
+
+
+def k1_alone():
+    """``python3 chip_smoke.py --k1-timings``: K1 alone at path 1's shapes
+    on a seeded synthetic cell layout (1,024 cells over 1,000,000 rows,
+    skewed sizes; 256 queries probing 16 cells each, denser cells more
+    often; M 16, K 256, k 64, uint8 codes; int8 LUT, with f32 and bf16 at
+    batch 256), with ``k1_time``'s times; then the gathered entry at
+    batches 1, 8 and 64 on compact-scan-like inputs (C the sum of the 16
+    largest fills, rounded up to 128). It calls nothing of the port but
+    ``ivfpq_scan_inputs``, the K1 wrappers and their plain versions, so a
+    copy of this script at the root of another checkout times that
+    checkout's K1 on the same inputs. Prints the card's line and one JSON
+    line {"k1_alone": {...}}; exits nonzero without a card."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.kernels.pq_adc import ops
+    from repro_torch.search import ivfpq
+    smi = card_line()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    nlist, nprobe, m, kc = 1024, 16, 16, 256
+    w = rng.gamma(2.0, size=nlist)
+    sizes = rng.multinomial(N, w / w.sum())
+    lists, codes_cell, bias_cell, fill = cell_index(rng, nlist, sizes, m, kc)
+    probe, cd2p, cand = cell_probe(rng, 256, sizes, nprobe, lists, RERANK)
+    tables = torch.from_numpy((rng.uniform(size=(256, m, kc)) * 5).astype(
+        np.float32)).to(dev)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    cells = (put(probe), put(cd2p), put(codes_cell), put(bias_cell),
+             put(cand), put(fill))
+    out = {"card": smi, "max_cell": int(lists.shape[1])}
+    for lut in LUTS:
+        r = k1_time(torch, ops, ivfpq, tables, None, *cells, RERANK, lut)
+        out[f"{lut} Q=256"] = r
+        log_k1_time(f"k1 alone {lut}", r)
+    cap = -(-int(np.sort(sizes)[-nprobe:].sum()) // 128) * 128
+    codes = put(rng.integers(0, kc, (64, cap, m)).astype(np.uint8))
+    base = put(rng.uniform(size=(64, cap)).astype(np.float32))
+    for b in (1, 8, 64):
+        fn = lambda: ops.pq_adc_gather_topk(tables[:b], codes[:b], base[:b],
+                                            RERANK, "int8")
+        r = {"C": cap, "ms": cuda_ms(torch, fn, reps=20),
+             "device_ms": device_ms(torch, fn, reps=5,
+                                    match=("adc_", "select_topk"))}
+        out[f"int8 compact Q={b}"] = r
+        log(f"[k1 alone] gathered entry int8 Q={b} C={cap}: {r['ms']:.4f} ms "
+            f"a call, {r['device_ms']:.4f} ms of its kernels")
+    print(json.dumps({"k1_alone": out}))
+    return 0
+
+
+def k4_time(torch, pw, fast_objective, p, k_pairs):
+    """K4 at the fit's N on one step's projections: the entry at a given
+    tau (device time of its kernels from a profiler trace, a call by CUDA
+    events back to back), the fit's threshold bisection alone, the two-step
+    route of a step's statistics (the bisection, then that entry) as a
+    synchronized call on the host's clock, and (where the checkout has it)
+    the fused entry the same ways with K4's empty kernel (the launch
+    floor); each with its plain version and bound."""
+    tau = fast_objective.find_quantile_threshold(p, k_pairs)
+    n = p.shape[0]
+    out = {"N": n, "k_pairs": k_pairs}
+
+    def host_ms(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out["unfused_device_ms"] = device_ms(
+        torch, lambda: pw.pairwise_stats(p, tau), reps=200, match="pair_")
+    out["unfused_ms"] = cuda_ms(torch, lambda: pw.pairwise_stats(p, tau),
+                                reps=200)
+    out["unfused_plain_ms"] = cuda_ms(
+        torch, lambda: pw.pairwise_stats_ref(p, tau), reps=20)
+    out["threshold_ms"] = host_ms(
+        lambda: fast_objective.find_quantile_threshold(p, k_pairs))
+    out["unfused_route_host_ms"] = host_ms(lambda: pw.pairwise_stats(
+        p, fast_objective.find_quantile_threshold(p, k_pairs)))
+    nb = n * 4 + 4 + n * 4 + 8 + 4              # p, tau in; coeff, count, sum
+    nops = 5 * n * (n - 1)                       # sub, abs, compare, 2 adds
+    out["unfused_bound_ms"] = max(nb / HBM_BYTES_PER_S,
+                                  nops / F32_OPS_PER_S) * 1e3
+    if hasattr(pw, "pairwise_stats_at_quantile"):
+        fused = lambda: pw.pairwise_stats_at_quantile(p, k_pairs)
+        out["fused_device_ms"] = device_ms(torch, fused, reps=200,
+                                           match="quantile_stats")
+        out["fused_ms"] = cuda_ms(torch, fused, reps=200)
+        out["fused_host_ms"] = host_ms(fused)
+        out["fused_plain_ms"] = cuda_ms(
+            torch, lambda: pw.pairwise_stats_at_quantile_ref(p, k_pairs),
+            reps=5, warmup=1)
+        out["floor_ms"] = cuda_ms(torch, pw.launch_floor, reps=1000,
+                                  warmup=10)
+        out["floor_device_ms"] = device_ms(torch, pw.launch_floor, reps=200,
+                                           match="empty_kernel")
+        lg = max(1, (n - 1).bit_length())
+        p2 = 1 << lg
+        fops = (5 * (p2 // 2) * lg * (lg + 1) // 2     # the sort's exchanges
+                + 60 * n * (lg + 1) * 4                # the bisection
+                + 4 * n * (lg + 1) * 4 + 8 * n)        # windows and scan
+        out["fused_ops"] = fops
+        out["fused_bound_ms"] = max(nb / HBM_BYTES_PER_S,
+                                    fops / F32_OPS_PER_S) * 1e3
+        out["fused_bound_by"] = ("bytes" if nb / HBM_BYTES_PER_S >=
+                                 fops / F32_OPS_PER_S else "operations")
+    return out
+
+
+def log_k4_time(tag, r):
+    log(f"[{tag}] K4 at N {r['N']}: at a given tau {r['unfused_device_ms']:.4f}"
+        f" ms of its kernels ({r['unfused_ms']:.4f} ms a call back to back), "
+        f"plain {r['unfused_plain_ms']:.4f} ms, bound "
+        f"{r['unfused_bound_ms']:.6f} ms; the bisection alone "
+        f"{r['threshold_ms']:.4f} ms, bisection + K4 "
+        f"{r['unfused_route_host_ms']:.4f} ms (synchronized, host clock)")
+    if "fused_ms" in r:
+        log(f"[{tag}] K4 fused {r['fused_device_ms']:.4f} ms of its kernel, "
+            f"{r['fused_ms']:.4f} ms a call back to back, "
+            f"{r['fused_host_ms']:.4f} ms synchronized; plain "
+            f"{r['fused_plain_ms']:.4f} ms; bound {r['fused_bound_ms']:.6f} "
+            f"ms ({r['fused_ops']} ops); launch floor {r['floor_ms']:.4f} ms "
+            f"a launch back to back, {r['floor_device_ms']:.6f} ms on the "
+            "card")
+
+
+def step_launches(torch, mpad_mod, phi_vg, xs, w0):
+    """Kernel launches a fit step makes (the objective, Adam, the
+    normalization and the trace write), from profiler traces of
+    greedy_fit_loop at 1 direction of 2 and of 6 steps: the difference
+    over 4."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for iters in (2, 6):
+        loop = lambda: mpad_mod.greedy_fit_loop(
+            xs, w0[:1], phi_vg, m=1, b=FIT["b"], alpha=FIT["alpha"],
+            iters=iters, lr=0.05, batch_size=None, beta1=0.9, beta2=0.999,
+            adam_eps=1e-8)
+        loop()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loop()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA))
+    return (counts[1] - counts[0]) / 4
+
+
+def fit_run(torch, mpad_mod, phi_vg, xs, w0, m=FIT["m"]):
+    """A fit of ``m`` directions (path 2's: FIT's b, alpha and iters) by
+    greedy_fit_loop on ``xs`` from the start directions ``w0``, timed on
+    the host's clock, synchronized. Returns (directions, traces,
+    seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dirs, traces = mpad_mod.greedy_fit_loop(
+        xs, w0[:m], phi_vg, m=m, b=FIT["b"], alpha=FIT["alpha"],
+        iters=FIT["iters"], lr=0.05, batch_size=None, beta1=0.9, beta2=0.999,
+        adam_eps=1e-8)
+    torch.cuda.synchronize()
+    return dirs, traces, time.perf_counter() - t0
+
+
+def k4_alone():
+    """``python3 chip_smoke.py --k4-timings``: K4 alone at the fit's N on a
+    seeded sample (clustered_corpus(FIT_SAMPLE, DIM, SEED + 3), centred;
+    one step's projections on a seeded unit w), with ``k4_time``'s times;
+    then path 2's whole fit (m 64 x 48 steps) on the kernel backend from
+    seeded start directions, timed, with its launches a step and the
+    SHA-1 of its directions' bytes (equal digests: bit-equal directions,
+    across checkouts). It calls only functions every version of K4
+    has, beside the fused entry, so a copy of this script at the
+    root of another checkout times that checkout's K4 on the same inputs.
+    Prints the card's line and one JSON line {"k4_alone": {...}}; exits
+    nonzero without a card."""
+    import hashlib
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.core import fast_objective
+    from repro_torch.core import mpad as mpad_mod
+    from repro_torch.core.objective import num_selected_pairs
+    from repro_torch.kernels import mpad_pairwise as pw
+    smi = card_line()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(clustered_corpus(FIT_SAMPLE, DIM, SEED + 3)).to(dev)
+    xs = x - x.mean(dim=0)
+    w = torch.from_numpy(rng.standard_normal(DIM).astype(np.float32)).to(dev)
+    p = xs @ (w / w.norm())
+    k_pairs = num_selected_pairs(FIT_SAMPLE, FIT["b"])
+    r = k4_time(torch, pw, fast_objective, p, k_pairs)
+    log_k4_time("k4 alone", r)
+    w0 = torch.from_numpy(rng.standard_normal((FIT["m"], DIM)).astype(
+        np.float32)).to(dev)
+    r["launches_per_step"] = step_launches(
+        torch, mpad_mod, pw.phi_kernel_value_and_grad, xs, w0)
+    dirs, _, secs = fit_run(torch, mpad_mod, pw.phi_kernel_value_and_grad,
+                            xs, w0)
+    r["fit_s"] = secs
+    r["fit_steps"] = FIT["m"] * FIT["iters"]
+    r["directions_sha1"] = hashlib.sha1(
+        dirs.cpu().numpy().tobytes()).hexdigest()
+    log(f"[k4 alone] a fit step launches {r['launches_per_step']:.1f} "
+        f"kernels; the fit ({r['fit_steps']} steps) {secs:.3f} s, directions "
+        f"sha1 {r['directions_sha1']}")
+    print(json.dumps({"k4_alone": dict(r, card=smi)}))
+    return 0
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    return smi
 
 
 def k2_bound(nq, n, m, kc, k):
@@ -1191,11 +1705,7 @@ def k2_alone():
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels.pq_adc import ops
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    smi = card_line()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     codes = torch.from_numpy(rng.integers(0, 256, (N, 16)).astype(
@@ -1280,7 +1790,35 @@ def compare_k4(torch, pw, name, p, tau):
     return err
 
 
-def edge_cases_k4(torch, pw):
+def compare_k4_fused(torch, pw, fast_objective, name, p, k_pairs):
+    """K4's fused entry against the fit's two steps on the same CUDA
+    tensor: tau bit-equal to ``find_quantile_threshold``'s, count and coeff
+    equal to ``pairwise_stats_ref``'s at it, the sum within 1e-5 relative,
+    and a second call bit for bit. Returns |sum err|."""
+    tau, ck, sk, fk = pw.pairwise_stats_at_quantile(p, k_pairs)
+    torch.cuda.synchronize()
+    want = fast_objective.find_quantile_threshold(p, k_pairs)
+    check(torch.equal(tau.view(torch.int32), want.view(torch.int32)),
+          f"{name}: tau {float(tau)!r} != {float(want)!r}")
+    cp, sp, fp = pw.pairwise_stats_ref(p, want)
+    check(int(ck) == int(cp), f"{name}: count {int(ck)} != {int(cp)}")
+    check(torch.equal(fk, fp), f"{name}: coeff differs")
+    err = abs(float(sk) - float(sp))
+    check(err <= 1e-5 * abs(float(sp)), f"{name}: sum {float(sk)} vs "
+          f"{float(sp)}")
+    again = pw.pairwise_stats_at_quantile(p, k_pairs)
+    check(all(torch.equal(a, b) for a, b in zip(again, (tau, ck, sk, fk))),
+          f"{name}: a second call differs")
+    log(f"  {name}: ok, tau bit-equal, count {int(ck)}, |sum err| "
+        f"{err:.3e}, repeats")
+    return err
+
+
+def edge_cases_k4(torch, pw, fast_objective, num_selected_pairs):
+    """K4 at a given tau (N 1, 2, ragged, 2048, 2500, 20,000, repeated
+    values; tau 0, 0.5, +inf), then the fused entry at the same N (20,000
+    takes the global-scratch route) with k_pairs 1, the fit's b = 80 and
+    all pairs."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
     err = 0.0
@@ -1293,6 +1831,11 @@ def edge_cases_k4(torch, pw):
                 err = max(err, compare_k4(
                     torch, pw, f"K4 edge N={n} repeated={repeated} "
                     f"tau={tau}", pd, torch.tensor(tau, device=dev)))
+            for kp in sorted({1, num_selected_pairs(n, FIT["b"]),
+                              n * (n - 1) // 2}):
+                err = max(err, compare_k4_fused(
+                    torch, pw, fast_objective, f"K4 fused edge N={n} "
+                    f"repeated={repeated} k_pairs={kp}", pd, kp))
     return err
 
 
@@ -1472,7 +2015,7 @@ def eval_path(torch, mods, xd, counters):
     K3's max |err| on the path's inputs, the kernels-line timing)."""
     (kt, knn, MPADConfig, fit_mpad, fast_objective, objective, mpad_mod,
      baselines, paper, cpu_generator, build_engine, reduce_vectors,
-     exact_rerank, recall_at_k) = mods
+     exact_rerank, recall_at_k, kops, SearchEngine) = mods
     dev = xd.device
     out = {"queries": EVAL_Q, "fit_sample": FIT_SAMPLE}
     m = int(paper.TARGET_RATIOS[1] * DIM)               # 38
@@ -1649,19 +2192,28 @@ def eval_path(torch, mods, xd, counters):
     eng_mlp, out["mlp_build_s"] = timed(
         lambda: build_engine(xd, SPEC_MLP, device=dev, seed=SEED))
     lat, found = search_timed(torch, eng_mlp, qd, BATCHES)
-    k1 = next(fn.launches for fn in counters
-              if fn.__name__ == "pq_adc_gather_topk")
-    check(k1 > 0, "K1 never launched on the mlp engine")
+    k1 = {name: next(fn.launches for fn in counters if fn.__name__ == name)
+          for name in ("pq_adc_gather_topk", "pq_adc_cells_topk")}
+    check(k1["pq_adc_cells_topk"] > 0, "K1's cell-major entry never "
+          "launched on the mlp engine")
+    entries = k1_entries(torch, kops, eng_mlp, qd, "path 5 mlp")
     rec = {b: recall_at_k(found[b], truth[:b]) for b in BATCHES}
+    je = SearchEngine.from_state(
+        eng_mlp.state, dataclasses.replace(eng_mlp.config, pq_backend="jnp"))
+    _, ij = je.search(qd[:256], K)
+    check(torch.equal(ij, found[256]), "mlp: @jnp and @kernel ids differ")
+    log("[path 5] mlp: @jnp returns the @kernel ids at batch 256")
     out["mlp"] = {"spec": SPEC_MLP, "latency": lat, "recall_at_10": rec,
-                  "k1_launches": k1, "build_stages_s": eng_mlp.build_seconds,
+                  "k1_launches": k1, "k1_entries": entries,
+                  "ids_equal_plain_route": 1.0,
+                  "build_stages_s": eng_mlp.build_seconds,
                   "residual_kept": bool(
                       eng_mlp.state.proj.params["w2"].abs().max() > 0)}
     for b in BATCHES:
         log(f"[path 5] {SPEC_MLP} batch {b:4d}: p50 {lat[b]['p50_ms']:.3f} "
             f"ms qps {lat[b]['qps']:.0f} recall@10 {rec[b]:.4f}")
     check(rec[256] >= RECALL_FLOOR, f"mlp recall@10 {rec[256]}")
-    del eng_mlp
+    del eng_mlp, je
 
     # the exact fit backend on the fit sample at one w, beside the fast
     # one: value rtol 1e-5, gradient atol 5e-3 (tests/test_objective.py's
@@ -1867,6 +2419,36 @@ def search_timed(torch, eng, qd, batches):
     return lat, found
 
 
+def k1_entries(torch, ops, eng, qd, label):
+    """Which K1 entry an ivfpq engine's search takes at each batch: one
+    search a batch of BATCHES, K1's two counts read around it. The padded
+    scan (a bucket above the engine's compact_batch, or the compact scan
+    off) must launch the cell-major entry once and the gathered entry
+    never; a compact bucket the gathered entry once. Batch 256 must take
+    the padded scan. Returns {batch: the scan and the two counts}."""
+    out = {}
+    for b in BATCHES:
+        g0 = ops.pq_adc_gather_topk.launches
+        c0 = ops.pq_adc_cells_topk.launches
+        eng.search(qd[:b], K)
+        torch.cuda.synchronize()
+        got = (ops.pq_adc_gather_topk.launches - g0,
+               ops.pq_adc_cells_topk.launches - c0)
+        compact = (eng.last_bucket <= eng.config.compact_batch
+                   and eng._scan_cap(eng.config.nprobe) > 0)
+        want = (1, 0) if compact else (0, 1)
+        check(got == want, f"{label} batch {b}: K1 gathered / cell-major "
+              f"launches {got}, want {want}")
+        out[b] = {"bucket": eng.last_bucket,
+                  "scan": "compact" if compact else "padded",
+                  "gathered": got[0], "cells": got[1]}
+    check(out[256]["scan"] == "padded", f"{label}: batch 256 took the "
+          "compact scan")
+    log(f"[{label}] K1 entry by batch: "
+        f"{ {b: v['scan'] + (' gathered' if v['gathered'] else ' cells') for b, v in out.items()} }")
+    return out
+
+
 def kmeans_repeat(torch, ivf, xr, nlist, gen):
     """F2: k-means at the path's cell count, twice on one input from the
     same starting rows; the centroids must match bit for bit (the cluster
@@ -1976,15 +2558,10 @@ def main():
               "n": N, "dim": DIM, "seed": SEED}
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {kind}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
-    log(smi)
-    result["card"] = smi
+    result["card"] = smi = card_line()
 
     # 2. build
     t0 = time.perf_counter()
@@ -1998,8 +2575,10 @@ def main():
     max_err = edge_cases(torch, ops, ref)
     log("[K2 edges]")
     k2_err = edge_cases_k2(torch, ops)
+    log("[K1 cells edges]")
+    max_err = max(max_err, edge_cases_k1_cells(torch, ops, ref))
     log("[K4 edges]")
-    k4_err = edge_cases_k4(torch, pw)
+    k4_err = edge_cases_k4(torch, pw, fast_objective, num_selected_pairs)
     log("[K5 edges]")
     k5_err, result["k5_edges"] = edge_cases_k5(torch, fa)
     log("[K6 edges]")
@@ -2017,9 +2596,10 @@ def main():
     xd = torch.from_numpy(x).to(dev)
     qd = torch.from_numpy(q_all).to(dev)
     del x
-    counters = (ops.pq_adc_gather_topk, ops.pq_adc_topk, pw.pairwise_stats,
-                fa.flash_attention_fwd, fce.fused_ce_fwd,
-                knn_topk.knn_topk_d2)
+    counters = (ops.pq_adc_gather_topk, ops.pq_adc_cells_topk,
+                ops.pq_adc_topk, pw.pairwise_stats,
+                pw.pairwise_stats_at_quantile, fa.flash_attention_fwd,
+                fce.fused_ce_fwd, knn_topk.knn_topk_d2)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2033,11 +2613,16 @@ def main():
         f"{ {k: round(v, 2) for k, v in eng.build_seconds.items()} }, "
         f"max_cell {result['max_cell']}")
     lat, found = search_timed(torch, eng, qd, BATCHES)
-    launches = ops.pq_adc_gather_topk.launches
+    k1_gathered = ops.pq_adc_gather_topk.launches
+    k1_cells = ops.pq_adc_cells_topk.launches
+    launches = k1_gathered + k1_cells
     result["latency"] = lat
-    result["k1_launches"] = launches
-    log(f"[main] K1 launches in the main path: {launches}")
-    check(launches > 0, "K1 never launched on the main path")
+    result["k1_launches"] = {"gathered": k1_gathered, "cells": k1_cells}
+    log(f"[main] K1 launches in the main path: gathered entry "
+        f"{k1_gathered}, cell-major entry {k1_cells}")
+    check(k1_cells > 0, "K1's cell-major entry never launched on the main "
+          "path")
+    result["k1_entries"] = k1_entries(torch, ops, eng, qd, "path 1")
     _, truth = knn.knn_scan(qd, xd, K)
     rec = {b: recall_at_k(found[b], truth[:b]) for b in BATCHES}
     result["recall_at_10"] = rec
@@ -2075,25 +2660,28 @@ def main():
                                           None))
     max_err = max(max_err, compare_k1(torch, ops, ref, "main int8", kt,
                                       ccodes, base, k_eff, "int8", scale))
+    cell_len = (ix.lists >= 0).sum(dim=1)
+    cells_in = (probe, cd2p, ix.codes_cell, ix.bias_cell, cand)
+    for lut in ("f32", "bf16"):
+        max_err = max(max_err, compare_k1_cells(
+            torch, ops, ref, f"main cells {lut}", tables, *cells_in, k_eff,
+            lut, None, cell_len))
+    max_err = max(max_err, compare_k1_cells(
+        torch, ops, ref, "main cells int8", kt, *cells_in, k_eff, "int8",
+        scale, cell_len))
 
-    # 6. timings at batch 256 (int8, the main path's LUT)
-    k1_ms = cuda_ms(torch, lambda: ops.pq_adc_gather_topk(
-        kt, ccodes, base, k_eff, "int8", scale), reps=20)
-    plain_ms = cuda_ms(torch, lambda: ops.pq_adc_gather_topk_plain(
-        kt, ccodes, base, k_eff, "int8", scale), reps=5, warmup=1)
-    m_, kc_ = result["scan_shape"]["M"], result["scan_shape"]["K"]
-    nbytes = (256 * c * m_                  # codes, uint8
-              + 256 * c * 4                 # base, f32
-              + 256 * m_ * kc_ * 4          # tables, f32 (quantized inside)
-              + 256 * 4                     # scale
-              + 256 * k_eff * 8)            # (d2, slot) out
-    nops = 256 * c * (m_ + 2)               # M adds + one fma per candidate
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= nops / F32_OPS_PER_S
-                else "operations")
-    log(f"[timings] K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {nops} ops); no single "
-        "PyTorch call computes K1, so no library time")
+    # 6. timings at batch 256 (int8, the main path's LUT): the gather and
+    # both K1 entries on the main path's own scan, with their bounds
+    k1t = k1_time(torch, ops, ivfpq, kt, scale, probe, cd2p, ix.codes_cell,
+                  ix.bias_cell, cand, cell_len, k_eff)
+    log_k1_time("timings", k1t)
+    result["k1_timing"] = k1t
+    result["l2_read_bytes_per_s"] = l2 = l2_read_rate(torch)
+    k1t["bounds"]["cells"]["l2_ms"] = k1t["bounds"]["cells"]["l2_bytes"] / l2 * 1e3
+    log(f"[timings] L2 read rate of a torch reduction on this card: "
+        f"{l2 / 1e12:.3f} TB/s; the cell-major entry's L2 traffic at it "
+        f"{k1t['bounds']['cells']['l2_ms']:.4f} ms; no single PyTorch call "
+        "computes K1, so no library time")
 
     def stage(fn):
         return cuda_ms(torch, fn, reps=10)
@@ -2108,9 +2696,9 @@ def main():
         "lut": stage(lambda: (adc_tables(ix.lut_w, ix.cbnorm, qr),
                               ivfpq.ivfpq_lut_stats(ix.codebooks, ix.cbnorm,
                                                     qr, "int8"))),
-        "gather": stage(lambda: ivfpq.ivfpq_scan_inputs(
-            probe, cand, cd2p, ix.codes_cell, ix.bias_cell)),
-        "adc_k1": k1_ms,
+        "gather (off the kernel path)": k1t["gather_ms"],
+        "adc_k1_cells": k1t["cells_ms"],
+        "adc_k1_gathered (off the kernel path)": k1t["gathered_ms"],
         "rerank": stage(lambda: exact_rerank(qd, state.corpus, scan_cand,
                                              K)),
     }
@@ -2137,17 +2725,23 @@ def main():
     torch.cuda.synchronize()
     result["pq_engine_build_s"] = time.perf_counter() - t0
     result["pq_build_stages_s"] = eng_pq.build_seconds
-    k4_launches = pw.pairwise_stats.launches
-    result["k4_launches_fit"] = k4_launches
+    k4_launches = pw.pairwise_stats_at_quantile.launches
+    k4_unfused_launches = pw.pairwise_stats.launches
+    result["k4_launches_fit"] = {"fused": k4_launches,
+                                 "at_tau": k4_unfused_launches}
     log(f"[path 2] build_engine({SPEC_PQ}) "
         f"{result['pq_engine_build_s']:.1f} s, stages "
         f"{ {k: round(v, 2) for k, v in eng_pq.build_seconds.items()} }; "
-        f"K4 launches in the fit: {k4_launches}")
-    check(k4_launches == FIT["m"] * FIT["iters"],
-          f"the kernel-backend fit launched K4 {k4_launches} times, not "
-          f"{FIT['m'] * FIT['iters']}")
+        f"K4 launches in the fit: fused entry {k4_launches}, entry at a "
+        f"given tau {k4_unfused_launches}")
+    check(k4_launches == FIT["m"] * FIT["iters"] and
+          k4_unfused_launches == 0,
+          f"the kernel-backend fit launched K4's fused entry {k4_launches} "
+          f"times and its entry at a given tau {k4_unfused_launches}, not "
+          f"{FIT['m'] * FIT['iters']} and 0")
     check(ops.pq_adc_topk.launches == 0 and
-          ops.pq_adc_gather_topk.launches == 0, "a scan kernel ran in a build")
+          ops.pq_adc_gather_topk.launches == 0 and
+          ops.pq_adc_cells_topk.launches == 0, "a scan kernel ran in a build")
     proj = eng_pq.state.proj
     reduced = reduce_vectors(proj, xd)
     t0 = time.perf_counter()
@@ -2170,7 +2764,8 @@ def main():
     result["k2_launches_search"] = k2_launches
     log(f"[path 2] K2 launches in the searches: {k2_launches}")
     check(k2_launches > 0, "K2 never launched on path 2")
-    check(ops.pq_adc_gather_topk.launches == 0, "K1 ran on path 2")
+    check(ops.pq_adc_gather_topk.launches == 0 and
+          ops.pq_adc_cells_topk.launches == 0, "K1 ran on path 2")
     rec2 = {name: {b: recall_at_k(found2[name][b], truth[:b])
                    for b in BATCHES} for name in found2}
     result["path2_latency"] = lat2
@@ -2240,28 +2835,64 @@ def main():
         f"its kernels), plain {k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms "
         f"({k2_by}) at Q=256 N={N} M={m2} K={kc2} k={RERANK} int8; no "
         "single PyTorch call computes K2, so no library time")
+    k_pairs = num_selected_pairs(FIT_SAMPLE, FIT["b"])
     p = xs @ w
-    tau = fast_objective.find_quantile_threshold(
-        p, num_selected_pairs(FIT_SAMPLE, FIT["b"]))  # the fit's threshold
-    k4_ms = device_ms(torch, lambda: pw.pairwise_stats(p, tau), reps=200,
-                      match="pair_")
-    k4_call_ms = cuda_ms(torch, lambda: pw.pairwise_stats(p, tau), reps=200)
-    k4_plain_ms = cuda_ms(torch, lambda: pw.pairwise_stats_ref(p, tau),
-                          reps=20)
-    n4 = FIT_SAMPLE
-    k4_bytes = n4 * 4 + 4 + n4 * 4 + 8 + 4   # p, tau in; coeff, count, sum
-    k4_ops = 5 * n4 * (n4 - 1)              # sub, abs, compare, 2 adds a pair
-    k4_bound = max(k4_bytes / HBM_BYTES_PER_S, k4_ops / F32_OPS_PER_S) * 1e3
-    k4_by = ("bytes" if k4_bytes / HBM_BYTES_PER_S >= k4_ops / F32_OPS_PER_S
-             else "operations")
-    log(f"[timings] K4 {k4_ms:.4f} ms on the card ({k4_call_ms:.4f} ms a "
-        f"call back to back), plain {k4_plain_ms:.4f} ms, bound "
-        f"{k4_bound:.6f} ms ({k4_by}: {k4_bytes} B, {k4_ops} ops) at "
-        f"N={n4}; no single PyTorch call computes K4, so no library time")
+    k4_err = max(k4_err, compare_k4_fused(torch, pw, fast_objective,
+                                          "K4 fused main", p, k_pairs))
+    # the fused step against the two-step route (the bisection, then K4 at
+    # tau):
+    # a fit of FIT_CHECK_M directions from the same start, directions bit
+    # for bit (tau, the count and coeff are exact; only phi's sum rounds
+    # otherwise)
+    w0 = torch.from_numpy(rng.standard_normal((FIT_CHECK_M, DIM)).astype(
+        np.float32)).to(dev)
+
+    def phi_at_tau(w, x, prev, mask, *, b, alpha):
+        k = num_selected_pairs(x.shape[0], b)
+        wn = w / torch.linalg.vector_norm(w)
+        pp = x @ wn
+        tau = fast_objective.find_quantile_threshold(pp, k)
+        cnt, sm, coeff = pw.pairwise_stats(pp, tau)
+        cntf = cnt.clamp_min(1).to(pp.dtype)
+        value = (sm - (cntf - k) * tau) / k
+        g_raw = (x.T @ coeff) / cntf
+        return objective.penalized(value, g_raw - torch.dot(g_raw, wn) * wn,
+                                   w, prev, mask, alpha)
+
+    fits = {}
+    for name, phi_vg in (("fused", pw.phi_kernel_value_and_grad),
+                         ("at_tau", phi_at_tau)):
+        fits[name] = fit_run(torch, mpad_mod, phi_vg, xs, w0,
+                             m=FIT_CHECK_M)
+    check(torch.equal(fits["fused"][0], fits["at_tau"][0]),
+          "the fused fit's directions differ from the two-step route's")
+    trace_rel = float(((fits["fused"][1] - fits["at_tau"][1]).abs()
+                       / fits["at_tau"][1].abs()).max())
+    result["k4_fit_check"] = {
+        "m": FIT_CHECK_M, "iters": FIT["iters"], "directions_bit_equal": True,
+        "phi_trace_max_rel_diff": trace_rel,
+        "fused_s": fits["fused"][2], "at_tau_s": fits["at_tau"][2]}
+    log(f"[K4 main] a fit of {FIT_CHECK_M} x {FIT['iters']} steps: fused "
+        f"{fits['fused'][2]:.3f} s, the two-step route "
+        f"{fits['at_tau'][2]:.3f} s; directions bit for bit, phi traces "
+        f"within {trace_rel:.2e} relative")
+    k4t = k4_time(torch, pw, fast_objective, p, k_pairs)
+    k4t["launches_per_step"] = {
+        "fused": step_launches(torch, mpad_mod, pw.phi_kernel_value_and_grad,
+                               xs, w0),
+        "at_tau": step_launches(torch, mpad_mod, phi_at_tau, xs, w0)}
+    k4t["fit_s"] = eng_pq.build_seconds["fit"]
+    log_k4_time("timings", k4t)
+    log(f"[timings] kernel launches a fit step: "
+        f"{k4t['launches_per_step']}; path 2's fit "
+        f"({FIT['m'] * FIT['iters']} steps) {k4t['fit_s']:.3f} s; no single "
+        "PyTorch call computes K4, so no library time")
+    k4_ms, k4_plain_ms = k4t["fused_device_ms"], k4t["fused_plain_ms"]
+    k4_bound = k4t["fused_bound_ms"]
+    k4_by = k4t["fused_bound_by"]
     result["k2_timing"] = {"ms": k2_ms, "plain_ms": k2_plain_ms,
                            "bound_ms": k2_bound, "runs": k2_runs}
-    result["k4_timing"] = {"ms": k4_ms, "call_ms": k4_call_ms,
-                           "plain_ms": k4_plain_ms, "bound_ms": k4_bound}
+    result["k4_timing"] = k4t
     log(f"[timings] path 2 pq build stages (s): "
         f"{ {k: round(v, 3) for k, v in eng_pq.build_seconds.items()} }")
 
@@ -2281,7 +2912,6 @@ def main():
 
     # one fit step's objective on each backend, and its shared threshold
     # bisection alone
-    k_pairs = num_selected_pairs(FIT_SAMPLE, FIT["b"])
     steps = {"fast": host_ms(step(fast_objective.phi_fast_value_and_grad)),
              "kernel": host_ms(step(pw.phi_kernel_value_and_grad)),
              "threshold": host_ms(
@@ -2302,8 +2932,9 @@ def main():
     # search tensors
     path5, k3_launches, k3_main_err, k3 = eval_path(
         torch, (knn_topk, knn, MPADConfig, fit_mpad, fast_objective,
-                objective, mpad_mod, baselines, paper, cpu_generator, build_engine,
-                reduce_vectors, exact_rerank, recall_at_k),
+                objective, mpad_mod, baselines, paper, cpu_generator,
+                build_engine, reduce_vectors, exact_rerank, recall_at_k, ops,
+                SearchEngine),
         xd, counters)
     result["path5"] = path5
     k3_err = max(k3_err, k3_main_err)
@@ -2326,13 +2957,38 @@ def main():
     result["k6_timing"] = k6
     k6_err = max(k6_err, k6_main_err)
 
-    kernels = [{
-        "name": "pq_adc_gather_topk", "route": "cuda",
-        "source": "src/repro_torch/kernels/pq_adc/csrc/pq_adc_gather_topk.cu",
+    k1b = k1t["bounds"]
+    k1_src = "src/repro_torch/kernels/pq_adc/csrc/pq_adc_gather_topk.cu"
+    k4_src = "src/repro_torch/kernels/mpad_pairwise/csrc/pairwise_stats.cu"
+    k1_cells = {
+        "name": "pq_adc_cells_topk", "launches": result["k1_launches"]["cells"],
+        "ms": k1t["cells_ms"], "device_ms": k1t["cells_device_ms"],
+        "plain_ms": k1t["cells_plain_ms"],
+        "bound_ms": k1b["cells"]["bound_ms"],
+        "bound_by": k1b["cells"]["bound_by"],
+        "l2_ms": k1b["cells"]["l2_ms"], "library_ms": None}
+    k1_gathered = {
+        "name": "pq_adc_gather_topk",
+        "launches": result["k1_launches"]["gathered"],
+        "ms": k1t["gathered_ms"], "device_ms": k1t["gathered_device_ms"],
+        "plain_ms": k1t["gathered_plain_ms"],
+        "bound_ms": k1b["gathered"]["bound_ms"],
+        "bound_by": k1b["gathered"]["bound_by"], "library_ms": None}
+    k4_at_tau = {
+        "name": "pairwise_stats", "launches": k4_unfused_launches,
+        "ms": k4t["unfused_device_ms"], "plain_ms": k4t["unfused_plain_ms"],
+        "bound_ms": k4t["unfused_bound_ms"], "bound_by": "operations",
+        "library_ms": None}
+    kernels = [dict(k1_cells, **{
+        "name": "pq_adc_gather_topk", "route": "cuda", "source": k1_src,
         "replaces": "src/repro/kernels/pq_adc/kernel.py:212",
-        "launches": launches, "max_abs_err": max_err, "ms": k1_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, {
+        "launches": launches, "max_abs_err": max_err,
+        "entries": [k1_cells, k1_gathered],
+        "note": "two entries of one kernel: the cell-major entry (the "
+                "padded scan at batch 256; its times are the kernel's "
+                "here, at path 1's batch-256 scan, int8) and the gathered "
+                "entry (the compact scan at batches 1/8/64); launches: "
+                "both, path 1's main run"}), {
         "name": "pq_adc_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/pq_adc/csrc/pq_adc_topk.cu",
         "replaces": "src/repro/kernels/pq_adc/kernel.py:120",
@@ -2343,13 +2999,21 @@ def main():
                 "result.k2_timing.runs has int8 at batches 1/8/64/256 and "
                 "f32/bf16 at 256, each with its kernels' device time and "
                 "the plan (queries a block, occupancy, waves)"}, {
-        "name": "pairwise_stats", "route": "cuda",
-        "source": "src/repro_torch/kernels/mpad_pairwise/csrc/"
-                  "pairwise_stats.cu",
+        "name": "pairwise_stats", "route": "cuda", "source": k4_src,
         "replaces": "src/repro/kernels/mpad_pairwise/kernel.py:64",
         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-        "library_ms": None}, {
+        "library_ms": None,
+        "entries": [{"name": "pairwise_stats_at_quantile",
+                     "launches": k4_launches, "ms": k4_ms,
+                     "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+                     "bound_by": k4_by, "library_ms": None,
+                     "floor_ms": k4t["floor_device_ms"]}, k4_at_tau],
+        "note": "two entries of one kernel: the fused threshold search and "
+                "statistics (one launch a fit step, path 2's fit; its "
+                "times are the kernel's here, device time at N 2048) and "
+                "the statistics at a given tau (off the main path: "
+                "its edge cases and timings)"}, {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bf16.cu",
@@ -2393,5 +3057,11 @@ def main():
     return 0
 
 
+ALONE = {"--k1-timings": k1_alone, "--k2-timings": k2_alone,
+         "--k4-timings": k4_alone}
+
 if __name__ == "__main__":
-    sys.exit(k2_alone() if sys.argv[1:] == ["--k2-timings"] else main())
+    ARGS = sys.argv[1:]
+    if ARGS and (len(ARGS) > 1 or ARGS[0] not in ALONE):
+        sys.exit(f"usage: {sys.argv[0]} [{' | '.join(ALONE)}]")
+    sys.exit(ALONE[ARGS[0]]() if ARGS else main())

@@ -10,13 +10,17 @@ unordered pairs i < j with |p_i - p_j| <= tau:
          (the exact subgradient coefficients: grad mu = X^T c / count)
 
 O(N^2) dense: the spec the CUDA kernel is held against, and what the
-wrapper runs on CPU tensors.
+wrapper runs on CPU tensors. ``pairwise_stats_at_quantile_ref`` is the
+fused entry's: the fit's threshold (``find_quantile_threshold``), then
+these statistics at it.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["pairwise_stats_ref"]
+from repro_torch.core.fast_objective import find_quantile_threshold
+
+__all__ = ["pairwise_stats_ref", "pairwise_stats_at_quantile_ref"]
 
 
 def pairwise_stats_ref(p: torch.Tensor, tau):
@@ -31,3 +35,11 @@ def pairwise_stats_ref(p: torch.Tensor, tau):
     s = torch.where(within, ad, 0.0).sum() * 0.5
     coeff = torch.where(within, torch.sign(diff), 0.0).sum(dim=1)
     return count, s, coeff
+
+
+def pairwise_stats_at_quantile_ref(p: torch.Tensor, k_pairs: int):
+    """The smallest tau whose pair count reaches ``k_pairs``, by the fit's
+    60-step bisection, and the statistics at it. Returns (tau f32 scalar,
+    count int64 scalar, sum f32 scalar, coeff (N,) f32)."""
+    tau = find_quantile_threshold(p.to(torch.float32), k_pairs)
+    return (tau, *pairwise_stats_ref(p, tau))

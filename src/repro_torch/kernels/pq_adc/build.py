@@ -1,4 +1,5 @@
-"""The ADC kernels' libraries: K1 (``csrc/pq_adc_gather_topk.cu``) and K2
+"""The ADC kernels' libraries: K1 (``csrc/pq_adc_gather_topk.cu``, its
+gathered and cell-major entries) and K2
 (``csrc/pq_adc_topk.cu``), built at first use and loaded through
 ``repro_torch.kernels.build``, with their C ABI declared here."""
 from __future__ import annotations
@@ -20,11 +21,15 @@ _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 def _declare_gather_topk(lib: ctypes.CDLL):
     lib.qpad_pq_adc_gather_topk.argtypes = [
-        _VP, _I32, _VP, _VP, _I32, _VP, _I32, _I32, _I32, _I32, _I32, _VP,
-        _VP, _VP, _VP, _VP]
+        _VP, _I32, _VP, _VP, _I32, _VP] + [_I32] * 7 + [_VP] * 5
     lib.qpad_pq_adc_gather_topk.restype = _I32
-    lib.qpad_pq_adc_gather_topk_scratch.argtypes = [_I32, _I32, _I32]
-    lib.qpad_pq_adc_gather_topk_scratch.restype = _I64
+    lib.qpad_pq_adc_cells_topk.argtypes = [
+        _VP, _I32, _VP, _VP, _I32, _VP, _VP, _VP, _VP, _VP] + [_I32] * 10 + \
+        [_VP] * 5
+    lib.qpad_pq_adc_cells_topk.restype = _I32
+    lib.qpad_pq_adc_select_plan.argtypes = [_I32, _I32, _I32, _I32, _I64,
+                                            _I64, _I32, _I32, _I32, _VP]
+    lib.qpad_pq_adc_select_plan.restype = _I32
     lib.qpad_pq_adc_gather_topk_smem.argtypes = [_I32, _I32, _I32, _I32]
     lib.qpad_pq_adc_gather_topk_smem.restype = _I64
 

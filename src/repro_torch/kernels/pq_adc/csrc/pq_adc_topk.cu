@@ -56,14 +56,15 @@
 // already be raising for the next chunk. The bars are refreshed after each
 // sort. A stale bar lets a few more rows in, never a row of the k best
 // out, and a block stops for a handful of sorts instead of one every chunk
-// (sorting every chunk took most of the kernel's time on the card). Lists of up to 512 pairs (k <= 256) are sorted in registers, with
-// shuffles between lanes (warp_sort512), which reads and writes shared
-// memory once where the shared-memory sort does at every stage; longer
-// lists take topk_select.cuh's shared-memory sort. The rows are split
-// over the blocks of a second grid axis so that a batch of one query
-// still fills the card; the split is planned from the occupancy the kernel
-// really gets (cudaOccupancyMaxActiveBlocksPerMultiprocessor) so that the
-// blocks fill whole waves. The per-block lists are merged by
+// (sorting every chunk took most of the kernel's time on the card). Lists
+// of up to 512 pairs (k <= 256) are sorted in registers, with shuffles
+// between lanes (warp_sort512), which reads and writes shared memory once
+// where the shared-memory sort does at every stage; longer lists take the
+// shared-memory sort (both in topk_select.cuh's sort_list_warp). The rows
+// are split over the blocks of a second grid axis so that a batch of one
+// query still fills the card; the split is planned from the occupancy the
+// kernel really gets (topk_select.cuh's plan_split) so that the blocks
+// fill whole waves. The per-block lists are merged by
 // topk_select.cuh's fixed-order passes, as in K1: no atomics on scores, so
 // a call repeats bit for bit. Not yet: sorts that do not stop the block.
 
@@ -97,70 +98,6 @@ inline size_t table_bytes(int e, int qb, int m, int kc) {
 inline size_t smem_bytes(int e, int qb, int m, int kc, int work) {
   return table_bytes(e, qb, m, kc) +
          static_cast<size_t>(qb) * 8 * work + 16 * sizeof(int);
-}
-
-// Ascending sort of the 512 (key, slot) pairs at key / slot by one warp,
-// in registers: lane l holds pairs 16 l .. 16 l + 15. The network is the
-// bitonic one of topk_select.cuh's warp_bitonic_sort (so the order is the
-// same); its stages with a stride below 16 swap within a lane's
-// registers, the 15 with a larger stride trade with the partner lane by
-// shuffles. Shared memory is read and written once, where the
-// shared-memory sort reads and writes every pair at each of 45 stages.
-constexpr int kRegSort = 512;
-
-__device__ __forceinline__ void warp_sort512(float* key, int* slot) {
-  const int lane = threadIdx.x & 31;
-  float k[16];
-  int sl[16];
-#pragma unroll
-  for (int r = 0; r < 16; r += 4) {
-    const float4 kv = *reinterpret_cast<const float4*>(key + lane * 16 + r);
-    const int4 sv = *reinterpret_cast<const int4*>(slot + lane * 16 + r);
-    k[r] = kv.x; k[r + 1] = kv.y; k[r + 2] = kv.z; k[r + 3] = kv.w;
-    sl[r] = sv.x; sl[r + 1] = sv.y; sl[r + 2] = sv.z; sl[r + 3] = sv.w;
-  }
-#pragma unroll
-  for (int size = 2; size <= kRegSort; size <<= 1) {
-#pragma unroll
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      if (j >= 16) {
-        const int pl = j >> 4;                 // the partner lane's offset
-        const bool keep_min = ((lane & pl) == 0) == (((lane * 16) & size) == 0);
-#pragma unroll
-        for (int r = 0; r < 16; ++r) {
-          const float ok = __shfl_xor_sync(0xffffffffu, k[r], pl);
-          const int os = __shfl_xor_sync(0xffffffffu, sl[r], pl);
-          if (sorts_before(ok, os, k[r], sl[r]) == keep_min) {
-            k[r] = ok;
-            sl[r] = os;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < 16; ++r) {
-          if ((r & j) == 0) {
-            const int q = r | j;
-            const bool up = ((lane * 16 + r) & size) == 0;
-            if (sorts_after(k[r], sl[r], k[q], sl[q]) == up) {
-              const float tk = k[r];
-              const int ts = sl[r];
-              k[r] = k[q];
-              sl[r] = sl[q];
-              k[q] = tk;
-              sl[q] = ts;
-            }
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 16; r += 4) {
-    *reinterpret_cast<float4*>(key + lane * 16 + r) =
-        make_float4(k[r], k[r + 1], k[r + 2], k[r + 3]);
-    *reinterpret_cast<int4*>(slot + lane * 16 + r) =
-        make_int4(sl[r], sl[r + 1], sl[r + 2], sl[r + 3]);
-  }
 }
 
 // The QB entries of code ``code`` at subspace ``mm``: NB bytes as words.
@@ -342,23 +279,7 @@ adc_shared_select(const unsigned char* __restrict__ packed,
     if (warp < qn) {
       const int c = cnt[warp];
       if (c > 0) {
-        // up to 512 pairs (every list room of k <= 256) sort in
-        // registers; longer lists in shared memory
-        int n = kRegSort;
-        while (n < k + c) n <<= 1;
-        float* kq = keys + warp * w;
-        int* sq = slots + warp * w;
-        for (int i = k + c + lane; i < n; i += 32) {
-          kq[i] = __int_as_float(0x7f800000);
-          sq[i] = kPadSlot;
-        }
-        __syncwarp();
-        if (n == kRegSort) {
-          warp_sort512(kq, sq);
-        } else {
-          warp_bitonic_sort(kq, sq, n);
-        }
-        __syncwarp();
+        sort_list_warp(keys + warp * w, slots + warp * w, k, c);
         if (lane == 0) cnt[warp] = 0;
       }
     }
@@ -422,46 +343,6 @@ const void* kernel_for(int e, int qb, int code_bytes, size_t smem) {
   return f;
 }
 
-struct Plan {
-  int parts, rows_per_part, blocks_per_sm, sms;
-};
-
-// Row parts for ``groups`` query groups: the count that minimises
-// (waves) x (rows a block scans + a block's fixed cost, counted as four
-// list rooms of rows), so that the blocks fill whole waves of the blocks
-// the card really holds at once.
-cudaError_t plan_for(const void* f, size_t smem, int groups, int n, int k,
-                     int work, Plan* p) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&p->sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->blocks_per_sm, f,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (p->blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long slots = static_cast<long long>(p->blocks_per_sm) * p->sms;
-  const long long room = work - k;
-  const long long max_parts = (n + room - 1) / room;
-  long long cap = 4 * slots / groups + 1;
-  if (cap > max_parts) cap = max_parts;
-  long long best = 1;
-  double best_cost = -1.0;
-  for (long long parts = 1; parts <= cap; ++parts) {
-    const long long waves = (groups * parts + slots - 1) / slots;
-    const double cost = static_cast<double>(waves) *
-        (static_cast<double>((n + parts - 1) / parts) + 4.0 * room);
-    if (best_cost < 0.0 || cost < best_cost) {
-      best_cost = cost;
-      best = parts;
-    }
-  }
-  p->rows_per_part = static_cast<int>((n + best - 1) / best);
-  p->parts = (n + p->rows_per_part - 1) / p->rows_per_part;
-  return cudaSuccess;
-}
-
 bool bad_args(int entry, int qb, int code_bytes, int nq, int n, int m,
               int kc, int k, int work) {
   return chunk_for(k) > kMaxChunk || nq <= 0 || n <= 0 || m <= 0 ||
@@ -489,12 +370,12 @@ int qpad_pq_adc_topk_plan(int entry, int qb, int code_bytes, int nq, int n,
   const size_t smem = smem_bytes(entry, qb, m, kc, work);
   const void* f = kernel_for(entry, qb, code_bytes, smem);
   if (f == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  Plan p;
-  const cudaError_t err = plan_for(f, smem, (nq + qb - 1) / qb, n, k, work,
-                                   &p);
+  PartPlan p;
+  const cudaError_t err = plan_split(f, smem, (nq + qb - 1) / qb, n, 1, k,
+                                     work, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.parts;
-  out[1] = p.rows_per_part;
+  out[1] = p.units_per_part;
   out[2] = p.blocks_per_sm;
   out[3] = p.sms;
   out[4] = p.parts <= 1 ? 0 : 2LL * nq * p.parts * k;

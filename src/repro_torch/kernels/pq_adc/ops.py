@@ -1,9 +1,14 @@
-"""Wrappers of the ADC top-k kernels: K1 (fused ADC-gather top-k over
-per-query candidate codes) and K2 (ADC top-k over one shared code matrix).
+"""Wrappers of the ADC top-k kernels: K1 (ADC top-k over per-query
+candidates, in two entries: ``pq_adc_gather_topk`` over gathered codes
+(Q, C, M), and ``pq_adc_cells_topk`` over an IVF-PQ index's probed cells
+read where they lie) and K2 (ADC top-k over one shared code matrix).
 
 Each wrapper takes its plain PyTorch version (``ref.py``) for tensors on
 the CPU, and only for those; for CUDA tensors it launches its CUDA kernel
-(``csrc/``) or raises. Each launch adds one to the wrapper's ``launches``.
+(``csrc/``) or raises. Each launch adds one to the wrapper's ``launches``
+(each K1 entry has its own). K1's and K2's blocks split their candidates
+over a second grid axis by a plan made from the kernel's occupancy
+(``pq_adc_select_plan``, ``pq_adc_topk_plan``; cached per shape).
 
 Contract (both routes): (d2 (Q, k) f32 ascending, slot or row (Q, k)
 int64) with ties to the lower slot and (+inf, -1) where fewer than k
@@ -28,12 +33,13 @@ import torch
 
 from .build import gather_topk_library, topk_library
 from .lut import LUT_DTYPES, quantize_lut
-from .ref import pq_adc_gather_topk_ref, pq_adc_topk_ref
+from .ref import gather_cells, pq_adc_gather_topk_ref, pq_adc_topk_ref
 
-__all__ = ["pq_adc_gather_topk", "pq_adc_gather_topk_plain", "pq_adc_topk",
-           "pq_adc_topk_plain", "pq_adc_topk_plan", "shared_layout",
-           "pack_shared_tables", "packed_scores", "shared_smem_bytes",
-           "list_work", "MAX_K"]
+__all__ = ["pq_adc_gather_topk", "pq_adc_gather_topk_plain",
+           "pq_adc_cells_topk", "pq_adc_cells_topk_plain",
+           "pq_adc_select_plan", "pq_adc_topk", "pq_adc_topk_plain",
+           "pq_adc_topk_plan", "shared_layout", "pack_shared_tables",
+           "packed_scores", "shared_smem_bytes", "list_work", "MAX_K"]
 
 MAX_K = 8192                     # the kernels' largest chunk holds 2k pairs
 _LUT_MODE = {"f32": 0, "bf16": 1, "int8": 2}
@@ -124,8 +130,9 @@ def _quantized(tables, lut_dtype, scale):
 
 def list_work(k: int) -> int:
     """K2's list a query, in (key, row) pairs: a power of two >= 2k and
-    >= LIST_MIN_WORK. Its first k pairs are the query's k best, the other
-    (work - k) the room where rows that beat the k-th wait for a sort."""
+    >= LIST_MIN_WORK (topk_select.cuh's list_work). Its first k pairs are
+    the query's k best, the other (work - k) the room where rows that beat
+    the k-th wait for a sort."""
     w = LIST_MIN_WORK
     while w < 2 * k:
         w <<= 1
@@ -247,25 +254,24 @@ def pq_adc_gather_topk(tables: torch.Tensor, codes: torch.Tensor,
         raise TypeError(f"base must be float32, got {base.dtype}")
     if not base.is_contiguous():
         raise ValueError("base must be contiguous")
-    lib = gather_topk_library()
-    mode = _LUT_MODE[lut_dtype]
-    _check_smem(lib.qpad_pq_adc_gather_topk_smem(mode, m, kc, k), m, kc, k)
     c = codes.shape[1]
     dev = base.device
+    mode = _LUT_MODE[lut_dtype]
+    _check_smem(gather_topk_library().qpad_pq_adc_gather_topk_smem(
+        mode, m, kc, k), m, kc, k)
     if nq == 0 or c == 0:
         return _empty(nq, k, dev)
     qt, s = _quantized(tables, lut_dtype, scale)
-    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    n_scratch = lib.qpad_pq_adc_gather_topk_scratch(nq, c, k)
-    sk = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    ss = torch.empty(n_scratch, dtype=torch.int32, device=dev)
+    plan = pq_adc_select_plan("gathered", nq, c, 1, m, kc, k, lut_dtype,
+                              codes.element_size(), dev)
+    out_d, out_i, sk, ss = _outputs(nq, k, plan["scratch"], dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.qpad_pq_adc_gather_topk(
+        err = gather_topk_library().qpad_pq_adc_gather_topk(
             qt.data_ptr(), mode, s.data_ptr(), codes.data_ptr(),
-            codes.element_size(), base.data_ptr(), nq, c, m, kc, k, sk.data_ptr(), ss.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), stream)
+            codes.element_size(), base.data_ptr(), nq, c, m, kc, k,
+            plan["parts"], plan["units_per_part"], sk.data_ptr(),
+            ss.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pq_adc_gather_topk launch failed: CUDA error "
                            f"{err}")
@@ -274,6 +280,151 @@ def pq_adc_gather_topk(tables: torch.Tensor, codes: torch.Tensor,
 
 
 pq_adc_gather_topk.launches = 0
+
+
+def _outputs(nq, k, n_scratch, dev):
+    """(out_d, out_i) and the two merge scratch arrays of a K1 call."""
+    return (torch.empty((nq, k), dtype=torch.float32, device=dev),
+            torch.empty((nq, k), dtype=torch.int32, device=dev),
+            torch.empty(n_scratch, dtype=torch.float32, device=dev),
+            torch.empty(n_scratch, dtype=torch.int32, device=dev))
+
+
+_select_plans = {}
+
+
+def pq_adc_select_plan(source: str, nq: int, n_units: int, unit_rows: int,
+                       m: int, kc: int, k: int, lut_dtype: str,
+                       code_bytes: int, device) -> dict:
+    """K1's launch plan (cached per shape and device): ``source``
+    "gathered" splits each query's ``n_units`` slots (``unit_rows`` 1),
+    "cells" its ``n_units`` probed cells of ``unit_rows`` (max_cell) rows,
+    over ``parts`` blocks of ``units_per_part`` units, planned from the
+    ``blocks_per_sm`` the kernel's occupancy allows on the ``sms`` SMs;
+    ``blocks`` launched, the ``waves`` they make, the ``smem`` a block and
+    the ``scratch`` length of each merge array."""
+    dev = torch.device(device)
+    key = (source, nq, n_units, unit_rows, m, kc, k, lut_dtype, code_bytes,
+           dev)
+    plan = _select_plans.get(key)
+    if plan is None:
+        lib = gather_topk_library()
+        out = (ctypes.c_longlong * 5)()
+        with torch.cuda.device(dev):
+            err = lib.qpad_pq_adc_select_plan(
+                _LUT_MODE[lut_dtype], code_bytes,
+                {"gathered": 0, "cells": 1}[source], nq, n_units, unit_rows,
+                m, kc, k, out)
+        if err != 0:
+            raise RuntimeError(f"pq_adc_select_plan failed: CUDA error {err}")
+        parts, per, per_sm, sms, scratch = (int(v) for v in out)
+        plan = {"parts": parts, "units_per_part": per,
+                "blocks_per_sm": per_sm, "sms": sms, "blocks": nq * parts,
+                "waves": nq * parts / (per_sm * sms), "scratch": scratch,
+                "smem": int(lib.qpad_pq_adc_gather_topk_smem(
+                    _LUT_MODE[lut_dtype], m, kc, k))}
+        _select_plans[key] = plan
+    return plan
+
+
+def pq_adc_cells_topk_plain(tables, probe, cd2p, codes_cell, bias_cell, cand,
+                            k, lut_dtype="f32", scale=None):
+    """The cell-major entry's plain version: the padded scan's gather
+    (``ref.gather_cells``), then ``pq_adc_gather_topk_plain``. Runs on any
+    device; the wrapper takes it for CPU tensors."""
+    ccodes, base = gather_cells(probe, cand, cd2p, codes_cell, bias_cell)
+    return pq_adc_gather_topk_plain(tables, ccodes, base, k, lut_dtype,
+                                    scale)
+
+
+def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
+                      cd2p: torch.Tensor, codes_cell: torch.Tensor,
+                      bias_cell: torch.Tensor, cand: torch.Tensor, k: int,
+                      lut_dtype: str = "f32", scale=None, cell_len=None):
+    """K1 over an IVF-PQ index's probed cells, read where they lie.
+
+    tables (Q, M, K) f32 as in ``pq_adc_gather_topk``; probe (Q, P) cell
+    ids; cd2p (Q, P) f32 coarse distances; codes_cell (nlist, max_cell, M)
+    uint8 (int32 for K > 256); bias_cell (nlist, max_cell) f32; cand (Q, C)
+    candidate ids, -1 for an empty posting slot (its width C is the slot
+    range; slot c = p * max_cell + r). ``cell_len`` (nlist,), the fill
+    ``(lists >= 0).sum(1)`` of each cell, may replace reading ``cand``
+    only where the posting lists are left-packed (ids, then pads), as
+    ``posting_lists`` builds them. Returns what
+    ``pq_adc_gather_topk(tables, *gather_cells(probe, cand, cd2p,
+    codes_cell, bias_cell), k, ...)`` returns, bit for bit: (d2 (Q, k) f32,
+    slot (Q, k) int64).
+    """
+    _check_common(tables, k, lut_dtype, scale, probe, cd2p, codes_cell,
+                  bias_cell, cand, *(() if cell_len is None else (cell_len,)))
+    if tables.ndim != 3 or probe.ndim != 2 or codes_cell.ndim != 3 or \
+            bias_cell.ndim != 2 or cand.ndim != 2:
+        raise ValueError("expected tables (Q, M, K), probe (Q, P), codes_cell "
+                         "(nlist, max_cell, M), bias_cell (nlist, max_cell), "
+                         "cand (Q, C)")
+    nq, m, kc = tables.shape
+    nlist, max_cell, _ = codes_cell.shape
+    if probe.shape[0] != nq or tuple(cd2p.shape) != tuple(probe.shape) or \
+            codes_cell.shape[2] != m or \
+            tuple(bias_cell.shape) != (nlist, max_cell) or \
+            cand.shape[0] != nq:
+        raise ValueError(f"shape mismatch: tables {tuple(tables.shape)}, "
+                         f"probe {tuple(probe.shape)}, cd2p "
+                         f"{tuple(cd2p.shape)}, codes_cell "
+                         f"{tuple(codes_cell.shape)}, bias_cell "
+                         f"{tuple(bias_cell.shape)}, cand "
+                         f"{tuple(cand.shape)}")
+    if tables.device.type == "cpu":
+        return pq_adc_cells_topk_plain(tables, probe, cd2p, codes_cell,
+                                       bias_cell, cand, k, lut_dtype, scale)
+    _check_cuda_codes(tables, codes_cell)
+    for name, t in (("cd2p", cd2p), ("bias_cell", bias_cell)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("probe", probe), ("cand", cand), ("cell_len", cell_len)):
+        if t is not None and t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
+    # the kernel reads int64 ids (what torch's top-k and the port's
+    # posting lists hold; an index bridged from JAX holds int32)
+    if cell_len is not None:
+        if tuple(cell_len.shape) != (nlist,):
+            raise ValueError(f"cell_len must be ({nlist},), got "
+                             f"{tuple(cell_len.shape)}")
+        cell_len = cell_len.to(torch.int64).contiguous()
+    else:
+        cand = cand.to(torch.int64).contiguous()
+    probe = probe.to(torch.int64).contiguous()
+    cd2p, bias_cell = cd2p.contiguous(), bias_cell.contiguous()
+    n_probe, c = probe.shape[1], cand.shape[1]
+    dev = codes_cell.device
+    mode = _LUT_MODE[lut_dtype]
+    _check_smem(gather_topk_library().qpad_pq_adc_gather_topk_smem(
+        mode, m, kc, k), m, kc, k)
+    if nq == 0 or c == 0 or n_probe == 0 or max_cell == 0:
+        return _empty(nq, k, dev)
+    qt, s = _quantized(tables, lut_dtype, scale)
+    plan = pq_adc_select_plan("cells", nq, n_probe, max_cell, m, kc, k,
+                              lut_dtype, codes_cell.element_size(), dev)
+    out_d, out_i, sk, ss = _outputs(nq, k, plan["scratch"], dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = gather_topk_library().qpad_pq_adc_cells_topk(
+            qt.data_ptr(), mode, s.data_ptr(), codes_cell.data_ptr(),
+            codes_cell.element_size(), bias_cell.data_ptr(),
+            probe.data_ptr(), cd2p.data_ptr(),
+            None if cell_len is None else cell_len.data_ptr(),
+            None if cell_len is not None else cand.data_ptr(),
+            nq, n_probe, nlist, max_cell, c, m, kc, k, plan["parts"],
+            plan["units_per_part"], sk.data_ptr(), ss.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pq_adc_cells_topk launch failed: CUDA error "
+                           f"{err}")
+    pq_adc_cells_topk.launches += 1
+    return out_d, out_i.long()
+
+
+pq_adc_cells_topk.launches = 0
 
 
 def pq_adc_topk(tables: torch.Tensor, codes: torch.Tensor, k: int,

@@ -8,6 +8,10 @@ kernels:
     shared codes (K2):   out[q, n] = sum_m tables[q, m, codes[n, m]]
     gathered codes (K1): out[q, c] = base[q, c] + sum_m tables[q, m, codes[q, c, m]]
 
+K1's cell-major entry scores an IVF-PQ index's probed cells where they
+lie; its plain version is ``gather_cells`` (the padded scan's gather)
+followed by the gathered top-k.
+
 The tables are snapped onto the ``lut_dtype`` grid but kept in f32 (see
 ``lut.py``), so the lookup is one flat gather over the (Q, M*K) table at
 f32 regardless of the LUT precision, and int8 scores (exact integer sums
@@ -28,7 +32,8 @@ from repro_torch.search.knn import topk_smallest
 from .lut import _int8_scale, fma_f32, snap_values
 
 __all__ = ["pq_adc_scores_ref", "pq_adc_topk_ref",
-           "pq_adc_gather_scores_ref", "pq_adc_gather_topk_ref"]
+           "pq_adc_gather_scores_ref", "pq_adc_gather_topk_ref",
+           "gather_cells"]
 
 
 def _resolve_scale(tables, lut_dtype, scale, center):
@@ -119,3 +124,24 @@ def pq_adc_gather_topk_ref(tables: torch.Tensor, codes: torch.Tensor,
     d2 = pq_adc_gather_scores_ref(tables, codes, base, lut_dtype, scale,
                                   center)
     return topk_smallest(d2, k)
+
+
+def gather_cells(probe: torch.Tensor, cand: torch.Tensor, cd2p: torch.Tensor,
+                 codes_cell: torch.Tensor, bias_cell: torch.Tensor):
+    """Candidate codes (Q, C, M) and additive base (Q, C) of an IVF-PQ
+    padded scan: the nprobe probed cells' contiguous cell-major rows, slot
+    p * max_cell + r from cell probe[q, p]; base cd2p[q, p] +
+    bias_cell[cell, r] (one f32 add), +inf where ``cand`` < 0 (an empty
+    posting slot, or a slot past P * max_cell)."""
+    nq = probe.shape[0]
+    m = codes_cell.shape[2]
+    max_cell = codes_cell.shape[1]
+    ccodes = codes_cell[probe].reshape(nq, -1, m)
+    base = (cd2p.repeat_interleave(max_cell, dim=1)
+            + bias_cell[probe].reshape(nq, -1))           # (Q, P*max_cell)
+    short = cand.shape[1] - base.shape[1]                 # degenerate budget
+    if short:
+        ccodes = torch.nn.functional.pad(ccodes, (0, 0, 0, short))
+        base = torch.nn.functional.pad(base, (0, short))
+    base = torch.where(cand >= 0, base, float("inf"))
+    return ccodes, base

@@ -8,10 +8,19 @@ table is cell-independent; with reconstruction x^ = c + r^:
                + sum_m (||cb[m,code_m]||^2 - 2<q_m, cb[m,code_m]>)  (table)
                + 2 sum_m <c_m, cb[m,code_m]>          (per-id ``bias``)
 
-``backend="kernel"`` scores the candidates with kernel K1
-(``repro_torch.kernels.pq_adc.ops.pq_adc_gather_topk``), ``backend="jnp"``
-with its plain version; the name keeps the spec grammar's ``@jnp`` token,
-so one spec string drives both packages.
+``backend="kernel"`` scores the candidates with kernel K1, ``backend="jnp"``
+with the plain scorer over gathered candidates; the name keeps the spec
+grammar's ``@jnp`` token, so one spec string drives both packages. With
+the kernel the padded scan takes K1's cell-major entry
+(``ops.pq_adc_cells_topk``), which on a CUDA device reads the probed
+cells of ``codes_cell`` / ``bias_cell`` where they lie (on the CPU its
+plain version gathers them first); the compact scan gathers its
+candidates and takes the gathered entry (``ops.pq_adc_gather_topk``).
+
+``lists`` rows are left-packed (a cell's ids ascending, then -1 pads), as
+``posting_lists`` builds them and the JAX package's do: the padded scan
+hands K1 each cell's fill, ``(lists >= 0).sum(1)``, in place of reading
+the candidate ids.
 """
 from __future__ import annotations
 
@@ -21,7 +30,8 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels.pq_adc import ops as adc_ops
-from repro_torch.kernels.pq_adc.ref import pq_adc_gather_scores_ref
+from repro_torch.kernels.pq_adc.ref import (gather_cells,
+                                            pq_adc_gather_scores_ref)
 
 from .ivf import kmeans, nearest, posting_lists, probe_cells, sq_dists
 from .knn import topk_smallest
@@ -34,7 +44,7 @@ __all__ = ["IVFPQIndex", "build_ivfpq", "ivfpq_lut_stats",
 
 class IVFPQIndex(NamedTuple):
     centroids: torch.Tensor    # (nlist, d) coarse quantizer
-    lists: torch.Tensor        # (nlist, max_cell) int64 ids, -1 = pad
+    lists: torch.Tensor        # (nlist, max_cell) int64 ids, then -1 pads
     codebooks: torch.Tensor    # (M, K, dsub) residual PQ codebooks
     codes: torch.Tensor        # (N, M) uint8 residual codes, id-aligned
     bias: torch.Tensor         # (N,) f32: 2 sum_m <cent[assign]_m, cb[m, code_m]>
@@ -108,24 +118,18 @@ def ivfpq_lut_stats(codebooks: torch.Tensor, cbnorm: torch.Tensor,
     return rowmean, bound.clamp_min(1e-12) / 127.0
 
 
-def _score_topk(tables, ccodes, base, cand, q, codebooks, cbnorm, n_cand,
-                backend, lut_dtype):
-    """Shared tail of the padded and compact scans: (int8) centering,
-    kernel or plain ADC top-k, restore the centre, map slots to ids."""
+def _score_topk(tables, cand, q, codebooks, cbnorm, n_cand, lut_dtype,
+                select):
+    """Shared tail of the padded and compact scans: (int8) centering, the
+    ADC top-k ``select(tables, center, scale, k)`` -> (d2, slot), restore
+    the centre, map slots to ids."""
     center = scale = None
     if lut_dtype == "int8":
         # the int8 grid only covers the candidate-varying part of the
         # table; the per-query constant sum_m center returns after top-k
         center, scale = ivfpq_lut_stats(codebooks, cbnorm, q, lut_dtype)
     k_eff = min(n_cand, cand.shape[1])
-    if backend == "kernel":
-        kt = tables if center is None else tables - center[:, :, None]
-        d2, sel = adc_ops.pq_adc_gather_topk(kt, ccodes, base, k_eff,
-                                             lut_dtype=lut_dtype, scale=scale)
-    else:
-        adc = pq_adc_gather_scores_ref(tables, ccodes, base, lut_dtype,
-                                       scale, center)
-        d2, sel = topk_smallest(adc, k_eff)
+    d2, sel = select(tables, center, scale, k_eff)
     if center is not None:
         d2 = d2 + center.sum(dim=1)[:, None]              # inf pads stay inf
     ids = torch.where(sel >= 0, torch.gather(cand, 1, sel.clamp_min(0)), -1)
@@ -137,48 +141,69 @@ def _score_topk(tables, ccodes, base, cand, q, codebooks, cbnorm, n_cand,
     return d2, ids
 
 
+def _gathered_select(ccodes, base, backend, lut_dtype):
+    """Top-k over gathered candidates: K1's gathered entry, or the plain
+    scorer."""
+    def select(tables, center, scale, k):
+        if backend == "kernel":
+            kt = tables if center is None else tables - center[:, :, None]
+            return adc_ops.pq_adc_gather_topk(kt, ccodes, base, k,
+                                              lut_dtype=lut_dtype,
+                                              scale=scale)
+        adc = pq_adc_gather_scores_ref(tables, ccodes, base, lut_dtype,
+                                       scale, center)
+        return topk_smallest(adc, k)
+    return select
+
+
 def ivfpq_scan_inputs(probe, cand, cd2p, codes_cell, bias_cell):
     """Candidate codes (Q, C, M) and additive base (Q, C) of a padded scan:
     nprobe contiguous cell-major row blocks per query; posting pads get
-    base +inf."""
-    nq = probe.shape[0]
-    m = codes_cell.shape[2]
-    max_cell = codes_cell.shape[1]
-    ccodes = codes_cell[probe].reshape(nq, -1, m)
-    base = (cd2p.repeat_interleave(max_cell, dim=1)
-            + bias_cell[probe].reshape(nq, -1))           # (Q, P*max_cell)
-    short = cand.shape[1] - base.shape[1]                 # degenerate budget
-    if short:
-        ccodes = torch.nn.functional.pad(ccodes, (0, 0, 0, short))
-        base = torch.nn.functional.pad(base, (0, short))
-    base = torch.where(cand >= 0, base, float("inf"))
-    return ccodes, base
+    base +inf (``kernels.pq_adc.ref.gather_cells``)."""
+    return gather_cells(probe, cand, cd2p, codes_cell, bias_cell)
 
 
 def ivfpq_scan_given_probe(probe, cand, cd2p, codes_cell, bias_cell, lut_w,
                            cbnorm, codebooks, q, n_cand: int,
-                           backend: str = "jnp", lut_dtype: str = "f32"):
+                           backend: str = "jnp", lut_dtype: str = "f32",
+                           cell_len=None):
     """ADC scan given an already-computed coarse probe. Returns (d2 (Q,
     n_cand) squared approximate distances, ids) with (+inf, -1) on masked
-    or unfilled slots."""
+    or unfilled slots. With ``backend="kernel"``, K1's cell-major entry
+    scores the probed cells in place (given ``cell_len``, the cells' fills,
+    only for left-packed lists; else it reads ``cand``); with ``"jnp"``
+    the candidates are gathered first."""
     q = q.to(torch.float32)
     tables = adc_tables(lut_w, cbnorm, q)
-    ccodes, base = ivfpq_scan_inputs(probe, cand, cd2p, codes_cell, bias_cell)
-    return _score_topk(tables, ccodes, base, cand, q, codebooks, cbnorm,
-                       n_cand, backend, lut_dtype)
+    if backend == "kernel":
+        def select(tables, center, scale, k):
+            kt = tables if center is None else tables - center[:, :, None]
+            return adc_ops.pq_adc_cells_topk(kt, probe, cd2p, codes_cell,
+                                             bias_cell, cand, k,
+                                             lut_dtype=lut_dtype,
+                                             scale=scale, cell_len=cell_len)
+    else:
+        ccodes, base = ivfpq_scan_inputs(probe, cand, cd2p, codes_cell,
+                                         bias_cell)
+        select = _gathered_select(ccodes, base, backend, lut_dtype)
+    return _score_topk(tables, cand, q, codebooks, cbnorm, n_cand, lut_dtype,
+                       select)
 
 
 def ivfpq_adc_scan(centroids, lists, codes_cell, bias_cell, lut_w, cbnorm,
                    codebooks, q, n_cand: int, nprobe: int = 8,
                    backend: str = "jnp", lut_dtype: str = "f32"):
     """Probe + cell-major ADC scan over raw index arrays (the padded scan:
-    ``nprobe * max_cell`` candidate slots per query)."""
+    ``nprobe * max_cell`` candidate slots per query). ``lists`` must be
+    left-packed (see the module's docstring)."""
     _check_adc_args(backend, lut_dtype)
     q = q.to(torch.float32)
     probe, cand, cd2p = probe_cells(centroids, lists, q, nprobe, n_cand)
+    cell_len = (lists >= 0).sum(dim=1) if backend == "kernel" else None
     return ivfpq_scan_given_probe(probe, cand, cd2p, codes_cell, bias_cell,
                                   lut_w, cbnorm, codebooks, q, n_cand,
-                                  backend=backend, lut_dtype=lut_dtype)
+                                  backend=backend, lut_dtype=lut_dtype,
+                                  cell_len=cell_len)
 
 
 def ivfpq_compact_scan(centroids, lists, codes_cell, bias_cell, lut_w,
@@ -217,8 +242,8 @@ def ivfpq_compact_scan(centroids, lists, codes_cell, bias_cell, lut_w,
     ccodes = codes_cell[cell, rc]                         # (Q, S, M)
     base = torch.gather(cd2p, 1, pc) + bias_cell[cell, rc]
     base = torch.where(cand >= 0, base, float("inf"))
-    return _score_topk(tables, ccodes, base, cand, q, codebooks, cbnorm,
-                       n_cand, backend, lut_dtype)
+    return _score_topk(tables, cand, q, codebooks, cbnorm, n_cand, lut_dtype,
+                       _gathered_select(ccodes, base, backend, lut_dtype))
 
 
 def ivfpq_scan(index: IVFPQIndex, q: torch.Tensor, k: int, nprobe: int = 8,

@@ -1,8 +1,10 @@
 """Port parity: the plain version of kernel K4 (MPAD pairwise threshold
 statistics) against repro.kernels.mpad_pairwise's pairwise_stats_ref and,
-in interpret mode, pairwise_stats_pallas; the fit's ``kernel`` backend
-against the JAX one; and the CUDA kernel against its plain version (on the
-card only)."""
+in interpret mode, pairwise_stats_pallas; its fused entry (the fit's
+threshold search and the statistics in one launch) against JAX's
+find_quantile_threshold followed by pairwise_stats_pallas; the fit's
+``kernel`` backend against the JAX one; and the CUDA kernel's two entries
+against their plain versions (on the card only)."""
 import numpy as np
 import pytest
 
@@ -72,6 +74,47 @@ def test_wrapper_takes_a_device_tau_and_rejects_bad_inputs():
         pw.pairwise_stats(p[None], 0.7)
     with pytest.raises(ValueError, match="scalar"):
         pw.pairwise_stats(p, torch.ones(2))
+
+
+def _k_pairs(n, which):
+    return {"one": 1, "b80": max(1, int(n * (n - 1) // 2 * 0.8)),
+            "all": n * (n - 1) // 2}[which]
+
+
+@pytest.mark.parametrize("n", [1, 2, 97, 300])
+@pytest.mark.parametrize("repeated", [False, True])
+@pytest.mark.parametrize("which", ["one", "b80", "all"])
+def test_fused_plain_matches_jax_threshold_and_pallas(n, repeated, which):
+    """The fused entry on the CPU (its plain version) against JAX's
+    find_quantile_threshold and, at that tau, pairwise_stats_pallas in
+    interpret mode: tau bit-equal, count and coeff equal, the sum within
+    the file's tolerance."""
+    _, jnp, jpw = _jax()
+    from repro.core.fast_objective import find_quantile_threshold
+    p = _p(n, n + 1, repeated)
+    k = _k_pairs(n, which)
+    tj = find_quantile_threshold(jnp.asarray(p), k)
+    want = jpw.pairwise_stats_pallas(jnp.asarray(p), tj, block_i=128,
+                                     block_j=128, interpret=True)
+    tau, *got = pw.pairwise_stats_at_quantile(torch.from_numpy(p), k)
+    np.testing.assert_array_equal(tau.numpy().view(np.uint32),
+                                  np.asarray(tj).view(np.uint32))
+    _assert_stats(got, want)
+
+
+def test_fused_wrapper_on_cpu_and_bad_inputs():
+    """The CPU route is the plain version (the fit's bisection, then the
+    statistics at it); a 2-D or empty p raises."""
+    p = torch.from_numpy(_p(120, 4))
+    got = pw.pairwise_stats_at_quantile(p, 3000)
+    want = pw.pairwise_stats_at_quantile_ref(p, 3000)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    from repro_torch.core.fast_objective import find_quantile_threshold
+    assert torch.equal(got[0], find_quantile_threshold(p, 3000))
+    with pytest.raises(ValueError, match=r"\(N,\)"):
+        pw.pairwise_stats_at_quantile(p[None], 10)
+    with pytest.raises(ValueError, match="at least one"):
+        pw.pairwise_stats_at_quantile(p[:0], 10)
 
 
 def _objective_inputs(seed, n=400, d=24):
@@ -148,3 +191,29 @@ def test_cuda_kernel_matches_plain_version(n, repeated):
         assert int(ck) == int(cp)
         assert torch.equal(fk, fp)
         torch.testing.assert_close(sk, sp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,repeated", [(1, False), (2, False), (1000, True),
+                                        (2048, False), (20_000, False)])
+@pytest.mark.parametrize("which", ["one", "b80", "all"])
+def test_cuda_fused_kernel_matches_plain_version(n, repeated, which):
+    """K4's fused entry on the card (N 20,000 takes its global-scratch
+    route) against its plain version on the same CUDA inputs: tau
+    bit-equal, count and coeff equal, sum within 1e-5 relative, one launch,
+    and a second call bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    p = torch.from_numpy(_p(n, 10, repeated)).cuda()
+    k = _k_pairs(n, which)
+    before = pw.pairwise_stats_at_quantile.launches
+    tau, ck, sk, fk = pw.pairwise_stats_at_quantile(p, k)
+    torch.cuda.synchronize()
+    assert pw.pairwise_stats_at_quantile.launches == before + 1
+    tp, cp, sp, fp = pw.pairwise_stats_at_quantile_ref(p, k)
+    assert torch.equal(tau.view(torch.int32), tp.view(torch.int32))
+    assert int(ck) == int(cp)
+    assert torch.equal(fk, fp)
+    torch.testing.assert_close(sk, sp, rtol=1e-5, atol=0.0)
+    again = pw.pairwise_stats_at_quantile(p, k)
+    assert all(torch.equal(a, b) for a, b in zip(again, (tau, ck, sk, fk)))

@@ -1,7 +1,8 @@
 """Port parity: the plain version of kernel K1 (fused ADC-gather top-k)
 against repro.kernels.pq_adc.ref.pq_adc_gather_topk_ref, the lax.top_k
-tie order of topk_smallest, and the CUDA kernel against its plain version
-(on the card only)."""
+tie order of topk_smallest, K1's cell-major entry (the probed cells read
+in place) against the gather route, and the CUDA kernel's two entries
+against their plain versions (on the card only)."""
 import numpy as np
 import pytest
 
@@ -11,7 +12,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.kernels.pq_adc import ops  # noqa: E402
-from repro_torch.kernels.pq_adc.ref import pq_adc_gather_topk_ref  # noqa: E402
+from repro_torch.kernels.pq_adc.ref import (gather_cells,  # noqa: E402
+                                            pq_adc_gather_topk_ref)
 from repro_torch.search.knn import topk_smallest  # noqa: E402
 
 # f32/bf16: the M-term sum runs in another order than XLA's
@@ -162,6 +164,114 @@ def test_int32_codes_match_interpret_mode_pallas(lut_dtype, nq, c, m, kc, k):
         np.testing.assert_array_equal(it.numpy()[below], ij[below])
 
 
+def _cell_inputs(seed, nq, nlist, top, nprobe, m, kc, extra=0, holes=0.0,
+                 code_dtype=np.uint8):
+    """A cell-major layout (left-packed posting lists of random fills, some
+    cells empty; ``holes`` punches -1 slots into them), its codes and bias
+    (0 on pads), probes of distinct cells, coarse distances, the probed
+    slots' ids padded with -1 (``extra`` > 0) or cut (``extra`` < 0), and
+    tables; numpy, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(0, top + 1, nlist)
+    sizes[::5] = 0
+    max_cell = max(1, int(sizes.max()))
+    lists = np.full((nlist, max_cell), -1, np.int64)
+    start = 0
+    for c, n in enumerate(sizes):
+        lists[c, :n] = np.arange(start, start + n)
+        start += n
+    if holes:
+        lists = np.where(rng.uniform(size=lists.shape) < holes, -1, lists)
+    codes_cell = rng.integers(0, kc, (nlist, max_cell, m)).astype(code_dtype)
+    bias_cell = np.where(lists >= 0, rng.uniform(-1, 1, lists.shape),
+                         0.0).astype(np.float32)
+    probe = np.stack([rng.choice(nlist, nprobe, replace=False)
+                      for _ in range(nq)]).astype(np.int64)
+    cd2p = np.sort(rng.uniform(0, 4, (nq, nprobe)).astype(np.float32), 1)
+    cand = lists[probe].reshape(nq, -1)
+    if extra > 0:
+        cand = np.pad(cand, ((0, 0), (0, extra)), constant_values=-1)
+    elif extra < 0:
+        cand = cand[:, :extra]
+    tables = (rng.uniform(size=(nq, m, kc)) * 5).astype(np.float32)
+    fill = (lists >= 0).sum(1).astype(np.int64)
+    return tables, (probe, cd2p, codes_cell, bias_cell, cand), fill
+
+
+def _gathered(cells):
+    """The gather route's inputs: the padded scan's gather of ``cells``
+    (probe, cd2p, codes_cell, bias_cell, cand)."""
+    probe, cd2p, codes_cell, bias_cell, cand = cells
+    return gather_cells(probe, cand, cd2p, codes_cell, bias_cell)
+
+
+_CELL_CASES = {  # nq, nlist, top, nprobe, m, kc, extra, holes, code dtype
+    "ragged_q": (9, 40, 60, 6, 8, 64, 0, 0.0, np.uint8),
+    "q1": (1, 40, 60, 6, 8, 64, 0, 0.0, np.uint8),
+    "cand_wider": (5, 30, 50, 4, 16, 256, 37, 0.0, np.uint8),
+    "cand_narrower": (5, 30, 50, 4, 16, 256, -20, 0.0, np.uint8),
+    "int32": (4, 20, 40, 3, 6, 512, 0, 0.0, np.int32),
+    "holes": (6, 30, 50, 5, 8, 64, 0, 0.2, np.uint8),
+}
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(_CELL_CASES))
+def test_cells_entry_matches_gather_route_and_jax(lut_dtype, case):
+    """K1's cell-major entry on the CPU (its plain version), reading the
+    candidate ids and, for left-packed lists, the cells' fills, against
+    the gather route (the padded scan's gather, then K1's gathered entry)
+    bit for bit; and against JAX's gathered reference on the same gathered
+    inputs (int8 d2 bit-equal, ids equal below the k-th score). int8 takes
+    a caller scale, as the ivfpq scans give one (the certified bound)."""
+    nq, nlist, top, nprobe, m, kc, extra, holes, cdt = _CELL_CASES[case]
+    tables, cells, fill = _cell_inputs(len(case) + kc, nq, nlist, top,
+                                       nprobe, m, kc, extra, holes, cdt)
+    scale = None
+    if lut_dtype == "int8":
+        scale = (np.abs(tables).max(axis=(1, 2)) / np.float32(127)).astype(
+            np.float32)
+    tt = torch.from_numpy(tables)
+    ts = None if scale is None else torch.from_numpy(scale)
+    tc = tuple(torch.from_numpy(a) for a in cells)
+    k = min(12, tc[4].shape[1])
+    ccodes, base = _gathered(tc)
+    want = ops.pq_adc_gather_topk(tt, ccodes, base, k, lut_dtype, ts)
+    routes = [None] if holes else [None, torch.from_numpy(fill)]
+    for cell_len in routes:
+        got = ops.pq_adc_cells_topk(tt, *tc, k, lut_dtype, ts, cell_len)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _, jnp, jax_gather_topk = _jax()
+    dj, ij = jax_gather_topk(jnp.asarray(tables), jnp.asarray(ccodes.numpy()),
+                             jnp.asarray(base.numpy()), k,
+                             lut_dtype=lut_dtype,
+                             scale=None if scale is None
+                             else jnp.asarray(scale))
+    dj, ij = np.asarray(dj), np.asarray(ij)
+    _assert_d2(want[0].numpy(), dj, lut_dtype)
+    below = dj < dj[:, -1:]
+    np.testing.assert_array_equal(want[1].numpy()[below], ij[below])
+
+
+def test_cells_wrapper_rejects_bad_inputs():
+    tables, cells, fill = _cell_inputs(3, 2, 10, 20, 3, 4, 16)
+    tt = torch.from_numpy(tables)
+    probe, cd2p, codes_cell, bias_cell, cand = (torch.from_numpy(a)
+                                                for a in cells)
+    with pytest.raises(ValueError, match="shape"):
+        ops.pq_adc_cells_topk(tt, probe, cd2p[:, :2], codes_cell, bias_cell,
+                              cand, 3)
+    with pytest.raises(ValueError, match="shape"):
+        ops.pq_adc_cells_topk(tt, probe, cd2p, codes_cell[:, :, :3],
+                              bias_cell, cand, 3)
+    with pytest.raises(ValueError, match="lut_dtype"):
+        ops.pq_adc_cells_topk(tt, probe, cd2p, codes_cell, bias_cell, cand,
+                              3, "fp8")
+    with pytest.raises(ValueError, match="outside"):
+        ops.pq_adc_cells_topk(tt, probe, cd2p, codes_cell, bias_cell, cand,
+                              0)
+
+
 def test_wrapper_rejects_bad_inputs():
     t = torch.zeros(2, 4, 16)
     codes = torch.zeros(2, 10, 4, dtype=torch.uint8)
@@ -224,3 +334,56 @@ def test_cuda_int32_codes_match_plain_version(lut_dtype, m, kc, k):
         assert torch.equal(d, dr) and torch.equal(i, ir)
     else:
         torch.testing.assert_close(d, dr, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("nq,c,k", [(3, 200_000, 1), (2, 150_000, 256),
+                                    (2, 60_000, 1024), (1, 400_000, 64)])
+def test_cuda_gathered_block_plan(lut_dtype, nq, c, k):
+    """K1's gathered entry on runs of many chunks a block and on a batch
+    of one query split over many blocks, k 1 to 1024 (lists sorted in
+    registers up to k 256 and in shared memory past it): ids equal to the
+    plain version's (int8 d2 bit-equal, f32 / bf16 within rtol 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    tables, codes, base = _inputs(c + k, nq, c, 16, 256, n_masked=c // 100)
+    args = tuple(torch.from_numpy(a).cuda() for a in (tables, codes, base))
+    d, i = ops.pq_adc_gather_topk(*args, k, lut_dtype)
+    torch.cuda.synchronize()
+    dr, ir = ops.pq_adc_gather_topk_plain(*args, k, lut_dtype, None)
+    if lut_dtype == "int8":
+        assert torch.equal(d, dr) and torch.equal(i, ir)
+    else:
+        torch.testing.assert_close(d, dr, rtol=1e-6, atol=0)
+        assert (i == ir).float().mean() > 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(_CELL_CASES))
+def test_cuda_cells_kernel_matches_gathered_kernel(lut_dtype, case):
+    """K1's cell-major entry on the card, reading the candidate ids and
+    (left-packed lists) the cells' fills: bit for bit what the gather and
+    K1's gathered entry return, one launch of its own, and ids equal to
+    the plain version's (int8 d2 bit-equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    nq, nlist, top, nprobe, m, kc, extra, holes, cdt = _CELL_CASES[case]
+    tables, cells, fill = _cell_inputs(len(case) + kc, nq, nlist, top,
+                                       nprobe, m, kc, extra, holes, cdt)
+    tt = torch.from_numpy(tables).cuda()
+    tc = tuple(torch.from_numpy(a).cuda() for a in cells)
+    k = min(12, tc[4].shape[1])
+    want = ops.pq_adc_gather_topk(tt, *_gathered(tc), k, lut_dtype)
+    plain = ops.pq_adc_cells_topk_plain(tt, *tc, k, lut_dtype)
+    for cell_len in ([None] if holes else
+                     [None, torch.from_numpy(fill).cuda()]):
+        before = ops.pq_adc_cells_topk.launches
+        got = ops.pq_adc_cells_topk(tt, *tc, k, lut_dtype, None, cell_len)
+        torch.cuda.synchronize()
+        assert ops.pq_adc_cells_topk.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if lut_dtype == "int8":
+            assert torch.equal(got[0], plain[0])
+            assert torch.equal(got[1], plain[1])
