@@ -13,11 +13,14 @@ the parameters of ``repro.models.transformer`` (``['embed']``,
 state of ``repro.optim`` (``['step']``, ``['m']['embed']``, ...).
 ``affine_reducer`` wraps a linear baseline's fitted ``(matrix, mean)``
 pair (``repro.core.baselines`` pca, rp and mds) as the port's baselines
-``Reducer``.
+``Reducer``. ``stream_from_arrays`` carries a streaming engine's
+``StreamStore`` and ``FrozenParams`` across, keyed as the JAX snapshot
+keys them (``['store'].corpus``, ``['frozen'].quant.payload.codebooks``,
+...).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,20 +29,51 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import keyed_leaves, tree_unflatten
 from repro_torch.core import baselines
 from repro_torch.models.transformer import LMConfig, Params, layer_runs
+from repro_torch.search.ivf import IVFIndex
 from repro_torch.search.ivfpq import IVFPQIndex
 from repro_torch.search.pq import PQIndex
 from repro_torch.search.reducers import Reducer
-from repro_torch.search.registry import Index, OPQIndex
+from repro_torch.search.registry import (Index, IVFPQQuant, OPQIndex,
+                                         OPQQuant, PQQuant)
+from repro_torch.search.segments import FrozenParams, StreamStore
 from repro_torch.search.serve import EngineState
 from repro_torch.search.spec import IndexSpec, parse_spec
 
-__all__ = ["state_from_arrays", "affine_reducer", "lm_params_from_arrays",
-           "opt_state_from_arrays"]
+__all__ = ["state_from_arrays", "stream_from_arrays", "affine_reducer",
+           "lm_params_from_arrays", "opt_state_from_arrays"]
 
 _SNAPSHOT_PREFIX = "['state']"
 # the NamedTuple payloads, carried field by field
-_PAYLOADS = {"pq": PQIndex, "opq": OPQIndex, "ivfpq": IVFPQIndex}
+_PAYLOADS = {"ivf": IVFIndex, "pq": PQIndex, "opq": OPQIndex,
+             "ivfpq": IVFPQIndex}
+_QUANTS = {"pq": PQQuant, "opq": OPQQuant, "ivfpq": IVFPQQuant}
 _MLP_PARAMS = ("mean", "lin", "w1", "b1", "w2")
+
+
+def _getter(flat: Mapping[str, np.ndarray], dev: torch.device):
+    """``get(*keys)``: the first key present, as a tensor on ``dev``; ids,
+    lists and counters are int64 in the port."""
+    def get(*keys):
+        for key in keys:
+            if key in flat:
+                arr = np.asarray(flat[key])
+                t = torch.from_numpy(np.array(arr, copy=True)).to(dev)
+                return t.long() if t.dtype == torch.int32 else t
+        raise KeyError(f"no array under {' or '.join(keys)}")
+    return get
+
+
+def _reducer(get, spec: IndexSpec, prefix: str):
+    if spec.reduce is None:
+        return None
+    if spec.reduce.kind == "mlp":
+        return Reducer("mlp", {name: get(f"{prefix}.params['{name}']")
+                               for name in _MLP_PARAMS})
+    # qpad and pca: the affine (matrix, mean) pair, under the live or the
+    # snapshot path (pre-zoo snapshots keep the bare tuple)
+    return Reducer(spec.reduce.kind,
+                   (get(f"{prefix}.params[0]", f"{prefix}[0]"),
+                    get(f"{prefix}.params[1]", f"{prefix}[1]")))
 
 
 def state_from_arrays(arrays: Mapping[str, np.ndarray],
@@ -49,39 +83,42 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray],
     if isinstance(spec, str):
         spec = parse_spec(spec)
     dev = resolve_device(device)
-    flat = {(key[len(_SNAPSHOT_PREFIX):]
-             if key.startswith(_SNAPSHOT_PREFIX) else key): val
-            for key, val in arrays.items()}
-
-    def get(*keys):
-        for key in keys:
-            if key in flat:
-                arr = np.asarray(flat[key])
-                t = torch.from_numpy(np.array(arr, copy=True)).to(dev)
-                # ids and posting lists are int64 in the port
-                return t.long() if t.dtype == torch.int32 else t
-        raise KeyError(f"no array under {' or '.join(keys)}")
-
-    proj = None
-    if spec.reduce is not None and spec.reduce.kind == "mlp":
-        proj = Reducer("mlp", {name: get(f".proj.params['{name}']")
-                               for name in _MLP_PARAMS})
-    elif spec.reduce is not None:
-        # qpad and pca: the affine (matrix, mean) pair, under the live or
-        # the snapshot path (pre-zoo snapshots keep the bare tuple)
-        proj = Reducer(spec.reduce.kind,
-                       (get(".proj.params[0]", ".proj[0]"),
-                        get(".proj.params[1]", ".proj[1]")))
+    get = _getter({(key[len(_SNAPSHOT_PREFIX):]
+                    if key.startswith(_SNAPSHOT_PREFIX) else key): val
+                   for key, val in arrays.items()}, dev)
+    proj = _reducer(get, spec, ".proj")
     if spec.kind == "flat":
         payload = get(".index.payload")
-    elif spec.kind in _PAYLOADS:
+    else:
         cls = _PAYLOADS[spec.kind]
         payload = cls(**{f: get(f".index.payload.{f}") for f in cls._fields})
-    else:
-        raise NotImplementedError(
-            f"index kind {spec.kind!r} is not ported yet (see ROADMAP.md)")
     return EngineState(corpus=get(".corpus"), proj=proj,
                        index=Index(spec.kind, payload))
+
+
+def stream_from_arrays(arrays: Mapping[str, np.ndarray],
+                       spec: Union[str, IndexSpec],
+                       device: DeviceLike = None
+                       ) -> Tuple[StreamStore, FrozenParams]:
+    """The port's (StreamStore, FrozenParams) for ``spec`` from JAX arrays
+    keyed by the ``keystr`` paths of ``{"store": store, "frozen":
+    frozen}``; a store field JAX holds as None is None here too."""
+    if isinstance(spec, str):
+        spec = parse_spec(spec)
+    get = _getter(arrays, resolve_device(device))
+    store = StreamStore(**{
+        f: (get(f"['store'].{f}") if f"['store'].{f}" in arrays else None)
+        for f in StreamStore._fields})
+    q = "['frozen'].quant.payload"
+    if spec.kind == "flat":
+        quant = None
+    elif spec.kind == "ivf":
+        quant = get(q)
+    else:
+        cls = _QUANTS[spec.kind]
+        quant = cls(**{f: get(f"{q}.{f}") for f in cls._fields})
+    return store, FrozenParams(proj=_reducer(get, spec, "['frozen'].proj"),
+                               quant=Index(spec.kind, quant))
 
 
 def affine_reducer(name: str, matrix: np.ndarray, mean: np.ndarray,

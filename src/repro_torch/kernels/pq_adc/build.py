@@ -24,8 +24,8 @@ def _declare_gather_topk(lib: ctypes.CDLL):
         _VP, _I32, _VP, _VP, _I32, _VP] + [_I32] * 7 + [_VP] * 5
     lib.qpad_pq_adc_gather_topk.restype = _I32
     lib.qpad_pq_adc_cells_topk.argtypes = [
-        _VP, _I32, _VP, _VP, _I32, _VP, _VP, _VP, _VP, _VP] + [_I32] * 10 + \
-        [_VP] * 5
+        _VP, _I32, _VP, _VP, _I32, _VP, _VP, _VP, _VP, _VP, _VP] + \
+        [_I32] * 10 + [_VP] * 5
     lib.qpad_pq_adc_cells_topk.restype = _I32
     lib.qpad_pq_adc_select_plan.argtypes = [_I32, _I32, _I32, _I32, _I64,
                                             _I64, _I32, _I32, _I32, _VP]

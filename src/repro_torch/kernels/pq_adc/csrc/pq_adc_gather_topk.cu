@@ -27,7 +27,11 @@
 // bias_cell[probe[q, p], r] (the plain route's one f32 add), and is +inf
 // where the posting slot is empty (r at or past the cell's fill when the
 // lists are left-packed, else cand[q, c] < 0) and for c >= P * max_cell.
-// Both return the same (d2, slot) bit for bit on the same candidates.
+// With the fills it may also read a cell-major byte map, live[cell, r]
+// (the shape of bias_cell): 0 masks the posting slot (a streaming store's
+// tombstoned row) for every query that probes the cell, as cand[q, c] = -1
+// would; it is read in place like the codes, a byte a filled slot. Both
+// entries return the same (d2, slot) bit for bit on the same candidates.
 //
 // What bounds it: memory and the table lookups. The gathered entry reads
 // Q*C*M code bytes and Q*C*4 bytes of base once (0.0676 ms at Q 256, C
@@ -127,6 +131,7 @@ struct Args {
   const float* cd2p;           // cells: (Q, P) coarse distances
   const long long* cell_len;   // cells: (nlist,) fills of left-packed lists
   const long long* cand;       // cells without cell_len: (Q, C) ids, -1 empty
+  const unsigned char* live;   // cells with cell_len, optional: as bias_cell, 0 dead
   int n_slots;                 // C: slots [0, C) of a query
   int m, kc, k, work;
   int n_probe, max_cell, nlist;  // cells
@@ -210,6 +215,8 @@ __device__ __forceinline__ Head load_head(const Args& a, int q,
   h.b = a.base[cur.row0 + r];
   if (SRC == kCells && a.cell_len == nullptr)
     h.id = a.cand[static_cast<size_t>(q) * a.n_slots + cur.slot0 + r];
+  else if (SRC == kCells && a.live != nullptr)
+    h.id = a.live[cur.row0 + r] ? 0 : -1;
   return h;
 }
 
@@ -244,8 +251,8 @@ __device__ __forceinline__ Row<CT> load_row(const Args& a, const Cursor& cur,
   float b = h.b;
   if (SRC == kCells) {
     b = __fadd_rn(cur.add, b);                // cd2p + bias, one f32 add
-    if (a.cell_len == nullptr && h.id < 0)
-      b = __int_as_float(0x7f800000);         // an empty posting slot
+    if (h.id < 0)
+      b = __int_as_float(0x7f800000);         // an empty or dead slot
   }
   if (skip_inf && b == __int_as_float(0x7f800000)) return row;
   const int r = cur.r0 + threadIdx.x;
@@ -571,7 +578,8 @@ int qpad_pq_adc_gather_topk(const void* tables, int lut_mode,
 // The cell-major entry. tables, scale and lut_mode as above; codes_cell
 // (nlist, max_cell, M) uint8 or int32; bias_cell (nlist, max_cell) f32;
 // probe (Q, P) int64 cell ids; cd2p (Q, P) f32; either cell_len (nlist,)
-// int64, the fills of left-packed posting lists, or (cell_len null) cand
+// int64, the fills of left-packed posting lists (and, optional, live
+// (nlist, max_cell) bytes, 0 for a dead posting slot), or (cell_len null) cand
 // (Q, n_slots) int64 ids with -1 for an empty slot; n_slots the slots a
 // query returns (its slot c = p * max_cell + r); a probed id outside
 // [0, nlist) reads nothing and scores no slot, a fill past max_cell is
@@ -583,7 +591,8 @@ int qpad_pq_adc_cells_topk(const void* tables, int lut_mode,
                            int code_bytes, const float* bias_cell,
                            const long long* probe, const float* cd2p,
                            const long long* cell_len, const long long* cand,
-                           int nq, int n_probe, int nlist, int max_cell,
+                           const unsigned char* live, int nq, int n_probe,
+                           int nlist, int max_cell,
                            int n_slots, int m, int kc, int k, int parts,
                            int units_per_part, float* scratch_key,
                            int* scratch_slot, float* out_d, int* out_i,
@@ -592,7 +601,8 @@ int qpad_pq_adc_cells_topk(const void* tables, int lut_mode,
       nlist <= 0 || max_cell <= 0 || n_slots <= 0 || parts < 1 ||
       units_per_part < 1 ||
       static_cast<long long>(parts) * units_per_part < n_probe ||
-      (cell_len == nullptr && cand == nullptr))
+      (cell_len == nullptr && cand == nullptr) ||
+      (cell_len == nullptr && live != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
   a.tables = tables;
@@ -603,6 +613,7 @@ int qpad_pq_adc_cells_topk(const void* tables, int lut_mode,
   a.cd2p = cd2p;
   a.cell_len = cell_len;
   a.cand = cand;
+  a.live = live;
   a.n_slots = n_slots;
   a.m = m;
   a.kc = kc;

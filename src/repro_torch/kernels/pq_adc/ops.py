@@ -33,7 +33,8 @@ import torch
 
 from .build import gather_topk_library, topk_library
 from .lut import LUT_DTYPES, quantize_lut
-from .ref import gather_cells, pq_adc_gather_topk_ref, pq_adc_topk_ref
+from .ref import (gather_cells, live_slots, pq_adc_gather_topk_ref,
+                  pq_adc_topk_ref)
 
 __all__ = ["pq_adc_gather_topk", "pq_adc_gather_topk_plain",
            "pq_adc_cells_topk", "pq_adc_cells_topk_plain",
@@ -328,10 +329,13 @@ def pq_adc_select_plan(source: str, nq: int, n_units: int, unit_rows: int,
 
 
 def pq_adc_cells_topk_plain(tables, probe, cd2p, codes_cell, bias_cell, cand,
-                            k, lut_dtype="f32", scale=None):
+                            k, lut_dtype="f32", scale=None, live=None):
     """The cell-major entry's plain version: the padded scan's gather
-    (``ref.gather_cells``), then ``pq_adc_gather_topk_plain``. Runs on any
-    device; the wrapper takes it for CPU tensors."""
+    (``ref.gather_cells``, ``cand`` set to -1 where the cell-major map
+    ``live`` is 0, ``ref.live_slots``), then ``pq_adc_gather_topk_plain``.
+    Runs on any device; the wrapper takes it for CPU tensors."""
+    if live is not None:
+        cand = torch.where(live_slots(probe, live, cand.shape[1]), cand, -1)
     ccodes, base = gather_cells(probe, cand, cd2p, codes_cell, bias_cell)
     return pq_adc_gather_topk_plain(tables, ccodes, base, k, lut_dtype,
                                     scale)
@@ -340,7 +344,8 @@ def pq_adc_cells_topk_plain(tables, probe, cd2p, codes_cell, bias_cell, cand,
 def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
                       cd2p: torch.Tensor, codes_cell: torch.Tensor,
                       bias_cell: torch.Tensor, cand: torch.Tensor, k: int,
-                      lut_dtype: str = "f32", scale=None, cell_len=None):
+                      lut_dtype: str = "f32", scale=None, cell_len=None,
+                      live=None):
     """K1 over an IVF-PQ index's probed cells, read where they lie.
 
     tables (Q, M, K) f32 as in ``pq_adc_gather_topk``; probe (Q, P) cell
@@ -350,13 +355,25 @@ def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
     range; slot c = p * max_cell + r). ``cell_len`` (nlist,), the fill
     ``(lists >= 0).sum(1)`` of each cell, may replace reading ``cand``
     only where the posting lists are left-packed (ids, then pads), as
-    ``posting_lists`` builds them. Returns what
-    ``pq_adc_gather_topk(tables, *gather_cells(probe, cand, cd2p,
-    codes_cell, bias_cell), k, ...)`` returns, bit for bit: (d2 (Q, k) f32,
+    ``posting_lists`` builds them. ``live`` (nlist, max_cell) uint8 or
+    bool, a cell-major map read beside ``cell_len`` (which it needs) in
+    place like ``bias_cell``, masks a posting slot where it is 0, as
+    ``cand`` -1 would (a streaming store's tombstoned rows). Returns what
+    ``pq_adc_gather_topk(tables, *gather_cells(probe, cand', cd2p,
+    codes_cell, bias_cell), k, ...)`` returns, bit for bit, cand' being
+    ``cand`` with the dead slots -1 (``ref.live_slots``): (d2 (Q, k) f32,
     slot (Q, k) int64).
     """
+    extra = tuple(t for t in (cell_len, live) if t is not None)
     _check_common(tables, k, lut_dtype, scale, probe, cd2p, codes_cell,
-                  bias_cell, cand, *(() if cell_len is None else (cell_len,)))
+                  bias_cell, cand, *extra)
+    if live is not None:
+        if cell_len is None:
+            raise ValueError("live= is read beside cell_len; without the "
+                             "fills, mask cand instead")
+        if tuple(live.shape) != tuple(bias_cell.shape):
+            raise ValueError(f"live must be {tuple(bias_cell.shape)} "
+                             f"(bias_cell's shape), got {tuple(live.shape)}")
     if tables.ndim != 3 or probe.ndim != 2 or codes_cell.ndim != 3 or \
             bias_cell.ndim != 2 or cand.ndim != 2:
         raise ValueError("expected tables (Q, M, K), probe (Q, P), codes_cell "
@@ -376,7 +393,8 @@ def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
                          f"{tuple(cand.shape)}")
     if tables.device.type == "cpu":
         return pq_adc_cells_topk_plain(tables, probe, cd2p, codes_cell,
-                                       bias_cell, cand, k, lut_dtype, scale)
+                                       bias_cell, cand, k, lut_dtype, scale,
+                                       live)
     _check_cuda_codes(tables, codes_cell)
     for name, t in (("cd2p", cd2p), ("bias_cell", bias_cell)):
         if t.dtype != torch.float32:
@@ -391,6 +409,8 @@ def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
             raise ValueError(f"cell_len must be ({nlist},), got "
                              f"{tuple(cell_len.shape)}")
         cell_len = cell_len.to(torch.int64).contiguous()
+        if live is not None:
+            live = live.to(torch.uint8).contiguous()
     else:
         cand = cand.to(torch.int64).contiguous()
     probe = probe.to(torch.int64).contiguous()
@@ -414,8 +434,9 @@ def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
             probe.data_ptr(), cd2p.data_ptr(),
             None if cell_len is None else cell_len.data_ptr(),
             None if cell_len is not None else cand.data_ptr(),
-            nq, n_probe, nlist, max_cell, c, m, kc, k, plan["parts"],
-            plan["units_per_part"], sk.data_ptr(), ss.data_ptr(),
+            None if live is None else live.data_ptr(), nq, n_probe, nlist,
+            max_cell, c, m, kc, k, plan["parts"], plan["units_per_part"],
+            sk.data_ptr(), ss.data_ptr(),
             out_d.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pq_adc_cells_topk launch failed: CUDA error "

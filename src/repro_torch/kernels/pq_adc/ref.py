@@ -10,7 +10,8 @@ kernels:
 
 K1's cell-major entry scores an IVF-PQ index's probed cells where they
 lie; its plain version is ``gather_cells`` (the padded scan's gather)
-followed by the gathered top-k.
+followed by the gathered top-k. A cell-major live map (a streaming
+store's tombstones) masks slots through ``live_slots``.
 
 The tables are snapped onto the ``lut_dtype`` grid but kept in f32 (see
 ``lut.py``), so the lookup is one flat gather over the (Q, M*K) table at
@@ -33,7 +34,7 @@ from .lut import _int8_scale, fma_f32, snap_values
 
 __all__ = ["pq_adc_scores_ref", "pq_adc_topk_ref",
            "pq_adc_gather_scores_ref", "pq_adc_gather_topk_ref",
-           "gather_cells"]
+           "gather_cells", "live_slots"]
 
 
 def _resolve_scale(tables, lut_dtype, scale, center):
@@ -145,3 +146,16 @@ def gather_cells(probe: torch.Tensor, cand: torch.Tensor, cd2p: torch.Tensor,
         base = torch.nn.functional.pad(base, (0, short))
     base = torch.where(cand >= 0, base, float("inf"))
     return ccodes, base
+
+
+def live_slots(probe: torch.Tensor, live: torch.Tensor,
+               n_slots: int) -> torch.Tensor:
+    """(Q, n_slots) bool over a padded scan's slots from a cell-major byte
+    map ``live`` (nlist, max_cell): slot p * max_cell + r of query q is
+    ``live[probe[q, p], r] != 0``; slots past P * max_cell are False."""
+    nq = probe.shape[0]
+    ok = (live[probe] != 0).reshape(nq, -1)[:, :n_slots]
+    short = n_slots - ok.shape[1]
+    if short:
+        ok = torch.cat([ok, ok.new_zeros((nq, short))], dim=1)
+    return ok

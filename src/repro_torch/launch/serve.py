@@ -12,12 +12,20 @@ are lowered onto the same spec. Each batch prints its latency and its
 recall@k against ``knn_search``, which is kernel K3 on the card. Runs on
 ``cuda`` unless ``main`` is given another device.
 
-The read-only flags are ported with the JAX launcher's names and
-defaults. Its other flags are accepted and raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports them (streaming, durability,
-snapshots, sharding, metrics and tracing), as does the ``ivf`` index kind.
-The JAX launcher's ``--interpret`` selects the Pallas interpret mode and
-has no counterpart: ``@kernel`` here launches the CUDA kernels.
+Mutable serving: ``--stream`` makes the engine streaming
+(``StreamConfig(delta_capacity=--delta-capacity, background_compact=
+--background-compact)``) and runs the JAX launcher's write leg beside the
+reads: before each search batch it upserts ``--write-batch`` perturbed
+rows under fresh ids and, from the second batch on, deletes an eighth of
+the previous batch's ids; at the end it prints the write rate and
+compacts.
+
+The read-only and streaming flags are ported with the JAX launcher's
+names and defaults. Its other flags are accepted and raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them
+(durability, snapshots, sharding, metrics and tracing). The JAX
+launcher's ``--interpret`` selects the Pallas interpret mode and has no
+counterpart: ``@kernel`` here launches the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch._device import DeviceLike, cpu_generator, resolve_device
 from repro_torch.core.mpad import MPADConfig
 from repro_torch.data.synthetic import make_clustered
 from repro_torch.search.knn import knn_search, recall_at_k
+from repro_torch.search.segments import StreamConfig
 from repro_torch.search.serve import build_engine
 from repro_torch.search.spec import (Coarse, Code, IndexSpec, Reduce, Rerank,
                                      format_spec, parse_spec)
@@ -46,10 +55,6 @@ _UNPORTED = {
     "--mesh": (dict(choices=["device", "host"], default="device"),
                "11 (multi-GPU)"),
     "--donate": (dict(action="store_true"), "11 (multi-GPU)"),
-    "--stream": (dict(action="store_true"), "8 (streaming)"),
-    "--delta-capacity": (dict(type=int, default=512), "8 (streaming)"),
-    "--write-batch": (dict(type=int, default=64), "8 (streaming)"),
-    "--background-compact": (dict(action="store_true"), "8 (streaming)"),
     "--durable": (dict(default=None, metavar="DIR"),
                   "9 (durability and replication)"),
     "--fsync": (dict(choices=["always", "batch", "never"], default="batch"),
@@ -98,6 +103,17 @@ def _parse_args(argv: Optional[List[str]]):
     ap.add_argument("--query-bucket", type=int, default=64,
                     help="min padded query-batch size; ragged batches round "
                          "up to powers of two")
+    ap.add_argument("--stream", action="store_true",
+                    help="mutable serving: interleave a 90/10 read/write "
+                         "workload (upserts into the delta segment, "
+                         "tombstoned deletes, auto-compaction)")
+    ap.add_argument("--delta-capacity", type=int, default=512,
+                    help="--stream: delta segment size (rows)")
+    ap.add_argument("--write-batch", type=int, default=64,
+                    help="--stream: rows per upsert batch")
+    ap.add_argument("--background-compact", action="store_true",
+                    help="--stream: fold the delta on a worker thread and "
+                         "swap instead of blocking searches")
     for flag, (kw, item) in _UNPORTED.items():
         ap.add_argument(flag, help=f"not ported yet ({_ITEM} {item})", **kw)
     return ap.parse_args(argv)
@@ -125,7 +141,9 @@ def _sync(dev: torch.device):
 def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
     """Parse ``argv`` (the command line when None), build, serve
     ``--batches`` batches and return ``{"spec", "ms_per_batch",
-    "recall"}`` (the mean over the batches)."""
+    "recall"}`` (the mean over the batches), and with ``--stream`` also
+    ``"stream"``: the rows written, their rate, the grow count and the
+    compactions."""
     args = _parse_args(argv)
     for flag, (kw, item) in _UNPORTED.items():
         given = getattr(args, flag[2:].replace("-", "_"))
@@ -133,9 +151,6 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
             raise NotImplementedError(f"{flag} is not ported yet ({_ITEM} "
                                       f"{item})")
     spec = parse_spec(args.spec) if args.spec else _spec_from_flags(args)
-    if spec.kind == "ivf":
-        raise NotImplementedError(f"the ivf index kind is not ported yet "
-                                  f"({_ITEM} 4)")
     dev = resolve_device(device)
     gen = cpu_generator(0)
     corpus, _ = make_clustered(gen, args.corpus, 1, args.dim, n_clusters=64,
@@ -143,6 +158,10 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
     corpus = corpus.to(dev)
     t0 = time.perf_counter()
     runtime = dict(query_bucket=args.query_bucket, fit_sample=4096)
+    if args.stream:
+        runtime["stream"] = StreamConfig(
+            delta_capacity=args.delta_capacity,
+            background_compact=args.background_compact)
     if spec.reduce is not None and spec.reduce.kind == "qpad":
         # the MPAD knobs configure the qpad kind only; other reducers
         # own their training hyperparameters
@@ -151,12 +170,31 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
     engine = build_engine(corpus, spec, device=dev, **runtime)
     _sync(dev)
     print(f"index built in {time.perf_counter() - t0:.1f}s "
-          f"(spec={format_spec(spec)}, kind={spec.kind}, device={dev})")
+          f"(spec={format_spec(spec)}, kind={spec.kind}, device={dev}"
+          + (f", streaming delta={args.delta_capacity}" if args.stream
+             else "") + ")")
 
     total, rec_sum = 0.0, 0.0
+    write_s, rows_written, next_id = 0.0, 0, args.corpus
     for i in range(args.batches):
         rows = torch.randint(0, args.corpus, (args.batch,), generator=gen)
         queries = corpus[rows.to(dev)]
+        if args.stream:
+            # the 10% write leg: a batch of perturbed rows under fresh ids,
+            # and an eighth of the previous batch's ids deleted
+            wb = args.write_batch
+            vecs = corpus[:wb] + 0.01 * torch.randn(
+                (wb, args.dim), generator=gen).to(dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            engine.upsert(torch.arange(next_id, next_id + wb), vecs)
+            if next_id > args.corpus:
+                engine.delete(torch.arange(next_id - wb,
+                                           next_id - wb + wb // 8))
+            _sync(dev)
+            write_s += time.perf_counter() - t0
+            rows_written += wb
+            next_id += wb
         _sync(dev)
         t0 = time.perf_counter()
         _, ids = engine.search(queries, args.k)
@@ -171,8 +209,23 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
     print(f"\nmean: {mean_s * 1e3:.1f} ms/batch "
           f"({args.batch / mean_s:.0f} qps), "
           f"recall={rec_sum / args.batches:.4f}")
-    return {"spec": format_spec(spec), "ms_per_batch": mean_s * 1e3,
-            "recall": rec_sum / args.batches}
+    out = {"spec": format_spec(spec), "ms_per_batch": mean_s * 1e3,
+           "recall": rec_sum / args.batches}
+    if args.stream:
+        rate = rows_written / write_s if write_s else 0.0
+        print(f"writes: {rows_written} rows in {write_s:.2f}s "
+              f"({rate:.0f} rows/s), grow_count={engine.grow_count}")
+        t0 = time.perf_counter()
+        engine.compact()
+        _sync(dev)
+        print(f"final compact: {time.perf_counter() - t0:.2f}s "
+              f"(base rows={int(engine.store.n_rows)})")
+        out["stream"] = {"rows_written": rows_written, "rows_per_s": rate,
+                         "grow_count": engine.grow_count,
+                         "compactions": engine.counters["compactions"],
+                         "base_rows": int(engine.store.n_rows)}
+        engine.close()
+    return out
 
 
 if __name__ == "__main__":

@@ -1,13 +1,17 @@
-"""Coarse k-means quantizer and posting lists (port of the parts of
-``repro.search.ivf`` the IVF-PQ path uses).
+"""IVF-Flat: the coarse k-means quantizer, posting lists and the probed
+exact scan (port of ``repro.search.ivf``, single-device part).
 
 Posting lists are padded-dense: a (nlist, max_cell) id matrix with -1
 pads, so the probe is a gather plus a masked top-k. Ids and lists are
-int64, PyTorch's index type.
+int64, PyTorch's index type. The ivf scan has no kernel behind it, in
+the JAX package either: a gather of the probed rows and a top-k.
+
+Not ported yet (ROADMAP.md, item 11): ``balance_cells``, the ``shards=``
+layouts and ``ivf_local_scan``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -15,7 +19,8 @@ from repro_torch._segment import segment_sum
 
 from .knn import topk_smallest
 
-__all__ = ["sq_dists", "nearest", "kmeans", "posting_lists", "probe_cells"]
+__all__ = ["IVFIndex", "sq_dists", "nearest", "kmeans", "posting_lists",
+           "probe_cells", "build_ivf", "cell_vectors", "ivf_scan"]
 
 # rows of ``x`` per distance block in ``nearest``: bounds the (rows, nlist)
 # distance matrix at 1M x 1024 scale to 256 MB
@@ -26,6 +31,12 @@ def sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Unclamped pairwise squared L2: |a|^2 + |b|^2 - 2 a@b^T, shape (A, B)."""
     return ((a * a).sum(dim=1)[:, None] + (b * b).sum(dim=1)[None, :]
             - 2.0 * a @ b.T)
+
+
+class IVFIndex(NamedTuple):
+    centroids: torch.Tensor    # (nlist, d)
+    lists: torch.Tensor        # (nlist, max_cell) int64 ids, then -1 pads
+    vectors: torch.Tensor      # (N, d) the stored (possibly reduced) rows
 
 
 def nearest(x: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
@@ -95,3 +106,38 @@ def probe_cells(centroids: torch.Tensor, lists: torch.Tensor,
         cand = torch.nn.functional.pad(cand, (0, min_cand - cand.shape[1]),
                                        value=-1)
     return probe, cand, cd2p
+
+
+def build_ivf(vectors: torch.Tensor, nlist: int, kmeans_iters: int = 12, *,
+              init: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> IVFIndex:
+    """Coarse k-means over ``vectors`` (starting rows ``init``, else drawn
+    from ``generator``; see ``kmeans``), then the posting lists."""
+    vectors = vectors.to(torch.float32)
+    cent = kmeans(vectors, nlist, kmeans_iters, init=init,
+                  generator=generator)
+    lists = posting_lists(nearest(vectors, cent), nlist)
+    return IVFIndex(centroids=cent, lists=lists, vectors=vectors)
+
+
+def cell_vectors(lists: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
+    """Cell-major mirror of the stored rows: (nlist, max_cell, d), posting
+    pads as zero rows."""
+    cv = vectors[lists.clamp_min(0)]
+    return torch.where((lists >= 0)[..., None], cv, 0.0)
+
+
+def ivf_scan(index: IVFIndex, q: torch.Tensor, k: int, nprobe: int = 8):
+    """Probe the ``nprobe`` nearest cells and scan their rows exactly:
+    (dists (Q, k), ids (Q, k)), with (+inf, -1) where fewer than k rows
+    were probed."""
+    q = q.to(torch.float32)
+    cent, lists, vecs = index
+    _, cand, _ = probe_cells(cent, lists, q, nprobe, k)
+    valid = cand >= 0
+    cv = vecs[cand.clamp_min(0)]                          # (Q, C, d)
+    d2 = ((cv - q[:, None, :]) ** 2).sum(dim=-1)
+    d2 = torch.where(valid, d2, float("inf"))
+    vals, sel = topk_smallest(d2, k)
+    ids = torch.gather(cand, 1, sel)
+    return vals.clamp_min(0.0).sqrt(), ids

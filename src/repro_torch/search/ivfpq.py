@@ -21,6 +21,15 @@ candidates and takes the gathered entry (``ops.pq_adc_gather_topk``).
 ``posting_lists`` builds them and the JAX package's do: the padded scan
 hands K1 each cell's fill, ``(lists >= 0).sum(1)``, in place of reading
 the candidate ids.
+
+A streaming scan passes ``live`` (the store's (n_cap,) bool map of rows
+allocated and not tombstoned): a dead row scores as a posting pad, +inf
+in the additive base. The scan turns it into a cell-major byte map of the
+posting slots (``live_cells``, the shape of ``bias_cell``, made once a
+search whatever the batch). K1's cell-major entry reads it in place
+beside the cells' fills (a compacted store's lists stay left-packed, dead
+rows included); the other routes set a dead candidate's id to -1, where
+the JAX package masks ``base``: the same slots, the same scores.
 """
 from __future__ import annotations
 
@@ -30,14 +39,14 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels.pq_adc import ops as adc_ops
-from repro_torch.kernels.pq_adc.ref import (gather_cells,
+from repro_torch.kernels.pq_adc.ref import (gather_cells, live_slots,
                                             pq_adc_gather_scores_ref)
 
 from .ivf import kmeans, nearest, posting_lists, probe_cells, sq_dists
 from .knn import topk_smallest
 from .pq import _check_adc_args, adc_tables, build_pq
 
-__all__ = ["IVFPQIndex", "build_ivfpq", "ivfpq_lut_stats",
+__all__ = ["IVFPQIndex", "build_ivfpq", "ivfpq_lut_stats", "live_cells",
            "ivfpq_adc_scan", "ivfpq_scan_given_probe", "ivfpq_scan_inputs",
            "ivfpq_compact_scan", "ivfpq_scan"]
 
@@ -163,25 +172,39 @@ def ivfpq_scan_inputs(probe, cand, cd2p, codes_cell, bias_cell):
     return gather_cells(probe, cand, cd2p, codes_cell, bias_cell)
 
 
+def live_cells(lists: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """(nlist, max_cell) uint8 map of the posting slots: 1 where ``lists``
+    holds a row that ``live`` (N,) marks true, 0 on dead rows and pads."""
+    ok = live[lists.clamp(0, live.shape[0] - 1)]
+    return ((lists >= 0) & ok).to(torch.uint8)
+
+
 def ivfpq_scan_given_probe(probe, cand, cd2p, codes_cell, bias_cell, lut_w,
                            cbnorm, codebooks, q, n_cand: int,
                            backend: str = "jnp", lut_dtype: str = "f32",
-                           cell_len=None):
+                           cell_len=None, cell_live=None):
     """ADC scan given an already-computed coarse probe. Returns (d2 (Q,
     n_cand) squared approximate distances, ids) with (+inf, -1) on masked
     or unfilled slots. With ``backend="kernel"``, K1's cell-major entry
     scores the probed cells in place (given ``cell_len``, the cells' fills,
     only for left-packed lists; else it reads ``cand``); with ``"jnp"``
-    the candidates are gathered first."""
+    the candidates are gathered first. ``cell_live`` (nlist, max_cell)
+    (``live_cells``) masks posting slots where it is 0: beside
+    ``cell_len`` the kernel reads it in place, else the dead candidates'
+    ids become -1."""
     q = q.to(torch.float32)
+    kernel_map = backend == "kernel" and cell_len is not None
+    if cell_live is not None and not kernel_map:
+        cand = torch.where(live_slots(probe, cell_live, cand.shape[1]), cand,
+                           -1)
     tables = adc_tables(lut_w, cbnorm, q)
     if backend == "kernel":
         def select(tables, center, scale, k):
             kt = tables if center is None else tables - center[:, :, None]
-            return adc_ops.pq_adc_cells_topk(kt, probe, cd2p, codes_cell,
-                                             bias_cell, cand, k,
-                                             lut_dtype=lut_dtype,
-                                             scale=scale, cell_len=cell_len)
+            return adc_ops.pq_adc_cells_topk(
+                kt, probe, cd2p, codes_cell, bias_cell, cand, k,
+                lut_dtype=lut_dtype, scale=scale, cell_len=cell_len,
+                live=cell_live if kernel_map else None)
     else:
         ccodes, base = ivfpq_scan_inputs(probe, cand, cd2p, codes_cell,
                                          bias_cell)
@@ -192,18 +215,20 @@ def ivfpq_scan_given_probe(probe, cand, cd2p, codes_cell, bias_cell, lut_w,
 
 def ivfpq_adc_scan(centroids, lists, codes_cell, bias_cell, lut_w, cbnorm,
                    codebooks, q, n_cand: int, nprobe: int = 8,
-                   backend: str = "jnp", lut_dtype: str = "f32"):
+                   backend: str = "jnp", lut_dtype: str = "f32", live=None):
     """Probe + cell-major ADC scan over raw index arrays (the padded scan:
     ``nprobe * max_cell`` candidate slots per query). ``lists`` must be
-    left-packed (see the module's docstring)."""
+    left-packed (see the module's docstring). ``live`` (N,) bool keyed by
+    row id masks tombstoned and unallocated rows (the streaming scan)."""
     _check_adc_args(backend, lut_dtype)
     q = q.to(torch.float32)
     probe, cand, cd2p = probe_cells(centroids, lists, q, nprobe, n_cand)
     cell_len = (lists >= 0).sum(dim=1) if backend == "kernel" else None
+    cell_live = None if live is None else live_cells(lists, live)
     return ivfpq_scan_given_probe(probe, cand, cd2p, codes_cell, bias_cell,
                                   lut_w, cbnorm, codebooks, q, n_cand,
                                   backend=backend, lut_dtype=lut_dtype,
-                                  cell_len=cell_len)
+                                  cell_len=cell_len, cell_live=cell_live)
 
 
 def ivfpq_compact_scan(centroids, lists, codes_cell, bias_cell, lut_w,

@@ -1,11 +1,20 @@
 """The tagged index union and the per-kind operation registry (port of
-``repro.search.registry``, with the hooks the single-device read-only
-path uses: ``build`` and ``scan``).
+``repro.search.registry``, with the hooks of the single-device path:
+the read-only ``build`` and ``scan``, and the streaming ``stream_scan``,
+``store_parts``, ``encode_delta``, ``rebuild`` and ``drift_stats``).
 
 Registered kinds: ``flat`` (exact scan of the reduced rows, kernel K3 on
-the card), ``pq``, ``opq`` (a learned rotation, then the pq scan on the
-rotated query) and ``ivfpq``. ``ivf`` raises with a pointer to
-``ROADMAP.md``.
+the card), ``ivf`` (coarse cells, probed exact scan), ``pq``, ``opq`` (a
+learned rotation, then the pq scan on the rotated query) and ``ivfpq``.
+
+The streaming scans mask the rows a ``StreamStore`` marks dead or
+unallocated before every top-k. flat, ivf, pq and opq stream in plain
+torch, as the JAX package's do in plain jnp (its streaming pq scan calls
+``pq_adc_scores_ref``; K2 has no masked entry). ivfpq streams on K1's
+cell-major entry under ``@kernel``, the mask riding the candidate ids.
+
+Not ported yet (ROADMAP.md, item 11): ``local_scan``, ``shard_payload``,
+``payload_specs`` and ``stream_base_payload``.
 """
 from __future__ import annotations
 
@@ -14,12 +23,19 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from .ivfpq import build_ivfpq, ivfpq_compact_scan, ivfpq_scan
-from .knn import knn_scan
-from .pq import PQIndex, build_pq, pq_reconstruct, pq_scan
+from repro_torch.kernels.pq_adc.lut import center_lut
+from repro_torch.kernels.pq_adc.ref import pq_adc_scores_ref
+
+from .ivf import (IVFIndex, build_ivf, ivf_scan, posting_lists, probe_cells,
+                  sq_dists)
+from .ivfpq import (IVFPQIndex, build_ivfpq, ivfpq_adc_scan,
+                    ivfpq_compact_scan, ivfpq_scan)
+from .knn import _sq_dists, knn_scan, masked_topk
+from .pq import PQIndex, adc_tables, build_pq, pq_reconstruct, pq_scan
 
 __all__ = ["Index", "IndexOps", "ScanParams", "BuildInits", "INDEX_KINDS",
-           "OPQIndex", "register_index", "get_ops"]
+           "OPQIndex", "PQQuant", "OPQQuant", "IVFPQQuant", "register_index",
+           "get_ops", "encode_pq", "ivfpq_encode"]
 
 # every index kind of the spec grammar, ported or not
 INDEX_KINDS = ("flat", "ivf", "pq", "opq", "ivfpq")
@@ -60,9 +76,18 @@ class BuildInits:
 class IndexOps:
     """What the serving stack needs to know about one index kind."""
     kind: str
-    lossy: bool         # scan scores approximate the metric (forces re-rank)
-    build: Callable     # (reduced, spec, generator, inits) -> payload
-    scan: Callable      # (state, qr, n_cand, p) -> (dists, cand)
+    lossy: bool          # scan scores approximate the metric (forces re-rank)
+    build: Callable      # (reduced, spec, generator, inits) -> payload
+    scan: Callable       # (state, qr, n_cand, p) -> (dists, cand)
+    stream_scan: Callable    # (store, frozen, qr, n_cand, live, p) ->
+    #                          (d2, internal row ids), masked by ``live``
+    store_parts: Callable    # (state, n_cap, cell_slack) -> (store field
+    #                          overrides, frozen quantizer payload)
+    encode_delta: Callable   # (frozen, rows) -> (assign, codes, bias)
+    rebuild: Callable        # (frozen, reduced) -> payload
+    drift_stats: Optional[Callable] = None  # (frozen, rows) -> (B,) squared
+    #                          reconstruction error under the frozen
+    #                          quantizers (None: the kind quantizes nothing)
 
 
 _REGISTRY: dict = {}
@@ -78,12 +103,100 @@ def get_ops(kind: str) -> IndexOps:
     try:
         return _REGISTRY[kind]
     except KeyError:
-        if kind in INDEX_KINDS:
-            raise NotImplementedError(
-                f"index kind {kind!r} is not ported yet (see ROADMAP.md, "
-                "'Modules still to port')") from None
         raise ValueError(f"unknown index kind {kind!r}; registered kinds: "
                          f"{tuple(_REGISTRY)}") from None
+
+
+def _pad_rows(a: torch.Tensor, n_cap: int, fill=0) -> torch.Tensor:
+    """A copy of ``a`` right-padded along dim 0 to ``n_cap`` rows."""
+    pad = n_cap - a.shape[0]
+    if pad <= 0:
+        return a.clone()
+    out = a.new_full((n_cap,) + tuple(a.shape[1:]), fill)
+    out[:a.shape[0]] = a
+    return out
+
+
+def _pad_cells(a: torch.Tensor, slack: int, fill=0) -> torch.Tensor:
+    """A copy of a cell-major array with ``slack`` more slots a cell
+    (dim 1)."""
+    if slack <= 0:
+        return a.clone()
+    out = a.new_full((a.shape[0], a.shape[1] + slack) + tuple(a.shape[2:]),
+                     fill)
+    out[:, :a.shape[1]] = a
+    return out
+
+
+def encode_pq(codebooks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Nearest-codeword PQ codes of rows ``x``: (B, M) int64, the argmin
+    ``build_pq``'s final assignment takes (first index on ties), so a row
+    codes the same at build time and at compaction."""
+    m, _, dsub = codebooks.shape
+    xs = x.to(torch.float32).reshape(x.shape[0], m, dsub)
+    return torch.stack([sq_dists(xs[:, j], codebooks[j]).argmin(dim=1)
+                        for j in range(m)], dim=1)
+
+
+def _pq_decode(codebooks: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Rows reconstructed from PQ codes: (B, M) -> (B, M * dsub) f32."""
+    m, _, dsub = codebooks.shape
+    ar = torch.arange(m, device=codes.device)
+    return codebooks[ar[None, :], codes.long()].reshape(codes.shape[0],
+                                                         m * dsub)
+
+
+def ivfpq_encode(centroids: torch.Tensor, codebooks: torch.Tensor,
+                 x: torch.Tensor):
+    """Coarse assignment and residual PQ codes of rows ``x`` against
+    frozen quantizers: (assign (B,), codes (B, M) int64, bias (B,) f32),
+    the per-row payload ``build_ivfpq`` computes at build time."""
+    m, _, dsub = codebooks.shape
+    x = x.to(torch.float32)
+    assign = sq_dists(x, centroids).argmin(dim=1)
+    cent = centroids[assign]
+    codes = encode_pq(codebooks, x - cent)
+    ar = torch.arange(m, device=x.device)
+    recon = codebooks[ar[None, :], codes]                 # (B, M, dsub)
+    bias = 2.0 * (cent.reshape(x.shape[0], m, dsub) * recon).sum(dim=(1, 2))
+    return assign, codes, bias
+
+
+def _code_dtype(codebooks: torch.Tensor) -> torch.dtype:
+    return torch.uint8 if codebooks.shape[1] <= 256 else torch.int32
+
+
+def _scan_rows(store):
+    """The base rows a flat or ivf stream scan reads: the reduced mirror,
+    or the corpus itself when there is no Reduce stage."""
+    return store.reduced if store.reduced is not None else store.corpus
+
+
+def _row_ids(n: int, nq: int, device) -> torch.Tensor:
+    return torch.arange(n, device=device).expand(nq, n)
+
+
+class PQQuant(NamedTuple):
+    """Frozen PQ quantizers (a streaming ``FrozenParams`` payload)."""
+    codebooks: torch.Tensor    # (M, K, dsub)
+    lut_w: torch.Tensor        # (d, M*K)
+    cbnorm: torch.Tensor       # (M, K)
+
+
+class OPQQuant(NamedTuple):
+    """Frozen OPQ quantizers."""
+    rot: torch.Tensor          # (d, d)
+    codebooks: torch.Tensor    # (M, K, dsub)
+    lut_w: torch.Tensor        # (d, M*K)
+    cbnorm: torch.Tensor       # (M, K)
+
+
+class IVFPQQuant(NamedTuple):
+    """Frozen IVF-PQ quantizers."""
+    centroids: torch.Tensor    # (nlist, d)
+    codebooks: torch.Tensor    # (M, K, dsub)
+    lut_w: torch.Tensor        # (d, M*K)
+    cbnorm: torch.Tensor       # (M, K)
 
 
 class OPQIndex(NamedTuple):
@@ -107,8 +220,77 @@ def _flat_scan(state, qr, n_cand, p):
     return knn_scan(qr, state.index.payload, n_cand)
 
 
-register_index(IndexOps(kind="flat", lossy=False, build=_flat_build,
-                        scan=_flat_scan))
+def _flat_stream_scan(store, frozen, qr, n_cand, live, p):
+    rows = _scan_rows(store)
+    d2 = torch.where(live[None, :], _sq_dists(qr, rows), float("inf"))
+    return masked_topk(d2, _row_ids(rows.shape[0], qr.shape[0], qr.device),
+                       n_cand)
+
+
+def _flat_store_parts(state, n_cap, cell_slack):
+    if state.proj is None:
+        return {}, None            # the scan reads the corpus row store
+    return {"reduced": _pad_rows(state.index.payload, n_cap)}, None
+
+
+register_index(IndexOps(
+    kind="flat", lossy=False, build=_flat_build, scan=_flat_scan,
+    stream_scan=_flat_stream_scan, store_parts=_flat_store_parts,
+    encode_delta=lambda frozen, rows: (None, None, None),
+    rebuild=lambda frozen, reduced: reduced))
+
+
+# --- ivf: coarse k-means quantizer + probed exact scan -----------------------
+
+def _ivf_build(reduced, spec, generator, inits):
+    return build_ivf(reduced, spec.coarse.nlist, init=inits.coarse_init,
+                     generator=generator)
+
+
+def _ivf_scan(state, qr, n_cand, p):
+    return ivf_scan(state.index.payload, qr, n_cand, p.nprobe)
+
+
+def _ivf_stream_scan(store, frozen, qr, n_cand, live, p):
+    rows = _scan_rows(store)
+    n_cap = rows.shape[0]
+    _, cand, _ = probe_cells(frozen.centroids, store.lists, qr, p.nprobe,
+                             n_cand)
+    ok = (cand >= 0) & live[cand.clamp(0, n_cap - 1)]
+    cv = rows[cand.clamp_min(0)]
+    d2 = ((cv - qr[:, None, :]) ** 2).sum(dim=-1)
+    return masked_topk(torch.where(ok, d2, float("inf")), cand, n_cand)
+
+
+def _ivf_store_parts(state, n_cap, cell_slack):
+    ix = state.index.payload
+    parts = {"lists": _pad_cells(ix.lists, cell_slack, fill=-1)}
+    if state.proj is not None:
+        parts["reduced"] = _pad_rows(ix.vectors, n_cap)
+    return parts, ix.centroids
+
+
+def _ivf_assign(frozen, rows):
+    return sq_dists(rows.to(torch.float32), frozen.centroids).argmin(dim=1)
+
+
+def _ivf_rebuild(frozen, reduced):
+    lists = posting_lists(_ivf_assign(frozen, reduced),
+                          frozen.centroids.shape[0])
+    return IVFIndex(centroids=frozen.centroids, lists=lists, vectors=reduced)
+
+
+def _ivf_drift_stats(frozen, rows):
+    return ((rows - frozen.centroids[_ivf_assign(frozen, rows)]) ** 2).sum(
+        dim=-1)
+
+
+register_index(IndexOps(
+    kind="ivf", lossy=False, build=_ivf_build, scan=_ivf_scan,
+    stream_scan=_ivf_stream_scan, store_parts=_ivf_store_parts,
+    encode_delta=lambda frozen, rows: (_ivf_assign(frozen, rows), None,
+                                       None),
+    rebuild=_ivf_rebuild, drift_stats=_ivf_drift_stats))
 
 
 # --- pq: product-quantized vectors, shared-codes ADC scan (K2) ---------------
@@ -123,8 +305,45 @@ def _pq_scan(state, qr, n_cand, p):
                    lut_dtype=p.lut_dtype)
 
 
-register_index(IndexOps(kind="pq", lossy=True, build=_pq_build,
-                        scan=_pq_scan))
+def _pq_stream_scan(store, frozen, qr, n_cand, live, p):
+    tables = adc_tables(frozen.lut_w, frozen.cbnorm, qr)
+    const = (qr * qr).sum(dim=1)
+    if p.lut_dtype != "f32":
+        tables, offs = center_lut(tables)
+        const = const + offs
+    scores = (pq_adc_scores_ref(tables, store.codes, p.lut_dtype)
+              + const[:, None])
+    scores = torch.where(live[None, :], scores, float("inf"))
+    return masked_topk(scores, _row_ids(store.codes.shape[0], qr.shape[0],
+                                        qr.device), n_cand)
+
+
+def _pq_store_parts(state, n_cap, cell_slack):
+    # no reduced mirror: the base is scanned through its codes, the delta
+    # through delta_reduced, the re-rank through the corpus
+    ix = state.index.payload
+    return {"codes": _pad_rows(ix.codes, n_cap)}, PQQuant(
+        codebooks=ix.codebooks, lut_w=ix.lut_w, cbnorm=ix.cbnorm)
+
+
+def _pq_rebuild(frozen, reduced):
+    codes = encode_pq(frozen.codebooks, reduced)
+    return PQIndex(codebooks=frozen.codebooks,
+                   codes=codes.to(_code_dtype(frozen.codebooks)),
+                   lut_w=frozen.lut_w, cbnorm=frozen.cbnorm)
+
+
+def _pq_drift_stats(frozen, rows):
+    codes = encode_pq(frozen.codebooks, rows)
+    return ((rows - _pq_decode(frozen.codebooks, codes)) ** 2).sum(dim=-1)
+
+
+register_index(IndexOps(
+    kind="pq", lossy=True, build=_pq_build, scan=_pq_scan,
+    stream_scan=_pq_stream_scan, store_parts=_pq_store_parts,
+    encode_delta=lambda frozen, rows: (
+        None, encode_pq(frozen.codebooks, rows), None),
+    rebuild=_pq_rebuild, drift_stats=_pq_drift_stats))
 
 
 # --- opq: learned orthogonal rotation + PQ codes -----------------------------
@@ -169,8 +388,42 @@ def _opq_scan(state, qr, n_cand, p):
                    lut_dtype=p.lut_dtype)
 
 
-register_index(IndexOps(kind="opq", lossy=True, build=_opq_build,
-                        scan=_opq_scan))
+def _opq_stream_scan(store, frozen, qr, n_cand, live, p):
+    # rotate, then the masked pq scan serves the rotated space
+    return _pq_stream_scan(store, frozen, qr @ frozen.quant.payload.rot,
+                           n_cand, live, p)
+
+
+def _opq_store_parts(state, n_cap, cell_slack):
+    ix = state.index.payload
+    return {"codes": _pad_rows(ix.codes, n_cap)}, OPQQuant(
+        rot=ix.rot, codebooks=ix.codebooks, lut_w=ix.lut_w, cbnorm=ix.cbnorm)
+
+
+def _opq_encode(frozen, rows):
+    return encode_pq(frozen.codebooks, rows @ frozen.quant.payload.rot)
+
+
+def _opq_rebuild(frozen, reduced):
+    q = frozen.quant.payload
+    return OPQIndex(rot=q.rot, codebooks=q.codebooks,
+                    codes=_opq_encode(frozen, reduced).to(
+                        _code_dtype(q.codebooks)),
+                    lut_w=q.lut_w, cbnorm=q.cbnorm)
+
+
+def _opq_drift_stats(frozen, rows):
+    xr = rows @ frozen.quant.payload.rot
+    codes = encode_pq(frozen.codebooks, xr)
+    return ((xr - _pq_decode(frozen.codebooks, codes)) ** 2).sum(dim=-1)
+
+
+register_index(IndexOps(
+    kind="opq", lossy=True, build=_opq_build, scan=_opq_scan,
+    stream_scan=_opq_stream_scan, store_parts=_opq_store_parts,
+    encode_delta=lambda frozen, rows: (None, _opq_encode(frozen, rows),
+                                       None),
+    rebuild=_opq_rebuild, drift_stats=_opq_drift_stats))
 
 
 # --- ivfpq: coarse cells + PQ residual codes, ADC-gather scan (K1) -----------
@@ -195,5 +448,49 @@ def _ivfpq_scan(state, qr, n_cand, p):
                       lut_dtype=p.lut_dtype)
 
 
-register_index(IndexOps(kind="ivfpq", lossy=True, build=_ivfpq_build,
-                        scan=_ivfpq_scan))
+def _ivfpq_stream_scan(store, frozen, qr, n_cand, live, p):
+    return ivfpq_adc_scan(frozen.centroids, store.lists, store.codes_cell,
+                          store.bias_cell, frozen.lut_w, frozen.cbnorm,
+                          frozen.codebooks, qr, n_cand, p.nprobe,
+                          backend=p.backend, lut_dtype=p.lut_dtype, live=live)
+
+
+def _ivfpq_store_parts(state, n_cap, cell_slack):
+    ix = state.index.payload
+    parts = {"codes": _pad_rows(ix.codes, n_cap),
+             "bias": _pad_rows(ix.bias, n_cap),
+             "lists": _pad_cells(ix.lists, cell_slack, fill=-1),
+             "codes_cell": _pad_cells(ix.codes_cell, cell_slack),
+             "bias_cell": _pad_cells(ix.bias_cell, cell_slack)}
+    return parts, IVFPQQuant(centroids=ix.centroids, codebooks=ix.codebooks,
+                             lut_w=ix.lut_w, cbnorm=ix.cbnorm)
+
+
+def _ivfpq_rebuild(frozen, reduced):
+    assign, codes, bias = ivfpq_encode(frozen.centroids, frozen.codebooks,
+                                       reduced)
+    lists = posting_lists(assign, frozen.centroids.shape[0])
+    lid = lists.clamp_min(0)
+    code_dt = _code_dtype(frozen.codebooks)
+    recon = frozen.centroids[assign] + _pq_decode(frozen.codebooks, codes)
+    rerr = ((reduced - recon) ** 2).sum(dim=1).sqrt()
+    return IVFPQIndex(
+        centroids=frozen.centroids, lists=lists, codebooks=frozen.codebooks,
+        codes=codes.to(code_dt), bias=bias, rerr=rerr,
+        codes_cell=codes[lid].to(code_dt),
+        bias_cell=torch.where(lists >= 0, bias[lid], 0.0),
+        lut_w=frozen.lut_w, cbnorm=frozen.cbnorm)
+
+
+def _ivfpq_drift_stats(frozen, rows):
+    assign, codes, _ = ivfpq_encode(frozen.centroids, frozen.codebooks, rows)
+    recon = frozen.centroids[assign] + _pq_decode(frozen.codebooks, codes)
+    return ((rows - recon) ** 2).sum(dim=-1)
+
+
+register_index(IndexOps(
+    kind="ivfpq", lossy=True, build=_ivfpq_build, scan=_ivfpq_scan,
+    stream_scan=_ivfpq_stream_scan, store_parts=_ivfpq_store_parts,
+    encode_delta=lambda frozen, rows: ivfpq_encode(
+        frozen.centroids, frozen.codebooks, rows),
+    rebuild=_ivfpq_rebuild, drift_stats=_ivfpq_drift_stats))

@@ -1,5 +1,5 @@
-"""Batched vector-search serving engine (port of the single-device
-read-only half of ``repro.search.serve``).
+"""Batched vector-search serving engine (port of the single-device half of
+``repro.search.serve``: the read-only engine and the streaming one).
 
 Pipeline: corpus -> [fit MPAD on a sample] -> reduce the corpus -> build
 the index over the reduced vectors -> serve batched queries: reduce the
@@ -11,34 +11,49 @@ built index; ``search_fn(state, queries, k, ...)`` is the whole query
 pipeline as one function of tensors. ``SearchEngine`` builds the state
 once and pads each query batch to a power-of-two bucket, as the JAX engine
 does, so both packages run the same scan shapes; small ivfpq buckets take
-the compact scan when the posting-mass bound allows it. The index kinds
-served are those of ``registry`` (flat, pq, opq, ivfpq).
+the compact scan when the posting-mass bound allows it, and (opt-in,
+``prefilter_batch``, no Reduce stage) the certified re-rank pre-filter.
+The index kinds served are those of ``registry`` (flat, ivf, pq, opq,
+ivfpq); the Reduce stage any registered reducer kind (qpad, pca, mlp).
 
-The Reduce stage is any registered reducer kind (qpad, pca, mlp). Not
-ported yet (see ROADMAP.md): the ivf kind, the re-rank pre-filter
-(``prefilter_batch``), streaming, sharding, snapshots, the WAL, metrics and
-tracing.
+``SearchEngine.streaming(StreamConfig(...))`` (or ``ServeConfig(stream=
+...)``) turns the built index into the frozen base of a ``StreamStore``
+(``segments``) and brings ``upsert`` / ``delete`` / ``compact`` (blocking,
+or on one worker thread with ``begin_compact`` / ``finish_compact``),
+``vacuum``, ``rebuild_quantizers`` and the maintenance policy to life;
+``search`` then runs ``stream.stream_search_fn``.
+
+Not ported yet (see ROADMAP.md): sharding, snapshots, the WAL
+(``durable``), metrics and tracing.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, cpu_generator, resolve_device
+from repro_torch._tree import tree_map
 from repro_torch.core.mpad import MPADConfig
-from repro_torch.kernels.pq_adc.lut import LUT_DTYPES
+from repro_torch.kernels.pq_adc.lut import LUT_DTYPES, lut_error_bound
 
+from . import segments
+from .durability.policy import MaintenancePolicy
+from .ivfpq import ivfpq_lut_stats
 from .knn import topk_smallest
+from .pq import adc_tables
 from .reducers import Reducer, fit_reducer, reduce_vectors
 from .registry import (INDEX_KINDS, BuildInits, Index, ScanParams, get_ops)
+from .segments import StreamConfig
 from .spec import IndexSpec, parse_spec, spec_from_config
 
 __all__ = ["ServeConfig", "SearchEngine", "EngineState", "search_fn",
-           "exact_rerank", "build_engine", "config_from_spec"]
+           "exact_rerank", "prefiltered_rerank", "build_engine",
+           "config_from_spec"]
 
 _ADC_BACKENDS = ("jnp", "kernel")
 
@@ -62,9 +77,14 @@ class ServeConfig:
     #                                      power-of-two bucket (0 disables)
     compact_batch: int = 64              # ivfpq buckets <= this take the
     #                                      compact scan when it pays (0 disables)
+    prefilter_batch: int = 0             # read-only ivfpq engines with no
+    #                                      Reduce stage: buckets <= this
+    #                                      re-rank only the certified ADC
+    #                                      survivors, same ids (0 disables)
     mpad: Optional[MPADConfig] = None    # defaults derived from target_dim
     fit_sample: int = 2048               # rows used to fit the projection
     seed: int = 0
+    stream: Optional[StreamConfig] = None  # the mutable write path
 
     def __post_init__(self):
         if self.index not in INDEX_KINDS:
@@ -82,6 +102,16 @@ class ServeConfig:
             raise ValueError("small_batch must be >= 0")
         if self.compact_batch < 0:
             raise ValueError("compact_batch must be >= 0")
+        if self.prefilter_batch < 0:
+            raise ValueError("prefilter_batch must be >= 0 (0 disables the "
+                             "re-rank candidate pre-filter)")
+        if (self.stream is not None and self.index in ("pq", "opq")
+                and self.pq_backend == "kernel"):
+            raise ValueError(
+                f"streaming index={self.index!r} needs pq_backend='jnp': "
+                "the shared-codes kernel (K2) has no masked entry point for "
+                "an arbitrary tombstone bitmap (use index='ivfpq' for a "
+                "kernel-backed streaming ADC scan)")
         self.to_spec()
 
     def to_spec(self) -> IndexSpec:
@@ -143,6 +173,65 @@ def exact_rerank(queries: torch.Tensor, corpus: torch.Tensor,
     return vals.clamp_min(0.0).sqrt(), ids
 
 
+def prefiltered_rerank(state: EngineState, queries: torch.Tensor,
+                       qr: torch.Tensor, d_scan: torch.Tensor,
+                       cand: torch.Tensor, k: int, r_s: int, lut_dtype: str,
+                       counters: Optional[dict] = None):
+    """Exact re-rank behind the certified candidate pre-filter (ivfpq, no
+    Reduce stage, so the scan space is the re-rank space).
+
+    From the ADC distance, the row's PQ reconstruction error ``rerr`` and
+    the LUT quantization bound b (``lut_error_bound``; 0 for f32):
+
+        LB = max(0, sqrt(max(d2 - b, 0)) - rerr) <= d
+        UB = sqrt(d2 + b) + rerr                 >= d
+
+    The k-th smallest UB is a threshold W >= d_(k); a candidate with
+    LB > W cannot be a true top-k member (ties at d_(k) keep LB <= W), so
+    the returned ids equal the full re-rank's. When every query's
+    survivors fit ``r_s``, they are compacted left and the exact gather
+    runs ``r_s`` wide (the tight branch); otherwise the full-width
+    re-rank runs. The choice is one synced scalar (the JAX package's
+    ``lax.cond``); ``counters``, when given, counts it under
+    ``prefilter_tight`` / ``prefilter_full``.
+    """
+    ix = state.index.payload
+    n = state.corpus.shape[0]
+    valid = cand >= 0
+    rerr = ix.rerr[cand.clamp(0, n - 1)]                  # (Q, C)
+    if lut_dtype != "f32":
+        # the grid the scan quantized onto: the raw tables for bf16, the
+        # analytic centred scale for int8
+        tables = adc_tables(ix.lut_w, ix.cbnorm, qr)
+        scale = None
+        if lut_dtype == "int8":
+            _, scale = ivfpq_lut_stats(ix.codebooks, ix.cbnorm, qr,
+                                       lut_dtype)
+        b = lut_error_bound(tables, lut_dtype, scale)[:, None]   # (Q, 1)
+    else:
+        b = torch.zeros((1, 1), dtype=torch.float32, device=qr.device)
+    d2 = d_scan * d_scan
+    ub = (d2 + b).clamp_min(0.0).sqrt() + rerr
+    lb = ((d2 - b).clamp_min(0.0).sqrt() - rerr).clamp_min(0.0)
+    ub = torch.where(valid, ub, float("inf"))
+    w = topk_smallest(ub, k)[0][:, -1:]                   # (Q, 1) = W
+    # relative slack absorbs the sqrt / square round trips; it only keeps
+    # more candidates
+    keep = valid & (lb <= w + 1e-3 * (1.0 + w.abs()))
+    tight = int(keep.sum(dim=1).max()) <= r_s
+    if counters is not None:
+        key = "prefilter_tight" if tight else "prefilter_full"
+        counters[key] = counters.get(key, 0) + 1
+    if tight:
+        order = torch.argsort((~keep).to(torch.uint8), dim=1,
+                              stable=True)[:, :r_s]
+        cc = torch.gather(cand, 1, order)
+        kk = torch.gather(keep, 1, order)
+        return exact_rerank(queries, state.corpus, torch.where(kk, cc, -1),
+                            k)
+    return exact_rerank(queries, state.corpus, cand, k)
+
+
 def _check_rerank_budget(approximate: bool, rerank: int, k: int):
     if approximate and rerank < k:
         raise ValueError(
@@ -154,10 +243,15 @@ def _check_rerank_budget(approximate: bool, rerank: int, k: int):
 
 def search_fn(state: EngineState, queries: torch.Tensor, k: int, *,
               nprobe: int = 8, rerank: int = 64, backend: str = "jnp",
-              lut_dtype: str = "f32", scan_cap: int = 0):
+              lut_dtype: str = "f32", scan_cap: int = 0, prefilter: int = 0,
+              counters: Optional[dict] = None):
     """The query pipeline: project -> probe/scan (dispatched on the index
     kind) -> exact re-rank -> top-k. Returns (dists (Q, k), ids (Q, k)),
-    distances in the original space."""
+    distances in the original space. ``scan_cap > 0`` (ivfpq) takes the
+    compact scan; ``prefilter > 0`` (ivfpq, no Reduce stage) re-ranks only
+    that many certified survivors when they fit (``prefiltered_rerank``,
+    which counts its branch into ``counters`` when given). Both return the
+    ids of the defaults."""
     ops = get_ops(state.index.kind)
     queries = queries.to(torch.float32)
     qr = reduce_vectors(state.proj, queries)
@@ -166,7 +260,16 @@ def search_fn(state: EngineState, queries: torch.Tensor, k: int, *,
     n_cand = rerank if approximate else k
     p = ScanParams(nprobe=nprobe, backend=backend, lut_dtype=lut_dtype,
                    scan_cap=scan_cap)
-    _, cand = ops.scan(state, qr, n_cand, p)
+    d_scan, cand = ops.scan(state, qr, n_cand, p)
+    if prefilter > 0:
+        if state.index.kind != "ivfpq" or state.proj is not None:
+            raise ValueError(
+                "prefilter needs an ivfpq index with no Reduce stage: the "
+                "certified distance bounds require the scan space to be "
+                "the re-rank space")
+        if prefilter < n_cand:
+            return prefiltered_rerank(state, queries, qr, d_scan, cand, k,
+                                      prefilter, lut_dtype, counters)
     return exact_rerank(queries, state.corpus, cand, k)
 
 
@@ -194,6 +297,14 @@ class SearchEngine:
     sample rows, then the mlp reducer's draws (for that kind), then the
     coarse k-means start, then the PQ starts.
     ``build_seconds`` records the host time of each build stage.
+
+    With ``config.stream`` set (or after ``streaming()``) the engine
+    serves a ``StreamStore``: ``state`` is released, ``store`` and
+    ``frozen`` take its place, and the write methods come alive.
+    ``counters`` counts compactions, swaps, vacuums, rebuilds, policy
+    grows and the pre-filter's branches (``prefilter_tight`` /
+    ``prefilter_full``); ``grow_count`` the stores grown by a compaction
+    overflow.
     """
 
     def __init__(self, corpus, config=ServeConfig(), *,
@@ -239,18 +350,54 @@ class SearchEngine:
     @classmethod
     def from_state(cls, state: EngineState, config) -> "SearchEngine":
         """An engine around already-built tensors (e.g. a state carried
-        across from the JAX package by ``repro_torch.bridge``)."""
+        across from the JAX package by ``repro_torch.bridge``); a config
+        with ``stream`` set makes it streaming over a copy of them."""
         eng = object.__new__(cls)
         eng.device = state.corpus.device
         eng.build_seconds = {}
         eng._attach(_as_serve_config(config), state)
         return eng
 
-    def _attach(self, config: ServeConfig, state: EngineState):
+    @classmethod
+    def from_store(cls, store: "segments.StreamStore",
+                   frozen: "segments.FrozenParams",
+                   config) -> "SearchEngine":
+        """A streaming engine around an existing store and its frozen
+        quantizers (``bridge.stream_from_arrays`` carries JAX's across);
+        ``config.stream`` must be set."""
+        config = _as_serve_config(config)
+        if config.stream is None:
+            raise ValueError("from_store needs a config with stream set")
+        eng = object.__new__(cls)
+        eng.device = store.corpus.device
+        eng.build_seconds = {}
+        eng._attach(config, None, store=store, frozen=frozen)
+        return eng
+
+    def _attach(self, config: ServeConfig, state, store=None, frozen=None):
         self.config = config
         self.state = state
         self.last_bucket: Optional[int] = None
         self._scan_caps: dict = {}   # nprobe -> compact-scan gather width
+        self.store, self.frozen = store, frozen
+        self.grow_count = 0          # stores grown by compaction overflow
+        self._delta_used = 0         # host mirror of the delta fill
+        #                              (overwrites counted as appends)
+        self._policy: Optional[MaintenancePolicy] = None
+        self._policy_active = False  # decisions only when the user
+        #                              configured StreamConfig.policy
+        self._compact_future = None  # pending background compaction
+        self._compact_executor: Optional[ThreadPoolExecutor] = None
+        self._compact_tail: list = []    # writes made during the fold,
+        self._tail_rows = 0              # re-applied at the swap
+        self.counters = {"compactions": 0, "swaps": 0, "vacuums": 0,
+                         "rebuilds": 0, "policy_grows": 0,
+                         "prefilter_tight": 0, "prefilter_full": 0}
+        if store is not None:
+            self._delta_used = int(store.delta_count)
+            self._stream_policy_init()
+        elif config.stream is not None:
+            self._init_stream()
 
     def _scan_cap(self, nprobe: int) -> int:
         """Compact-scan gather width at ``nprobe``: the sum of the
@@ -271,7 +418,9 @@ class SearchEngine:
 
     def search(self, queries, k: int):
         """Returns (dists (Q, k), ids (Q, k)) on the engine's device. The
-        batch is zero-padded to its power-of-two bucket, then sliced back."""
+        batch is zero-padded to its power-of-two bucket, then sliced back.
+        A streaming engine returns external ids and first swaps in a
+        background compaction that has finished."""
         cfg = self.config
         ops = get_ops(cfg.index)
         _check_rerank_budget(cfg.target_dim is not None or ops.lossy,
@@ -285,11 +434,375 @@ class SearchEngine:
             queries = torch.nn.functional.pad(queries, (0, 0, 0, bucket - nq))
         kw = dict(nprobe=cfg.nprobe, rerank=cfg.rerank,
                   backend=cfg.pq_backend, lut_dtype=cfg.lut_dtype,
-                  scan_cap=0)
-        if cfg.index == "ivfpq" and 0 < bucket <= cfg.compact_batch:
-            kw["scan_cap"] = self._scan_cap(cfg.nprobe)
-        d, ids = search_fn(self.state, queries, k, **kw)
+                  scan_cap=0, prefilter=0)
+        if self.store is not None:
+            from .stream import stream_search_fn
+            self._poll_compaction()
+            d, ids = stream_search_fn(self.store, self.frozen, queries, k,
+                                      **kw)
+            return d[:nq], ids[:nq]
+        if cfg.index == "ivfpq":
+            if 0 < bucket <= cfg.compact_batch:
+                kw["scan_cap"] = self._scan_cap(cfg.nprobe)
+            if 0 < bucket <= cfg.prefilter_batch and cfg.target_dim is None:
+                r_s = max(2 * k, cfg.rerank // 2)
+                if r_s < cfg.rerank:
+                    kw["prefilter"] = r_s
+        d, ids = search_fn(self.state, queries, k, counters=self.counters,
+                           **kw)
         return d[:nq], ids[:nq]
+
+    # --- streaming (mutable) serving -------------------------------------
+
+    def streaming(self, config: Optional[StreamConfig] = None
+                  ) -> "SearchEngine":
+        """Enable the write path on a built engine: the index becomes the
+        frozen base of a ``StreamStore`` with a delta segment and
+        tombstones, and the dense state is released. Call once. Returns
+        ``self``."""
+        if self.store is not None:
+            raise RuntimeError("this engine is already streaming; "
+                               "re-configure by rebuilding it")
+        # replace() re-runs the config's validation (pq + kernel refused)
+        self.config = dataclasses.replace(
+            self.config, stream=config or StreamConfig())
+        self._init_stream()
+        return self
+
+    def _require_stream(self):
+        if self.store is None:
+            raise RuntimeError(
+                "this engine is read-only; enable the write path with "
+                "engine.streaming(StreamConfig(...)) or "
+                "ServeConfig(stream=StreamConfig(...))")
+
+    def _init_stream(self):
+        self.store, self.frozen = segments.make_mutable(self.state,
+                                                        self.config.stream)
+        # the store holds fresh copies of every database tensor and the
+        # frozen params alias the quantizers: the state is a duplicate
+        self.state = None
+        self._scan_caps = {}
+        self._stream_policy_init()
+
+    def _stream_policy_init(self):
+        """The policy, and (when the user configured one) its drift
+        baseline: the mean encode error of up to 1024 base rows."""
+        scfg = self.config.stream
+        self._policy = MaintenancePolicy(scfg.policy)
+        self._policy_active = scfg.policy is not None
+        if not self._policy_active:
+            return
+        ops = get_ops(self.config.index)
+        n = int(self.store.n_rows)
+        if ops.drift_stats is None or n == 0:
+            return
+        rows = reduce_vectors(self.frozen.proj,
+                              self.store.corpus[:min(n, 1024)])
+        self._policy.observe_build_error(
+            float(ops.drift_stats(self.frozen, rows).mean()))
+
+    def _pad_write(self, ids, vectors=None):
+        """Ids (int64) and vectors on the device, padded to the write
+        bucket (-1 ids are no-ops)."""
+        ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1).to(
+            self.device)
+        n = ids.shape[0]
+        pad = _bucket(n, self.config.stream.write_bucket) - n
+        if pad:
+            ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+        if vectors is None:
+            return ids, None
+        vectors = torch.as_tensor(vectors, dtype=torch.float32).to(
+            self.device).reshape(n, -1)
+        if pad:
+            vectors = torch.nn.functional.pad(vectors, (0, 0, 0, pad))
+        return ids, vectors
+
+    def _compact_point(self) -> int:
+        """Delta fill (rows) that triggers auto-compaction."""
+        scfg = self.config.stream
+        fill = scfg.compact_threshold
+        if self._policy is not None and self._policy.config.delta_fill:
+            fill = self._policy.config.delta_fill
+        return max(1, min(scfg.delta_capacity,
+                          int(fill * scfg.delta_capacity)))
+
+    def _ensure_delta_room(self, chunk: int, cap: int, point: int):
+        """Compact (blocking or in the background) so ``chunk`` more delta
+        rows fit."""
+        if self._compact_future is not None:
+            if (self._delta_used + chunk > cap
+                    or self._tail_rows + chunk > point):
+                self.finish_compact()
+            else:
+                return      # the pending fold reclaims the delta at the swap
+        if self._delta_used + chunk > point:
+            if (self._compact_future is None
+                    and self.config.stream.background_compact
+                    and self._delta_used + chunk <= cap):
+                self.begin_compact()
+            else:
+                self.compact()
+
+    def upsert(self, ids, vectors) -> "SearchEngine":
+        """Insert or overwrite rows by external id (ids (B,), vectors
+        (B, D)): delta appends, in chunks of at most the compact point,
+        the delta auto-compacting at ``compact_threshold``. Returns
+        ``self``."""
+        self._require_stream()
+        self._poll_compaction()
+        ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1).to(
+            self.device)
+        vectors = torch.as_tensor(vectors, dtype=torch.float32).to(
+            self.device).reshape(ids.shape[0], -1)
+        cap = self.config.stream.delta_capacity
+        point = self._compact_point()
+        b = 0
+        while b < ids.shape[0]:
+            chunk = min(ids.shape[0] - b, point)
+            self._ensure_delta_room(chunk, cap, point)
+            cid, cv = ids[b:b + chunk], vectors[b:b + chunk]
+            if self._compact_future is not None:
+                # the pending fold works on a copy taken at its start:
+                # this write is replayed onto the folded store at the swap
+                self._compact_tail.append(("upsert", cid, cv))
+                self._tail_rows += chunk
+            pid, pv = self._pad_write(cid, cv)
+            # dropped stays 0: a chunk never exceeds the compact point
+            self.store, _ = segments.upsert_fn(self.store, self.frozen, pid,
+                                               pv)
+            self._delta_used += chunk
+            b += chunk
+        return self
+
+    def delete(self, ids) -> "SearchEngine":
+        """Delete rows by external id: tombstone base copies, punch delta
+        holes (absent ids are no-ops). With a configured policy a dense
+        tombstone bitmap triggers ``vacuum``. Returns ``self``."""
+        self._require_stream()
+        self._poll_compaction()
+        ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1).to(
+            self.device)
+        if self._compact_future is not None:
+            self._compact_tail.append(("delete", ids, None))
+        pid, _ = self._pad_write(ids)
+        self.store = segments.delete_fn(self.store, pid)
+        if self._policy_active:
+            decision = self._policy.decide_delete(
+                dead=int(self.store.dead.sum()),
+                allocated=int(self.store.n_rows))
+            if decision.kind == "vacuum":
+                self.vacuum()
+        return self
+
+    # --- compaction (blocking and on a worker thread) ---------------------
+
+    def _run_compact(self, store):
+        """The fold and grow-retry loop over ``store`` (written in place).
+        Returns (folded store, grows)."""
+        scfg = self.config.stream
+        store, dropped = segments.compact_fn(store, self.frozen)
+        grows = 0
+        while int(dropped):
+            # a delta's worth of cell slack covers every delta row landing
+            # in one cell, so one grow suffices
+            store = segments.grow_store(store,
+                                        row_extra=4 * scfg.delta_capacity,
+                                        cell_extra=scfg.delta_capacity)
+            grows += 1
+            store, dropped = segments.compact_fn(store, self.frozen)
+        return store, grows
+
+    def _compact_task(self, store, stream):
+        # the fold is queued on the stream the caller serves on, behind
+        # the copy it folds and in order with the searches
+        if stream is None:
+            return self._run_compact(store)
+        with torch.cuda.stream(stream):
+            return self._run_compact(store)
+
+    def _install_compacted(self, store, grows, tail, tail_rows):
+        """Replay the writes made during the fold onto the folded store,
+        then swap it in with one reference assignment: a search sees the
+        old store or the new one, never a mix."""
+        for kind, tids, tvecs in tail:
+            pid, pv = self._pad_write(tids, tvecs)
+            if kind == "upsert":
+                store, _ = segments.upsert_fn(store, self.frozen, pid, pv)
+            else:
+                store = segments.delete_fn(store, pid)
+        self.store = store
+        self._delta_used = tail_rows
+        self.grow_count += grows
+        self.counters["compactions"] += 1
+        self.counters["swaps"] += 1
+        self._post_compact_maintenance()
+
+    def compact(self) -> "SearchEngine":
+        """Fold the delta segment into the base (coded against the frozen
+        quantizers), blocking. A pending ``begin_compact`` is finished
+        first. When the append would overflow the row capacity or a cell's
+        slack the store grows and the fold retries (``grow_count``).
+        Returns ``self``."""
+        self._require_stream()
+        if self._compact_future is not None:
+            self.finish_compact()
+        self._observe_drift()
+        store, grows = self._run_compact(self.store)
+        self._install_compacted(store, grows, (), 0)
+        return self
+
+    def begin_compact(self) -> "SearchEngine":
+        """Start a compaction on a worker thread: fold a copy of the store
+        while searches and writes keep serving the live one;
+        ``finish_compact`` (or the poll at the next search or write once
+        the fold is done) replays the writes made meanwhile and swaps.
+        On CUDA the copy and the fold are queued on the caller's current
+        stream, so the folded store is complete, in stream order, before
+        any later search reads it. No-op if one is pending. Returns
+        ``self``."""
+        self._require_stream()
+        if self._compact_future is not None:
+            return self
+        self._observe_drift()
+        snapshot = tree_map(
+            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+            self.store)
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        self._compact_tail = []
+        self._tail_rows = 0
+        if self._compact_executor is None:
+            self._compact_executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="qpad-compact")
+        self._compact_future = self._compact_executor.submit(
+            self._compact_task, snapshot, stream)
+        return self
+
+    def finish_compact(self) -> "SearchEngine":
+        """Complete a pending ``begin_compact``: wait for the fold, replay
+        the tail writes, swap. No-op without one. Returns ``self``."""
+        self._require_stream()
+        fut = self._compact_future
+        if fut is None:
+            return self
+        try:
+            store, grows = fut.result()
+        finally:
+            self._compact_future = None
+        tail, self._compact_tail = self._compact_tail, []
+        rows, self._tail_rows = self._tail_rows, 0
+        self._install_compacted(store, grows, tail, rows)
+        return self
+
+    def _poll_compaction(self):
+        """Swap in a background compaction whose fold has finished."""
+        fut = self._compact_future
+        if fut is not None and fut.done():
+            self.finish_compact()
+
+    def close(self):
+        """Finish a pending compaction and stop its worker thread."""
+        if self.store is not None and self._compact_future is not None:
+            self.finish_compact()
+        if self._compact_executor is not None:
+            self._compact_executor.shutdown(wait=True)
+            self._compact_executor = None
+
+    # --- maintenance policy ----------------------------------------------
+
+    def _lut_noise_floor(self) -> float:
+        """The smallest drift worth acting on: the LUT quantization error
+        bound of the codeword norms."""
+        cb = self.frozen.cbnorm if self.frozen is not None else None
+        if cb is None or self.config.index not in ("pq", "opq", "ivfpq"):
+            return 0.0
+        return float(lut_error_bound(cb[None], self.config.lut_dtype)[0])
+
+    def _observe_drift(self):
+        """Feed the encode error of the delta rows about to be folded into
+        the policy's drift estimate."""
+        if not self._policy_active:
+            return
+        ops = get_ops(self.config.index)
+        if ops.drift_stats is None:
+            return
+        store = self.store
+        rows = (store.delta_reduced if store.delta_reduced is not None
+                else store.delta_vectors)
+        alive = segments.delta_alive(store)
+        n = int(alive.sum())
+        if n == 0:
+            return
+        err = ops.drift_stats(self.frozen, rows)
+        self._policy.observe_encode_error(
+            float(torch.where(alive, err, 0.0).sum()) / n, n)
+
+    def _post_compact_maintenance(self):
+        """The post-compaction policy decision (grow / rebuild)."""
+        if not self._policy_active:
+            return
+        scfg = self.config.stream
+        free = int(self.store.corpus.shape[0]) - int(self.store.n_rows)
+        decision = self._policy.decide_post_compact(
+            free_rows=free, delta_capacity=scfg.delta_capacity,
+            noise_floor=self._lut_noise_floor())
+        if decision.kind == "grow":
+            self.store = segments.grow_store(self.store, **decision.params)
+            self.counters["policy_grows"] += 1
+        elif decision.kind == "rebuild":
+            self.rebuild_quantizers()
+
+    def _gather_live(self):
+        """Every live row: base survivors in row order, then live delta
+        rows in slot order. Returns (vectors (L, D), external ids (L,))."""
+        store = self.store
+        live = segments.live_mask(store)
+        alive = segments.delta_alive(store)
+        vectors = torch.cat([store.corpus[live], store.delta_vectors[alive]])
+        ext = torch.cat([store.row_ids[live], store.delta_ids[alive]])
+        return vectors, ext
+
+    def vacuum(self) -> "SearchEngine":
+        """Reclaim tombstoned rows: rewrite the base over the live rows
+        (the delta folded in) with the FROZEN quantizers, back to the
+        configured capacities. Returns ``self``."""
+        self._require_stream()
+        if self._compact_future is not None:
+            self.finish_compact()
+        vectors, ext = self._gather_live()
+        state = segments.rebuild_state(self.frozen, vectors)
+        store, frozen = segments.make_mutable(state, self.config.stream)
+        store.row_ids[:ext.shape[0]] = ext
+        self.store, self.frozen = store, frozen
+        self._delta_used = 0
+        self.counters["vacuums"] += 1
+        return self
+
+    def rebuild_quantizers(self, seed: Optional[int] = None
+                           ) -> "SearchEngine":
+        """Retrain the quantizers over the live rows through the ordinary
+        build (a new fit and index, a fresh drift baseline), keeping the
+        external ids. Returns ``self``."""
+        self._require_stream()
+        if self._compact_future is not None:
+            self.finish_compact()
+        if seed is None:
+            seed = self.config.seed + 1 + self.counters["rebuilds"]
+        vectors, ext = self._gather_live()
+        cfg = dataclasses.replace(self.config, seed=int(seed))
+        fresh = SearchEngine(vectors, cfg, device=self.device)
+        fresh.store.row_ids[:ext.shape[0]] = ext
+        decisions = self._policy.decisions if self._policy else {}
+        self.config = cfg
+        self.store, self.frozen = fresh.store, fresh.frozen
+        self._policy = fresh._policy             # fresh drift baseline
+        self._policy_active = fresh._policy_active
+        self._policy.decisions = decisions
+        self._delta_used = 0
+        self.counters["rebuilds"] += 1
+        return self
 
 
 def _as_serve_config(config) -> ServeConfig:

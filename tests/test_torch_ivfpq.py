@@ -170,6 +170,64 @@ def test_kernel_backend_on_cpu_takes_the_plain_version(bridged, lut_dtype):
     np.testing.assert_array_equal(dk, dp)
 
 
+@pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
+def test_masked_scan_matches_jax_live(bridged, lut_dtype):
+    """The streaming scan's tombstone mask: ivfpq_adc_scan(..., live=)
+    against JAX's with the same (N,) live map, on the plain route and on
+    K1's cell-major entry (fills with a live byte map; its plain version
+    here): ids equal up to near-ties, d2 within rtol 1e-5, and the two
+    routes bit-equal."""
+    jax, jnp, _, jivfpq = _jax()
+    jix, tix, q = bridged
+    live = np.random.default_rng(3).uniform(size=N) >= 0.25
+    dj, ij = jax.jit(functools.partial(
+        jivfpq.ivfpq_adc_scan, n_cand=40, nprobe=4, backend="jnp",
+        lut_dtype=lut_dtype))(jix.centroids, jix.lists, jix.codes_cell,
+                              jix.bias_cell, jix.lut_w, jix.cbnorm,
+                              jix.codebooks, jnp.asarray(q),
+                              live=jnp.asarray(live))
+    dj, ij = np.asarray(dj), np.asarray(ij)
+    assert not np.isin(ij, np.nonzero(~live)[0]).any()
+    args = (tix.centroids, tix.lists, tix.codes_cell, tix.bias_cell,
+            tix.lut_w, tix.cbnorm, tix.codebooks, torch.from_numpy(q), 40, 4)
+    out = {b: tivfpq.ivfpq_adc_scan(*args, backend=b, lut_dtype=lut_dtype,
+                                    live=torch.from_numpy(live))
+           for b in ("jnp", "kernel")}
+    # a near-tie may swap two ids: the tables and the int8 centre are
+    # formed in another order than XLA's, a ulp apart
+    it = out["jnp"][1].numpy()
+    for r, c in zip(*np.nonzero(it != ij)):
+        at = np.nonzero(ij[r] == it[r, c])[0]
+        assert at.size == 1 and abs(dj[r, at[0]] - dj[r, c]) <= 1e-5 * abs(
+            dj[r, c]), (r, c)
+    assert (it != ij).mean() <= 1e-2
+    np.testing.assert_allclose(out["jnp"][0].numpy(), dj, rtol=1e-5)
+    assert torch.equal(out["kernel"][0], out["jnp"][0])
+    assert torch.equal(out["kernel"][1], out["jnp"][1])
+
+
+def test_live_cells_marks_the_live_posting_slots(bridged):
+    """``live_cells`` maps the (N,) live mask onto the posting lists: 1
+    exactly where a slot holds a live row; pads and dead rows 0. Through
+    ``ref.live_slots`` it masks a probed slot as the row's id would."""
+    from repro_torch.kernels.pq_adc.ref import live_slots
+    _, tix, q = bridged
+    live = np.random.default_rng(4).uniform(size=N) >= 0.3
+    cells = tivfpq.live_cells(tix.lists, torch.from_numpy(live))
+    lists = tix.lists.numpy()
+    assert cells.dtype == torch.uint8 and cells.shape == tix.lists.shape
+    want = (lists >= 0) & live[np.clip(lists, 0, N - 1)]
+    np.testing.assert_array_equal(cells.numpy(), want.astype(np.uint8))
+    probe, cand, _ = tivfpq.probe_cells(tix.centroids, tix.lists,
+                                        torch.from_numpy(q), 4, 40)
+    for width in (cand.shape[1], cand.shape[1] - 5, cand.shape[1] + 7):
+        got = live_slots(probe, cells, width).numpy()
+        c = np.pad(cand.numpy(), ((0, 0), (0, max(0, width - cand.shape[1]))),
+                   constant_values=-1)[:, :width]
+        np.testing.assert_array_equal(
+            got, (c >= 0) & live[np.clip(c, 0, N - 1)])
+
+
 def test_lut_stats_match_jax(bridged):
     _, jnp, _, jivfpq = _jax()
     jix, tix, q = bridged

@@ -1,9 +1,11 @@
 """The port's serving launcher (repro_torch.launch.serve) on the CPU at a
-tiny size: its read-only flags keep the JAX launcher's names and
-defaults, it builds and serves each reducer kind with recall against exact
-search, and every flag of a layer not ported yet raises with a pointer to
-ROADMAP.md. The launchers draw their queries from different generators,
-so this compares behaviour, not numbers."""
+tiny size: its read-only and streaming flags keep the JAX launcher's
+names and defaults, it builds and serves each reducer kind and the ivf
+kind with recall against exact search, runs the streaming write leg
+(blocking and background compaction), and every flag of a layer not
+ported yet raises with a pointer to ROADMAP.md. The launchers draw their
+queries from different generators, so this compares behaviour, not
+numbers."""
 import sys
 
 import pytest
@@ -18,7 +20,8 @@ from repro_torch.launch import serve  # noqa: E402
 TINY = ["--corpus", "600", "--dim", "32", "--batch", "16", "--batches", "2"]
 READ_ONLY = ("corpus", "dim", "spec", "target_dim", "reducer", "batch",
              "batches", "k", "index", "nlist", "nprobe", "pq_subspaces",
-             "lut_dtype", "pq_backend", "query_bucket")
+             "lut_dtype", "pq_backend", "query_bucket", "stream",
+             "delta_capacity", "write_batch", "background_compact")
 
 
 def test_flags_and_defaults_match_the_jax_launcher(monkeypatch):
@@ -67,11 +70,54 @@ def test_unported_flags_raise_with_a_pointer(flag):
         serve.main(TINY + argv, device="cpu")
 
 
-def test_ivf_kind_raises_with_a_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(TINY + ["--index", "ivf"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(TINY + ["--spec", "qpad4>ivf8x2"], device="cpu")
+def test_ivf_kind_raises_with_a_pointer(capsys):
+    """The ivf kind is ported: ``--index ivf`` and an ivf spec build and
+    serve (exact over the probed cells, so recall is high)."""
+    out = serve.main(TINY + ["--index", "ivf", "--target-dim", "0",
+                             "--nlist", "8", "--nprobe", "4"], device="cpu")
+    assert out["spec"] == "ivf8x4>rr40" and out["recall"] >= 0.8
+    out = serve.main(TINY + ["--spec", "qpad4>ivf8x2"], device="cpu")
+    assert out["spec"].startswith("qpad4>ivf8x2") and out["recall"] >= 0.3
+    assert "kind=ivf" in capsys.readouterr().out
+
+
+STREAM = ["--stream", "--delta-capacity", "64", "--write-batch", "32",
+          "--batches", "5"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--target-dim", "0"],
+    ["--spec", "ivf8x4>pq4x256:i8@kernel>rr40"],
+    ["--spec", "qpad8>ivf8x4>rr40"],
+    ["--spec", "pq4x256:i8>rr40"],
+])
+def test_stream_flags_run_the_write_leg(argv, capsys):
+    """--stream with --delta-capacity and --write-batch: each batch writes
+    32 rows before it searches (compacting every second batch), deletes
+    an eighth of the previous batch's, and the run ends compacted."""
+    out = serve.main(TINY + STREAM + argv, device="cpu")
+    text = capsys.readouterr().out
+    assert "streaming delta=64" in text and "writes: 160 rows" in text
+    st = out["stream"]
+    assert st["rows_written"] == 160 and st["grow_count"] == 0
+    assert st["compactions"] >= 3 and st["base_rows"] == 600 + 160
+    assert out["recall"] >= 0.3
+
+
+def test_background_compact_flag_folds_off_thread(capsys):
+    out = serve.main(TINY + STREAM + ["--background-compact",
+                                      "--spec", "ivf8x4>pq4x256>rr40"],
+                     device="cpu")
+    assert out["stream"]["rows_written"] == 160
+    assert out["stream"]["base_rows"] == 760
+    assert "final compact" in capsys.readouterr().out
+
+
+def test_stream_pq_kernel_is_refused():
+    """Streaming pq / opq on K2 is refused, as in the JAX package."""
+    with pytest.raises(ValueError, match="pq_backend"):
+        serve.main(TINY + STREAM + ["--spec", "pq4x256@kernel>rr40"],
+                   device="cpu")
 
 
 def test_runs_on_cuda_unless_told_otherwise():

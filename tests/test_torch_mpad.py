@@ -95,14 +95,18 @@ def test_short_fit_from_jax_start_directions():
 
 
 def test_unported_backends_raise_and_device_is_required():
-    """Every fit backend is ported (exact, fast, kernel); what is still
-    unported downstream of a fit raises with a pointer: an engine of the
-    ivf kind fits its reducer, then refuses to build the index."""
+    """Every fit backend is ported (exact, fast, kernel), and so is every
+    index kind downstream of a fit: an engine of the ivf kind fits its
+    reducer, builds the index and serves. Without a device argument and
+    with no CUDA device, the fit raises."""
     from repro_torch.search import build_engine
     x = torch.from_numpy(_data(5, n=50, d=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_engine(x, "qpad2>ivf4x2", device="cpu",
-                     mpad=MPADConfig(m=2, iters=1))
+    eng = build_engine(x, "qpad2>ivf4x2>rr8", device="cpu",
+                       mpad=MPADConfig(m=2, iters=1))
+    assert eng.state.index.kind == "ivf"
+    assert eng.state.index.payload.vectors.shape == (50, 2)
+    _, ids = eng.search(x[:4], 3)
+    assert ids.shape == (4, 3) and bool((ids >= 0).all())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fit_mpad(x, MPADConfig(m=2, iters=1))

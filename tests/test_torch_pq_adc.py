@@ -253,6 +253,44 @@ def test_cells_entry_matches_gather_route_and_jax(lut_dtype, case):
     np.testing.assert_array_equal(want[1].numpy()[below], ij[below])
 
 
+def _dead(cells, seed, rate=0.3):
+    """A cell-major (nlist, max_cell) uint8 live map killing a share of
+    the posting slots (pads included, which no route reads), and ``cand``
+    with the probed slots it kills -1 (what the cand route is given)."""
+    probe, _, _, bias_cell, cand = cells
+    rng = np.random.default_rng(seed)
+    live = (rng.uniform(size=bias_cell.shape) >= rate).astype(np.uint8)
+    ok = live[probe].reshape(len(probe), -1)[:, :cand.shape[1]]
+    ok = np.pad(ok, ((0, 0), (0, cand.shape[1] - ok.shape[1])))
+    return live, np.where(ok != 0, cand, -1)
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("case", ["ragged_q", "q1", "cand_wider",
+                                  "cand_narrower", "int32"])
+def test_cells_live_map_masks_as_cand_does(lut_dtype, case):
+    """The cell-major live byte map read beside the cells' fills (a
+    streaming store's tombstones) returns what the cand route returns with
+    those slots' ids -1, bit for bit (its plain version here)."""
+    nq, nlist, top, nprobe, m, kc, extra, holes, cdt = _CELL_CASES[case]
+    tables, cells, fill = _cell_inputs(len(case) + kc, nq, nlist, top,
+                                       nprobe, m, kc, extra, holes, cdt)
+    live, masked = _dead(cells, 7)
+    tt = torch.from_numpy(tables)
+    tc = tuple(torch.from_numpy(a) for a in cells)
+    k = min(12, tc[4].shape[1])
+    scale = None
+    if lut_dtype == "int8":
+        scale = torch.from_numpy((np.abs(tables).max(axis=(1, 2))
+                                  / np.float32(127)).astype(np.float32))
+    want = ops.pq_adc_cells_topk(tt, *tc[:4], torch.from_numpy(masked), k,
+                                 lut_dtype, scale)
+    got = ops.pq_adc_cells_topk(tt, *tc, k, lut_dtype, scale,
+                                torch.from_numpy(fill),
+                                torch.from_numpy(live))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_cells_wrapper_rejects_bad_inputs():
     tables, cells, fill = _cell_inputs(3, 2, 10, 20, 3, 4, 16)
     tt = torch.from_numpy(tables)
@@ -270,6 +308,14 @@ def test_cells_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="outside"):
         ops.pq_adc_cells_topk(tt, probe, cd2p, codes_cell, bias_cell, cand,
                               0)
+    live = torch.ones(bias_cell.shape, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="beside cell_len"):
+        ops.pq_adc_cells_topk(tt, probe, cd2p, codes_cell, bias_cell, cand,
+                              3, live=live)
+    with pytest.raises(ValueError, match="live must be"):
+        ops.pq_adc_cells_topk(tt, probe, cd2p, codes_cell, bias_cell, cand,
+                              3, cell_len=torch.from_numpy(fill),
+                              live=live[:, :-1])
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -387,3 +433,31 @@ def test_cuda_cells_kernel_matches_gathered_kernel(lut_dtype, case):
         if lut_dtype == "int8":
             assert torch.equal(got[0], plain[0])
             assert torch.equal(got[1], plain[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("case", ["ragged_q", "q1", "cand_wider",
+                                  "cand_narrower", "int32"])
+def test_cuda_cells_live_map_matches_cand_route(lut_dtype, case):
+    """On the card the cell-major live byte map beside the fills returns,
+    bit for bit, the cand route's result on the cand with the dead slots -1, and
+    the plain version's ids (int8 d2 bit-equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    nq, nlist, top, nprobe, m, kc, extra, holes, cdt = _CELL_CASES[case]
+    tables, cells, fill = _cell_inputs(len(case) + kc, nq, nlist, top,
+                                       nprobe, m, kc, extra, holes, cdt)
+    live, masked = _dead(cells, 7)
+    tt = torch.from_numpy(tables).cuda()
+    tc = tuple(torch.from_numpy(a).cuda() for a in cells)
+    tm = torch.from_numpy(masked).cuda()
+    k = min(12, tc[4].shape[1])
+    want = ops.pq_adc_cells_topk(tt, *tc[:4], tm, k, lut_dtype)
+    got = ops.pq_adc_cells_topk(tt, *tc, k, lut_dtype, None,
+                                torch.from_numpy(fill).cuda(),
+                                torch.from_numpy(live).cuda())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    plain = ops.pq_adc_cells_topk_plain(tt, *tc[:4], tm, k, lut_dtype)
+    if lut_dtype == "int8":
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
