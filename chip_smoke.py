@@ -212,19 +212,49 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               (tight) re-rank ran; then ivf1024x16>pq96x256>rr256 (f32
               LUT, finer codes) the same way, which must take the tight
               branch.
+  28. path 7  snapshots and durability on path 1's state, run after the
+              pre-filter (before path 3 frees the search tensors), writing
+              under chiprun_out/path7_snapshots (fails if fewer than three
+              snapshots' worth of bytes are free there; deleted at the
+              end). (a) path 1's read-only engine saved and load_engine'd:
+              ids and distances equal at every batch, K1's cell-major entry
+              launched by the restored engine, save / load s and GB/s, p50
+              at 256 beside the original's. (b) the engine made streaming
+              (delta 1024) and durable (fsync batch; the initial full
+              snapshot timed) beside an oracle that is not durable, the
+              same writes on both: 64 batches of path 6's mix (several
+              compactions), vacuum (an RT_POLICY record), a full save, 4
+              batches, an incremental save, 24 batches, then a batch whose
+              delete is logged and crashes (crash_hook at wal_appended);
+              the oracle applies the logged record. load_engine recovers:
+              every store tensor bit-equal to the oracle's, ids equal at
+              every batch, no deleted id, K1's live route launched,
+              recall@10 over the survivors (K3) >= 0.5; load s, replay s,
+              records, rows, records/s, the time to recover beside path
+              1's build. (c) seed_follower from a copy of the full
+              snapshot, catch_up(LocalDirSource): store bit-equal to the
+              recovered primary's, ids equal; 8 more primary batches, a
+              second catch_up to lag 0; a local write on the follower
+              raises ReplicationError. (d) durable upsert rows/s under
+              fsync never, batch and always on a 20,000-row cut of the
+              state, and 4 threads appending 72 x 384 RT_UPSERT records
+              under fsync always with group commit (records/s, fsyncs a
+              record): host and disk numbers, with the filesystem.
 
 Before those, one line {"result": {...}} holds every measurement of the
 run (``result.path4`` for the training path, ``result.path5`` for the
-evaluation path, ``result.path6``, ``result.ivf`` and
-``result.prefilter``). The line before the last is {"kernels": [...]}
+evaluation path, ``result.path6``, ``result.ivf``,
+``result.prefilter`` and ``result.path7``). The line before the last is {"kernels": [...]}
 (K1, K2, K4, K5, K6, K3); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -265,6 +295,18 @@ STREAM_DELTA, STREAM_BATCHES, STREAM_NEW, STREAM_OVERWRITE = 1024, 256, 64, 8
 STREAM_DELETE, STREAM_SEARCH_EVERY, STREAM_Q = 8, 8, 64
 STREAM_NOISE = 0.01              # offset of a written row from its source
 STREAM_AT = (1, 8, 64, 256)      # write batches after which ids are checked
+# path 7: snapshots and durability on path 1's state. A durable streaming
+# engine (delta 1024, fsync batch) beside an oracle that is not durable:
+# PERSIST_BATCHES write batches of path 6's mix (several compactions),
+# vacuum, a full save, PERSIST_INC_BATCHES more (no compaction), an
+# incremental save, PERSIST_TAIL_BATCHES more and one crashed batch;
+# then a follower, and PERSIST_FOLLOW_BATCHES more on the primary
+PERSIST_BATCHES, PERSIST_INC_BATCHES = 64, 4
+PERSIST_TAIL_BATCHES, PERSIST_FOLLOW_BATCHES = 24, 8
+# (d): durable upsert rates by fsync mode on a cut of path 1's state;
+# group commit under concurrent appenders
+PERSIST_RATE_ROWS, PERSIST_RATE_BATCHES = 20_000, 16
+PERSIST_THREADS, PERSIST_RECORDS, PERSIST_GROUP_MS = 4, 64, 2.0
 # the ivf kind on path 1's corpus; the pre-filter on a cut of it (no
 # Reduce stage: the scan space must be the re-rank space)
 SPEC_IVF = "qpad64>ivf1024x16>rr64"
@@ -2938,6 +2980,440 @@ def stream_path(torch, mods, eng, xd, qd, counters):
     return out, k1_launches, err
 
 
+def dir_bytes(path):
+    """Bytes of the files under ``path``."""
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def filesystem(path):
+    """The filesystem type ``path`` lies on (``stat -f``)."""
+    return subprocess.run(["stat", "-f", "-c", "%T", path],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip()
+
+
+def same_store(torch, a, b):
+    """Every tensor of two StreamStores equal, dtype and bits."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not (x.dtype == y.dtype and torch.equal(x, y)):
+            return False
+    return True
+
+
+def live_rows(torch, segments, store):
+    """(vectors, external ids) of every live row: base, then delta."""
+    live = segments.live_mask(store)
+    alive = segments.delta_alive(store)
+    return (torch.cat([store.corpus[live], store.delta_vectors[alive]]),
+            torch.cat([store.row_ids[live], store.delta_ids[alive]]))
+
+
+class WriteLeg:
+    """Path 6's write mix, batch by batch, on one or more engines: 64 new
+    ids near existing rows and 8 overwritten base ids upserted, 8 of the
+    previous batch's new ids deleted. Keeps the deleted ids and times each
+    engine's calls (host clock, synchronized)."""
+
+    def __init__(self, torch, xd, seed, first_id):
+        self.torch, self.xd = torch, xd
+        self.rng = np.random.default_rng(seed)
+        self.gen = torch.Generator(device=xd.device).manual_seed(seed)
+        self.next_id = first_id
+        self.prev_new = None
+        self.deleted = torch.zeros(0, dtype=torch.int64, device=xd.device)
+        self.overwritten = set()
+
+    def batch(self):
+        """The next batch: (ids, vectors, ids to delete or None)."""
+        torch, dev, n = self.torch, self.xd.device, self.xd.shape[0]
+        new = torch.arange(self.next_id, self.next_id + STREAM_NEW,
+                           device=dev)
+        self.next_id += STREAM_NEW
+        ow = self.rng.choice(n, STREAM_OVERWRITE, replace=False)
+        ow = torch.from_numpy(ow).to(dev)
+        src = torch.cat([torch.randint(0, n, (STREAM_NEW,),
+                                       generator=self.gen, device=dev), ow])
+        ids = torch.cat([new, ow])
+        vecs = self.xd[src] + STREAM_NOISE * torch.randn(
+            (ids.shape[0], DIM), generator=self.gen, device=dev)
+        gone = None
+        if self.prev_new is not None:
+            gone = self.prev_new[torch.randperm(
+                STREAM_NEW, generator=self.gen, device=dev)[:STREAM_DELETE]]
+        self.prev_new = new
+        self.deleted = self.deleted[~torch.isin(self.deleted, ids)]
+        if gone is not None:
+            self.deleted = torch.cat([self.deleted, gone])
+        return ids, vecs, gone
+
+    def run(self, engines, n, clocks=None):
+        """``n`` batches on every engine; ``clocks`` (one list of seconds
+        an engine) gathers each engine's upsert time."""
+        torch = self.torch
+        for _ in range(n):
+            ids, vecs, gone = self.batch()
+            for j, e in enumerate(engines):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.upsert(ids, vecs)
+                torch.cuda.synchronize()
+                if clocks is not None:
+                    clocks[j].append(time.perf_counter() - t0)
+                if gone is not None:
+                    e.delete(gone)
+
+
+def wal_rates(torch, mods, xd, root, leg_seed):
+    """(d): durable upsert rows/s under each fsync mode on a cut of path
+    1's state (PERSIST_RATE_ROWS rows, the same frozen quantizers), the
+    same write mix; then PERSIST_THREADS threads appending RT_UPSERT
+    records of 72 x 384 to one Wal under fsync always with group commit.
+    Host and disk numbers."""
+    (SearchEngine, StreamConfig, segments, DurabilityConfig, Wal, wal_mod,
+     frozen, cfg) = mods
+    out = {"cut_rows": PERSIST_RATE_ROWS, "batches": PERSIST_RATE_BATCHES}
+    state = segments.rebuild_state(frozen, xd[:PERSIST_RATE_ROWS])
+    rows_per_batch = STREAM_NEW + STREAM_OVERWRITE
+    for mode in ("never", "batch", "always"):
+        e = SearchEngine.from_state(state, cfg)
+        e.durable(os.path.join(root, f"rate_{mode}"),
+                  DurabilityConfig(fsync=mode))
+        leg = WriteLeg(torch, xd[:PERSIST_RATE_ROWS], leg_seed,
+                       first_id=N + 10_000_000)
+        clock = [[]]
+        leg.run([e], PERSIST_RATE_BATCHES, clock)
+        st = e._wal.stats()
+        out[mode] = {"upsert_rows_per_s": rows_per_batch
+                     * PERSIST_RATE_BATCHES / sum(clock[0]),
+                     "fsyncs": st["fsyncs"], "records": st["records"]}
+        e.close()
+        log(f"[path 7] (d) fsync={mode}: {out[mode]['upsert_rows_per_s']:.0f}"
+            f" durable upsert rows/s on the {PERSIST_RATE_ROWS}-row cut "
+            f"({st['records']} records, {st['fsyncs']} fsyncs)")
+        del e
+    del state
+    # group commit: concurrent appenders share fsyncs
+    wal = Wal(os.path.join(root, "group_commit"), DurabilityConfig(
+        fsync="always", group_commit_ms=PERSIST_GROUP_MS))
+    rng = np.random.default_rng(SEED + 7)
+    rec = wal_mod.encode_upsert(
+        np.arange(rows_per_batch, dtype=np.int32),
+        rng.standard_normal((rows_per_batch, DIM), dtype=np.float32))
+
+    def writer():
+        for _ in range(PERSIST_RECORDS):
+            wal.append(wal_mod.RT_UPSERT, rec)
+
+    threads = [threading.Thread(target=writer)
+               for _ in range(PERSIST_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    dt = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads),
+          "path 7 (d): a group-commit writer did not finish")
+    st = wal.stats()
+    wal.close()
+    total = PERSIST_THREADS * PERSIST_RECORDS
+    check(st["records"] == total and st["durable_seq"] == total - 1,
+          f"path 7 (d): group commit wrote {st['records']} of {total}")
+    got = [seq for seq, _, _ in wal_mod.iter_records(
+        os.path.join(root, "group_commit"))]
+    check(got == list(range(total)), "path 7 (d): group commit lost or "
+          "reordered a record")
+    out["group_commit"] = {
+        "threads": PERSIST_THREADS, "records": total,
+        "record_bytes": len(rec), "group_commit_ms": PERSIST_GROUP_MS,
+        "records_per_s": total / dt, "fsyncs": st["fsyncs"],
+        "fsyncs_per_record": st["fsyncs"] / total,
+        "group_commits": st["group_commits"]}
+    log(f"[path 7] (d) group commit: {PERSIST_THREADS} threads, {total} "
+        f"records of {len(rec)} bytes in {dt:.3f} s ({total / dt:.0f} "
+        f"records/s), {st['fsyncs'] / total:.3f} fsyncs a record")
+    return out
+
+
+def persist_path(torch, mods, eng, xd, qd, build_s):
+    """Path 7: snapshots, the write-ahead log, crash recovery and a
+    WAL-shipping follower on path 1's state (module docstring, phase 28).
+    Returns (result dict, K1 cell-major launches in the path)."""
+    (ops, knn, SearchEngine, StreamConfig, segments, recall_at_k,
+     load_engine, durability, recovery, wal_mod) = mods
+    DurabilityConfig, Wal = durability.DurabilityConfig, durability.Wal
+    wall0 = time.perf_counter()
+    out = {"spec": SPEC}
+    root = os.path.join(HERE, "chiprun_out", "path7_snapshots")
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    os.makedirs(root)
+    # one streaming snapshot's bytes: every tensor of the store the
+    # durable engine will hold (corpus and reduced rows padded to the row
+    # capacity, codes, lists, the delta)
+    cfg = dataclasses.replace(eng.config, stream=StreamConfig(
+        delta_capacity=STREAM_DELTA))
+    ix = eng.state.index.payload
+    m = ix.codes.shape[1]
+    per_row = 4 * DIM + 4 * 64 + m + 4 + 4 + 1  # corpus, reduced, codes,
+    #                                             bias, row_ids, dead
+    cells = ix.lists.shape[0] * (ix.lists.shape[1] + STREAM_DELTA)
+    snap_bytes = (N + 4 * STREAM_DELTA) * per_row + cells * (4 + m + 4)
+    free = shutil.disk_usage(root).free
+    out["disk"] = {"dir": os.path.relpath(root, HERE), "free_bytes": free,
+                   "filesystem": filesystem(root),
+                   "snapshot_bytes_estimate": snap_bytes}
+    log(f"[path 7] {free} bytes free under {out['disk']['dir']} "
+        f"({out['disk']['filesystem']}); a snapshot ~{snap_bytes} bytes")
+    check(free >= 3 * snap_bytes, f"path 7: {free} bytes free, fewer than "
+          f"three snapshots' worth ({3 * snap_bytes})")
+    k1_path7 = 0
+    try:
+        # (a) the read-only engine: save, load, the same answers
+        ro_dir = os.path.join(root, "read_only")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = eng.save(ro_dir)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ro = load_engine(ro_dir, device=xd.device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = {b: eng.search(qd[:b], K) for b in BATCHES}
+        ops.pq_adc_cells_topk.launches = 0
+        ops.pq_adc_gather_topk.launches = 0
+        for b in BATCHES:
+            d1, i1 = ro.search(qd[:b], K)
+            check(torch.equal(want[b][1], i1) and torch.equal(want[b][0], d1),
+                  f"path 7 (a): the restored engine's answers differ at "
+                  f"batch {b}")
+        lat_ro, _ = search_timed(torch, ro, qd, (256,))
+        k1_ro = ops.pq_adc_cells_topk.launches
+        k1_path7 += k1_ro
+        check(k1_ro > 0, "path 7 (a): the restored engine never launched "
+              "K1's cell-major entry")
+        lat_orig, _ = search_timed(torch, eng, qd, (256,))
+        out["read_only"] = {
+            "save_s": save_s, "load_s": load_s, "bytes": nbytes,
+            "save_gb_per_s": nbytes / save_s / 1e9,
+            "load_gb_per_s": nbytes / load_s / 1e9,
+            "k1_cells_launches": k1_ro,
+            "p50_ms_256": {"original": lat_orig[256]["p50_ms"],
+                           "restored": lat_ro[256]["p50_ms"]}}
+        log(f"[path 7] (a) read-only: save {save_s:.2f} s, load "
+            f"{load_s:.2f} s, {nbytes / 1e9:.3f} GB ({nbytes / save_s / 1e9:.2f}"
+            f" / {nbytes / load_s / 1e9:.2f} GB/s); ids and distances equal "
+            f"at {BATCHES}; K1 cell-major launches {k1_ro}; p50 at 256 "
+            f"original {lat_orig[256]['p50_ms']:.3f} ms, restored "
+            f"{lat_ro[256]['p50_ms']:.3f}")
+        del ro
+        shutil.rmtree(ro_dir)
+
+        # (b) a durable streaming engine beside an oracle that is not
+        ddir = os.path.join(root, "durable")
+        prim = SearchEngine.from_state(eng.state, cfg)
+        oracle = SearchEngine.from_state(eng.state, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prim.durable(ddir, DurabilityConfig(fsync="batch"))
+        durable_s = time.perf_counter() - t0
+        first = dir_bytes(ddir)
+        leg = WriteLeg(torch, xd, SEED + 7, first_id=N)
+        clocks = [[], []]
+        leg.run([prim, oracle], PERSIST_BATCHES, clocks)
+        rows = (STREAM_NEW + STREAM_OVERWRITE) * PERSIST_BATCHES
+        check(prim.counters["compactions"] >= 2, "path 7 (b): the write "
+              f"leg compacted {prim.counters['compactions']} times")
+        prim.vacuum()
+        oracle.vacuum()
+        t0 = time.perf_counter()
+        full = prim.save(ddir)
+        full_s = time.perf_counter() - t0
+        seed_dir = os.path.join(root, "follower_seed")
+        os.makedirs(seed_dir)
+        for f in ("engine.json", os.path.basename(full)):
+            shutil.copy2(os.path.join(ddir, f), os.path.join(seed_dir, f))
+        leg.run([prim, oracle], PERSIST_INC_BATCHES)
+        check(prim.counters["compactions"] == oracle.counters["compactions"]
+              and not prim._base_dirty, "path 7 (b): a compaction before "
+              "the incremental save")
+        t0 = time.perf_counter()
+        inc = prim.save(ddir, incremental=True)
+        inc_s = time.perf_counter() - t0
+        leg.run([prim, oracle], PERSIST_TAIL_BATCHES)
+        # the crash: the batch's upsert lands, its delete is logged, and
+        # the process dies before the delete reaches the store
+        ids, vecs, gone = leg.batch()
+        prim.upsert(ids, vecs)
+        oracle.upsert(ids, vecs)
+        seq0 = prim._wal.last_seq
+
+        def crash(point):
+            if point == "wal_appended":
+                raise SmokeFailure("injected crash")
+
+        prim.crash_hook = crash
+        crashed = False
+        try:
+            prim.delete(gone)
+        except SmokeFailure:
+            crashed = True
+        check(crashed, "path 7 (b): the crash hook did not fire")
+        logged = list(wal_mod.iter_records(os.path.join(ddir, "wal"),
+                                           after=seq0))
+        check([r[1] for r in logged] == [wal_mod.RT_DELETE],
+              f"path 7 (b): the crash left {len(logged)} records past the "
+              "upsert")
+        durability.replay_records(oracle, logged)   # the logged record
+        n_log = prim._wal.last_seq + 1
+        del prim
+        torch.cuda.synchronize()
+        replay_clock = {}
+        replay = recovery.replay
+
+        def timed_replay(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = replay(*a, **kw)
+            torch.cuda.synchronize()
+            replay_clock["s"] = time.perf_counter() - t
+            replay_clock["stats"] = res
+            return res
+
+        recovery.replay = timed_replay
+        try:
+            t0 = time.perf_counter()
+            rec = load_engine(ddir, device=xd.device)
+            torch.cuda.synchronize()
+            recover_s = time.perf_counter() - t0
+        finally:
+            recovery.replay = replay
+        stats = replay_clock["stats"]
+        check(same_store(torch, rec.store, oracle.store),
+              "path 7 (b): the recovered store differs from the oracle's")
+        ops.pq_adc_cells_topk.launches = 0
+        ops.pq_adc_gather_topk.launches = 0
+        for b in BATCHES:
+            _, i_r = rec.search(qd[:b], K)
+            _, i_o = oracle.search(qd[:b], K)
+            check(torch.equal(i_r, i_o), f"path 7 (b): recovered ids differ "
+                  f"from the oracle's at batch {b}")
+            check(not bool(torch.isin(i_r, leg.deleted).any()),
+                  f"path 7 (b): a deleted id came back at batch {b}")
+        k1_rec = ops.pq_adc_cells_topk.launches
+        k1_path7 += k1_rec
+        check(k1_rec > 0 and ops.pq_adc_gather_topk.launches == 0,
+              f"path 7 (b): K1's live route launched {k1_rec} times")
+        surv, ext = live_rows(torch, segments, rec.store)
+        truth = ext[knn.knn_scan(qd, surv, K)[1]]
+        recall = recall_at_k(rec.search(qd, K)[1], truth)
+        check(recall >= RECALL_FLOOR, f"path 7 (b): recall@10 {recall}")
+        del surv, truth
+        out["durable"] = {
+            "fsync": "batch", "durable_s": durable_s,
+            "initial_snapshot_bytes": first,
+            "write_batches": PERSIST_BATCHES + PERSIST_INC_BATCHES
+            + PERSIST_TAIL_BATCHES + 1,
+            "upsert_rows_per_s": {"durable": rows / sum(clocks[0]),
+                                  "not_durable": rows / sum(clocks[1])},
+            "compactions": oracle.counters["compactions"],
+            "full_save_s": full_s, "full_bytes": os.path.getsize(full),
+            "incremental_save_s": inc_s,
+            "incremental_bytes": os.path.getsize(inc),
+            "wal_records_written": n_log,
+            "recover_s": recover_s, "replay_s": replay_clock["s"],
+            "load_s": recover_s - replay_clock["s"],
+            "replayed_records": stats.records, "replayed_rows": stats.rows,
+            "replayed_compactions": stats.compactions,
+            "replay_records_per_s": stats.records / replay_clock["s"],
+            "build_s": build_s, "k1_cells_launches": k1_rec,
+            "recall_at_10": recall}
+        r = out["durable"]
+        log(f"[path 7] (b) durable(fsync=batch) {durable_s:.2f} s "
+            f"({first / 1e9:.3f} GB); {r['write_batches']} write batches, "
+            f"{r['compactions']} compactions, upserts "
+            f"{r['upsert_rows_per_s']['durable']:.0f} rows/s durable, "
+            f"{r['upsert_rows_per_s']['not_durable']:.0f} not; full save "
+            f"{full_s:.2f} s ({r['full_bytes'] / 1e9:.3f} GB), incremental "
+            f"{inc_s:.3f} s ({r['incremental_bytes'] / 1e6:.2f} MB)")
+        log(f"[path 7] (b) crash at wal_appended inside a delete; recovered "
+            f"in {recover_s:.2f} s (load {r['load_s']:.2f}, replay "
+            f"{r['replay_s']:.3f} s: {stats.records} records, {stats.rows} "
+            f"rows, {stats.compactions} compactions, "
+            f"{r['replay_records_per_s']:.0f} records/s) against path 1's "
+            f"build {build_s:.1f} s; store bit-equal to the oracle's, ids "
+            f"equal at {BATCHES}, no deleted id, K1 live-route launches "
+            f"{k1_rec}, recall@10 {recall:.4f}")
+        del oracle
+
+        # (c) a follower from a copy of the full snapshot
+        t0 = time.perf_counter()
+        fol = durability.seed_follower(seed_dir, device=xd.device)
+        torch.cuda.synchronize()
+        seed_s = time.perf_counter() - t0
+        src = durability.LocalDirSource(ddir)
+        t0 = time.perf_counter()
+        c1 = durability.catch_up(fol, src)
+        torch.cuda.synchronize()
+        c1_s = time.perf_counter() - t0
+        check(c1.lag_seq == 0 and same_store(torch, fol.store, rec.store),
+              "path 7 (c): the follower's store differs from the primary's")
+        for b in BATCHES:
+            check(torch.equal(fol.search(qd[:b], K)[1],
+                              rec.search(qd[:b], K)[1]),
+                  f"path 7 (c): follower ids differ at batch {b}")
+        leg.run([rec], PERSIST_FOLLOW_BATCHES)
+        lag_before = rec._wal.last_seq - fol._applied_seq
+        t0 = time.perf_counter()
+        c2 = durability.catch_up(fol, src)
+        torch.cuda.synchronize()
+        c2_s = time.perf_counter() - t0
+        check(c2.lag_seq == 0 and same_store(torch, fol.store, rec.store),
+              "path 7 (c): the second catch_up left the follower behind")
+        refused = False
+        try:
+            fol.upsert(ids[:1], vecs[:1])
+        except durability.ReplicationError:
+            refused = True
+        check(refused, "path 7 (c): the follower took a local write")
+        out["follower"] = {
+            "seed_s": seed_s,
+            "catch_up": [{"records": c1.records, "s": c1_s,
+                          "lag_seq": c1.lag_seq},
+                         {"records": c2.records, "s": c2_s,
+                          "lag_before": lag_before, "lag_seq": c2.lag_seq}]}
+        log(f"[path 7] (c) follower seeded in {seed_s:.2f} s; catch_up "
+            f"{c1.records} records in {c1_s:.3f} s (lag {c1.lag_seq}), "
+            f"store bit-equal to the primary's; {PERSIST_FOLLOW_BATCHES} "
+            f"more batches (lag {lag_before}), catch_up {c2.records} "
+            f"records in {c2_s:.3f} s (lag {c2.lag_seq}); a local write "
+            "raised ReplicationError")
+        fol_frozen = rec.frozen
+        rec.close()
+        del fol, rec
+
+        # (d) WAL rates: host and disk numbers
+        out["wal_rates"] = wal_rates(
+            torch, (SearchEngine, StreamConfig, segments, DurabilityConfig,
+                    Wal, wal_mod, fol_frozen, cfg), xd, root, SEED + 8)
+        out["wal_rates"]["durable_batch_full_engine_rows_per_s"] = \
+            out["durable"]["upsert_rows_per_s"]["durable"]
+        out["wal_rates"]["note"] = (
+            "host and disk numbers (the card takes no part in the WAL); "
+            f"filesystem {out['disk']['filesystem']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["k1_cells_launches"] = k1_path7
+    out["wall_s"] = time.perf_counter() - wall0
+    log(f"[path 7] wall time {out['wall_s']:.1f} s")
+    return out, k1_path7
+
+
 def ivf_phase(torch, mods, xd, qd, truth, counters):
     """The ivf kind on path 1's corpus: build_engine(SPEC_IVF), searches at
     every batch (p50, QPS), recall@10 against exact search. The scan is a
@@ -3053,6 +3529,9 @@ def main():
                                               exact_rerank)
         from repro_torch.search import segments
         from repro_torch.search.segments import StreamConfig
+        from repro_torch.search import durability, load_engine
+        from repro_torch.search.durability import recovery
+        from repro_torch.search.durability import wal as wal_mod
         from repro_torch._tree import tree_map
         from repro_torch.search.spec import parse_spec
         from repro_torch.models import transformer as tf
@@ -3477,6 +3956,14 @@ def main():
     result["prefilter"] = prefilter_phase(
         torch, (build_engine, SearchEngine), xd, qd)
 
+    # 28. path 7: snapshots, the WAL, crash recovery and a follower on
+    # path 1's state, before path 3 frees the search tensors
+    torch.cuda.empty_cache()
+    result["path7"], k1_path7 = persist_path(
+        torch, (ops, knn, SearchEngine, StreamConfig, segments, recall_at_k,
+                load_engine, durability, recovery, wal_mod), eng, xd, qd,
+        result["engine_build_s"])
+
     # 11-14. path 3: the LM serving path on K5
     lm, k5_launches, k5_main_err, k5 = lm_path(
         torch, tf, fa, lm_param_count, rms_norm, TINYLLAMA, counters)
@@ -3532,7 +4019,7 @@ def main():
         "name": "pq_adc_gather_topk", "route": "cuda", "source": k1_src,
         "replaces": "src/repro/kernels/pq_adc/kernel.py:212",
         "launches": launches, "max_abs_err": max_err,
-        "launches_path6": k1_path6,
+        "launches_path6": k1_path6, "launches_path7": k1_path7,
         "entries": [k1_cells, k1_gathered, k1_live],
         "note": "two entries of one kernel: the cell-major entry (the "
                 "padded scan at batch 256; its times are the kernel's "
@@ -3541,7 +4028,9 @@ def main():
                 "both, path 1's main run; launches_path6: the cell-major "
                 "entry on the fills with the cell-major live map "
                 "(tombstones) in "
-                "path 6's write leg, timed at its batch-256 scan"}), {
+                "path 6's write leg, timed at its batch-256 scan; "
+                "launches_path7: the cell-major entry in path 7's searches "
+                "of the restored and the recovered engines"}), {
         "name": "pq_adc_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/pq_adc/csrc/pq_adc_topk.cu",
         "replaces": "src/repro/kernels/pq_adc/kernel.py:120",

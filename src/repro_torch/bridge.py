@@ -16,7 +16,8 @@ pair (``repro.core.baselines`` pca, rp and mds) as the port's baselines
 ``Reducer``. ``stream_from_arrays`` carries a streaming engine's
 ``StreamStore`` and ``FrozenParams`` across, keyed as the JAX snapshot
 keys them (``['store'].corpus``, ``['frozen'].quant.payload.codebooks``,
-...).
+...). ``repro_torch.search.snapshot.load_engine`` reads every snapshot
+through these two readers.
 """
 from __future__ import annotations
 
@@ -48,17 +49,23 @@ _PAYLOADS = {"ivf": IVFIndex, "pq": PQIndex, "opq": OPQIndex,
              "ivfpq": IVFPQIndex}
 _QUANTS = {"pq": PQQuant, "opq": OPQQuant, "ivfpq": IVFPQQuant}
 _MLP_PARAMS = ("mean", "lin", "w1", "b1", "w2")
+# leaves that hold ids, posting lists or counters: int32 in the JAX
+# package, int64 (PyTorch's index type) in the port; codes keep their
+# uint8 / int32
+_ID_FIELDS = ("row_ids", "n_rows", "lists", "delta_ids", "delta_count")
 
 
 def _getter(flat: Mapping[str, np.ndarray], dev: torch.device):
     """``get(*keys)``: the first key present, as a tensor on ``dev``; ids,
-    lists and counters are int64 in the port."""
+    lists and counters widened to int64."""
     def get(*keys):
         for key in keys:
             if key in flat:
                 arr = np.asarray(flat[key])
                 t = torch.from_numpy(np.array(arr, copy=True)).to(dev)
-                return t.long() if t.dtype == torch.int32 else t
+                if key.rsplit(".", 1)[-1] in _ID_FIELDS:
+                    t = t.long()
+                return t
         raise KeyError(f"no array under {' or '.join(keys)}")
     return get
 
@@ -67,7 +74,9 @@ def _reducer(get, spec: IndexSpec, prefix: str):
     if spec.reduce is None:
         return None
     if spec.reduce.kind == "mlp":
-        return Reducer("mlp", {name: get(f"{prefix}.params['{name}']")
+        # a live engine's path, or a snapshot's (the raw params dict)
+        return Reducer("mlp", {name: get(f"{prefix}.params['{name}']",
+                                         f"{prefix}['{name}']")
                                for name in _MLP_PARAMS})
     # qpad and pca: the affine (matrix, mean) pair, under the live or the
     # snapshot path (pre-zoo snapshots keep the bare tuple)
@@ -79,7 +88,9 @@ def _reducer(get, spec: IndexSpec, prefix: str):
 def state_from_arrays(arrays: Mapping[str, np.ndarray],
                       spec: Union[str, IndexSpec],
                       device: DeviceLike = None) -> EngineState:
-    """Build the port's ``EngineState`` for ``spec`` from JAX arrays."""
+    """Build the port's ``EngineState`` for ``spec`` from JAX arrays. The
+    payload of flat with no Reduce stage is the corpus, one tensor (a
+    snapshot holds it once)."""
     if isinstance(spec, str):
         spec = parse_spec(spec)
     dev = resolve_device(device)
@@ -87,12 +98,13 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray],
                     if key.startswith(_SNAPSHOT_PREFIX) else key): val
                    for key, val in arrays.items()}, dev)
     proj = _reducer(get, spec, ".proj")
+    corpus = get(".corpus")
     if spec.kind == "flat":
-        payload = get(".index.payload")
+        payload = corpus if spec.reduce is None else get(".index.payload")
     else:
         cls = _PAYLOADS[spec.kind]
         payload = cls(**{f: get(f".index.payload.{f}") for f in cls._fields})
-    return EngineState(corpus=get(".corpus"), proj=proj,
+    return EngineState(corpus=corpus, proj=proj,
                        index=Index(spec.kind, payload))
 
 

@@ -20,12 +20,21 @@ rows under fresh ids and, from the second batch on, deletes an eighth of
 the previous batch's ids; at the end it prints the write rate and
 compacts.
 
-The read-only and streaming flags are ported with the JAX launcher's
-names and defaults. Its other flags are accepted and raise
+Persistence, as in the JAX launcher: ``--durable DIR`` makes the
+streaming engine durable (``DurabilityConfig(fsync=--fsync,
+group_commit_ms=--group-commit-ms)``: a write-ahead log under
+``DIR/wal`` and the initial snapshot), then reloads it from ``DIR``
+through the recovery path, as an operator would after a crash, and
+serves the recovered engine; it prints the WAL's ``stats()`` at the end.
+``--snapshot-dir DIR`` saves the engine there and serves the one
+``load_engine`` restores.
+
+The read-only, streaming and persistence flags are ported with the JAX
+launcher's names and defaults. Its other flags are accepted and raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them
-(durability, snapshots, sharding, metrics and tracing). The JAX
-launcher's ``--interpret`` selects the Pallas interpret mode and has no
-counterpart: ``@kernel`` here launches the CUDA kernels.
+(sharding, metrics and tracing). The JAX launcher's ``--interpret``
+selects the Pallas interpret mode and has no counterpart: ``@kernel``
+here launches the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -39,8 +48,10 @@ from repro_torch._device import DeviceLike, cpu_generator, resolve_device
 from repro_torch.core.mpad import MPADConfig
 from repro_torch.data.synthetic import make_clustered
 from repro_torch.search.knn import knn_search, recall_at_k
+from repro_torch.search.durability.wal import DurabilityConfig
 from repro_torch.search.segments import StreamConfig
 from repro_torch.search.serve import build_engine
+from repro_torch.search.snapshot import load_engine
 from repro_torch.search.spec import (Coarse, Code, IndexSpec, Reduce, Rerank,
                                      format_spec, parse_spec)
 
@@ -49,18 +60,10 @@ __all__ = ["main"]
 _ITEM = "see ROADMAP.md, 'Modules still to port', item"
 # flag -> (argparse keywords, ROADMAP item that ports what it turns on)
 _UNPORTED = {
-    "--snapshot-dir": (dict(default=None, metavar="DIR"),
-                       "7 (snapshot read and write)"),
     "--shards": (dict(type=int, default=0), "11 (multi-GPU)"),
     "--mesh": (dict(choices=["device", "host"], default="device"),
                "11 (multi-GPU)"),
     "--donate": (dict(action="store_true"), "11 (multi-GPU)"),
-    "--durable": (dict(default=None, metavar="DIR"),
-                  "9 (durability and replication)"),
-    "--fsync": (dict(choices=["always", "batch", "never"], default="batch"),
-                "9 (durability and replication)"),
-    "--group-commit-ms": (dict(type=float, default=0.0),
-                          "9 (durability and replication)"),
     "--metrics-port": (dict(type=int, default=None, metavar="PORT"),
                        "10 (observability)"),
     "--trace-dir": (dict(default=None, metavar="DIR"), "10 (observability)"),
@@ -114,6 +117,17 @@ def _parse_args(argv: Optional[List[str]]):
     ap.add_argument("--background-compact", action="store_true",
                     help="--stream: fold the delta on a worker thread and "
                          "swap instead of blocking searches")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="save the engine into DIR and serve the restored "
+                         "engine (a snapshot round trip)")
+    ap.add_argument("--durable", default=None, metavar="DIR",
+                    help="--stream: WAL-log every write under DIR and "
+                         "serve the engine recovered from DIR")
+    ap.add_argument("--fsync", choices=["always", "batch", "never"],
+                    default="batch", help="--durable: WAL fsync mode")
+    ap.add_argument("--group-commit-ms", type=float, default=0.0,
+                    help="--durable --fsync always: coalesce fsyncs over "
+                         "this gathering window")
     for flag, (kw, item) in _UNPORTED.items():
         ap.add_argument(flag, help=f"not ported yet ({_ITEM} {item})", **kw)
     return ap.parse_args(argv)
@@ -143,7 +157,8 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
     ``--batches`` batches and return ``{"spec", "ms_per_batch",
     "recall"}`` (the mean over the batches), and with ``--stream`` also
     ``"stream"``: the rows written, their rate, the grow count and the
-    compactions."""
+    compactions, and with ``--durable`` ``"wal"``: the WAL's ``stats()``
+    after the run."""
     args = _parse_args(argv)
     for flag, (kw, item) in _UNPORTED.items():
         given = getattr(args, flag[2:].replace("-", "_"))
@@ -173,6 +188,29 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
           f"(spec={format_spec(spec)}, kind={spec.kind}, device={dev}"
           + (f", streaming delta={args.delta_capacity}" if args.stream
              else "") + ")")
+    if args.durable:
+        t0 = time.perf_counter()
+        engine.durable(args.durable, DurabilityConfig(
+            fsync=args.fsync, group_commit_ms=args.group_commit_ms))
+        engine.close()
+        # reopen through the recovery path, as an operator would after a
+        # crash, and serve the recovered engine
+        engine = load_engine(args.durable, device=dev)
+        print(f"durable via {args.durable} in "
+              f"{time.perf_counter() - t0:.1f}s (fsync={args.fsync}"
+              + (f", group_commit_ms={args.group_commit_ms}"
+                 if args.group_commit_ms else "")
+              + "; every write WAL-logged, served from the recovered "
+              "engine)")
+    if args.snapshot_dir:
+        t0 = time.perf_counter()
+        engine.save(args.snapshot_dir)
+        if engine.store is not None:
+            engine.close()
+        engine = load_engine(args.snapshot_dir, device=dev)
+        print(f"snapshot round-trip via {args.snapshot_dir} in "
+              f"{time.perf_counter() - t0:.1f}s (serving from the restored "
+              "engine)")
 
     total, rec_sum = 0.0, 0.0
     write_s, rows_written, next_id = 0.0, 0, args.corpus
@@ -224,6 +262,9 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
                          "grow_count": engine.grow_count,
                          "compactions": engine.counters["compactions"],
                          "base_rows": int(engine.store.n_rows)}
+        if engine._wal is not None:
+            out["wal"] = engine._wal.stats()
+            print(f"wal: {out['wal']}")
         engine.close()
     return out
 

@@ -23,12 +23,19 @@ or on one worker thread with ``begin_compact`` / ``finish_compact``),
 ``vacuum``, ``rebuild_quantizers`` and the maintenance policy to life;
 ``search`` then runs ``stream.stream_search_fn``.
 
-Not ported yet (see ROADMAP.md): sharding, snapshots, the WAL
-(``durable``), metrics and tracing.
+``save`` / ``repro_torch.search.load_engine`` (``snapshot``) persist and
+restore an engine in the JAX package's snapshot format. ``durable(dir)``
+makes a streaming engine log every write to a write-ahead log
+(``durability.wal``) before it lands; ``load_engine`` recovers it after a
+crash, and ``durability.replication`` keeps read-only followers of it.
+
+Not ported yet (see ROADMAP.md): sharding (item 11), metrics and tracing
+(item 10).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
@@ -43,6 +50,10 @@ from repro_torch.kernels.pq_adc.lut import LUT_DTYPES, lut_error_bound
 
 from . import segments
 from .durability.policy import MaintenancePolicy
+from .durability.replication import ReplicationError
+from .durability.wal import (RT_COMPACT, RT_DELETE, RT_POLICY, RT_UPSERT,
+                             DurabilityConfig, Wal, check_ids, encode_delete,
+                             encode_policy, encode_upsert)
 from .ivfpq import ivfpq_lut_stats
 from .knn import topk_smallest
 from .pq import adc_tables
@@ -304,7 +315,11 @@ class SearchEngine:
     ``counters`` counts compactions, swaps, vacuums, rebuilds, policy
     grows and the pre-filter's branches (``prefilter_tight`` /
     ``prefilter_full``); ``grow_count`` the stores grown by a compaction
-    overflow.
+    overflow. ``durable(dir)`` logs every write before it lands;
+    ``crash_hook`` (a callable of a point name) fires at the JAX
+    package's lifecycle points: ``wal_appended``, ``compact_begin``,
+    ``compact_task``, ``compact_swap``, ``compact_done``,
+    ``snapshot_arrays``, ``snapshot_commit``, ``vacuum``, ``rebuild``.
     """
 
     def __init__(self, corpus, config=ServeConfig(), *,
@@ -374,6 +389,35 @@ class SearchEngine:
         eng._attach(config, None, store=store, frozen=frozen)
         return eng
 
+    @classmethod
+    def _restore(cls, config, *, state=None, store=None,
+                 frozen=None) -> "SearchEngine":
+        """An engine around restored tensors (``snapshot.load_engine``):
+        no fit, no index build. Exactly one of ``state`` (read-only) or
+        ``store`` + ``frozen`` (streaming) is given."""
+        if state is not None:
+            return cls.from_state(state, config)
+        return cls.from_store(store, frozen, config)
+
+    @property
+    def spec(self) -> IndexSpec:
+        """The pipeline spec this engine serves (lowered from the current
+        config)."""
+        return self.config.to_spec()
+
+    def save(self, directory: str, incremental: bool = False) -> str:
+        """Snapshot the engine (spec, config and tensors) into
+        ``directory`` in the JAX package's format; restore it with
+        ``repro_torch.search.load_engine`` (or the JAX package's). A
+        streaming engine saves its delta and tombstones as they are, so a
+        mid-delta snapshot restores mid-delta. ``incremental=True`` (a
+        durable streaming engine, into its own directory, after a full
+        save and before the base changes) saves only the delta, the
+        tombstones, the id maps and the WAL position, chained to the
+        newest full snapshot. Returns the checkpoint path."""
+        from .snapshot import save_engine
+        return save_engine(self, directory, incremental=incremental)
+
     def _attach(self, config: ServeConfig, state, store=None, frozen=None):
         self.config = config
         self.state = state
@@ -383,6 +427,34 @@ class SearchEngine:
         self.grow_count = 0          # stores grown by compaction overflow
         self._delta_used = 0         # host mirror of the delta fill
         #                              (overwrites counted as appends)
+        # durability (durability.wal / recovery): all inert until durable()
+        self.crash_hook = None       # callable(point name) at the lifecycle
+        #                              points (crash drills; a hook that
+        #                              blocks schedules a background fold)
+        self._replaying = False      # WAL replay in flight: appends, the
+        #                              pre-write auto-compaction and policy
+        #                              decisions are off
+        self._wal: Optional[Wal] = None
+        self._durability: Optional[DurabilityConfig] = None
+        self._durable_dir: Optional[str] = None   # snapshot + wal directory
+        self._replayed = 0           # records applied by recovery
+        # replication (durability.replication)
+        self._role = "primary"       # "follower": tails a shipped WAL and
+        #                              refuses local writes
+        self._applied_seq = -1       # last WAL seq reflected in the store
+        self._repl_catch_ups = 0     # catch_up passes completed
+        self._repl_records = 0       # shipped records applied
+        self._repl_source_tail = -1  # source tail at the last catch_up
+        self._repl_last_catch_up_ts = None   # wall clock of the last pass
+        self._repl_caught_up_ts = None       # ... of the last that drained
+        # incremental snapshots (snapshot.py)
+        self._base_ref = None        # {dir, ckpt, wal_seq, chain} of the
+        #                              newest full snapshot and its links
+        self._base_dirty = False     # base tensors rewritten since it
+        #                              (compact / vacuum / rebuild / grow):
+        #                              the next save must be full
+        self._snap_counters = {"full": 0, "incremental": 0,
+                               "last_bytes": 0, "chain_depth": 0}
         self._policy: Optional[MaintenancePolicy] = None
         self._policy_active = False  # decisions only when the user
         #                              configured StreamConfig.policy
@@ -475,6 +547,12 @@ class SearchEngine:
                 "this engine is read-only; enable the write path with "
                 "engine.streaming(StreamConfig(...)) or "
                 "ServeConfig(stream=StreamConfig(...))")
+        if self._role == "follower" and not self._replaying:
+            raise ReplicationError(
+                "this engine is a follower: its store is a replica of a "
+                "primary's WAL and local writes would fork the history. "
+                "Write to the primary and catch_up, or re-open the "
+                "snapshot without role='follower' to promote it.")
 
     def _init_stream(self):
         self.store, self.frozen = segments.make_mutable(self.state,
@@ -501,6 +579,33 @@ class SearchEngine:
                               self.store.corpus[:min(n, 1024)])
         self._policy.observe_build_error(
             float(ops.drift_stats(self.frozen, rows).mean()))
+
+    def _crash(self, point: str):
+        if self.crash_hook is not None:
+            self.crash_hook(point)
+
+    @property
+    def _logging(self) -> bool:
+        """Writes are being logged: durable and not replaying the log."""
+        return self._wal is not None and not self._replaying
+
+    def _wal_append(self, rtype: int, payload: bytes = b"", *,
+                    wait: bool = True):
+        """Log one record *before* the mutation it describes (no-op when
+        the engine is not durable or is replaying its own log).
+        ``wait=False`` defers the group-commit durability wait: a write
+        batch of several chunks waits once, at its end
+        (``_wal_wait_durable``)."""
+        if not self._logging:
+            return
+        self._wal.append(rtype, payload, wait=wait)
+        self._crash("wal_appended")
+
+    def _wal_wait_durable(self):
+        """A write batch's durability point for ``wait=False`` appends
+        (no-op outside group-commit mode)."""
+        if self._logging:
+            self._wal.wait_durable()
 
     def _pad_write(self, ids, vectors=None):
         """Ids (int64) and vectors on the device, padded to the write
@@ -552,6 +657,14 @@ class SearchEngine:
         ``self``."""
         self._require_stream()
         self._poll_compaction()
+        host = None
+        if self._logging:
+            # the log's copy, from the caller's arrays before they move
+            # (one copy a batch, on a durable engine only); every id is
+            # checked before any record of the batch is written
+            hid = check_ids(_host(ids))
+            host = (hid, _host(vectors).astype(np.float32, copy=False)
+                    .reshape(hid.shape[0], -1))
         ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1).to(
             self.device)
         vectors = torch.as_tensor(vectors, dtype=torch.float32).to(
@@ -561,8 +674,13 @@ class SearchEngine:
         b = 0
         while b < ids.shape[0]:
             chunk = min(ids.shape[0] - b, point)
-            self._ensure_delta_room(chunk, cap, point)
+            if not self._replaying:
+                # a replayed log holds its compactions as RT_COMPACT
+                self._ensure_delta_room(chunk, cap, point)
             cid, cv = ids[b:b + chunk], vectors[b:b + chunk]
+            if host is not None:
+                self._wal_append(RT_UPSERT, encode_upsert(
+                    host[0][b:b + chunk], host[1][b:b + chunk]), wait=False)
             if self._compact_future is not None:
                 # the pending fold works on a copy taken at its start:
                 # this write is replayed onto the folded store at the swap
@@ -574,6 +692,7 @@ class SearchEngine:
                                                pv)
             self._delta_used += chunk
             b += chunk
+        self._wal_wait_durable()     # one group-commit wait a batch
         return self
 
     def delete(self, ids) -> "SearchEngine":
@@ -582,13 +701,15 @@ class SearchEngine:
         tombstone bitmap triggers ``vacuum``. Returns ``self``."""
         self._require_stream()
         self._poll_compaction()
+        if self._logging:
+            self._wal_append(RT_DELETE, encode_delete(_host(ids)))
         ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1).to(
             self.device)
         if self._compact_future is not None:
             self._compact_tail.append(("delete", ids, None))
         pid, _ = self._pad_write(ids)
         self.store = segments.delete_fn(self.store, pid)
-        if self._policy_active:
+        if self._policy_active and not self._replaying:
             decision = self._policy.decide_delete(
                 dead=int(self.store.dead.sum()),
                 allocated=int(self.store.n_rows))
@@ -615,6 +736,7 @@ class SearchEngine:
         return store, grows
 
     def _compact_task(self, store, stream):
+        self._crash("compact_task")
         # the fold is queued on the stream the caller serves on, behind
         # the copy it folds and in order with the searches
         if stream is None:
@@ -632,12 +754,16 @@ class SearchEngine:
                 store, _ = segments.upsert_fn(store, self.frozen, pid, pv)
             else:
                 store = segments.delete_fn(store, pid)
+        self._crash("compact_swap")
         self.store = store
         self._delta_used = tail_rows
+        self._base_dirty = True      # the fold rewrote the base tensors
         self.grow_count += grows
         self.counters["compactions"] += 1
         self.counters["swaps"] += 1
-        self._post_compact_maintenance()
+        self._crash("compact_done")
+        if not self._replaying:      # a replayed log holds its decisions
+            self._post_compact_maintenance()
 
     def compact(self) -> "SearchEngine":
         """Fold the delta segment into the base (coded against the frozen
@@ -649,6 +775,8 @@ class SearchEngine:
         if self._compact_future is not None:
             self.finish_compact()
         self._observe_drift()
+        self._wal_append(RT_COMPACT)
+        self._crash("compact_begin")
         store, grows = self._run_compact(self.store)
         self._install_compacted(store, grows, (), 0)
         return self
@@ -666,6 +794,8 @@ class SearchEngine:
         if self._compact_future is not None:
             return self
         self._observe_drift()
+        self._wal_append(RT_COMPACT)
+        self._crash("compact_begin")
         snapshot = tree_map(
             lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
             self.store)
@@ -703,12 +833,15 @@ class SearchEngine:
             self.finish_compact()
 
     def close(self):
-        """Finish a pending compaction and stop its worker thread."""
+        """Finish a pending compaction, stop its worker thread and close
+        the WAL (a durable engine takes no writes after this)."""
         if self.store is not None and self._compact_future is not None:
             self.finish_compact()
         if self._compact_executor is not None:
             self._compact_executor.shutdown(wait=True)
             self._compact_executor = None
+        if self._wal is not None:
+            self._wal.close()
 
     # --- maintenance policy ----------------------------------------------
 
@@ -723,7 +856,7 @@ class SearchEngine:
     def _observe_drift(self):
         """Feed the encode error of the delta rows about to be folded into
         the policy's drift estimate."""
-        if not self._policy_active:
+        if not self._policy_active or self._replaying:
             return
         ops = get_ops(self.config.index)
         if ops.drift_stats is None:
@@ -749,10 +882,17 @@ class SearchEngine:
             free_rows=free, delta_capacity=scfg.delta_capacity,
             noise_floor=self._lut_noise_floor())
         if decision.kind == "grow":
-            self.store = segments.grow_store(self.store, **decision.params)
-            self.counters["policy_grows"] += 1
+            self._wal_append(RT_POLICY, encode_policy(
+                {"decision": "grow", **decision.params}))
+            self._grow(**decision.params)
         elif decision.kind == "rebuild":
             self.rebuild_quantizers()
+
+    def _grow(self, row_extra: int, cell_extra: int):
+        self.store = segments.grow_store(self.store, row_extra=row_extra,
+                                         cell_extra=cell_extra)
+        self._base_dirty = True
+        self.counters["policy_grows"] += 1
 
     def _gather_live(self):
         """Every live row: base survivors in row order, then live delta
@@ -771,14 +911,20 @@ class SearchEngine:
         self._require_stream()
         if self._compact_future is not None:
             self.finish_compact()
+        self._wal_append(RT_POLICY, encode_policy({"decision": "vacuum"}))
+        self._crash("vacuum")
+        self._do_vacuum()
+        return self
+
+    def _do_vacuum(self):
         vectors, ext = self._gather_live()
         state = segments.rebuild_state(self.frozen, vectors)
         store, frozen = segments.make_mutable(state, self.config.stream)
         store.row_ids[:ext.shape[0]] = ext
         self.store, self.frozen = store, frozen
         self._delta_used = 0
+        self._base_dirty = True
         self.counters["vacuums"] += 1
-        return self
 
     def rebuild_quantizers(self, seed: Optional[int] = None
                            ) -> "SearchEngine":
@@ -790,8 +936,15 @@ class SearchEngine:
             self.finish_compact()
         if seed is None:
             seed = self.config.seed + 1 + self.counters["rebuilds"]
+        self._wal_append(RT_POLICY, encode_policy(
+            {"decision": "rebuild", "seed": int(seed)}))
+        self._crash("rebuild")
+        self._do_rebuild(int(seed))
+        return self
+
+    def _do_rebuild(self, seed: int):
         vectors, ext = self._gather_live()
-        cfg = dataclasses.replace(self.config, seed=int(seed))
+        cfg = dataclasses.replace(self.config, seed=seed)
         fresh = SearchEngine(vectors, cfg, device=self.device)
         fresh.store.row_ids[:ext.shape[0]] = ext
         decisions = self._policy.decisions if self._policy else {}
@@ -801,8 +954,62 @@ class SearchEngine:
         self._policy_active = fresh._policy_active
         self._policy.decisions = decisions
         self._delta_used = 0
+        self._base_dirty = True
         self.counters["rebuilds"] += 1
+
+    def _apply_policy_record(self, decision: dict):
+        """Replay one RT_POLICY record (recovery and catch-up)."""
+        kind = decision.get("decision")
+        if kind == "vacuum":
+            self._do_vacuum()
+        elif kind == "grow":
+            self._grow(row_extra=int(decision["row_extra"]),
+                       cell_extra=int(decision["cell_extra"]))
+        elif kind == "rebuild":
+            self._do_rebuild(int(decision["seed"]))
+        else:
+            raise ValueError(f"unknown policy decision {decision!r}")
+
+    # --- durability -------------------------------------------------------
+
+    def durable(self, directory: str, config=None) -> "SearchEngine":
+        """Make this streaming engine durable: open a write-ahead log under
+        ``directory/wal`` and take the initial full snapshot in
+        ``directory``. From here on every ``upsert`` chunk, ``delete``,
+        compaction and policy decision is logged *before* it changes the
+        store, ``save`` to the same directory marks and truncates the log,
+        and ``load_engine(directory)`` recovers the exact store after a
+        crash (snapshot + replay of the log's tail). ``config`` is a
+        ``durability.DurabilityConfig`` (fsync mode, segment size, group
+        commit). Ids must lie in the int32 range, the log's id width.
+        Returns ``self``."""
+        self._require_stream()
+        if self._wal is not None:
+            raise RuntimeError(
+                "this engine is already durable; one WAL per engine "
+                f"(directory {self._durable_dir!r})")
+        config = config or DurabilityConfig()
+        if config.role == "follower" or self._role == "follower":
+            raise ValueError(
+                "durable(role='follower') is incoherent: a follower "
+                "tails a primary's shipped WAL and never owns a local "
+                "one (local writes on a follower would fork the "
+                "history). Seed a follower with load_engine(snapshot, "
+                "role='follower') + durability.replication.catch_up; "
+                "use role='primary' (the default) for a writable node.")
+        os.makedirs(directory, exist_ok=True)
+        self._wal = Wal(os.path.join(directory, "wal"), config)
+        self._durability = config
+        self._durable_dir = os.path.abspath(directory)
+        self.save(directory)                 # the initial durable snapshot
         return self
+
+
+def _host(a) -> np.ndarray:
+    """A host (numpy) view or copy of a caller's array or tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def _as_serve_config(config) -> ServeConfig:

@@ -1,11 +1,13 @@
 """The port's serving launcher (repro_torch.launch.serve) on the CPU at a
-tiny size: its read-only and streaming flags keep the JAX launcher's
-names and defaults, it builds and serves each reducer kind and the ivf
-kind with recall against exact search, runs the streaming write leg
-(blocking and background compaction), and every flag of a layer not
-ported yet raises with a pointer to ROADMAP.md. The launchers draw their
+tiny size: its read-only, streaming and persistence flags keep the JAX
+launcher's names and defaults, it builds and serves each reducer kind and
+the ivf kind with recall against exact search, runs the streaming write
+leg (blocking and background compaction), a snapshot round trip and a
+durable engine reloaded through recovery under each fsync mode, and
+every flag of a layer not ported yet raises with a pointer to ROADMAP.md. The launchers draw their
 queries from different generators, so this compares behaviour, not
 numbers."""
+import os
 import sys
 
 import pytest
@@ -16,12 +18,14 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.search import load_engine  # noqa: E402
 
 TINY = ["--corpus", "600", "--dim", "32", "--batch", "16", "--batches", "2"]
 READ_ONLY = ("corpus", "dim", "spec", "target_dim", "reducer", "batch",
              "batches", "k", "index", "nlist", "nprobe", "pq_subspaces",
              "lut_dtype", "pq_backend", "query_bucket", "stream",
-             "delta_capacity", "write_batch", "background_compact")
+             "delta_capacity", "write_batch", "background_compact",
+             "snapshot_dir", "durable", "fsync", "group_commit_ms")
 
 
 def test_flags_and_defaults_match_the_jax_launcher(monkeypatch):
@@ -118,6 +122,49 @@ def test_stream_pq_kernel_is_refused():
     with pytest.raises(ValueError, match="pq_backend"):
         serve.main(TINY + STREAM + ["--spec", "pq4x256@kernel>rr40"],
                    device="cpu")
+
+
+def test_snapshot_dir_round_trips(tmp_path, capsys):
+    """--snapshot-dir saves the engine and serves the restored one."""
+    d = str(tmp_path / "snap")
+    out = serve.main(TINY + ["--spec", "ivf8x4>pq4x256:i8>rr40",
+                             "--snapshot-dir", d], device="cpu")
+    text = capsys.readouterr().out
+    assert f"snapshot round-trip via {d}" in text
+    assert "serving from the restored engine" in text
+    assert os.path.isfile(os.path.join(d, "engine.json"))
+    assert out["recall"] >= 0.3 and "wal" not in out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fsync", "batch"],
+    ["--fsync", "always"],
+    ["--fsync", "never"],
+    ["--fsync", "always", "--group-commit-ms", "2"],
+])
+def test_durable_flags_log_and_reload(argv, tmp_path, capsys):
+    """--stream --durable DIR: the engine is made durable, reloaded from
+    DIR through recovery and served; every write of the leg is logged
+    under the fsync mode asked for, and a second recovery replays them."""
+    d = str(tmp_path / "durable")
+    out = serve.main(TINY + STREAM + ["--spec", "ivf8x4>pq4x256:i8>rr40",
+                                      "--durable", d] + argv, device="cpu")
+    text = capsys.readouterr().out
+    assert f"durable via {d}" in text and "recovered engine" in text
+    wal = out["wal"]
+    mode = argv[1]
+    assert f"wal: {wal}" in text
+    assert wal["fsync"] == mode
+    assert wal["group_commit_ms"] == (2.0 if "--group-commit-ms" in argv
+                                      else 0.0)
+    # 5 upserts of 32 rows, 4 deletes, the compactions and the final one
+    assert wal["records"] == 5 + 4 + out["stream"]["compactions"]
+    assert wal["last_seq"] == wal["durable_seq"] or mode != "always"
+    assert out["stream"]["rows_written"] == 160
+    rec = load_engine(d, device="cpu")
+    assert rec._replayed == wal["records"]
+    assert int(rec.store.n_rows) == out["stream"]["base_rows"]
+    rec.close()
 
 
 def test_runs_on_cuda_unless_told_otherwise():
