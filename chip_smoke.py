@@ -241,10 +241,40 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               under fsync always with group commit (records/s, fsyncs a
               record): host and disk numbers, with the filesystem.
 
+  29. path 8  observability on path 1's engine, run after path 7 (before
+              path 3 frees the search tensors); launch counts zeroed just
+              before. (a) a traced engine (tracing(histograms, deep trace
+              and shadow recall 1-in-4, slow_query_ms 0, a trace_dir))
+              and an untraced one over path 1's state: ids and distances
+              bit-equal at batches 1, 8, 64 and 256 (4 searches each),
+              compile_count equal after every search; K1's cell-major
+              entry counted for the searches and the deep traces' warm
+              and timed passes. (b) deep_trace at batches 1 and 256 (5
+              each): JAX's stage names, the stages summing within 10% of
+              the staged e2e, K1's cell-major entry once a trace; the
+              stage ms (p50). (c) each shadow sample's recall equals
+              recall_at_k against the phase's own K3 truth over the 1M
+              rows; K3 launches equal the samples. (d) path 1's engine
+              made streaming (delta 1024), 24 write batches of path 6's
+              mix (two compactions), one search shadow-checked:
+              metrics() has its stream, compact and policy sections,
+              stream.tombstones the store's dead count, compact.compactions
+              the engine's count, the shadow recall that over the
+              survivors (K3). (e) a MetricsServer on port 0 scraped from
+              this thread while another runs 200 traced searches at batch
+              64: every scrape parses (one TYPE line a family, histograms
+              cumulative, qpad_engine_info last). (f) flush_trace's
+              Chrome trace loads (one search event a traced search);
+              torch_profile's trace of 5 searches holds K1 kernel
+              records. (g) p50 overhead of histograms-only tracing and of
+              an attached but inactive tracer at batches 1 and 256, 20
+              alternating rounds of 10 searches (host clock,
+              synchronized); reported, not gated.
+
 Before those, one line {"result": {...}} holds every measurement of the
 run (``result.path4`` for the training path, ``result.path5`` for the
 evaluation path, ``result.path6``, ``result.ivf``,
-``result.prefilter`` and ``result.path7``). The line before the last is {"kernels": [...]}
+``result.prefilter``, ``result.path7`` and ``result.path8``). The line before the last is {"kernels": [...]}
 (K1, K2, K4, K5, K6, K3); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -3414,6 +3444,365 @@ def persist_path(torch, mods, eng, xd, qd, build_s):
     return out, k1_path7
 
 
+# path 8: observability on path 1's engine. The traced engine's knobs;
+# (d) a streaming engine of path 6's mix; (e) searches on another thread
+# while the phase scrapes; (g) alternating overhead rounds
+OBS_TRACE = dict(histograms=True, deep_trace_every=4, recall_every=4,
+                 slow_query_ms=0.0)
+OBS_REPEAT = 4                   # traced searches a batch in (a)
+OBS_DEEP = 5                     # deep traces timed a batch in (b)
+OBS_STREAM_BATCHES = 24          # write batches in (d): 2 compactions
+OBS_SERVER_SEARCHES, OBS_SERVER_BATCH = 200, 64
+OBS_ROUNDS, OBS_PER_ROUND = 20, 10   # (g): rounds x searches a variant
+_PROM_SAMPLE = None
+
+
+def prometheus_lint(text):
+    """The exposition checks of a scrape: every line a TYPE line or a
+    well-formed sample, one TYPE line for each family and before its
+    samples, each histogram's buckets cumulative to +Inf equal to its
+    _count, and ``qpad_engine_info{...}`` the last line. Returns the
+    families' kinds."""
+    import re
+    global _PROM_SAMPLE
+    if _PROM_SAMPLE is None:
+        _PROM_SAMPLE = re.compile(
+            r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*='
+            r'"(?:[^"\\]|\\.)*"(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*'
+            r'\})? -?(\d+\.?\d*([eE][+-]?\d+)?|[+-]?Inf|NaN)$')
+    lines = text.splitlines()
+    typed, hist = {}, {}
+    for ln in lines:
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ")
+            check(name not in typed, f"scrape: two TYPE lines for {name}")
+            typed[name] = kind
+            continue
+        check(_PROM_SAMPLE.match(ln) is not None,
+              f"scrape: malformed line {ln!r}")
+        name = re.split(r"[{ ]", ln, maxsplit=1)[0]
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        if typed.get(base) == "histogram":
+            h = hist.setdefault(base, {"buckets": [], "count": None})
+            val = float(ln.rsplit(" ", 1)[1])
+            if name.endswith("_bucket"):
+                h["buckets"].append(val)
+            elif name.endswith("_count"):
+                h["count"] = val
+        else:
+            check(name in typed, f"scrape: sample before its TYPE: {ln!r}")
+    for base, h in hist.items():
+        check(h["buckets"] == sorted(h["buckets"]) and h["buckets"]
+              and h["buckets"][-1] == h["count"],
+              f"scrape: histogram {base} not cumulative to its _count")
+    check(lines and lines[-1].startswith("qpad_engine_info{"),
+          "scrape: qpad_engine_info is not the last line")
+    return typed
+
+
+def observe_path(torch, mods, eng, xd, qd):
+    """Path 8: observability on path 1's engine (module docstring, phase
+    29). Returns (result dict, K1 cell-major launches, K3 launches)."""
+    (ops, knn_topk, knn, SearchEngine, StreamConfig, segments, recall_at_k,
+     tracing, MetricsServer, render_prometheus) = mods
+    import urllib.request
+    wall0 = time.perf_counter()
+    out = {"spec": SPEC, "trace": dict(OBS_TRACE)}
+    root = os.path.join(HERE, "build", "path8_traces")   # gitignored
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    os.makedirs(root)
+    k1, k3 = ops.pq_adc_cells_topk, knn_topk.knn_topk_d2
+    cfg = eng.config
+    kw = dict(nprobe=cfg.nprobe, rerank=cfg.rerank, backend=cfg.pq_backend,
+              lut_dtype=cfg.lut_dtype, scan_cap=0, prefilter=0)
+    k1_path8 = k3_path8 = 0      # K3: the shadow checks' launches
+    try:
+        # the phase's own K3 truth over the 1M rows, a call a batch (the
+        # shadow check's own inputs: the bucket is the batch here)
+        truth = {b: knn.knn_scan(qd[:b], xd, K)[1] for b in BATCHES}
+        torch.cuda.synchronize()
+
+        # (a) a traced and an untraced engine over one state: bit-equal
+        # answers, compile_count moving together
+        plain = SearchEngine.from_state(eng.state, cfg)
+        traced = SearchEngine.from_state(eng.state, cfg).tracing(
+            trace_dir=root, **OBS_TRACE)
+        ops.pq_adc_gather_topk.launches = k1.launches = k3.launches = 0
+        recall_checks = {}
+        for b in BATCHES:
+            for r in range(OBS_REPEAT):
+                d0, i0 = plain.search(qd[:b], K)
+                samples = traced.tracer.recall_samples
+                d1, i1 = traced.search(qd[:b], K)
+                check(torch.equal(i0, i1) and torch.equal(d0, d1),
+                      f"path 8 (a): traced answers differ at batch {b}")
+                check(traced.compile_count == plain.compile_count,
+                      f"path 8 (a): compile_count {traced.compile_count} "
+                      f"traced, {plain.compile_count} untraced")
+                if traced.tracer.recall_samples > samples:
+                    # (c) this search was shadow-checked: its recall
+                    # against the phase's truth
+                    want = recall_at_k(i1, truth[b])
+                    got = traced.tracer.recall_last
+                    check(got == want, f"path 8 (c): shadow recall {got} "
+                          f"at batch {b}, {want} against the phase's K3 "
+                          "truth")
+                    recall_checks[b] = got
+        torch.cuda.synchronize()
+        tr = traced.tracer
+        k1_a, k3_a = k1.launches, k3.launches
+        k3_path8 += k3_a
+        n_search = len(BATCHES) * OBS_REPEAT
+        # the two engines' searches, then the deep traces' warm and timed
+        # passes (a warm pass at each new batch)
+        check(k1_a == 2 * n_search + tr.deep_traces + len(BATCHES)
+              and ops.pq_adc_gather_topk.launches == 0,
+              f"path 8 (a): K1's cell-major entry launched {k1_a} times "
+              f"(gathered {ops.pq_adc_gather_topk.launches}) for "
+              f"{2 * n_search} searches and {tr.deep_traces} deep traces")
+        check(k3_a == tr.recall_samples == len(BATCHES),
+              f"path 8 (c): K3 launched {k3_a} times for "
+              f"{tr.recall_samples} shadow samples")
+        check(sorted(recall_checks) == list(BATCHES),
+              "path 8 (c): a batch was not shadow-checked")
+        out["a"] = {"searches_per_engine": n_search, "bit_equal": True,
+                    "compile_count": traced.compile_count,
+                    "k1_cells_launches": k1_a, "k3_launches": k3_a,
+                    "deep_traces": tr.deep_traces}
+        out["c"] = {"recall_last_by_batch": recall_checks,
+                    "recall_estimate_at_k": tr.recall_ema,
+                    "shadow_samples": tr.recall_samples,
+                    "k3_launches": k3_a}
+        log(f"[path 8] (a) traced and untraced engines: ids and distances "
+            f"bit-equal over {n_search} searches each at batches "
+            f"{BATCHES}, compile_count {traced.compile_count} on both; K1 "
+            f"cell-major {k1_a} launches, {tr.deep_traces} deep traces")
+        log(f"[path 8] (c) shadow recall {recall_checks} equal to "
+            f"recall_at_k against the phase's K3 truth; K3 {k3_a} launches "
+            f"for {tr.recall_samples} samples")
+
+        # (b) the deep trace at batches 1 and 256 (warm: the tracer ran
+        # one at each batch)
+        deep = {}
+        for b in (1, 256):
+            runs = []
+            for _ in range(OBS_DEEP):
+                c0, g0 = k1.launches, ops.pq_adc_gather_topk.launches
+                t = tracing.deep_trace(traced, qd[:b], K, kw)
+                check(k1.launches - c0 == 1 and
+                      ops.pq_adc_gather_topk.launches == g0,
+                      f"path 8 (b): the deep trace's scan at batch {b} "
+                      f"launched K1's cell-major entry "
+                      f"{k1.launches - c0} times")
+                names = [n for n, _ in t["stages"]]
+                check(names == ["project", "probe", "scan", "rerank"],
+                      f"path 8 (b): stages {names}")
+                total = sum(ms for _, ms in t["stages"])
+                check(abs(total - t["e2e_ms"]) <= 0.10 * t["e2e_ms"],
+                      f"path 8 (b): stages sum to {total} ms of "
+                      f"{t['e2e_ms']} at batch {b}")
+                runs.append(t)
+            deep[b] = {
+                "stages_ms_p50": {n: float(np.median(
+                    [dict(t["stages"])[n] for t in runs])) for n in names},
+                "e2e_ms_p50": float(np.median([t["e2e_ms"] for t in runs])),
+                "sum_over_e2e": [sum(ms for _, ms in t["stages"])
+                                 / t["e2e_ms"] for t in runs]}
+            p50 = {n: round(v, 4) for n, v in
+                   deep[b]["stages_ms_p50"].items()}
+            log(f"[path 8] (b) deep trace at batch {b}: stages (ms, p50 of "
+                f"{OBS_DEEP}) {p50}, e2e {deep[b]['e2e_ms_p50']:.4f} ms; K1 "
+                "once a trace")
+        out["b"] = deep
+
+        # (d) a streaming engine of path 6's mix
+        scfg = dataclasses.replace(cfg, stream=StreamConfig(
+            delta_capacity=STREAM_DELTA))
+        s_eng = SearchEngine.from_state(eng.state, scfg)
+        leg = WriteLeg(torch, xd, SEED + 9, N)
+        leg.run([s_eng], OBS_STREAM_BATCHES)
+        s_eng.tracing(recall_every=1)
+        k0 = k3.launches
+        _, ids = s_eng.search(qd[:STREAM_Q], K)
+        torch.cuda.synchronize()
+        k3_path8 += k3.launches - k0
+        check(k3.launches - k0 == 1, "path 8 (d): the streaming shadow "
+              f"check launched K3 {k3.launches - k0} times")
+        m = s_eng.metrics()
+        check(m.stream is not None and m.compact is not None
+              and m.policy is not None, "path 8 (d): a streaming section "
+              "is missing")
+        dead = int(s_eng.store.dead.sum())
+        check(m.stream.tombstones == dead, f"path 8 (d): stream.tombstones "
+              f"{m.stream.tombstones}, the store holds {dead}")
+        check(m.compact.compactions == s_eng.counters["compactions"] >= 1,
+              f"path 8 (d): compact.compactions {m.compact.compactions}, "
+              f"the engine counted {s_eng.counters['compactions']}")
+        vecs, ext = live_rows(torch, segments, s_eng.store)
+        k0 = k3.launches
+        _, idx = knn.knn_scan(qd[:STREAM_Q], vecs, K)   # the check's own
+        #                                 truth: not in k3_path8
+        want = recall_at_k(ids, ext[idx])
+        check(m.recall.last == want, f"path 8 (d): shadow recall "
+              f"{m.recall.last}, {want} over the survivors")
+        check(not bool(torch.isin(ids, leg.deleted).any()),
+              "path 8 (d): a deleted id came back")
+        flat = m.flatten()
+        out["d"] = {k: flat[k] for k in sorted(flat)
+                    if k.startswith(("stream.", "compact.", "policy.",
+                                     "recall."))}
+        out["d"]["write_batches"] = OBS_STREAM_BATCHES
+        log(f"[path 8] (d) streaming engine after {OBS_STREAM_BATCHES} "
+            f"write batches: tombstones {m.stream.tombstones} (store "
+            f"{dead}), compactions {m.compact.compactions}, rows "
+            f"{m.stream.rows}, delta {m.stream.delta_used}; shadow recall "
+            f"{m.recall.last:.4f} = recall over the survivors (K3)")
+        text = render_prometheus(m)
+        prometheus_lint(text)
+        del s_eng, vecs, ext
+        torch.cuda.empty_cache()
+
+        # (e) scrapes from this thread while another searches
+        errors, scrapes = [], []
+        k0 = k3.launches
+        s0 = traced.tracer.recall_samples
+        q64 = qd[:OBS_SERVER_BATCH]
+
+        def searcher():
+            try:
+                for _ in range(OBS_SERVER_SEARCHES):
+                    traced.search(q64, K)
+            except Exception as e:          # surfaced below
+                errors.append(e)
+
+        with MetricsServer(traced, port=0) as srv:
+            th = threading.Thread(target=searcher, name="path8-searches")
+            t0 = time.perf_counter()
+            th.start()
+            while th.is_alive() or not scrapes:
+                with urllib.request.urlopen(srv.url, timeout=30) as r:
+                    check(r.status == 200, f"path 8 (e): scrape {r.status}")
+                    body = r.read().decode()
+                prometheus_lint(body)
+                scrapes.append(body)
+                time.sleep(0.005)           # a scraper's pace, not a spin
+            th.join()
+            e_s = time.perf_counter() - t0
+            with urllib.request.urlopen(srv.url.replace(
+                    "/metrics", "/metrics.json"), timeout=30) as r:
+                doc = json.loads(r.read().decode())
+        torch.cuda.synchronize()
+        check(not errors, f"path 8 (e): the search thread raised {errors}")
+        k3_e = k3.launches - k0
+        k3_path8 += k3_e
+        check(k3_e == traced.tracer.recall_samples - s0,
+              f"path 8 (e): K3 launched {k3_e} times for "
+              f"{traced.tracer.recall_samples - s0} shadow samples")
+        check(doc["latency.queries"] == traced.tracer.queries,
+              "path 8 (e): the JSON scrape's latency.queries")
+        out["e"] = {"searches": OBS_SERVER_SEARCHES,
+                    "batch": OBS_SERVER_BATCH, "scrapes": len(scrapes),
+                    "families": len(prometheus_lint(scrapes[-1])),
+                    "s": e_s, "scrape_lines": len(scrapes[-1].splitlines()),
+                    "latency_search_p50_ms": doc["latency.search.p50"],
+                    "k3_launches": k3_e}
+        log(f"[path 8] (e) {len(scrapes)} scrapes while {OBS_SERVER_SEARCHES}"
+            f" traced searches at batch {OBS_SERVER_BATCH} ran on another "
+            f"thread ({e_s:.2f} s): every one parsed, "
+            f"{out['e']['families']} families, qpad_engine_info last")
+
+        # (f) the Chrome trace and a torch.profiler trace
+        path = traced.flush_trace()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        n_search = sum(e["name"] == "search" for e in events)
+        check(n_search == traced.tracer.queries,
+              f"path 8 (f): {n_search} search events for "
+              f"{traced.tracer.queries} traced searches")
+        check(sum(e["name"].startswith("deep.") for e in events)
+              == 4 * traced.tracer.deep_traces, "path 8 (f): deep events")
+        prof_hits = None
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            pdir = os.path.join(root, f"profile_{attempt}")
+            with tracing.torch_profile(pdir):
+                for _ in range(5):
+                    plain.search(qd, K)
+            with open(os.path.join(pdir, f"qpad_profile_{os.getpid()}"
+                                   ".json")) as f:
+                pev = json.load(f)["traceEvents"]
+            prof_hits = sum(1 for e in pev if e.get("cat") == "kernel"
+                            and "adc_select<" in e.get("name", ""))
+            if prof_hits:
+                break
+            TRACE_LOSSES.append({"label": "path 8 torch_profile",
+                                 "attempt": attempt, "lost": {
+                                     "adc_select<": {"launched": 5,
+                                                     "traced": 0}},
+                                 "used": False})
+        check(prof_hits, "path 8 (f): torch_profile's trace holds no K1 "
+              "kernel record")
+        out["f"] = {"chrome_trace_events": len(events),
+                    "search_events": n_search,
+                    "profile_k1_records": prof_hits,
+                    "profile_events": len(pev)}
+        log(f"[path 8] (f) flush_trace: {len(events)} events load; "
+            f"torch_profile: {len(pev)} events, {prof_hits} K1 kernel "
+            "records")
+
+        # (g) the overhead of histograms-only tracing and of an attached
+        # but inactive tracer: alternating rounds in this one call
+        hist_only = SearchEngine.from_state(eng.state, cfg).tracing()
+        inactive = SearchEngine.from_state(eng.state, cfg).tracing(
+            histograms=False)
+        variants = {"untraced": plain, "histograms": hist_only,
+                    "inactive": inactive}
+        over = {}
+        for b in (1, 256):
+            qb = qd[:b]
+            for e in variants.values():
+                for _ in range(3):
+                    e.search(qb, K)
+            times = {v: [] for v in variants}
+            order = list(variants)
+            for r in range(OBS_ROUNDS):
+                for v in order[r % 3:] + order[:r % 3]:
+                    e = variants[v]
+                    for _ in range(OBS_PER_ROUND):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        e.search(qb, K)
+                        torch.cuda.synchronize()
+                        times[v].append((time.perf_counter() - t0) * 1e3)
+            p50 = {v: float(np.median(t)) for v, t in times.items()}
+            over[b] = {"p50_ms": p50,
+                       "histograms_overhead": p50["histograms"]
+                       / p50["untraced"] - 1.0,
+                       "inactive_overhead": p50["inactive"]
+                       / p50["untraced"] - 1.0,
+                       "samples": OBS_ROUNDS * OBS_PER_ROUND}
+            log(f"[path 8] (g) batch {b}: p50 untraced "
+                f"{p50['untraced']:.4f} ms, histograms "
+                f"{p50['histograms']:.4f} "
+                f"({100 * over[b]['histograms_overhead']:+.2f}%), inactive "
+                f"tracer {p50['inactive']:.4f} "
+                f"({100 * over[b]['inactive_overhead']:+.2f}%); "
+                f"{OBS_ROUNDS} alternating rounds of {OBS_PER_ROUND}")
+        torch.cuda.synchronize()
+        out["g"] = over
+        # every K1 launch since the counts were zeroed: the searches, the
+        # deep traces, the streaming search, the profiled searches
+        k1_path8 = k1.launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["k1_cells_launches"] = k1_path8
+    out["k3_launches"] = k3_path8
+    out["wall_s"] = time.perf_counter() - wall0
+    log(f"[path 8] K1 cell-major {k1_path8} launches, K3 {k3_path8}; wall "
+        f"time {out['wall_s']:.1f} s")
+    return out, k1_path8, k3_path8
+
+
 def ivf_phase(torch, mods, xd, qd, truth, counters):
     """The ivf kind on path 1's corpus: build_engine(SPEC_IVF), searches at
     every batch (p50, QPS), recall@10 against exact search. The scan is a
@@ -3530,6 +3919,8 @@ def main():
         from repro_torch.search import segments
         from repro_torch.search.segments import StreamConfig
         from repro_torch.search import durability, load_engine
+        from repro_torch.search import (MetricsServer, render_prometheus,
+                                        tracing)
         from repro_torch.search.durability import recovery
         from repro_torch.search.durability import wal as wal_mod
         from repro_torch._tree import tree_map
@@ -3964,6 +4355,14 @@ def main():
                 load_engine, durability, recovery, wal_mod), eng, xd, qd,
         result["engine_build_s"])
 
+    # 29. path 8: observability on path 1's engine, before path 3 frees
+    # the search tensors
+    torch.cuda.empty_cache()
+    result["path8"], k1_path8, k3_path8 = observe_path(
+        torch, (ops, knn_topk, knn, SearchEngine, StreamConfig, segments,
+                recall_at_k, tracing, MetricsServer, render_prometheus),
+        eng, xd, qd)
+
     # 11-14. path 3: the LM serving path on K5
     lm, k5_launches, k5_main_err, k5 = lm_path(
         torch, tf, fa, lm_param_count, rms_norm, TINYLLAMA, counters)
@@ -4020,6 +4419,7 @@ def main():
         "replaces": "src/repro/kernels/pq_adc/kernel.py:212",
         "launches": launches, "max_abs_err": max_err,
         "launches_path6": k1_path6, "launches_path7": k1_path7,
+        "launches_path8": k1_path8,
         "entries": [k1_cells, k1_gathered, k1_live],
         "note": "two entries of one kernel: the cell-major entry (the "
                 "padded scan at batch 256; its times are the kernel's "
@@ -4030,7 +4430,11 @@ def main():
                 "(tombstones) in "
                 "path 6's write leg, timed at its batch-256 scan; "
                 "launches_path7: the cell-major entry in path 7's searches "
-                "of the restored and the recovered engines"}), {
+                "of the restored and the recovered engines; "
+                "launches_path8: the cell-major entry in path 8 (the "
+                "traced and untraced searches, the deep traces' scan "
+                "stage, the streaming search, the profiled and timed "
+                "searches)"}), {
         "name": "pq_adc_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/pq_adc/csrc/pq_adc_topk.cu",
         "replaces": "src/repro/kernels/pq_adc/kernel.py:120",
@@ -4082,12 +4486,14 @@ def main():
         "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
         "replaces": "src/repro/kernels/knn_topk/kernel.py:72",
         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3["ms"],
+        "launches_path8": k3_path8,
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
         "note": "times at the flat engine's scan (Q 256, N 1M, D 64, k 64; "
                 "result.path5.k3_timings has the truth, reduced and "
                 "transform shapes); launches: path 5's 35 amk_accuracy "
-                "calls; library_ms: the two-call yardstick topk(cdist(q, "
+                "calls; launches_path8: path 8's shadow recall checks; "
+                "library_ms: the two-call yardstick topk(cdist(q, "
                 "x), k, largest=False), which the port never calls"}]
     result["trace_losses"] = TRACE_LOSSES
     log(f"[trace] {len(TRACE_LOSSES)} traces lacked records, "

@@ -21,7 +21,7 @@ import torch
 from .objective import num_selected_pairs, penalized
 
 __all__ = ["ThresholdStats", "threshold_stats", "find_quantile_threshold",
-           "phi_fast_value_and_grad"]
+           "mu_b_fast", "mu_b_fast_value_and_grad", "phi_fast_value_and_grad"]
 
 _BISECT_ITERS = 60
 
@@ -92,6 +92,41 @@ def _mu_fast_impl(w: torch.Tensor, x: torch.Tensor, *, b: float):
     g_raw = (x.T @ st.coeff) / cnt
     g = g_raw - torch.dot(g_raw, wn) * wn   # tangent projection
     return value, g, st
+
+
+def mu_b_fast_value_and_grad(w: torch.Tensor, x: torch.Tensor, *,
+                             b: float):
+    """mu_b at ``w`` and its tangent gradient (the direction's norm
+    factored out), from the sorted prefix sums."""
+    value, g, _ = _mu_fast_impl(w, x, b=b)
+    return value, g
+
+
+class _MuFast(torch.autograd.Function):
+    """The exact fast value; its backward is the subgradient (the JAX
+    package's custom VJP): ``g * ct`` for w and ``(c_i / count) * w_hat *
+    ct`` for each row x_i."""
+
+    @staticmethod
+    def forward(ctx, w, x, b):
+        value, g, st = _mu_fast_impl(w, x, b=b)
+        ctx.save_for_backward(g, st.coeff, st.count,
+                              w / torch.linalg.vector_norm(w))
+        return value
+
+    @staticmethod
+    def backward(ctx, ct):
+        g, coeff, count, wn = ctx.saved_tensors
+        cnt = count.clamp_min(1).to(g.dtype)
+        gx = (coeff[:, None] / cnt) * wn[None, :] * ct
+        return g * ct, gx, None
+
+
+def mu_b_fast(w: torch.Tensor, x: torch.Tensor, *, b: float
+              ) -> torch.Tensor:
+    """Differentiable fast mu_b (an ``autograd.Function``: the exact
+    value, the subgradient)."""
+    return _MuFast.apply(w, x, b)
 
 
 def phi_fast_value_and_grad(w: torch.Tensor, x: torch.Tensor,

@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["LUT_DTYPES", "center_lut", "quantize_lut", "snap_lut",
-           "snap_values", "lut_error_bound"]
+__all__ = ["LUT_DTYPES", "center_lut", "quantize_lut", "dequantize_lut",
+           "snap_lut", "snap_values", "lut_error_bound"]
 
 LUT_DTYPES = ("f32", "bf16", "int8")
 
@@ -116,6 +116,12 @@ def snap_lut(tables: torch.Tensor, lut_dtype: str, scale=None):
         return snap_values(tables, lut_dtype), ones
     s = _int8_scale(tables, scale)
     return snap_values(tables, lut_dtype, s[:, None, None]), s
+
+
+def dequantize_lut(qtables: torch.Tensor, scale: torch.Tensor
+                   ) -> torch.Tensor:
+    """Inverse of ``quantize_lut`` up to rounding: (Q, M, K) f32."""
+    return qtables.to(torch.float32) * scale[:, None, None]
 
 
 def lut_error_bound(tables: torch.Tensor, lut_dtype: str,

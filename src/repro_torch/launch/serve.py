@@ -25,21 +25,36 @@ streaming engine durable (``DurabilityConfig(fsync=--fsync,
 group_commit_ms=--group-commit-ms)``: a write-ahead log under
 ``DIR/wal`` and the initial snapshot), then reloads it from ``DIR``
 through the recovery path, as an operator would after a crash, and
-serves the recovered engine; it prints the WAL's ``stats()`` at the end.
-``--snapshot-dir DIR`` saves the engine there and serves the one
-``load_engine`` restores.
+serves the recovered engine; at the end it prints the WAL's counters
+from ``engine.metrics()``, as the JAX launcher does. ``--snapshot-dir
+DIR`` saves the engine there and serves the one ``load_engine``
+restores.
 
-The read-only, streaming and persistence flags are ported with the JAX
-launcher's names and defaults. Its other flags are accepted and raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them
-(sharding, metrics and tracing). The JAX launcher's ``--interpret``
-selects the Pallas interpret mode and has no counterpart: ``@kernel``
-here launches the CUDA kernels.
+Observability, as in the JAX launcher: ``--metrics-port N`` serves the
+engine's typed metrics snapshot (``SearchEngine.metrics()``) from a
+stdlib http.server thread (``GET /metrics`` Prometheus text, ``GET
+/metrics.json`` the flattened JSON; port 0 binds an ephemeral port and
+prints it). ``--trace-dir DIR`` exports a Chrome-trace JSON of the
+served batches, ``--slow-query-ms T`` captures over-threshold searches
+into a ring buffer, ``--deep-trace-every N`` re-runs 1-in-N batches
+through the staged pipeline for per-stage latency, and ``--recall-every
+N`` shadow-checks 1-in-N batches against exact search (K3 on the card)
+to estimate live recall; any of these turns on the ``latency.*``
+histograms and prints their lines at the end.
+
+The read-only, streaming, persistence and observability flags are
+ported with the JAX launcher's names and defaults. Its sharding flags
+are accepted and raise ``NotImplementedError`` naming the ``ROADMAP.md``
+item that ports them. The JAX launcher's ``--interpret`` selects the
+Pallas interpret mode and has no counterpart: ``@kernel`` here launches
+the CUDA kernels.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+import urllib.request
 from typing import List, Optional
 
 import torch
@@ -49,6 +64,7 @@ from repro_torch.core.mpad import MPADConfig
 from repro_torch.data.synthetic import make_clustered
 from repro_torch.search.knn import knn_search, recall_at_k
 from repro_torch.search.durability.wal import DurabilityConfig
+from repro_torch.search.metrics import MetricsServer
 from repro_torch.search.segments import StreamConfig
 from repro_torch.search.serve import build_engine
 from repro_torch.search.snapshot import load_engine
@@ -64,15 +80,6 @@ _UNPORTED = {
     "--mesh": (dict(choices=["device", "host"], default="device"),
                "11 (multi-GPU)"),
     "--donate": (dict(action="store_true"), "11 (multi-GPU)"),
-    "--metrics-port": (dict(type=int, default=None, metavar="PORT"),
-                       "10 (observability)"),
-    "--trace-dir": (dict(default=None, metavar="DIR"), "10 (observability)"),
-    "--slow-query-ms": (dict(type=float, default=None, metavar="T"),
-                        "10 (observability)"),
-    "--deep-trace-every": (dict(type=int, default=0, metavar="N"),
-                           "10 (observability)"),
-    "--recall-every": (dict(type=int, default=0, metavar="N"),
-                       "10 (observability)"),
 }
 
 
@@ -128,6 +135,24 @@ def _parse_args(argv: Optional[List[str]]):
     ap.add_argument("--group-commit-ms", type=float, default=0.0,
                     help="--durable --fsync always: coalesce fsyncs over "
                          "this gathering window")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve SearchEngine.metrics() over HTTP from a "
+                         "background thread: /metrics (Prometheus text), "
+                         "/metrics.json (JSON); 0 = ephemeral port")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="export a Chrome-trace JSON of the served batches "
+                         "into DIR; implies latency histograms")
+    ap.add_argument("--slow-query-ms", type=float, default=None, metavar="T",
+                    help="capture searches slower than T ms into the "
+                         "tracer's slow-query ring buffer (printed at the "
+                         "end of the run)")
+    ap.add_argument("--deep-trace-every", type=int, default=0, metavar="N",
+                    help="re-run 1-in-N batches through the staged pipeline "
+                         "for per-stage latency (0 = off; read-only "
+                         "engines only)")
+    ap.add_argument("--recall-every", type=int, default=0, metavar="N",
+                    help="shadow-check 1-in-N batches against exact search "
+                         "and keep the recall.estimate_at_k gauge (0 = off)")
     for flag, (kw, item) in _UNPORTED.items():
         ap.add_argument(flag, help=f"not ported yet ({_ITEM} {item})", **kw)
     return ap.parse_args(argv)
@@ -152,13 +177,81 @@ def _sync(dev: torch.device):
         torch.cuda.synchronize(dev)
 
 
+def _scrape(url: str) -> List[str]:
+    """GET ``url`` (the launcher's own metrics endpoint on localhost)."""
+    with urllib.request.urlopen(url, timeout=5) as r:
+        return r.read().decode().splitlines()
+
+
+def _tracing(engine, args) -> bool:
+    """Attach a tracer when any observability flag asks for one (the
+    metrics endpoint serves its latency histograms); prints what is on."""
+    if not (args.trace_dir is not None or args.slow_query_ms is not None
+            or args.deep_trace_every or args.recall_every
+            or args.metrics_port is not None):
+        return False
+    engine.tracing(trace_dir=args.trace_dir,
+                   slow_query_ms=args.slow_query_ms,
+                   deep_trace_every=args.deep_trace_every,
+                   recall_every=args.recall_every)
+    knobs = ["histograms"]
+    if args.trace_dir is not None:
+        knobs.append(f"trace_dir={args.trace_dir}")
+    if args.slow_query_ms is not None:
+        knobs.append(f"slow_query_ms={args.slow_query_ms}")
+    if args.deep_trace_every:
+        knobs.append(f"deep_trace_every={args.deep_trace_every}")
+    if args.recall_every:
+        knobs.append(f"recall_every={args.recall_every}")
+    print(f"tracing on ({', '.join(knobs)})")
+    return True
+
+
+def _trace_report(engine, args) -> dict:
+    """The JAX launcher's end-of-run latency, recall, stage and slow-query
+    lines; returns the flattened metrics they read."""
+    flat = engine.metrics().flatten()
+    print(f"latency: p50={flat['latency.search.p50']:.2f}ms "
+          f"p95={flat['latency.search.p95']:.2f}ms "
+          f"p99={flat['latency.search.p99']:.2f}ms over "
+          f"{flat['latency.queries']} traced searches")
+    if args.recall_every:
+        est = flat.get("recall.estimate_at_k")
+        if est is not None:
+            print(f"recall estimate: {est:.4f}@{flat['recall.k']} "
+                  f"({flat['recall.samples']} shadow samples)")
+    if args.deep_trace_every:
+        stages = sorted((name.split(".")[2], flat[name]) for name in flat
+                        if name.startswith("latency.stages.")
+                        and name.endswith(".p50"))
+        if stages:
+            share = ", ".join(f"{s}={ms:.2f}ms" for s, ms in stages)
+            print(f"deep-trace stage p50: {share} "
+                  f"({flat['latency.deep_traces']} samples)")
+    if args.slow_query_ms is not None:
+        log = engine.tracer.slow_query_log()
+        print(f"slow queries (>{args.slow_query_ms}ms): "
+              f"{flat['latency.slow_queries']} captured, "
+              f"{len(log)} in the ring")
+        for entry in log[-3:]:
+            print(f"  seq={entry['seq']} {entry['e2e_ms']:.2f}ms "
+                  f"batch={entry['batch']} bucket={entry['bucket']} "
+                  f"nprobe={entry['nprobe']} spec={entry['spec']}")
+    if args.trace_dir is not None:
+        print(f"trace written: {engine.flush_trace()}")
+    return flat
+
+
 def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
     """Parse ``argv`` (the command line when None), build, serve
     ``--batches`` batches and return ``{"spec", "ms_per_batch",
     "recall"}`` (the mean over the batches), and with ``--stream`` also
     ``"stream"``: the rows written, their rate, the grow count and the
-    compactions, and with ``--durable`` ``"wal"``: the WAL's ``stats()``
-    after the run."""
+    compactions, with ``--durable`` ``"wal"``: the ``wal.*`` section of
+    ``engine.metrics()`` after the run, with any tracing flag
+    ``"metrics"``: the flattened ``engine.metrics()`` at the end, and with
+    ``--metrics-port`` ``"scrape"``: the endpoint's last ``/metrics``
+    text."""
     args = _parse_args(argv)
     for flag, (kw, item) in _UNPORTED.items():
         given = getattr(args, flag[2:].replace("-", "_"))
@@ -211,60 +304,93 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
         print(f"snapshot round-trip via {args.snapshot_dir} in "
               f"{time.perf_counter() - t0:.1f}s (serving from the restored "
               "engine)")
+    tracing_on = _tracing(engine, args)
+    server = None
+    if args.metrics_port is not None:
+        server = MetricsServer(engine, port=args.metrics_port)
+        print(f"metrics at {server.url} (Prometheus text; /metrics.json "
+              "for JSON)")
 
-    total, rec_sum = 0.0, 0.0
-    write_s, rows_written, next_id = 0.0, 0, args.corpus
-    for i in range(args.batches):
-        rows = torch.randint(0, args.corpus, (args.batch,), generator=gen)
-        queries = corpus[rows.to(dev)]
-        if args.stream:
-            # the 10% write leg: a batch of perturbed rows under fresh ids,
-            # and an eighth of the previous batch's ids deleted
-            wb = args.write_batch
-            vecs = corpus[:wb] + 0.01 * torch.randn(
-                (wb, args.dim), generator=gen).to(dev)
+    try:
+        total, rec_sum = 0.0, 0.0
+        write_s, rows_written, next_id = 0.0, 0, args.corpus
+        for i in range(args.batches):
+            rows = torch.randint(0, args.corpus, (args.batch,), generator=gen)
+            queries = corpus[rows.to(dev)]
+            if args.stream:
+                # the 10% write leg: a batch of perturbed rows under fresh ids,
+                # and an eighth of the previous batch's ids deleted
+                wb = args.write_batch
+                vecs = corpus[:wb] + 0.01 * torch.randn(
+                    (wb, args.dim), generator=gen).to(dev)
+                _sync(dev)
+                t0 = time.perf_counter()
+                engine.upsert(torch.arange(next_id, next_id + wb), vecs)
+                if next_id > args.corpus:
+                    engine.delete(torch.arange(next_id - wb,
+                                               next_id - wb + wb // 8))
+                _sync(dev)
+                write_s += time.perf_counter() - t0
+                rows_written += wb
+                next_id += wb
             _sync(dev)
             t0 = time.perf_counter()
-            engine.upsert(torch.arange(next_id, next_id + wb), vecs)
-            if next_id > args.corpus:
-                engine.delete(torch.arange(next_id - wb,
-                                           next_id - wb + wb // 8))
+            _, ids = engine.search(queries, args.k)
             _sync(dev)
-            write_s += time.perf_counter() - t0
-            rows_written += wb
-            next_id += wb
-        _sync(dev)
-        t0 = time.perf_counter()
-        _, ids = engine.search(queries, args.k)
-        _sync(dev)
-        dt = time.perf_counter() - t0
-        _, truth = knn_search(queries, corpus, args.k)
-        rec = recall_at_k(ids, truth)
-        total += dt
-        rec_sum += rec
-        print(f"batch {i}: {dt * 1e3:7.1f} ms  recall@{args.k}={rec:.4f}")
-    mean_s = total / args.batches
-    print(f"\nmean: {mean_s * 1e3:.1f} ms/batch "
-          f"({args.batch / mean_s:.0f} qps), "
-          f"recall={rec_sum / args.batches:.4f}")
-    out = {"spec": format_spec(spec), "ms_per_batch": mean_s * 1e3,
-           "recall": rec_sum / args.batches}
-    if args.stream:
-        rate = rows_written / write_s if write_s else 0.0
-        print(f"writes: {rows_written} rows in {write_s:.2f}s "
-              f"({rate:.0f} rows/s), grow_count={engine.grow_count}")
-        t0 = time.perf_counter()
-        engine.compact()
-        _sync(dev)
-        print(f"final compact: {time.perf_counter() - t0:.2f}s "
-              f"(base rows={int(engine.store.n_rows)})")
-        out["stream"] = {"rows_written": rows_written, "rows_per_s": rate,
-                         "grow_count": engine.grow_count,
-                         "compactions": engine.counters["compactions"],
-                         "base_rows": int(engine.store.n_rows)}
-        if engine._wal is not None:
-            out["wal"] = engine._wal.stats()
-            print(f"wal: {out['wal']}")
+            dt = time.perf_counter() - t0
+            _, truth = knn_search(queries, corpus, args.k)
+            rec = recall_at_k(ids, truth)
+            total += dt
+            rec_sum += rec
+            print(f"batch {i}: {dt * 1e3:7.1f} ms  recall@{args.k}={rec:.4f}")
+            if i == 0 and server is not None:
+                # mid-traffic scrape: the histogram series are live after the
+                # first batch
+                hist = [ln for ln in _scrape(server.url)
+                        if ln.startswith("qpad_latency_search_seconds")]
+                print(f"mid-traffic scrape: {len(hist)} latency-histogram "
+                      "samples")
+        mean_s = total / args.batches
+        print(f"\nmean: {mean_s * 1e3:.1f} ms/batch "
+              f"({args.batch / mean_s:.0f} qps), "
+              f"recall={rec_sum / args.batches:.4f}")
+        out = {"spec": format_spec(spec), "ms_per_batch": mean_s * 1e3,
+               "recall": rec_sum / args.batches}
+        if args.stream:
+            rate = rows_written / write_s if write_s else 0.0
+            print(f"writes: {rows_written} rows in {write_s:.2f}s "
+                  f"({rate:.0f} rows/s), grow_count={engine.grow_count}")
+            t0 = time.perf_counter()
+            engine.compact()
+            _sync(dev)
+            print(f"final compact: {time.perf_counter() - t0:.2f}s "
+                  f"(base rows={int(engine.store.n_rows)})")
+            out["stream"] = {"rows_written": rows_written, "rows_per_s": rate,
+                             "grow_count": engine.grow_count,
+                             "compactions": engine.counters["compactions"],
+                             "base_rows": int(engine.store.n_rows)}
+            m = engine.metrics()
+            if m.wal is not None:
+                out["wal"] = dataclasses.asdict(m.wal)
+                print(f"wal: {m.wal.records} records / {m.wal.bytes} bytes / "
+                      f"{m.wal.fsyncs} fsyncs"
+                      + (f" ({m.wal.group_commits} group commits)"
+                         if m.wal.group_commits else "")
+                      + f", {m.wal.replayed} replayed; "
+                      f"compactions={m.compact.compactions} "
+                      f"vacuums={m.compact.vacuums} "
+                      f"rebuilds={m.compact.rebuilds}")
+        if tracing_on:
+            out["metrics"] = _trace_report(engine, args)
+        if server is not None:
+            out["scrape"] = _scrape(server.url)
+            print("sample scrape (/metrics):")
+            for line in out["scrape"][:8]:
+                print(f"  {line}")
+    finally:
+        if server is not None:
+            server.close()
+    if engine.store is not None:
         engine.close()
     return out
 

@@ -20,7 +20,8 @@ from repro_torch._segment import segment_sum
 from .knn import topk_smallest
 
 __all__ = ["IVFIndex", "sq_dists", "nearest", "kmeans", "posting_lists",
-           "probe_cells", "build_ivf", "cell_vectors", "ivf_scan"]
+           "probe_cells", "build_ivf", "cell_vectors", "ivf_scan",
+           "ivf_search"]
 
 # rows of ``x`` per distance block in ``nearest``: bounds the (rows, nlist)
 # distance matrix at 1M x 1024 scale to 256 MB
@@ -141,3 +142,10 @@ def ivf_scan(index: IVFIndex, q: torch.Tensor, k: int, nprobe: int = 8):
     vals, sel = topk_smallest(d2, k)
     ids = torch.gather(cand, 1, sel)
     return vals.clamp_min(0.0).sqrt(), ids
+
+
+def ivf_search(index: IVFIndex, q: torch.Tensor, k: int, nprobe: int = 8):
+    """Probe the nprobe nearest cells; returns (dists (Q, k), ids (Q, k)).
+    The JAX package jits ``ivf_scan`` under this name; the port runs it
+    eagerly."""
+    return ivf_scan(index, q, k, nprobe)

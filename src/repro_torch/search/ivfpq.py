@@ -48,7 +48,7 @@ from .pq import _check_adc_args, adc_tables, build_pq
 
 __all__ = ["IVFPQIndex", "build_ivfpq", "ivfpq_lut_stats", "live_cells",
            "ivfpq_adc_scan", "ivfpq_scan_given_probe", "ivfpq_scan_inputs",
-           "ivfpq_compact_scan", "ivfpq_scan"]
+           "ivfpq_compact_scan", "ivfpq_scan", "ivfpq_search"]
 
 
 class IVFPQIndex(NamedTuple):
@@ -279,3 +279,16 @@ def ivfpq_scan(index: IVFPQIndex, q: torch.Tensor, k: int, nprobe: int = 8,
                              index.codebooks, q, k, nprobe, backend,
                              lut_dtype)
     return d2.clamp_min(0.0).sqrt(), ids
+
+
+def ivfpq_search(index: IVFPQIndex, q: torch.Tensor, k: int,
+                 nprobe: int = 8, backend: str = "jnp",
+                 lut_dtype: str = "f32"):
+    """Probe ``nprobe`` cells, ADC-score their residual codes, top-k.
+
+    Returns (approx dists (Q, k), ids (Q, k)). ``backend="kernel"`` scores
+    the candidates with K1's cell-major entry; ``lut_dtype`` quantizes the
+    per-query residual LUT on either backend. The JAX package jits
+    ``ivfpq_scan`` under this name (its ``interpret`` flag selects the
+    Pallas interpret mode and has no counterpart here)."""
+    return ivfpq_scan(index, q, k, nprobe, backend, lut_dtype)

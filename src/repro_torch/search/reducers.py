@@ -66,6 +66,8 @@ def register_reducer(ops: ReducerOps) -> ReducerOps:
 
 
 def get_reducer_ops(kind: str) -> ReducerOps:
+    """Look up a registered reducer kind's hooks (a ``ValueError`` naming
+    the registered kinds on a miss)."""
     try:
         return _REGISTRY[kind]
     except KeyError:

@@ -100,6 +100,8 @@ def register_index(ops: IndexOps) -> IndexOps:
 
 
 def get_ops(kind: str) -> IndexOps:
+    """Look up the registered ``IndexOps`` of an index kind (the one
+    dispatch point of every build, scan and streaming site)."""
     try:
         return _REGISTRY[kind]
     except KeyError:

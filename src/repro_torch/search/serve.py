@@ -29,8 +29,13 @@ makes a streaming engine log every write to a write-ahead log
 (``durability.wal``) before it lands; ``load_engine`` recovers it after a
 crash, and ``durability.replication`` keeps read-only followers of it.
 
-Not ported yet (see ROADMAP.md): sharding (item 11), metrics and tracing
-(item 10).
+``metrics()`` (``metrics``) is the engine's typed observability surface,
+and ``tracing(...)`` (``tracing``) attaches latency histograms, sampled
+deep traces, slow-query capture and shadow-exact recall.
+``compile_count`` counts the distinct programs the engine has run, as
+the JAX engine counts its jit compilations.
+
+Not ported yet (see ROADMAP.md): sharding (item 11).
 """
 from __future__ import annotations
 
@@ -64,7 +69,8 @@ from .spec import IndexSpec, parse_spec, spec_from_config
 
 __all__ = ["ServeConfig", "SearchEngine", "EngineState", "search_fn",
            "exact_rerank", "prefiltered_rerank", "build_engine",
-           "config_from_spec"]
+           "config_from_spec", "as_serve_config", "StreamConfig",
+           "INDEX_KINDS"]
 
 _ADC_BACKENDS = ("jnp", "kernel")
 
@@ -293,6 +299,18 @@ def _bucket(nq: int, floor: int, small: int = 0) -> int:
     return max(floor, pow2)
 
 
+# the engine's programs, as the JAX engine jits them: compile_count counts
+# the distinct keys each has run
+_PROGRAMS = ("search", "stream", "upsert", "delete", "compact")
+_STREAM_PROGRAMS = _PROGRAMS[1:]
+
+
+def _shapes(tree) -> tuple:
+    """The shapes of a NamedTuple's tensor fields (None where a field is
+    None): the part of a JAX jit key that a store's grow changes."""
+    return tuple(None if t is None else tuple(t.shape) for t in tree)
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -320,12 +338,21 @@ class SearchEngine:
     package's lifecycle points: ``wal_appended``, ``compact_begin``,
     ``compact_task``, ``compact_swap``, ``compact_done``,
     ``snapshot_arrays``, ``snapshot_commit``, ``vacuum``, ``rebuild``.
+
+    ``compile_count`` is the number of distinct programs the engine has
+    run, keyed as the JAX engine's jit caches are: the read-only search
+    by (k, bucket, the normalized knobs), the streaming search by the same
+    and the store's shapes, upsert and delete by the write bucket and the
+    store's shapes, compaction by the store's shapes. Streaming programs
+    start afresh at ``streaming()`` and at a quantizer rebuild, as JAX
+    re-jits them there. ``metrics()`` returns the typed ``EngineMetrics``;
+    ``tracing(...)`` attaches a ``Tracer``.
     """
 
     def __init__(self, corpus, config=ServeConfig(), *,
                  device: DeviceLike = None,
                  inits: Optional[BuildInits] = None):
-        config = _as_serve_config(config)
+        config = as_serve_config(config)
         spec = config.to_spec()
         self.device = resolve_device(device)
         inits = inits if inits is not None else BuildInits()
@@ -370,7 +397,7 @@ class SearchEngine:
         eng = object.__new__(cls)
         eng.device = state.corpus.device
         eng.build_seconds = {}
-        eng._attach(_as_serve_config(config), state)
+        eng._attach(as_serve_config(config), state)
         return eng
 
     @classmethod
@@ -380,7 +407,7 @@ class SearchEngine:
         """A streaming engine around an existing store and its frozen
         quantizers (``bridge.stream_from_arrays`` carries JAX's across);
         ``config.stream`` must be set."""
-        config = _as_serve_config(config)
+        config = as_serve_config(config)
         if config.stream is None:
             raise ValueError("from_store needs a config with stream set")
         eng = object.__new__(cls)
@@ -398,6 +425,13 @@ class SearchEngine:
         if state is not None:
             return cls.from_state(state, config)
         return cls.from_store(store, frozen, config)
+
+    @property
+    def reducer(self) -> Optional[Reducer]:
+        """The fitted Reduce stage (None without one): the read-only
+        state's, or a streaming engine's frozen one."""
+        holder = self.state if self.state is not None else self.frozen
+        return holder.proj
 
     @property
     def spec(self) -> IndexSpec:
@@ -423,6 +457,11 @@ class SearchEngine:
         self.state = state
         self.last_bucket: Optional[int] = None
         self._scan_caps: dict = {}   # nprobe -> compact-scan gather width
+        self._programs = {name: set() for name in _PROGRAMS}
+        # observability (tracing): None until tracing(); the serve path
+        # takes no timestamp and no sync without an active tracer
+        self._tracer = None
+        self._deep_warm: set = set()  # deep-trace keys already run once
         self.store, self.frozen = store, frozen
         self.grow_count = 0          # stores grown by compaction overflow
         self._delta_used = 0         # host mirror of the delta fill
@@ -471,6 +510,31 @@ class SearchEngine:
         elif config.stream is not None:
             self._init_stream()
 
+    @property
+    def compile_count(self) -> int:
+        """Number of distinct program keys this engine has run: the JAX
+        engine's compiled (statics, shapes) variants of its read-only
+        search, streaming search, upsert, delete and compact programs."""
+        return sum(len(keys) for keys in self._programs.values())
+
+    def _reset_stream_programs(self):
+        """Fresh streaming programs (``streaming()``, a quantizer rebuild):
+        the JAX engine re-jits them there, emptying their caches."""
+        for name in _STREAM_PROGRAMS:
+            self._programs[name] = set()
+
+    def _upsert(self, store, ids, vectors):
+        self._programs["upsert"].add((tuple(ids.shape), _shapes(store)))
+        return segments.upsert_fn(store, self.frozen, ids, vectors)
+
+    def _delete(self, store, ids):
+        self._programs["delete"].add((tuple(ids.shape), _shapes(store)))
+        return segments.delete_fn(store, ids)
+
+    def _compact(self, store):
+        self._programs["compact"].add(_shapes(store))
+        return segments.compact_fn(store, self.frozen)
+
     def _scan_cap(self, nprobe: int) -> int:
         """Compact-scan gather width at ``nprobe``: the sum of the
         ``nprobe`` largest cell fills rounded up to 128, so the compact
@@ -504,24 +568,41 @@ class SearchEngine:
         self.last_bucket = bucket
         if bucket != nq:
             queries = torch.nn.functional.pad(queries, (0, 0, 0, bucket - nq))
-        kw = dict(nprobe=cfg.nprobe, rerank=cfg.rerank,
-                  backend=cfg.pq_backend, lut_dtype=cfg.lut_dtype,
+        # knobs the index kind cannot observe are normalized, as the JAX
+        # engine does, so flipping one never makes a new program
+        probed = cfg.index in ("ivf", "ivfpq")
+        coded = cfg.index in ("pq", "opq", "ivfpq")
+        kw = dict(nprobe=cfg.nprobe if probed else 0, rerank=cfg.rerank,
+                  backend=cfg.pq_backend if coded else "jnp",
+                  lut_dtype=cfg.lut_dtype if coded else "f32",
                   scan_cap=0, prefilter=0)
-        if self.store is not None:
-            from .stream import stream_search_fn
-            self._poll_compaction()
-            d, ids = stream_search_fn(self.store, self.frozen, queries, k,
-                                      **kw)
-            return d[:nq], ids[:nq]
-        if cfg.index == "ivfpq":
+        if self.store is None and cfg.index == "ivfpq":
             if 0 < bucket <= cfg.compact_batch:
                 kw["scan_cap"] = self._scan_cap(cfg.nprobe)
             if 0 < bucket <= cfg.prefilter_batch and cfg.target_dim is None:
                 r_s = max(2 * k, cfg.rerank // 2)
                 if r_s < cfg.rerank:
                     kw["prefilter"] = r_s
-        d, ids = search_fn(self.state, queries, k, counters=self.counters,
-                           **kw)
+        # tracing: one perf_counter read when a tracer is attached and
+        # active; with none the serve path is exactly the untraced one
+        tracer = self._tracer
+        t0 = (time.perf_counter()
+              if tracer is not None and tracer.active else None)
+        key = (k, bucket) + tuple(kw.values())
+        if self.store is not None:
+            from .stream import stream_search_fn
+            self._poll_compaction()
+            self._programs["stream"].add(key + (_shapes(self.store),))
+            d, ids = stream_search_fn(self.store, self.frozen, queries, k,
+                                      **kw)
+        else:
+            self._programs["search"].add(key)
+            d, ids = search_fn(self.state, queries, k,
+                               counters=self.counters, **kw)
+        if t0 is not None:
+            # synchronizes (an honest end-to-end time), then records and
+            # samples
+            tracer.on_search(self, queries, nq, k, kw, t0, d, ids)
         return d[:nq], ids[:nq]
 
     # --- streaming (mutable) serving -------------------------------------
@@ -561,6 +642,7 @@ class SearchEngine:
         # frozen params alias the quantizers: the state is a duplicate
         self.state = None
         self._scan_caps = {}
+        self._reset_stream_programs()
         self._stream_policy_init()
 
     def _stream_policy_init(self):
@@ -688,8 +770,7 @@ class SearchEngine:
                 self._tail_rows += chunk
             pid, pv = self._pad_write(cid, cv)
             # dropped stays 0: a chunk never exceeds the compact point
-            self.store, _ = segments.upsert_fn(self.store, self.frozen, pid,
-                                               pv)
+            self.store, _ = self._upsert(self.store, pid, pv)
             self._delta_used += chunk
             b += chunk
         self._wal_wait_durable()     # one group-commit wait a batch
@@ -708,7 +789,7 @@ class SearchEngine:
         if self._compact_future is not None:
             self._compact_tail.append(("delete", ids, None))
         pid, _ = self._pad_write(ids)
-        self.store = segments.delete_fn(self.store, pid)
+        self.store = self._delete(self.store, pid)
         if self._policy_active and not self._replaying:
             decision = self._policy.decide_delete(
                 dead=int(self.store.dead.sum()),
@@ -723,7 +804,7 @@ class SearchEngine:
         """The fold and grow-retry loop over ``store`` (written in place).
         Returns (folded store, grows)."""
         scfg = self.config.stream
-        store, dropped = segments.compact_fn(store, self.frozen)
+        store, dropped = self._compact(store)
         grows = 0
         while int(dropped):
             # a delta's worth of cell slack covers every delta row landing
@@ -732,7 +813,7 @@ class SearchEngine:
                                         row_extra=4 * scfg.delta_capacity,
                                         cell_extra=scfg.delta_capacity)
             grows += 1
-            store, dropped = segments.compact_fn(store, self.frozen)
+            store, dropped = self._compact(store)
         return store, grows
 
     def _compact_task(self, store, stream):
@@ -751,9 +832,9 @@ class SearchEngine:
         for kind, tids, tvecs in tail:
             pid, pv = self._pad_write(tids, tvecs)
             if kind == "upsert":
-                store, _ = segments.upsert_fn(store, self.frozen, pid, pv)
+                store, _ = self._upsert(store, pid, pv)
             else:
-                store = segments.delete_fn(store, pid)
+                store = self._delete(store, pid)
         self._crash("compact_swap")
         self.store = store
         self._delta_used = tail_rows
@@ -955,6 +1036,7 @@ class SearchEngine:
         self._policy.decisions = decisions
         self._delta_used = 0
         self._base_dirty = True
+        self._reset_stream_programs()        # new quantizers: re-keyed
         self.counters["rebuilds"] += 1
 
     def _apply_policy_record(self, decision: dict):
@@ -1004,6 +1086,70 @@ class SearchEngine:
         self.save(directory)                 # the initial durable snapshot
         return self
 
+    # --- observability ----------------------------------------------------
+
+    def metrics(self):
+        """The engine's typed metrics snapshot: a
+        ``repro_torch.search.metrics.EngineMetrics`` of frozen dataclasses
+        with the JAX package's stable dotted names (``wal.records``,
+        ``stream.fill``, ``compact.pending``, ``policy.drift_ema``,
+        ``replication.follower_lag_seq``, ...). Sections that do not apply
+        to this engine are ``None``. The launcher's ``--metrics-port``
+        endpoint serves it."""
+        from .metrics import collect_metrics
+        return collect_metrics(self)
+
+    def tracing(self, config=None, **knobs) -> "SearchEngine":
+        """Attach request-level observability (``tracing``): latency
+        histograms into ``metrics().latency``, sampled deep traces
+        (``deep_trace_every=N``), slow-query capture (``slow_query_ms=T``),
+        shadow-exact recall estimation (``recall_every=N``) and
+        Chrome-trace export (``trace_dir=``).
+
+        Pass a ``TraceConfig`` or its fields as keyword knobs; with no
+        arguments it attaches the cheap production default (end-to-end
+        histograms only). Detach with ``engine.tracer = None``. Returns
+        ``self``."""
+        from .tracing import TraceConfig, Tracer
+        if config is None:
+            config = TraceConfig(**knobs)
+        elif knobs:
+            config = dataclasses.replace(config, **knobs)
+        self._tracer = Tracer(config)
+        return self
+
+    @property
+    def tracer(self):
+        """The attached ``Tracer`` (None when tracing is off)."""
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, value):
+        self._tracer = value
+
+    @property
+    def trace_dir(self) -> Optional[str]:
+        """Chrome-trace export directory (None = event capture off).
+        Setting it attaches or updates the tracer in place."""
+        return (self._tracer.config.trace_dir
+                if self._tracer is not None else None)
+
+    @trace_dir.setter
+    def trace_dir(self, directory: Optional[str]):
+        from .tracing import TraceConfig, Tracer
+        if self._tracer is None:
+            self._tracer = Tracer(TraceConfig(trace_dir=directory))
+        else:
+            self._tracer.config = dataclasses.replace(
+                self._tracer.config, trace_dir=directory)
+
+    def flush_trace(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the buffered trace events as Chrome-trace JSON; returns
+        the path (None when no tracer or event capture is attached)."""
+        if self._tracer is None:
+            return None
+        return self._tracer.flush(path)
+
 
 def _host(a) -> np.ndarray:
     """A host (numpy) view or copy of a caller's array or tensor."""
@@ -1012,7 +1158,10 @@ def _host(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def _as_serve_config(config) -> ServeConfig:
+def as_serve_config(config) -> ServeConfig:
+    """Normalize an engine config: a ``ServeConfig`` passes through; an
+    ``IndexSpec`` or a spec string (``"qpad32>ivf64x8>pq8x256:i8"``) is
+    lowered with ``config_from_spec``."""
     if isinstance(config, ServeConfig):
         return config
     if isinstance(config, (str, IndexSpec)):

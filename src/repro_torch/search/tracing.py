@@ -1,0 +1,406 @@
+"""Request-level tracing: per-query timing, deep per-stage attribution,
+slow-query capture, and online recall estimation (port of
+``repro.search.tracing``).
+
+A host timer around one ``SearchEngine.search`` call sees only the
+end-to-end latency. This module layers three opt-in instruments on top
+of that single number:
+
+- **Latency histograms** (``TraceConfig(histograms=True)``): every search
+  records its synchronized end-to-end wall time into a fixed-boundary
+  log-spaced histogram (``LatencyHistogram``); ``engine.metrics()`` then
+  derives p50/p95/p99 under ``latency.search.*`` and the Prometheus
+  endpoint renders a real ``histogram`` series.
+- **Sampled deep trace** (``deep_trace_every=N``): 1-in-N queries re-run
+  through a *staged* pipeline, project / probe / scan / re-rank as
+  separate calls with a device synchronization between stages, for
+  non-overlapping per-stage attribution that sums to the staged run's
+  own end-to-end time by construction. The stages never pass through the
+  engine's programs, so sampling never moves ``compile_count``.
+- **Slow-query log** (``slow_query_ms=T``): a ring buffer of the worst
+  offenders: spec, batch shape, bucket, knob fan-out, stage timings
+  when a deep trace rode the same query.
+- **Shadow recall** (``recall_every=N``): 1-in-N queries are re-answered
+  exactly (``knn_search`` against the live rows, tombstone-aware on
+  streaming engines; kernel K3 on the card) and the observed recall@k
+  feeds a ``recall.estimate_at_k`` EMA gauge plus, on a streaming
+  engine, ``MaintenancePolicy.observe_recall``.
+
+Everything funnels through one ``Tracer`` attached by
+``engine.tracing(...)``; with every feature off ``Tracer.active`` is
+False and the serve path skips even the timestamp. Chrome-trace /
+Perfetto JSON export (``trace_dir=``) covers host-side spans; for
+device-side kernel timelines use the ``torch_profile`` context manager
+(a ``torch.profiler`` trace written as Chrome-trace JSON).
+"""
+from __future__ import annotations
+
+import bisect
+import contextlib
+import dataclasses
+import json
+import os
+import threading
+import time
+from typing import Mapping, Optional
+
+import torch
+
+from .ivf import probe_cells
+from .ivfpq import ivfpq_scan_given_probe
+from .knn import knn_search, recall_at_k
+from .metrics import HistogramSnapshot, LatencyMetrics, RecallMetrics
+from .reducers import reduce_vectors
+from .registry import ScanParams, get_ops
+from .serve import _sync, exact_rerank
+
+__all__ = ["TraceConfig", "Tracer", "LatencyHistogram", "deep_trace",
+           "shadow_recall", "torch_profile"]
+
+
+# Log-spaced upper bounds in milliseconds: 0.05 ms .. ~105 s doubling, the
+# JAX package's bounds. Fixed boundaries keep recording O(log n_buckets)
+# (a bisect) and make snapshots mergeable across engines and packages.
+_BOUNDS_MS = tuple(0.05 * 2.0 ** i for i in range(22))
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceConfig:
+    """Knobs for one ``Tracer``. Everything defaults off except the
+    histograms: ``SearchEngine.tracing()`` with no arguments gives the
+    cheap always-on production posture (end-to-end histograms only)."""
+    histograms: bool = True          # e2e latency histogram accumulation
+    trace_dir: Optional[str] = None  # Chrome-trace JSON export directory
+    slow_query_ms: Optional[float] = None   # ring-buffer capture threshold
+    slow_query_capacity: int = 64
+    deep_trace_every: int = 0        # 1-in-N staged re-runs (0 = off)
+    recall_every: int = 0            # 1-in-N shadow-exact checks (0 = off)
+    recall_alpha: float = 0.1        # EMA coefficient for the recall gauge
+    max_events: int = 16384          # Chrome-trace event ring capacity
+
+    def __post_init__(self):
+        if self.deep_trace_every < 0 or self.recall_every < 0:
+            raise ValueError("deep_trace_every/recall_every must be >= 0")
+        if not 0.0 < self.recall_alpha <= 1.0:
+            raise ValueError("recall_alpha must be in (0, 1]")
+        if self.slow_query_ms is not None and self.slow_query_ms < 0:
+            raise ValueError("slow_query_ms must be >= 0")
+
+
+class LatencyHistogram:
+    """Fixed-boundary log-spaced latency accumulator (milliseconds).
+
+    ``record`` is a bisect and two adds, cheap enough for the per-search
+    hot path; ``snapshot`` freezes to ``metrics.HistogramSnapshot``
+    (bounds, per-bucket counts with a trailing overflow bucket, sum,
+    count), which the metrics layer derives percentiles from and renders
+    as a Prometheus histogram."""
+
+    __slots__ = ("counts", "sum_ms", "count")
+
+    def __init__(self):
+        self.counts = [0] * (len(_BOUNDS_MS) + 1)
+        self.sum_ms = 0.0
+        self.count = 0
+
+    def record(self, ms: float):
+        self.counts[bisect.bisect_left(_BOUNDS_MS, ms)] += 1
+        self.sum_ms += ms
+        self.count += 1
+
+    def snapshot(self) -> HistogramSnapshot:
+        return HistogramSnapshot(bounds_ms=_BOUNDS_MS,
+                                 counts=tuple(self.counts),
+                                 sum_ms=self.sum_ms, count=self.count)
+
+
+# --- staged pipeline (deep trace) --------------------------------------------
+
+def deep_trace(engine, queries, k: int, kw: Mapping) -> Optional[dict]:
+    """Run one batch through the staged pipeline, timing each stage.
+
+    ``queries`` is the engine's already-padded bucket batch and ``kw`` the
+    knob dict ``SearchEngine.search`` dispatched with, so the
+    decomposition describes the shapes the search ran. ivfpq decomposes as
+    project/probe/scan/rerank (the scan given the probe is
+    ``ivfpq_scan_given_probe``, the search's own scan: K1's cell-major
+    entry on the cells' fills with ``backend="kernel"``); other kinds as
+    project/scan/rerank. Only read-only engines qualify (``engine.state``);
+    returns None otherwise.
+
+    Returns ``{"stages": [(name, ms), ...], "e2e_ms": float}``: the stage
+    list is ordered, non-overlapping, and sums to ``e2e_ms`` up to the
+    host's work between stages (the acceptance bound: within 10%). The
+    first run at a (shape, kind, knobs) key is an untimed warm pass, so a
+    kernel's first call at a shape is never timed.
+    """
+    state = engine.state
+    if state is None or engine.store is not None:
+        return None
+    kind = state.index.kind
+    ops = get_ops(kind)
+    approximate = state.proj is not None or ops.lossy
+    n_cand = kw["rerank"] if approximate else k
+    device = queries.device
+
+    def _run():
+        stages = []
+        t0 = time.perf_counter()
+        qr = reduce_vectors(state.proj, queries.to(torch.float32))
+        _sync(device)
+        t1 = time.perf_counter()
+        stages.append(("project", (t1 - t0) * 1e3))
+        if kind == "ivfpq":
+            ix = state.index.payload
+            probe, cand0, cd2p = probe_cells(ix.centroids, ix.lists, qr,
+                                             kw["nprobe"], n_cand)
+            _sync(device)
+            t2 = time.perf_counter()
+            stages.append(("probe", (t2 - t1) * 1e3))
+            cell_len = ((ix.lists >= 0).sum(dim=1)
+                        if kw["backend"] == "kernel" else None)
+            _, cand = ivfpq_scan_given_probe(
+                probe, cand0, cd2p, ix.codes_cell, ix.bias_cell, ix.lut_w,
+                ix.cbnorm, ix.codebooks, qr, n_cand, backend=kw["backend"],
+                lut_dtype=kw["lut_dtype"], cell_len=cell_len)
+            _sync(device)
+            t3 = time.perf_counter()
+            stages.append(("scan", (t3 - t2) * 1e3))
+        else:
+            p = ScanParams(nprobe=kw["nprobe"], backend=kw["backend"],
+                           lut_dtype=kw["lut_dtype"])
+            _, cand = ops.scan(state, qr, n_cand, p)
+            _sync(device)
+            t3 = time.perf_counter()
+            stages.append(("scan", (t3 - t1) * 1e3))
+        exact_rerank(queries, state.corpus, cand, k)
+        _sync(device)
+        t4 = time.perf_counter()
+        stages.append(("rerank", (t4 - t3) * 1e3))
+        return {"stages": stages, "e2e_ms": (t4 - t0) * 1e3}
+
+    warm_key = (tuple(queries.shape), kind, kw["nprobe"], kw["backend"],
+                kw["lut_dtype"], n_cand, k)
+    if warm_key not in engine._deep_warm:      # never time a first call
+        _run()
+        engine._deep_warm.add(warm_key)
+    return _run()
+
+
+# --- shadow-exact recall -----------------------------------------------------
+
+def shadow_recall(engine, queries, nq: int, k: int, ids) -> Optional[tuple]:
+    """Brute-force the same batch against the live rows and score the
+    served ids: returns (recall@k', k') or None when no row is live.
+    Streaming engines are checked tombstone-aware through
+    ``_gather_live`` (base survivors and live delta rows, mapped to
+    external ids); read-only engines against ``state.corpus`` (row index
+    == external id). k' = min(k, live rows). Both exact searches are
+    ``knn_search``: kernel K3 on the card, one launch a check."""
+    queries = queries[:nq]
+    if engine.store is not None:
+        vecs, ext = engine._gather_live()
+        if ext.shape[0] == 0:
+            return None
+        kk = min(k, ext.shape[0])
+        _, idx = knn_search(queries, vecs.to(torch.float32), kk)
+        truth = ext[idx]
+    elif engine.state is not None:
+        corpus = engine.state.corpus
+        kk = min(k, corpus.shape[0])
+        _, truth = knn_search(queries, corpus, kk)
+    else:
+        return None
+    return float(recall_at_k(ids[:nq, :kk], truth)), kk
+
+
+# --- the tracer --------------------------------------------------------------
+
+class Tracer:
+    """Per-engine trace state: histograms, slow-query ring, Chrome-trace
+    events, recall EMA. Attached by ``SearchEngine.tracing()``; the serve
+    path calls ``on_search`` after dispatching the search. Thread-safe
+    against concurrent ``MetricsServer`` scrapes (one lock around all
+    mutation and snapshotting)."""
+
+    def __init__(self, config: TraceConfig = TraceConfig()):
+        self.config = config
+        self._lock = threading.Lock()
+        self._e2e = LatencyHistogram()
+        self._stages: dict = {}          # stage name -> LatencyHistogram
+        self._slow: list = []            # ring buffer of slow-query dicts
+        self._events: list = []          # Chrome-trace events (capped)
+        self._origin = time.perf_counter()
+        self.queries = 0                 # search calls seen
+        self.slow_queries = 0            # total over-threshold (>= ring)
+        self.deep_traces = 0
+        self.recall_ema: Optional[float] = None
+        self.recall_last: Optional[float] = None
+        self.recall_k: Optional[int] = None
+        self.recall_samples = 0
+
+    @property
+    def active(self) -> bool:
+        """True when any instrument is on (the serve path then takes its
+        timestamp and synchronizes)."""
+        c = self.config
+        return bool(c.histograms or c.trace_dir is not None
+                    or c.slow_query_ms is not None
+                    or c.deep_trace_every or c.recall_every)
+
+    # -- recording ----------------------------------------------------------
+
+    def on_search(self, engine, queries, nq: int, k: int, kw: Mapping,
+                  t0: float, d, ids):
+        """Finish one traced search: synchronize, time, and run whichever
+        instruments sampled this call. ``queries`` is the padded bucket
+        batch; ``t0`` the host timestamp the engine took before dispatch;
+        ``d``/``ids`` the full-bucket result. The synchronization makes
+        the recorded time an end-to-end one (the caller's own
+        synchronization then finds nothing left to wait for)."""
+        c = self.config
+        _sync(ids.device)
+        t1 = time.perf_counter()
+        e2e_ms = (t1 - t0) * 1e3
+        with self._lock:
+            n = self.queries
+            self.queries += 1
+        trace = (c.deep_trace_every
+                 and n % c.deep_trace_every == 0) or None
+        if trace:
+            trace = deep_trace(engine, queries, k, kw)
+        shadow = None
+        if c.recall_every and n % c.recall_every == 0:
+            shadow = shadow_recall(engine, queries, nq, k, ids)
+        self._commit(engine, n, nq, k, kw, t0, e2e_ms, trace, shadow)
+
+    def _commit(self, engine, n, nq, k, kw, t0, e2e_ms, trace, shadow):
+        """Record search number ``n`` (its place in the ``queries``
+        count, taken when it finished: the slow-query ring's ``seq``,
+        unique under concurrent searches)."""
+        c = self.config
+        with self._lock:
+            if c.histograms:
+                self._e2e.record(e2e_ms)
+                if trace:
+                    for name, ms in trace["stages"]:
+                        h = self._stages.get(name)
+                        if h is None:
+                            h = self._stages[name] = LatencyHistogram()
+                        h.record(ms)
+            if trace:
+                self.deep_traces += 1
+            if shadow is not None:
+                r, kk = shadow
+                a = c.recall_alpha
+                self.recall_ema = (r if self.recall_ema is None
+                                   else a * r + (1.0 - a) * self.recall_ema)
+                self.recall_last, self.recall_k = r, kk
+                self.recall_samples += 1
+            slow = (c.slow_query_ms is not None
+                    and e2e_ms >= c.slow_query_ms)
+            if slow:
+                self.slow_queries += 1
+                entry = {"e2e_ms": e2e_ms, "batch": nq,
+                         "bucket": engine.last_bucket, "k": k,
+                         "spec": self._spec(engine),
+                         "nprobe": kw.get("nprobe"),
+                         "rerank": kw.get("rerank"),
+                         "lut_dtype": kw.get("lut_dtype"),
+                         "scan_cap": kw.get("scan_cap"),
+                         "prefilter": kw.get("prefilter"),
+                         "seq": n}
+                if trace:
+                    entry["stages"] = {s: ms for s, ms in trace["stages"]}
+                self._slow.append(entry)
+                if len(self._slow) > c.slow_query_capacity:
+                    del self._slow[0]
+            if c.trace_dir is not None and len(self._events) < c.max_events:
+                ts_us = (t0 - self._origin) * 1e6
+                self._events.append({
+                    "name": "search", "ph": "X", "ts": ts_us,
+                    "dur": e2e_ms * 1e3, "pid": os.getpid(), "tid": 1,
+                    "args": {"batch": nq, "k": k,
+                             "nprobe": kw.get("nprobe"),
+                             "spec": self._spec(engine)}})
+                if trace:
+                    cursor = ts_us
+                    for name, ms in trace["stages"]:
+                        self._events.append({
+                            "name": f"deep.{name}", "ph": "X",
+                            "ts": cursor, "dur": ms * 1e3,
+                            "pid": os.getpid(), "tid": 2, "args": {}})
+                        cursor += ms * 1e3
+        if shadow is not None and engine._policy is not None:
+            engine._policy.observe_recall(*shadow)
+
+    @staticmethod
+    def _spec(engine) -> str:
+        from .spec import format_spec
+        return format_spec(engine.spec)
+
+    # -- export -------------------------------------------------------------
+
+    def metrics_sections(self):
+        """(LatencyMetrics, RecallMetrics) for ``collect_metrics``: the
+        ``latency.*`` / ``recall.*`` dotted sections."""
+        with self._lock:
+            latency = LatencyMetrics(
+                search=self._e2e.snapshot(),
+                stages={s: h.snapshot()
+                        for s, h in sorted(self._stages.items())},
+                queries=self.queries,
+                slow_queries=self.slow_queries,
+                slow_query_ms=self.config.slow_query_ms,
+                deep_traces=self.deep_traces)
+            recall = RecallMetrics(
+                estimate_at_k=self.recall_ema, k=self.recall_k,
+                samples=self.recall_samples, last=self.recall_last)
+        return latency, recall
+
+    def slow_query_log(self) -> list:
+        """The current ring-buffer contents, oldest first (copies)."""
+        with self._lock:
+            return [dict(e) for e in self._slow]
+
+    def flush(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the buffered events as Chrome-trace JSON (open in
+        ``chrome://tracing`` or Perfetto). Default path is
+        ``<trace_dir>/qpad_trace_<pid>.json``; returns the path, or None
+        when event capture is off. The buffer is drained."""
+        with self._lock:
+            if path is None:
+                if self.config.trace_dir is None:
+                    return None
+                os.makedirs(self.config.trace_dir, exist_ok=True)
+                path = os.path.join(self.config.trace_dir,
+                                    f"qpad_trace_{os.getpid()}.json")
+            events, self._events = self._events, []
+        doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return path
+
+
+@contextlib.contextmanager
+def torch_profile(logdir: str):
+    """Device-side profile of the enclosed block (the JAX package's
+    ``jax_profile``): a ``torch.profiler`` trace of the CPU and, where a
+    CUDA device is present, the CUDA activities, written on exit as
+    Chrome-trace JSON to ``<logdir>/qpad_profile_<pid>.json`` (open in
+    Perfetto). Yields the profiler, whose ``key_averages()`` and
+    ``events()`` hold the kernel records."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"qpad_profile_{os.getpid()}.json"))

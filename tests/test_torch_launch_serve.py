@@ -153,7 +153,7 @@ def test_durable_flags_log_and_reload(argv, tmp_path, capsys):
     assert f"durable via {d}" in text and "recovered engine" in text
     wal = out["wal"]
     mode = argv[1]
-    assert f"wal: {wal}" in text
+    assert f"wal: {wal['records']} records / {wal['bytes']} bytes" in text
     assert wal["fsync"] == mode
     assert wal["group_commit_ms"] == (2.0 if "--group-commit-ms" in argv
                                       else 0.0)
@@ -172,3 +172,80 @@ def test_runs_on_cuda_unless_told_otherwise():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(TINY + ["--spec", "pca8>rr16"])
+
+
+# --- observability (the five flags of ROADMAP.md's former item 10) ----------
+
+OBSERVABILITY = {"metrics_port": None, "trace_dir": None,
+                 "slow_query_ms": None, "deep_trace_every": 0,
+                 "recall_every": 0}
+
+
+def test_observability_flags_match_the_jax_launcher(monkeypatch):
+    from repro.launch import serve as jserve
+    monkeypatch.setattr(sys, "argv", ["serve"])
+    jargs = vars(jserve._parse_args())
+    targs = vars(serve._parse_args([]))
+    for name, default in OBSERVABILITY.items():
+        assert targs[name] == jargs[name] == default, name
+    assert not set(OBSERVABILITY) & {f[2:].replace("-", "_")
+                                     for f in serve._UNPORTED}
+
+
+@pytest.mark.parametrize("argv,lines", [
+    (["--slow-query-ms", "0"], ["slow queries (>0.0ms): 2 captured"]),
+    (["--deep-trace-every", "1"], ["deep-trace stage p50: probe=",
+                                   "(2 samples)"]),
+    (["--recall-every", "1"], ["recall estimate: ", "(2 shadow samples)"]),
+])
+def test_tracing_flags_print_the_jax_lines(argv, lines, capsys):
+    out = serve.main(TINY + ["--spec", "ivf8x4>pq4x256:i8>rr40"] + argv,
+                     device="cpu")
+    text = capsys.readouterr().out
+    assert "tracing on (histograms, " in text
+    assert "latency: p50=" in text and "over 2 traced searches" in text
+    for line in lines:
+        assert line in text
+    flat = out["metrics"]
+    assert flat["latency.queries"] == 2
+    if "--recall-every" in argv:
+        assert flat["recall.samples"] == 2 and flat["recall.k"] == 10
+        assert 0.0 < flat["recall.estimate_at_k"] <= 1.0
+
+
+def test_trace_dir_flag_writes_a_chrome_trace(tmp_path, capsys):
+    import json
+    d = str(tmp_path / "traces")
+    serve.main(TINY + ["--spec", "pca8>rr16", "--trace-dir", d],
+               device="cpu")
+    text = capsys.readouterr().out
+    path = text.split("trace written: ")[1].split()[0]
+    assert os.path.dirname(path) == d
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert [e["name"] for e in events] == ["search", "search"]
+
+
+def test_metrics_port_serves_the_typed_metrics(tmp_path, capsys):
+    """--metrics-port 0 binds an ephemeral port, scrapes mid-traffic and at
+    the end; on a durable streaming engine the scrape holds wal.*."""
+    d = str(tmp_path / "durable")
+    out = serve.main(TINY + STREAM + ["--spec", "ivf8x4>pq4x256:i8>rr40",
+                                      "--durable", d, "--metrics-port", "0"],
+                     device="cpu")
+    text = capsys.readouterr().out
+    assert "metrics at http://127.0.0.1:" in text
+    assert "mid-traffic scrape: " in text and "sample scrape" in text
+    scrape = out["scrape"]
+    assert scrape[-1].startswith("qpad_engine_info{")
+    assert "# TYPE qpad_latency_search_seconds histogram" in scrape
+    assert f"qpad_wal_records {out['wal']['records']}" in scrape
+    assert out["metrics"]["latency.queries"] == 5
+
+
+@pytest.mark.parametrize("flag", ["--shards", "--mesh", "--donate"])
+def test_sharding_flags_still_name_item_11(flag):
+    argv = {"--shards": [flag, "2"], "--mesh": [flag, "host"],
+            "--donate": [flag]}[flag]
+    with pytest.raises(NotImplementedError, match="item 11"):
+        serve.main(TINY + argv, device="cpu")
