@@ -4,7 +4,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --k1-timings``, ``--k2-timings`` and
 ``--k4-timings`` time K1, K2 or K4 alone: see k1_alone, k2_alone and
-k4_alone.)
+k4_alone; ``--fit-spread`` makes path 9 (c)'s m-64 fits once: see
+fit_spread.)
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. device   CUDA must be present; prints the card's name and power limit.
@@ -271,10 +272,45 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               alternating rounds of 10 searches (host clock,
               synchronized); reported, not gated.
 
+  30. path 9  sharded serving on the one card, run after path 8 (before
+              path 3 frees the search tensors). (a) a world of 1 over
+              NCCL in this process: path 1's ivfpq engine, path 2's pq
+              engine and a flat pca64>rr64 engine sharded
+              (SearchEngine.shard), ids equal to the unsharded engine's
+              at batches 1, 8, 64 and 256, distances within 1e-5; p50s
+              sharded and unsharded; launches on the sharded route, K1's
+              cell-major entry alone (ivfpq), K2 through
+              pq_adc_topk_global (pq), K3 (flat): launches_path9 in the
+              kernels line. Then K2's global entry over 3 row blocks of
+              path 2's 1,000,000 codes (2 pad rows, slack 2, k 64, int8,
+              batch 256) against pq_adc_topk_global_plain: d2 and ids
+              bit-equal, the blocks merged in rank order equal to the
+              unsharded K2's ids. (b) worlds of 3 and 2 gloo ranks on
+              cuda:0 (launch.mesh.run_ranks; 1,000,000 % 3 and 1024 % 3
+              leave pad rows and pad cells live): each rank restores
+              path 1's snapshot onto the mesh (load_engine(dir,
+              mesh=...)), and world 3 path 2's pq snapshot too (K2's
+              global entry with pad rows live); rank 0's ids equal the
+              unsharded engine's at every batch, every rank's the same;
+              then a streaming engine restored, sharded, through 8
+              batches of path 6's write mix, ids after each equal to an
+              unsharded streaming engine's that took the same writes;
+              world 3's p50s (host-staged collectives on one card, not a
+              deployment's). (c) fit_mpad_sharded on path 1's 2048-row
+              fit sample at world 1 (NCCL) and 2 (gloo, in the world-2
+              ranks) against fit_mpad on the fast backend at JAX's
+              test's m 3 / iters 16: matrix max |d| < 0.05; at path 2's
+              m 64, make_phi_dist's first three steps at world 1 and 2
+              against phi_fast_value_and_grad on the whole sample (value
+              rtol 1e-5, gradient rtol 1e-3 / atol 1e-5). The m-64 fits
+              and their spread under a reordering of the rows are
+              --fit-spread's, below. A failing rank fails the run.
+
 Before those, one line {"result": {...}} holds every measurement of the
 run (``result.path4`` for the training path, ``result.path5`` for the
 evaluation path, ``result.path6``, ``result.ivf``,
-``result.prefilter``, ``result.path7`` and ``result.path8``). The line before the last is {"kernels": [...]}
+``result.prefilter``, ``result.path7``, ``result.path8`` and
+``result.path9``). The line before the last is {"kernels": [...]}
 (K1, K2, K4, K5, K6, K3); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -340,6 +376,15 @@ PERSIST_THREADS, PERSIST_RECORDS, PERSIST_GROUP_MS = 4, 64, 2.0
 # the ivf kind on path 1's corpus; the pre-filter on a cut of it (no
 # Reduce stage: the scan space must be the re-rank space)
 SPEC_IVF = "qpad64>ivf1024x16>rr64"
+# path 9 (sharded serving): gloo worlds on the one card, write batches of
+# path 6's mix checked after each, timing repeats
+SHARD_GLOO_WORLDS = (2, 3)
+SHARD_WRITE_BATCHES = 8
+SHARD_REPS = 10
+# (c)'s fit: JAX's own test's configuration (m 3, iters 16:
+# tests/test_distributed.py), where its 0.05 is well-posed
+SHARD_FIT_JAX_TEST = dict(m=3, b=80.0, alpha=25.0, iters=16, seed=0)
+SPREAD_PERMS = 4        # --fit-spread: permutations of the fit sample
 SPEC_PREFILTER, PREFILTER_ROWS = "ivf1024x16>pq16x256:i8@kernel>rr64", 200_000
 # the pre-filter's narrow branch: an f32 LUT (no LUT bound) over finer
 # codes (4-dim subspaces, a smaller reconstruction error) with a wider
@@ -1434,6 +1479,27 @@ def edge_cases_k1_cells(torch, ops, ref):
             torch, ops, ref, f"K1 cells {lut} lists with holes, cand",
             put(t), put(probe), put(cd2p), put(codes_cell), put(bias_cell),
             put(cand), 50, lut, None))
+    # probed ids outside [0, nlist): -1 for a cell another rank owns (the
+    # shard-local ivfpq scan) and ids past the block; no slot is read
+    sizes = rng.integers(0, 200, 40)
+    lists, codes_cell, bias_cell, fill = cell_index(rng, 40, sizes, 16, 256)
+    probe, cd2p, cand = cell_probe(rng, 7, sizes, 6, lists,
+                                   6 * lists.shape[1])
+    probe[:, 1] = -1
+    probe[::2, 4] = 40 + 3
+    live = (rng.uniform(size=bias_cell.shape) >= 0.3).astype(np.uint8)
+    t = (rng.uniform(size=(7, 16, 256)) * 5).astype(np.float32)
+    args = (put(t), put(probe), put(cd2p), put(codes_cell), put(bias_cell),
+            put(cand))
+    for lut in LUTS:
+        tag = f"K1 cells {lut} probes outside [0, nlist)"
+        err = max(err, compare_k1_cells(torch, ops, ref, tag + " cand",
+                                        *args, 40, lut, None))
+        err = max(err, compare_k1_cells(torch, ops, ref, tag + " fills",
+                                        *args, 40, lut, None, put(fill)))
+        err = max(err, compare_k1_cells(
+            torch, ops, ref, tag + " fills + live", *args, 40, lut, None,
+            put(fill), put(live)))
     return err
 
 
@@ -3803,6 +3869,466 @@ def observe_path(torch, mods, eng, xd, qd):
     return out, k1_path8, k3_path8
 
 
+def shard_writes(torch, xd, seed):
+    """``SHARD_WRITE_BATCHES`` batches of path 6's write mix as host
+    arrays: ``STREAM_NEW`` new ids and ``STREAM_OVERWRITE`` base
+    overwrites a batch (rows near existing ones), and from the second
+    batch on ``STREAM_DELETE`` of the previous batch's new ids deleted."""
+    rng = np.random.default_rng(seed)
+    overwrite = rng.choice(N, SHARD_WRITE_BATCHES * STREAM_OVERWRITE,
+                           replace=False)
+    out, prev = [], None
+    for bi in range(SHARD_WRITE_BATCHES):
+        new = np.arange(N + bi * STREAM_NEW, N + (bi + 1) * STREAM_NEW)
+        ow = overwrite[bi * STREAM_OVERWRITE:(bi + 1) * STREAM_OVERWRITE]
+        src = np.concatenate([rng.integers(0, N, STREAM_NEW), ow])
+        vecs = (xd[torch.from_numpy(src).to(xd.device)].cpu().numpy()
+                + STREAM_NOISE * rng.standard_normal(
+                    (src.shape[0], DIM)).astype(np.float32))
+        gone = (None if prev is None
+                else rng.permutation(prev)[:STREAM_DELETE])
+        out.append((np.concatenate([new, ow]), vecs.astype(np.float32),
+                    gone))
+        prev = new
+    return out
+
+
+def apply_writes(eng, batch):
+    ids, vecs, gone = batch
+    eng.upsert(ids, vecs)
+    if gone is not None:
+        eng.delete(gone)
+
+
+def events_ms(torch, fn, reps=SHARD_REPS):
+    """p50 of ``reps`` calls timed by CUDA events (2 warm-up calls)."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def phi_steps(torch, phi_vg, xs, w0):
+    """Three steps of the greedy fit's objective on ``xs`` (a rank's rows
+    for the distributed one): w0[j] against the penalty of w0[:j]
+    (normalized), at path 2's b and alpha. Returns [(value, grad)] on the
+    host."""
+    m, dim = w0.shape
+    prev = torch.zeros((m, dim), device=xs.device)
+    mask = torch.zeros(m, device=xs.device)
+    out = []
+    for j in range(3):
+        w = w0[j]
+        v, g = phi_vg(w, xs, prev, mask, b=FIT["b"], alpha=FIT["alpha"])
+        out.append((float(v), g.cpu().numpy()))
+        prev[j] = w / w.norm()
+        mask[j] = 1.0
+    return out
+
+
+def shard_rank(mesh, snap_dir, pq_dir, queries, writes, fit_in, timed):
+    """One gloo rank of path 9 (b) / (c) on the one card: path 1's
+    snapshot restored onto the mesh and searched at every batch (with
+    ``pq_dir``, path 2's pq snapshot too: K2's global entry with pad rows
+    live); a streaming engine restored, sharded and searched after each
+    write batch; with ``timed`` the p50s, with ``fit_in`` the sharded MPAD
+    fit at JAX's test's configuration and ``make_phi_dist``'s first steps
+    at path 2's m 64. Returns host data (rank 0's is what the parent
+    checks), with whether every rank returned the same ids."""
+    import torch
+    from repro_torch.core import MPADConfig
+    from repro_torch.core.distributed import fit_mpad_sharded, make_phi_dist
+    from repro_torch.kernels.pq_adc import ops
+    from repro_torch.parallel import all_gather
+    from repro_torch.search import StreamConfig, load_engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qd = torch.from_numpy(queries).to(mesh.device)
+    out = {"rank_device": str(mesh.device), "same_on_every_rank": True}
+
+    def same(i):
+        every = all_gather(mesh, i[None], dim=0)
+        out["same_on_every_rank"] &= bool((every == i).all())
+
+    t0 = time.perf_counter()
+    eng = load_engine(snap_dir, mesh=mesh)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["rows_on_rank"] = int(eng.sharded_state.corpus.shape[0])
+    ops.pq_adc_cells_topk.launches = 0
+    out["ids"] = {}
+    for b in BATCHES:
+        _, i = eng.search(qd[:b], K)
+        same(i)
+        out["ids"][b] = i.cpu().numpy()
+    out["k1_cells_launches"] = ops.pq_adc_cells_topk.launches
+    if timed:
+        out["p50_ms"] = {b: events_ms(torch,
+                                      lambda b=b: eng.search(qd[:b], K))
+                         for b in (1, 256)}
+    del eng
+    torch.cuda.empty_cache()
+    if pq_dir is not None:
+        eng = load_engine(pq_dir, mesh=mesh)
+        ops.pq_adc_topk_global.launches = 0
+        out["pq_ids"] = {}
+        for b in BATCHES:
+            _, i = eng.search(qd[:b], K)
+            same(i)
+            out["pq_ids"][b] = i.cpu().numpy()
+        out["k2_global_launches"] = ops.pq_adc_topk_global.launches
+        del eng
+        torch.cuda.empty_cache()
+    s_eng = load_engine(snap_dir, device=mesh.device).streaming(
+        StreamConfig(delta_capacity=STREAM_DELTA))
+    s_eng.shard(mesh)
+    out["stream_ids"] = []
+    for batch in writes:
+        apply_writes(s_eng, batch)
+        _, i = s_eng.search(qd, K)
+        same(i)
+        out["stream_ids"].append(i.cpu().numpy())
+    if timed:
+        out["stream_p50_ms"] = events_ms(torch, lambda: s_eng.search(qd, K))
+    del s_eng
+    torch.cuda.empty_cache()
+    if fit_in is not None:
+        sample, w0 = fit_in
+        cfg = SHARD_FIT_JAX_TEST
+        t0 = time.perf_counter()
+        res = fit_mpad_sharded(torch.from_numpy(sample), MPADConfig(**cfg),
+                               mesh, w0=torch.from_numpy(w0[:cfg["m"]]))
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["fit"] = (res.matrix.cpu().numpy(),
+                      res.objective_trace[:, -1].cpu().numpy())
+        x = torch.from_numpy(sample).to(mesh.device)
+        per = x.shape[0] // mesh.size
+        xs_loc = (x - x.mean(dim=0))[mesh.rank * per:(mesh.rank + 1) * per]
+        out["phi_steps"] = phi_steps(
+            torch, make_phi_dist(mesh, x.shape[0]), xs_loc,
+            torch.from_numpy(w0).to(mesh.device))
+    return out
+
+
+def k2_global_blocks(torch, ops, tables, codes, shards, slack):
+    """K2's global entry at the main path's shapes: path 2's (N, M) codes
+    padded to a multiple of ``shards`` (zero codes, as the layout pads)
+    and cut into the ranks' row blocks, each scanned at ``RERANK`` with
+    its real ``row_offset``, ``n_valid`` N and ``slack``, against
+    ``pq_adc_topk_global_plain`` on the same inputs: d2 and ids
+    bit-equal (the kernel is bit-equal to its plain version, and both
+    take the same global-id steps), every id a real row of its block.
+    The blocks merged in rank order (a stable sort: ties to the lower
+    rank, then the lower row) must give the unsharded K2's ids. Returns
+    (max |err|, pad rows in the last block)."""
+    n = codes.shape[0]
+    pad = (-n) % shards
+    padded = torch.cat([codes, codes.new_zeros((pad, codes.shape[1]))])
+    per = padded.shape[0] // shards
+    err, parts = 0.0, []
+    for r in range(shards):
+        block = padded[r * per:(r + 1) * per]
+        dk, ik = ops.pq_adc_topk_global(tables, block, RERANK,
+                                        row_offset=r * per, n_valid=n,
+                                        slack=slack, lut_dtype="int8")
+        torch.cuda.synchronize()
+        dp, ip = ops.pq_adc_topk_global_plain(tables, block, RERANK,
+                                              r * per, n, slack, "int8")
+        fin = torch.isfinite(dp)
+        check(torch.equal(torch.isfinite(dk), fin),
+              f"K2 global block {r}: finite mask")
+        e = float((dk[fin] - dp[fin]).abs().max()) if fin.any() else 0.0
+        err = max(err, e)
+        check(torch.equal(dk, dp),
+              f"K2 global block {r}: d2 not bit-equal (max err {e})")
+        check(torch.equal(ik, ip), f"K2 global block {r}: ids differ")
+        check(bool(((ik >= r * per) & (ik < min(n, (r + 1) * per))).all()),
+              f"K2 global block {r}: an id outside the block's real rows")
+        parts.append((dk, ik))
+    d = torch.cat([p[0] for p in parts], dim=1)
+    i = torch.cat([p[1] for p in parts], dim=1)
+    order = torch.sort(d, dim=1, stable=True).indices[:, :RERANK]
+    _, want = ops.pq_adc_topk(tables, codes, RERANK, "int8")
+    check(torch.equal(torch.gather(i, 1, order), want),
+          "K2 global: the blocks merged in rank order differ from the "
+          "unsharded K2's ids")
+    return err, pad
+
+
+def shard_path(torch, mods, eng, eng_pq, k2_in, xd, qd, counters, smi):
+    """Path 9: sharded serving on the one card (module docstring, phase
+    30). (a) a world of 1 over NCCL in this process: path 1's ivfpq
+    engine (K1), path 2's pq engine (K2's global entry) and a flat
+    ``pca64>rr64`` engine (K3 over the rank's rows) sharded, ids equal to
+    the unsharded engine's at every batch, distances within 1e-5, p50s at
+    1 and 256, each kernel's launches on the sharded route; then K2's
+    global entry over 3 row blocks of path 2's codes against its plain
+    version (``k2_global_blocks``). (b) worlds of 2 and 3 gloo ranks on
+    ``cuda:0`` (pad rows and pad cells live): path 1's snapshot restored
+    onto the mesh, rank 0's ids equal the unsharded engine's at every
+    batch (world 3 restores path 2's pq snapshot too), then a streaming
+    sharded engine through 8 write batches, ids equal the unsharded
+    streaming engine's after each. (c) ``fit_mpad_sharded`` at world 1
+    (NCCL) and 2 (gloo) on path 1's fit sample against ``fit_mpad``
+    (fast) at JAX's test's configuration (m 3, iters 16), matrix within
+    0.05; and at path 2's m 64, ``make_phi_dist``'s first three steps at
+    world 1 and 2 against ``phi_fast_value_and_grad`` on the whole
+    sample (value rtol 1e-5, gradient rtol 1e-3 / atol 1e-5). The m-64
+    fits themselves are ``--fit-spread``'s. The world-3 ranks run alone
+    on the card and are timed; the world-2 ranks run beside this
+    process's fits, untimed."""
+    (ops, knn_topk, SearchEngine, build_engine, StreamConfig, MPADConfig,
+     fit_mpad, fit_mpad_sharded, make_serving_mesh, run_ranks,
+     cpu_generator, fast_objective, make_phi_dist) = mods
+    import torch.distributed as dist
+    dev = xd.device
+    t_path = time.perf_counter()
+    out = {"card": smi, "gloo_worlds": list(SHARD_GLOO_WORLDS)}
+    root = os.path.join(HERE, "chiprun_out", "path9_snapshot")
+    root_pq = os.path.join(HERE, "chiprun_out", "path9_snapshot_pq")
+    for d in (root, root_pq):
+        if os.path.isdir(d):
+            shutil.rmtree(d)
+    box = {}
+    try:
+        t0 = time.perf_counter()
+        eng.save(root)
+        out["snapshot_s"] = time.perf_counter() - t0
+        eng_pq.save(root_pq)
+        queries = qd.cpu().numpy()
+        writes = shard_writes(torch, xd, SEED + 9)
+        gen = cpu_generator(SEED)
+        rows = torch.randperm(N, generator=gen)[:FIT_SAMPLE].to(dev)
+        sample = xd[rows].cpu().numpy()
+        w0 = np.random.default_rng(SEED + 9).standard_normal(
+            (FIT["m"], DIM)).astype(np.float32)
+
+        # the unsharded streaming engine the gloo ranks must equal
+        s_eng = SearchEngine.from_state(eng.state, dataclasses.replace(
+            eng.config, stream=StreamConfig(delta_capacity=STREAM_DELTA)))
+        want_stream = []
+        for batch in writes:
+            apply_writes(s_eng, batch)
+            want_stream.append(s_eng.search(qd, K)[1].cpu().numpy())
+        del s_eng
+        torch.cuda.empty_cache()
+
+        # (a) a world of 1 over NCCL
+        mesh = make_serving_mesh(1, backend="nccl")
+        flat = build_engine(xd, SPEC_FLAT, device=dev, seed=SEED)
+        a = {}
+        unsharded_ids = {}
+        for name, e in (("ivfpq", eng), ("pq", eng_pq), ("flat", flat)):
+            lat0, found0 = search_timed(torch, e, qd, BATCHES)
+            d0 = {b: e.search(qd[:b], K)[0] for b in BATCHES}
+            se = SearchEngine.from_state(e.state, e.config).shard(mesh)
+            for fn in counters:
+                fn.launches = 0
+            ops.pq_adc_topk_global.launches = 0
+            lat1, found1 = search_timed(torch, se, qd, BATCHES)
+            torch.cuda.synchronize()
+            launches = {"k1_cells": ops.pq_adc_cells_topk.launches,
+                        "k1_gathered": ops.pq_adc_gather_topk.launches,
+                        "k2": ops.pq_adc_topk.launches,
+                        "k2_global": ops.pq_adc_topk_global.launches,
+                        "k3": knn_topk.knn_topk_d2.launches}
+            for b in BATCHES:
+                check(torch.equal(found1[b], found0[b]),
+                      f"path 9 (a) {name}: sharded ids differ at batch {b}")
+                d1 = se.search(qd[:b], K)[0]
+                err = float((d1 - d0[b]).abs().max())
+                check(err <= 1e-5, f"path 9 (a) {name}: distances differ "
+                      f"by {err} at batch {b}")
+            unsharded_ids[name] = {b: found0[b].cpu().numpy()
+                                   for b in BATCHES}
+            a[name] = {"p50_ms": {b: lat0[b]["p50_ms"] for b in BATCHES},
+                       "sharded_p50_ms": {b: lat1[b]["p50_ms"]
+                                          for b in BATCHES},
+                       "launches": launches}
+            log(f"[path 9] (a) {name} world 1 NCCL: ids equal at batches "
+                f"{BATCHES}; p50 batch 1 {lat0[1]['p50_ms']:.3f} ms "
+                f"unsharded / {lat1[1]['p50_ms']:.3f} ms sharded, batch 256 "
+                f"{lat0[256]['p50_ms']:.3f} / {lat1[256]['p50_ms']:.3f} ms; "
+                f"launches on the sharded route {launches} ({smi})")
+            del se
+        check(a["ivfpq"]["launches"]["k1_cells"] > 0
+              and a["ivfpq"]["launches"]["k1_gathered"] == 0,
+              "path 9 (a): the sharded ivfpq route did not run K1's "
+              "cell-major entry alone")
+        check(a["pq"]["launches"]["k2_global"] > 0
+              and a["pq"]["launches"]["k2"] == a["pq"]["launches"][
+                  "k2_global"],
+              "path 9 (a): the sharded pq route did not run K2's global "
+              "entry")
+        check(a["flat"]["launches"]["k3"] > 0,
+              "path 9 (a): the sharded flat route did not run K3")
+        out["a"] = a
+        # K2's global entry held against its plain version at path 2's
+        # shapes, pad rows live (these launches are not the path's)
+        t0 = time.perf_counter()
+        k2g_err, k2g_pad = k2_global_blocks(torch, ops, *k2_in,
+                                            shards=3, slack=2)
+        out["k2_global_check"] = {
+            "shards": 3, "slack": 2, "pad_rows": k2g_pad, "k": RERANK,
+            "queries": int(k2_in[0].shape[0]), "max_abs_err": k2g_err,
+            "s": time.perf_counter() - t0}
+        log(f"[path 9] K2 global entry over 3 blocks of path 2's {N} codes "
+            f"({k2g_pad} pad rows, slack 2, k {RERANK}, int8): bit-equal to "
+            f"its plain version, merged ids equal the unsharded K2's")
+        del flat
+        torch.cuda.empty_cache()
+
+        # (b) a world of 3 gloo ranks, timed, alone on the card
+        box[3] = run_ranks(shard_rank, 3,
+                           (root, root_pq, queries, writes, None, True),
+                           backend="gloo", device="cuda:0", timeout=900)
+
+        # (b) a world of 2, and its sharded fit (c), while this process
+        # runs the world-1 fit and the reference fit (untimed searches)
+        def world2():
+            try:
+                box[2] = run_ranks(shard_rank, 2,
+                                   (root, None, queries, writes,
+                                    (sample, w0), False),
+                                   backend="gloo", device="cuda:0",
+                                   timeout=900)
+            except BaseException as exc:        # re-raised below
+                box["error"] = exc
+
+        worker = threading.Thread(target=world2, name="path9-world2")
+        worker.start()
+        fits, fit_s = {}, {}
+
+        def timed_fit(name, fn):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            fit_s[name] = time.perf_counter() - t0
+            fits[name] = (res.matrix.cpu().numpy(),
+                          res.objective_trace[:, -1].cpu().numpy())
+
+        try:
+            cfg = SHARD_FIT_JAX_TEST
+            w0c = torch.from_numpy(w0[:cfg["m"]])
+            timed_fit("fit_mpad", lambda: fit_mpad(
+                torch.from_numpy(sample), MPADConfig(**cfg), w0=w0c,
+                device=dev))
+            timed_fit("world1", lambda: fit_mpad_sharded(
+                torch.from_numpy(sample), MPADConfig(**cfg), mesh, w0=w0c))
+            x = torch.from_numpy(sample).to(dev)
+            xs = x - x.mean(dim=0)
+            w0d = torch.from_numpy(w0).to(dev)
+            steps = {"single": phi_steps(
+                torch, fast_objective.phi_fast_value_and_grad, xs, w0d),
+                "world1": phi_steps(torch, make_phi_dist(mesh, FIT_SAMPLE),
+                                    xs, w0d)}
+        finally:
+            worker.join()
+        if "error" in box:
+            raise box["error"]
+        dist.destroy_process_group()
+        b_out = {}
+        for world in SHARD_GLOO_WORLDS:
+            r = box[world]
+            check(r["same_on_every_rank"],
+                  f"path 9 (b) world {world}: the ranks' ids differ")
+            for b in BATCHES:
+                check(np.array_equal(r["ids"][b], unsharded_ids["ivfpq"][b]),
+                      f"path 9 (b) world {world}: ids differ from the "
+                      f"unsharded engine's at batch {b}")
+            for bi, (got, want) in enumerate(zip(r["stream_ids"],
+                                                 want_stream)):
+                check(np.array_equal(got, want),
+                      f"path 9 (b) world {world}: streaming ids differ "
+                      f"after write batch {bi + 1}")
+            check(r["k1_cells_launches"] > 0,
+                  f"path 9 (b) world {world}: K1 never launched on rank 0")
+            if "pq_ids" in r:
+                for b in BATCHES:
+                    check(np.array_equal(r["pq_ids"][b],
+                                         unsharded_ids["pq"][b]),
+                          f"path 9 (b) world {world}: pq ids differ from "
+                          f"the unsharded engine's at batch {b}")
+                check(r["k2_global_launches"] > 0,
+                      f"path 9 (b) world {world}: K2's global entry never "
+                      "launched on rank 0")
+            b_out[world] = {k: r[k] for k in (
+                "restore_s", "rows_on_rank", "p50_ms", "stream_p50_ms",
+                "k1_cells_launches", "k2_global_launches") if k in r}
+            timing = ("untimed: it ran beside this process's fits"
+                      if "p50_ms" not in r else
+                      f"rank 0 p50 batch 1 {r['p50_ms'][1]:.3f} ms, batch "
+                      f"256 {r['p50_ms'][256]:.3f} ms, streaming 256 "
+                      f"{r['stream_p50_ms']:.3f} ms")
+            log(f"[path 9] (b) world {world} gloo on one card "
+                f"(host-staged collectives, not a deployment's numbers): "
+                f"ids equal at batches {BATCHES}"
+                f"{' (ivfpq and pq)' if 'pq_ids' in r else ''} and after "
+                f"each of "
+                f"{len(writes)} write batches; {timing} ({smi})")
+        out["b"] = b_out
+        fits["world2"] = box[2]["fit"]
+        fit_s["world2"] = box[2]["fit_s"]
+        steps["world2"] = box[2]["phi_steps"]
+        ref_m, ref_phi = fits["fit_mpad"]
+        c = {"rows": FIT_SAMPLE, "config": SHARD_FIT_JAX_TEST, "s": fit_s,
+             "card": smi, "fits": {}, "phi_steps_m64": {}}
+        for name in ("world1", "world2"):
+            got_m, got_phi = fits[name]
+            err = float(np.abs(got_m - ref_m).max())
+            c["fits"][name] = {
+                "matrix_max_abs_diff": err,
+                "phi_final_max_rel_diff": float(np.max(
+                    np.abs(got_phi - ref_phi) / np.abs(ref_phi)))}
+            check(err < 0.05, f"path 9 (c): the {name} fit is {err} from "
+                  "fit_mpad")
+        # make_phi_dist at path 2's m 64: the ranks' partial sums in
+        # another order move a step's value and gradient by rounding only
+        for name in ("world1", "world2"):
+            rel, gerr = 0.0, 0.0
+            for (vs, gs), (vd, gd) in zip(steps["single"], steps[name]):
+                rel = max(rel, abs(vd - vs) / abs(vs))
+                gerr = max(gerr, float(np.abs(gd - gs).max()))
+                check(abs(vd - vs) <= 1e-5 * abs(vs),
+                      f"path 9 (c): {name} phi value {vd} vs {vs}")
+                check(np.allclose(gd, gs, rtol=1e-3, atol=1e-5),
+                      f"path 9 (c): {name} phi gradient differs (max "
+                      f"{float(np.abs(gd - gs).max())})")
+            c["phi_steps_m64"][name] = {"value_max_rel_diff": rel,
+                                        "grad_max_abs_diff": gerr}
+        out["c"] = c
+        log(f"[path 9] (c) fit_mpad_sharded against fit_mpad (fast), "
+            f"{FIT_SAMPLE} rows, m {SHARD_FIT_JAX_TEST['m']} iters "
+            f"{SHARD_FIT_JAX_TEST['iters']}: "
+            + "; ".join(f"{k} max |d| {v['matrix_max_abs_diff']:.2e}"
+                        for k, v in c["fits"].items())
+            + "; make_phi_dist at m 64, 3 steps against the single-rank "
+            "objective: "
+            + "; ".join(f"{k} value rel {v['value_max_rel_diff']:.2e}, grad "
+                        f"max |d| {v['grad_max_abs_diff']:.2e}"
+                        for k, v in c["phi_steps_m64"].items())
+            + f"; seconds {json.dumps({k: round(v, 2) for k, v in fit_s.items()})}"
+            f" ({smi})")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(root_pq, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_path
+    launches = {"k1_cells": out["a"]["ivfpq"]["launches"]["k1_cells"],
+                "k2_global": out["a"]["pq"]["launches"]["k2_global"],
+                "k3": out["a"]["flat"]["launches"]["k3"]}
+    log(f"[path 9] done in {out['wall_s']:.1f} s")
+    return out, launches
+
+
 def ivf_phase(torch, mods, xd, qd, truth, counters):
     """The ivf kind on path 1's corpus: build_engine(SPEC_IVF), searches at
     every batch (p50, QPS), recall@10 against exact search. The scan is a
@@ -3934,6 +4460,9 @@ def main():
         from repro_torch.configs import mpad_paper as paper
         from repro_torch.core import baselines, fit_mpad, objective
         from repro_torch.core import mpad as mpad_mod
+        from repro_torch.core.distributed import (fit_mpad_sharded,
+                                                  make_phi_dist)
+        from repro_torch.launch.mesh import make_serving_mesh, run_ranks
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -4363,6 +4892,16 @@ def main():
                 recall_at_k, tracing, MetricsServer, render_prometheus),
         eng, xd, qd)
 
+    # 30. path 9: sharded serving on the one card, before path 3 frees the
+    # search tensors
+    torch.cuda.empty_cache()
+    result["path9"], launches9 = shard_path(
+        torch, (ops, knn_topk, SearchEngine, build_engine, StreamConfig,
+                MPADConfig, fit_mpad, fit_mpad_sharded, make_serving_mesh,
+                run_ranks, cpu_generator, fast_objective, make_phi_dist),
+        eng, eng_pq, (tc, pix.codes), xd, qd, counters, smi)
+    k2_err = max(k2_err, result["path9"]["k2_global_check"]["max_abs_err"])
+
     # 11-14. path 3: the LM serving path on K5
     lm, k5_launches, k5_main_err, k5 = lm_path(
         torch, tf, fa, lm_param_count, rms_norm, TINYLLAMA, counters)
@@ -4419,7 +4958,7 @@ def main():
         "replaces": "src/repro/kernels/pq_adc/kernel.py:212",
         "launches": launches, "max_abs_err": max_err,
         "launches_path6": k1_path6, "launches_path7": k1_path7,
-        "launches_path8": k1_path8,
+        "launches_path8": k1_path8, "launches_path9": launches9["k1_cells"],
         "entries": [k1_cells, k1_gathered, k1_live],
         "note": "two entries of one kernel: the cell-major entry (the "
                 "padded scan at batch 256; its times are the kernel's "
@@ -4434,17 +4973,21 @@ def main():
                 "launches_path8: the cell-major entry in path 8 (the "
                 "traced and untraced searches, the deep traces' scan "
                 "stage, the streaming search, the profiled and timed "
-                "searches)"}), {
+                "searches); launches_path9: the cell-major entry on path "
+                "9's sharded route (world 1, NCCL), probes of cells owned "
+                "elsewhere passed as -1"}), {
         "name": "pq_adc_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/pq_adc/csrc/pq_adc_topk.cu",
         "replaces": "src/repro/kernels/pq_adc/kernel.py:120",
         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-        "library_ms": None,
+        "library_ms": None, "launches_path9": launches9["k2_global"],
         "note": "ms: one call at Q 256 int8 on path 2's tables; "
                 "result.k2_timing.runs has int8 at batches 1/8/64/256 and "
                 "f32/bf16 at 256, each with its kernels' device time and "
-                "the plan (queries a block, occupancy, waves)"}, {
+                "the plan (queries a block, occupancy, waves); "
+                "launches_path9: through pq_adc_topk_global on path 9's "
+                "sharded pq route (world 1, NCCL)"}, {
         "name": "pairwise_stats", "route": "cuda", "source": k4_src,
         "replaces": "src/repro/kernels/mpad_pairwise/kernel.py:64",
         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
@@ -4486,13 +5029,15 @@ def main():
         "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
         "replaces": "src/repro/kernels/knn_topk/kernel.py:72",
         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3["ms"],
-        "launches_path8": k3_path8,
+        "launches_path8": k3_path8, "launches_path9": launches9["k3"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
         "note": "times at the flat engine's scan (Q 256, N 1M, D 64, k 64; "
                 "result.path5.k3_timings has the truth, reduced and "
                 "transform shapes); launches: path 5's 35 amk_accuracy "
                 "calls; launches_path8: path 8's shadow recall checks; "
+                "launches_path9: the flat engine's shard-local scans on "
+                "path 9 (world 1, NCCL); "
                 "library_ms: the two-call yardstick topk(cdist(q, "
                 "x), k, largest=False), which the port never calls"}]
     result["trace_losses"] = TRACE_LOSSES
@@ -4508,8 +5053,94 @@ def main():
     return 0
 
 
+def spread_rank(mesh, sample, w0):
+    """One gloo rank of ``--fit-spread``: the sharded fit at path 2's m 64
+    / iters 48."""
+    import torch
+    from repro_torch.core import MPADConfig
+    from repro_torch.core.distributed import fit_mpad_sharded
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    res = fit_mpad_sharded(torch.from_numpy(sample), MPADConfig(**FIT), mesh,
+                           w0=torch.from_numpy(w0))
+    torch.cuda.synchronize()
+    return res.matrix.cpu().numpy(), time.perf_counter() - t0
+
+
+def fit_spread():
+    """``python3 chip_smoke.py --fit-spread``: path 9 (c)'s m-64 fits, made
+    once, on path 1's 2048-row fit sample with path 9's start directions
+    (path 2's m 64 / iters 48, the fast objective): ``fit_mpad`` on the
+    rows in their order, on ``SPREAD_PERMS`` permutations of them, and
+    ``fit_mpad_sharded`` at world 2 (gloo ranks on cuda:0, beside the
+    other fits). Each matrix's max |d| from the first: the world-2 fit's
+    distance read against the spread of the permuted-row fits (the same
+    sums in another order, as two ranks' partial sums are; the greedy
+    Adam fit amplifies such a change). Prints the card's line and one
+    JSON line {"fit_spread": {...}}; exits nonzero without a card."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch._device import cpu_generator
+    from repro_torch.core import MPADConfig, fit_mpad
+    from repro_torch.launch.mesh import run_ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = card_line()
+    dev = torch.device("cuda")
+    xd = torch.from_numpy(clustered_corpus(N, DIM, SEED)).to(dev)
+    rows = torch.randperm(N, generator=cpu_generator(SEED))[:FIT_SAMPLE]
+    sample = xd[rows.to(dev)].cpu().numpy()
+    del xd
+    w0 = np.random.default_rng(SEED + 9).standard_normal(
+        (FIT["m"], DIM)).astype(np.float32)
+    box = {}
+
+    def world2():
+        try:
+            box["world2"] = run_ranks(spread_rank, 2, (sample, w0),
+                                      backend="gloo", device="cuda:0",
+                                      timeout=900)
+        except BaseException as exc:        # re-raised below
+            box["error"] = exc
+
+    worker = threading.Thread(target=world2, name="spread-world2")
+    worker.start()
+    mats, secs = {}, {}
+    try:
+        orders = [("rows in order", np.arange(FIT_SAMPLE))] + [
+            (f"rows permuted, seed {SEED + 90 + i}",
+             np.random.default_rng(SEED + 90 + i).permutation(FIT_SAMPLE))
+            for i in range(SPREAD_PERMS)]
+        for name, perm in orders:
+            t0 = time.perf_counter()
+            res = fit_mpad(torch.from_numpy(sample[perm]), MPADConfig(**FIT),
+                           w0=torch.from_numpy(w0), device=dev)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            mats[name] = res.matrix.cpu().numpy()
+    finally:
+        worker.join()
+    if "error" in box:
+        raise box["error"]
+    mats["world 2"], secs["world 2"] = box["world2"]
+    ref = mats["rows in order"]
+    dist = {k: float(np.abs(v - ref).max()) for k, v in mats.items()
+            if k != "rows in order"}
+    perm_d = [v for k, v in dist.items() if k.startswith("rows permuted")]
+    r = {"rows": FIT_SAMPLE, "config": FIT, "matrix_max_abs_diff": dist,
+         "permuted_min": min(perm_d), "permuted_max": max(perm_d),
+         "s": secs, "card": smi}
+    log(f"[fit spread] m {FIT['m']} iters {FIT['iters']} on {FIT_SAMPLE} "
+        f"rows, max |d| from fit_mpad on the rows in order: "
+        + "; ".join(f"{k} {v:.4f}" for k, v in dist.items()) + f" ({smi})")
+    print(json.dumps({"fit_spread": r}))
+    return 0
+
+
 ALONE = {"--k1-timings": k1_alone, "--k2-timings": k2_alone,
-         "--k4-timings": k4_alone}
+         "--k4-timings": k4_alone, "--fit-spread": fit_spread}
 
 if __name__ == "__main__":
     ARGS = sys.argv[1:]

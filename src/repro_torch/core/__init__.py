@@ -1,5 +1,5 @@
 """MPAD/QPAD fitting and the baseline reducers in PyTorch (the port of
-``repro.core``)."""
+``repro.core``; ``core.distributed`` holds the sharded fit)."""
 from .baselines import (BASELINE_FITTERS, Reducer, fit_isomap, fit_kpca_rbf,
                         fit_mds, fit_pca, fit_random_projection,
                         fit_umap_lite)

@@ -1,7 +1,9 @@
 """Wrappers of the ADC top-k kernels: K1 (ADC top-k over per-query
 candidates, in two entries: ``pq_adc_gather_topk`` over gathered codes
 (Q, C, M), and ``pq_adc_cells_topk`` over an IVF-PQ index's probed cells
-read where they lie) and K2 (ADC top-k over one shared code matrix).
+read where they lie) and K2 (ADC top-k over one shared code matrix;
+``pq_adc_topk_global`` runs it over one shard's row block of sharded
+serving and returns global row ids).
 
 Each wrapper takes its plain PyTorch version (``ref.py``) for tensors on
 the CPU, and only for those; for CUDA tensors it launches its CUDA kernel
@@ -31,6 +33,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.search.knn import topk_smallest
+
 from .build import gather_topk_library, topk_library
 from .lut import LUT_DTYPES, quantize_lut
 from .ref import (gather_cells, live_slots, pq_adc_gather_topk_ref,
@@ -39,6 +43,7 @@ from .ref import (gather_cells, live_slots, pq_adc_gather_topk_ref,
 __all__ = ["pq_adc_gather_topk", "pq_adc_gather_topk_plain",
            "pq_adc_cells_topk", "pq_adc_cells_topk_plain",
            "pq_adc_select_plan", "pq_adc_topk", "pq_adc_topk_plain",
+           "pq_adc_topk_global", "pq_adc_topk_global_plain",
            "pq_adc_topk_plan", "shared_layout", "pack_shared_tables",
            "packed_scores", "shared_smem_bytes", "list_work", "MAX_K"]
 
@@ -333,7 +338,8 @@ def pq_adc_cells_topk_plain(tables, probe, cd2p, codes_cell, bias_cell, cand,
     """The cell-major entry's plain version: the padded scan's gather
     (``ref.gather_cells``, ``cand`` set to -1 where the cell-major map
     ``live`` is 0, ``ref.live_slots``), then ``pq_adc_gather_topk_plain``.
-    Runs on any device; the wrapper takes it for CPU tensors."""
+    A probed id outside [0, nlist) is an empty cell, as the kernel reads
+    it. Runs on any device; the wrapper takes it for CPU tensors."""
     if live is not None:
         cand = torch.where(live_slots(probe, live, cand.shape[1]), cand, -1)
     ccodes, base = gather_cells(probe, cand, cd2p, codes_cell, bias_cell)
@@ -352,7 +358,9 @@ def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
     ids; cd2p (Q, P) f32 coarse distances; codes_cell (nlist, max_cell, M)
     uint8 (int32 for K > 256); bias_cell (nlist, max_cell) f32; cand (Q, C)
     candidate ids, -1 for an empty posting slot (its width C is the slot
-    range; slot c = p * max_cell + r). ``cell_len`` (nlist,), the fill
+    range; slot c = p * max_cell + r); a probed id outside [0, nlist)
+    reads nothing and scores no slot (the shard-local scan passes -1 for
+    a cell another rank owns). ``cell_len`` (nlist,), the fill
     ``(lists >= 0).sum(1)`` of each cell, may replace reading ``cand``
     only where the posting lists are left-packed (ids, then pads), as
     ``posting_lists`` builds them. ``live`` (nlist, max_cell) uint8 or
@@ -535,3 +543,66 @@ def pq_adc_topk_plan(codes: torch.Tensor, nq: int, kc: int, k: int,
 
 
 pq_adc_topk.launches = 0
+
+
+def _global_ids(topk, tables, codes, k, row_offset, n_valid, slack,
+                lut_dtype, scale):
+    """The shard-local steps of ``pq_adc_topk_global`` around ``topk`` (K2
+    or its plain version): over-fetch k + slack rows, map them to global
+    ids, drop the shard-pad rows (global id >= n_valid), re-take the top
+    k; (+inf, -1) pads."""
+    kk = min(k + slack, codes.shape[0])
+    if kk < 1:
+        return _empty(tables.shape[0], k, tables.device)
+    d2, idx = topk(tables, codes, kk, lut_dtype, scale)
+    gid = row_offset + idx
+    bad = (idx < 0) | (gid >= n_valid)
+    d2 = torch.where(bad, float("inf"), d2)
+    gid = torch.where(bad, -1, gid)
+    if kk > k:
+        d2, sel = topk_smallest(d2, k)
+        gid = torch.gather(gid, 1, sel)
+    elif kk < k:
+        d2 = torch.nn.functional.pad(d2, (0, k - kk), value=float("inf"))
+        gid = torch.nn.functional.pad(gid, (0, k - kk), value=-1)
+    return d2, gid
+
+
+def pq_adc_topk_global_plain(tables, codes, k, row_offset, n_valid,
+                             slack=0, lut_dtype="f32", scale=None):
+    """``pq_adc_topk_global``'s plain version: ``pq_adc_topk_plain``
+    through the same global-id steps. Runs on any device; the wrapper
+    takes it for CPU tensors."""
+    return _global_ids(pq_adc_topk_plain, tables, codes, k, row_offset,
+                       n_valid, slack, lut_dtype, scale)
+
+
+def pq_adc_topk_global(tables: torch.Tensor, codes: torch.Tensor, k: int, *,
+                       row_offset: int, n_valid: int, slack: int = 0,
+                       lut_dtype: str = "f32", scale=None):
+    """K2 over one shard's (n_loc, M) row block, returning GLOBAL row ids
+    (sharded serving; the counterpart of
+    ``repro.kernels.pq_adc.ops.pq_adc_topk_global``).
+
+    ``row_offset`` is the block's first global row. The kernel cannot see
+    which rows are shard padding, so it over-fetches ``k + slack`` rows
+    (``slack`` at least the pad rows a block may hold: shards - 1), the
+    hits with a global id >= ``n_valid`` are dropped, and the top k is
+    re-taken (ties to the lower row): a pad row never displaces a real
+    one. Returns (d2 (Q, k) f32, global ids (Q, k) int64) with (+inf, -1)
+    in unfilled slots; d2 is the merge key, not square-rooted. CPU
+    tensors take the plain version; on CUDA each call launches K2 once
+    (``pq_adc_topk.launches``) and adds one to ``launches``.
+    """
+    _check_common(tables, k, lut_dtype, scale, codes)
+    if tables.device.type == "cpu":
+        return pq_adc_topk_global_plain(tables, codes, k, row_offset,
+                                        n_valid, slack, lut_dtype, scale)
+    before = pq_adc_topk.launches
+    out = _global_ids(pq_adc_topk, tables, codes, k, row_offset, n_valid,
+                      slack, lut_dtype, scale)
+    pq_adc_topk_global.launches += pq_adc_topk.launches - before
+    return out
+
+
+pq_adc_topk_global.launches = 0

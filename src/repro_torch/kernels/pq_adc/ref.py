@@ -11,7 +11,8 @@ kernels:
 K1's cell-major entry scores an IVF-PQ index's probed cells where they
 lie; its plain version is ``gather_cells`` (the padded scan's gather)
 followed by the gathered top-k. A cell-major live map (a streaming
-store's tombstones) masks slots through ``live_slots``.
+store's tombstones) masks slots through ``live_slots``. A probed cell id
+outside [0, nlist) is an empty cell in both, as the kernel reads it.
 
 The tables are snapped onto the ``lut_dtype`` grid but kept in f32 (see
 ``lut.py``), so the lookup is one flat gather over the (Q, M*K) table at
@@ -127,19 +128,31 @@ def pq_adc_gather_topk_ref(tables: torch.Tensor, codes: torch.Tensor,
     return topk_smallest(d2, k)
 
 
+def _probed(probe: torch.Tensor, nlist: int):
+    """(probed cell ids clamped into [0, nlist), in-range mask): a probed
+    id outside [0, nlist) is no cell, as the kernel reads it (a negative
+    id must not wrap to the last cell through Python's indexing)."""
+    ok = (probe >= 0) & (probe < nlist)
+    return probe.clamp(0, nlist - 1), ok
+
+
 def gather_cells(probe: torch.Tensor, cand: torch.Tensor, cd2p: torch.Tensor,
                  codes_cell: torch.Tensor, bias_cell: torch.Tensor):
     """Candidate codes (Q, C, M) and additive base (Q, C) of an IVF-PQ
     padded scan: the nprobe probed cells' contiguous cell-major rows, slot
     p * max_cell + r from cell probe[q, p]; base cd2p[q, p] +
     bias_cell[cell, r] (one f32 add), +inf where ``cand`` < 0 (an empty
-    posting slot, or a slot past P * max_cell)."""
+    posting slot, or a slot past P * max_cell) and on every slot of a
+    probed id outside [0, nlist), which is an empty cell (the kernel's
+    contract: such a probe reads nothing)."""
     nq = probe.shape[0]
-    m = codes_cell.shape[2]
-    max_cell = codes_cell.shape[1]
-    ccodes = codes_cell[probe].reshape(nq, -1, m)
+    nlist, max_cell, m = codes_cell.shape
+    cell, inside = _probed(probe, nlist)
+    ccodes = codes_cell[cell].reshape(nq, -1, m)
     base = (cd2p.repeat_interleave(max_cell, dim=1)
-            + bias_cell[probe].reshape(nq, -1))           # (Q, P*max_cell)
+            + bias_cell[cell].reshape(nq, -1))            # (Q, P*max_cell)
+    base = torch.where(inside.repeat_interleave(max_cell, dim=1), base,
+                       float("inf"))
     short = cand.shape[1] - base.shape[1]                 # degenerate budget
     if short:
         ccodes = torch.nn.functional.pad(ccodes, (0, 0, 0, short))
@@ -152,9 +165,11 @@ def live_slots(probe: torch.Tensor, live: torch.Tensor,
                n_slots: int) -> torch.Tensor:
     """(Q, n_slots) bool over a padded scan's slots from a cell-major byte
     map ``live`` (nlist, max_cell): slot p * max_cell + r of query q is
-    ``live[probe[q, p], r] != 0``; slots past P * max_cell are False."""
+    ``live[probe[q, p], r] != 0``; slots past P * max_cell, and every slot
+    of a probed id outside [0, nlist), are False."""
     nq = probe.shape[0]
-    ok = (live[probe] != 0).reshape(nq, -1)[:, :n_slots]
+    cell, inside = _probed(probe, live.shape[0])
+    ok = ((live[cell] != 0) & inside[:, :, None]).reshape(nq, -1)[:, :n_slots]
     short = n_slots - ok.shape[1]
     if short:
         ok = torch.cat([ok, ok.new_zeros((nq, short))], dim=1)

@@ -42,26 +42,42 @@ N`` shadow-checks 1-in-N batches against exact search (K3 on the card)
 to estimate live recall; any of these turns on the ``latency.*``
 histograms and prints their lines at the end.
 
-The read-only, streaming, persistence and observability flags are
-ported with the JAX launcher's names and defaults. Its sharding flags
-are accepted and raise ``NotImplementedError`` naming the ``ROADMAP.md``
-item that ports them. The JAX launcher's ``--interpret`` selects the
-Pallas interpret mode and has no counterpart: ``@kernel`` here launches
-the CUDA kernels.
+Sharded serving, as in the JAX launcher: ``--shards N`` splits the
+engine over an N-rank serving mesh (``SearchEngine.shard``; ``--donate``
+frees the dense state once each rank holds its slice). One process a
+rank: under torchrun this process is one of them; otherwise ``main``
+starts the N ranks on 127.0.0.1 (``launch.mesh.run_ranks``), every rank
+builds the same engine and serves the same batches, rank 0 prints and
+its result is returned. ``--mesh device`` is NCCL, one rank a card;
+``--mesh host`` is gloo with every rank on the caller's device (the CPU,
+or several ranks on one card). With ``--snapshot-dir`` rank 0 saves and
+every rank restores onto the mesh (``load_engine(dir, mesh=...)``).
+``--durable`` is single-rank: one write-ahead log has one writer.
+
+The read-only, streaming, persistence, observability and sharding flags
+are ported with the JAX launcher's names and defaults. The JAX
+launcher's ``--interpret`` selects the Pallas interpret mode and has no
+counterpart: ``@kernel`` here launches the CUDA kernels.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import os
+import sys
 import time
 import urllib.request
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import DeviceLike, cpu_generator, resolve_device
 from repro_torch.core.mpad import MPADConfig
 from repro_torch.data.synthetic import make_clustered
+from repro_torch.launch.mesh import make_serving_mesh, run_ranks
 from repro_torch.search.knn import knn_search, recall_at_k
 from repro_torch.search.durability.wal import DurabilityConfig
 from repro_torch.search.metrics import MetricsServer
@@ -72,15 +88,6 @@ from repro_torch.search.spec import (Coarse, Code, IndexSpec, Reduce, Rerank,
                                      format_spec, parse_spec)
 
 __all__ = ["main"]
-
-_ITEM = "see ROADMAP.md, 'Modules still to port', item"
-# flag -> (argparse keywords, ROADMAP item that ports what it turns on)
-_UNPORTED = {
-    "--shards": (dict(type=int, default=0), "11 (multi-GPU)"),
-    "--mesh": (dict(choices=["device", "host"], default="device"),
-               "11 (multi-GPU)"),
-    "--donate": (dict(action="store_true"), "11 (multi-GPU)"),
-}
 
 
 def _parse_args(argv: Optional[List[str]]):
@@ -153,8 +160,16 @@ def _parse_args(argv: Optional[List[str]]):
     ap.add_argument("--recall-every", type=int, default=0, metavar="N",
                     help="shadow-check 1-in-N batches against exact search "
                          "and keep the recall.estimate_at_k gauge (0 = off)")
-    for flag, (kw, item) in _UNPORTED.items():
-        ap.add_argument(flag, help=f"not ported yet ({_ITEM} {item})", **kw)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="partition the engine over an N-rank serving mesh "
+                         "(data-parallel sharded serving; 0 = one device)")
+    ap.add_argument("--mesh", choices=["device", "host"], default="device",
+                    help="mesh backend: 'device' = NCCL, one rank a card; "
+                         "'host' = gloo, every rank on the caller's device "
+                         "(the CPU, or several ranks on one card)")
+    ap.add_argument("--donate", action="store_true",
+                    help="with --shards: free the dense EngineState once "
+                         "each rank holds its slice (no 2x memory)")
     return ap.parse_args(argv)
 
 
@@ -249,17 +264,46 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
     ``"stream"``: the rows written, their rate, the grow count and the
     compactions, with ``--durable`` ``"wal"``: the ``wal.*`` section of
     ``engine.metrics()`` after the run, with any tracing flag
-    ``"metrics"``: the flattened ``engine.metrics()`` at the end, and with
+    ``"metrics"``: the flattened ``engine.metrics()`` at the end, with
     ``--metrics-port`` ``"scrape"``: the endpoint's last ``/metrics``
-    text."""
+    text, and with ``--shards`` ``"sharded"``: the mesh (shards, backend,
+    donated) and every batch's ids (numpy), as rank 0 served them."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = _parse_args(argv)
-    for flag, (kw, item) in _UNPORTED.items():
-        given = getattr(args, flag[2:].replace("-", "_"))
-        if given != kw.get("default", False):       # store_true: False
-            raise NotImplementedError(f"{flag} is not ported yet ({_ITEM} "
-                                      f"{item})")
+    if not args.shards:
+        return _serve(args, resolve_device(device), None)
+    if args.shards < 0:
+        raise ValueError("--shards must be >= 0")
+    if args.durable:
+        raise ValueError(
+            "--durable with --shards: every rank would append to the one "
+            "write-ahead log; serve a durable engine on one rank")
+    backend = "nccl" if args.mesh == "device" else "gloo"
+    if backend == "nccl" and device is not None and \
+            torch.device(device).type != "cuda":
+        raise ValueError(
+            f"--mesh device is NCCL, one rank a CUDA card; device {device} "
+            "needs --mesh host (gloo)")
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        # under torchrun: this process is one rank of the mesh
+        mesh = make_serving_mesh(args.shards, backend=backend, device=device)
+        return _serve_rank(mesh, argv)
+    return run_ranks(_serve_rank, args.shards, (argv,), backend=backend,
+                     device=device)
+
+
+def _serve_rank(mesh, argv: List[str]):
+    """One rank of a sharded launch: the whole serve on this rank's
+    engine; rank 0 prints."""
+    sink = sys.stdout if mesh.rank == 0 else io.StringIO()
+    with contextlib.redirect_stdout(sink):
+        return _serve(_parse_args(argv), mesh.device, mesh)
+
+
+def _serve(args, dev: torch.device, mesh):
+    """Build, serve and report (see ``main``); ``mesh`` is this process's
+    rank of a sharded launch, or None."""
     spec = parse_spec(args.spec) if args.spec else _spec_from_flags(args)
-    dev = resolve_device(device)
     gen = cpu_generator(0)
     corpus, _ = make_clustered(gen, args.corpus, 1, args.dim, n_clusters=64,
                                spread=0.4, center_scale=1.5)
@@ -297,20 +341,33 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
               "engine)")
     if args.snapshot_dir:
         t0 = time.perf_counter()
-        engine.save(args.snapshot_dir)
+        if mesh is None or mesh.rank == 0:
+            engine.save(args.snapshot_dir)
         if engine.store is not None:
             engine.close()
-        engine = load_engine(args.snapshot_dir, device=dev)
+        if mesh is not None:
+            dist.barrier(group=mesh.group)   # the snapshot is on disk
+        engine = load_engine(args.snapshot_dir, mesh=mesh, device=dev)
         print(f"snapshot round-trip via {args.snapshot_dir} in "
               f"{time.perf_counter() - t0:.1f}s (serving from the restored "
-              "engine)")
+              "engine" + (", restored onto the mesh" if mesh is not None
+                          else "") + ")")
+    if mesh is not None:
+        if engine.sharded_state is None and \
+                engine._stream_sharded_base is None:
+            engine.shard(mesh, donate=args.donate)
+        donated = engine.state is None and engine.store is None
+        print(f"engine sharded over mesh {mesh.shape} ({mesh.backend}, "
+              f"{args.corpus} rows -> ~{-(-args.corpus // mesh.size)} per "
+              "shard" + (", dense state donated" if donated else "") + ")")
     tracing_on = _tracing(engine, args)
     server = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and (mesh is None or mesh.rank == 0):
         server = MetricsServer(engine, port=args.metrics_port)
         print(f"metrics at {server.url} (Prometheus text; /metrics.json "
               "for JSON)")
 
+    served = []
     try:
         total, rec_sum = 0.0, 0.0
         write_s, rows_written, next_id = 0.0, 0, args.corpus
@@ -340,6 +397,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
             dt = time.perf_counter() - t0
             _, truth = knn_search(queries, corpus, args.k)
             rec = recall_at_k(ids, truth)
+            served.append(ids.cpu().numpy())
             total += dt
             rec_sum += rec
             print(f"batch {i}: {dt * 1e3:7.1f} ms  recall@{args.k}={rec:.4f}")
@@ -380,6 +438,10 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None):
                       f"compactions={m.compact.compactions} "
                       f"vacuums={m.compact.vacuums} "
                       f"rebuilds={m.compact.rebuilds}")
+        if mesh is not None:
+            out["sharded"] = {"shards": mesh.size, "backend": mesh.backend,
+                              "donated": engine.state is None
+                              and engine.store is None, "ids": served}
         if tracing_on:
             out["metrics"] = _trace_report(engine, args)
         if server is not None:

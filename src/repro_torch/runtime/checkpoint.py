@@ -26,7 +26,7 @@ import torch
 from repro_torch._tree import keyed_leaves, tree_unflatten
 
 __all__ = ["save_checkpoint", "save_arrays", "restore_checkpoint",
-           "latest_checkpoint", "checkpoint_step"]
+           "restore_resharded", "latest_checkpoint", "checkpoint_step"]
 
 _STEP_RE = re.compile(r"ckpt_(\d+)\.npz$")
 
@@ -125,3 +125,20 @@ def restore_checkpoint(path: str, template: Any,
                     f"ckpt {arr.shape} vs template {tuple(leaf.shape)}")
             leaves.append(_from_numpy(arr, leaf))
     return tree_unflatten(template, leaves)
+
+
+def restore_resharded(path: str, template: Any, splits: Any, mesh,
+                      overlay: Optional[str] = None) -> Any:
+    """Restore onto a serving mesh (elastic scaling): checkpoints are
+    shard-agnostic, so every rank reads the whole file and keeps, for
+    each leaf that ``splits`` (a tree congruent with ``template`` of the
+    markers ``"rows"`` / ``"cells"`` / ``"replicated"``, see
+    ``repro_torch.parallel.sharding``) marks split, its block of dim 0;
+    the rest come back whole. A split leaf's dim 0 must be a multiple of
+    the rank count, so restore on more or fewer ranks needs no
+    conversion step."""
+    from repro_torch._tree import tree_map
+    from repro_torch.parallel.sharding import rank_block
+    return tree_map(lambda leaf, marker: rank_block(mesh, leaf, marker),
+                    restore_checkpoint(path, template, overlay=overlay),
+                    splits)

@@ -3,19 +3,16 @@ OPQ / IVF-PQ indexes, the composable index-spec API (pipeline specs, the
 tagged index union and its ops registry, the reducer zoo), the serving
 engine, its streaming write path, snapshots, durability (write-ahead log,
 crash recovery, maintenance policy), replication (WAL shipping and
-follower catch-up), the typed metrics surface and request-level tracing
-(the port of ``repro.search``).
-
-Not ported yet (ROADMAP.md, item 11): the sharded engine and its
-streaming half (``ShardedEngineState``, ``sharded_search_fn``,
-``sharded_stream_search_fn``, ``StreamReplica``, ``replica_from_store``)
-and ``balance_cells``. ``jax_profile`` is ``torch_profile`` here.
+follower catch-up), the typed metrics surface, request-level tracing,
+and sharded serving over a ``torch.distributed`` mesh, read-only and
+streaming (the port of ``repro.search``). ``jax_profile`` is
+``torch_profile`` here.
 """
 # knn first: the kernels' plain versions import its selection helper
 from .knn import (amk_accuracy, knn_scan, knn_search, knn_search_blocked,
                   masked_topk, recall_at_k, topk_smallest)
-from .ivf import (IVFIndex, build_ivf, cell_vectors, ivf_search,
-                  posting_lists, probe_cells)
+from .ivf import (IVFIndex, balance_cells, build_ivf, cell_vectors,
+                  ivf_search, posting_lists, probe_cells)
 from .ivfpq import IVFPQIndex, build_ivfpq, ivfpq_search
 from .pq import PQIndex, build_pq, pq_reconstruct, pq_search
 from .reducers import (REDUCER_KINDS, Reducer, ReducerOps, fit_reducer,
@@ -31,9 +28,12 @@ from .durability import (CatchUpStats, Decision, DivergenceError,
 from .segments import (FrozenParams, MutableEngineState, StreamConfig,
                        StreamStore, compact_fn, delete_fn, grow_store,
                        make_mutable, rebuild_state, upsert_fn)
-from .serve import (EngineState, SearchEngine, ServeConfig, as_serve_config,
-                    build_engine, config_from_spec, exact_rerank, search_fn)
-from .stream import stream_search_fn
+from .serve import (EngineState, SearchEngine, ServeConfig,
+                    ShardedEngineState, as_serve_config, build_engine,
+                    config_from_spec, exact_rerank, search_fn,
+                    sharded_search_fn)
+from .stream import (StreamReplica, replica_from_store,
+                     sharded_stream_search_fn, stream_search_fn)
 from .snapshot import load_engine, save_engine
 from .spec import (Code, Coarse, IndexSpec, Reduce, Rerank, format_spec,
                    parse_spec, spec_from_config)
@@ -49,7 +49,7 @@ __all__ = [
     "knn_scan", "knn_search", "knn_search_blocked", "masked_topk",
     "recall_at_k", "amk_accuracy", "topk_smallest",
     "IVFIndex", "build_ivf", "cell_vectors", "ivf_search", "posting_lists",
-    "probe_cells",
+    "probe_cells", "balance_cells",
     "IVFPQIndex", "build_ivfpq", "ivfpq_search",
     "PQIndex", "build_pq", "pq_search", "pq_reconstruct",
     # the composable index-spec API
@@ -65,6 +65,9 @@ __all__ = [
     "SearchEngine", "ServeConfig", "EngineState", "build_engine",
     "save_engine", "load_engine", "search_fn", "exact_rerank",
     "INDEX_KINDS",
+    # sharded serving
+    "ShardedEngineState", "sharded_search_fn", "sharded_stream_search_fn",
+    "StreamReplica", "replica_from_store",
     # streaming
     "StreamConfig", "StreamStore", "MutableEngineState", "FrozenParams",
     "make_mutable", "upsert_fn", "delete_fn", "compact_fn", "grow_store",

@@ -1,27 +1,31 @@
 """IVF-Flat: the coarse k-means quantizer, posting lists and the probed
-exact scan (port of ``repro.search.ivf``, single-device part).
+exact scan (port of ``repro.search.ivf``).
 
 Posting lists are padded-dense: a (nlist, max_cell) id matrix with -1
 pads, so the probe is a gather plus a masked top-k. Ids and lists are
 int64, PyTorch's index type. The ivf scan has no kernel behind it, in
 the JAX package either: a gather of the probed rows and a top-k.
 
-Not ported yet (ROADMAP.md, item 11): ``balance_cells``, the ``shards=``
-layouts and ``ivf_local_scan``.
+Sharded serving splits the cell axis over the ranks of a mesh:
+``posting_lists(..., shards=)`` pads it with empty cells to a multiple of
+the shard count, ``balance_cells`` permutes it so each rank's block
+carries near-equal posting mass, and ``ivf_local_scan`` scans the probed
+cells one rank owns, returning global row ids.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch._segment import segment_sum
 
-from .knn import topk_smallest
+from .knn import masked_topk, topk_smallest
 
 __all__ = ["IVFIndex", "sq_dists", "nearest", "kmeans", "posting_lists",
-           "probe_cells", "build_ivf", "cell_vectors", "ivf_scan",
-           "ivf_search"]
+           "balance_cells", "probe_cells", "build_ivf", "cell_vectors",
+           "ivf_local_scan", "ivf_scan", "ivf_search"]
 
 # rows of ``x`` per distance block in ``nearest``: bounds the (rows, nlist)
 # distance matrix at 1M x 1024 scale to 256 MB
@@ -76,20 +80,72 @@ def kmeans(x: torch.Tensor, nlist: int, iters: int = 12, *,
     return cent
 
 
-def posting_lists(assign: torch.Tensor, nlist: int) -> torch.Tensor:
-    """Padded-dense posting lists from a cell assignment: (nlist, max_cell)
-    int64 ids, -1 = pad; each row holds its ids ascending, then pads."""
+def posting_lists(assign: torch.Tensor, nlist: int,
+                  shards: int = 1) -> torch.Tensor:
+    """Padded-dense posting lists from a cell assignment: (nlist_pad,
+    max_cell) int64 ids, -1 = pad; each row holds its ids ascending, then
+    pads. ``shards`` pads the cell axis up to a multiple with empty (all
+    -1) cells, so the layout splits into per-shard-equal blocks (sharded
+    serving); the probe never reaches a pad cell (its ids are < nlist)."""
     counts = torch.bincount(assign, minlength=nlist)
     max_cell = int(counts.max())
+    nlist_pad = -(-nlist // shards) * shards
     order = torch.argsort(assign, stable=True)
     sorted_cells = assign[order]
     # position of each sorted element within its cell
     pos = (torch.arange(order.shape[0], device=assign.device)
            - torch.searchsorted(sorted_cells, sorted_cells, side="left"))
-    lists = torch.full((nlist, max_cell), -1, dtype=torch.int64,
+    lists = torch.full((nlist_pad, max_cell), -1, dtype=torch.int64,
                        device=assign.device)
     lists[sorted_cells, pos] = order
     return lists
+
+
+def balance_cells(counts, shards: int) -> np.ndarray:
+    """Load-aware cell placement: a permutation of the cell axis whose
+    per-shard contiguous blocks carry near-equal posting mass (rows), not
+    only equal cell counts.
+
+    Greedy LPT bin-pack: cells heaviest first, each onto the lightest
+    shard that still has slots. Shard s's slot budget is the block size
+    ``ceil(nlist / shards)``, less the tail blocks' share of the pad cells
+    ``posting_lists`` appends (pads stay at the end of the cell axis).
+    Host-side (numpy, build time); apply the permutation to the centroids
+    and the assignment together.
+    """
+    counts = np.asarray(counts)
+    nlist = counts.shape[0]
+    per = -(-nlist // shards)
+    caps = np.full(shards, per)
+    deficit = per * shards - nlist
+    s = shards - 1
+    while deficit > 0:                     # pad cells live in the tail blocks
+        take = min(per, deficit)
+        caps[s] -= take
+        deficit -= take
+        s -= 1
+    order = np.argsort(-counts, kind="stable")
+    load = np.zeros(shards, dtype=np.int64)
+    members: list = [[] for _ in range(shards)]
+    for c in order:
+        elig = [i for i in range(shards) if len(members[i]) < caps[i]]
+        tgt = min(elig, key=lambda i: (load[i], i))
+        members[tgt].append(int(c))
+        load[tgt] += int(counts[c])
+    return np.concatenate(
+        [np.asarray(m, dtype=np.int64) for m in members if m])
+
+
+def _balanced_layout(cent: torch.Tensor, assign: torch.Tensor, nlist: int,
+                     shards: int):
+    """Permute the cell axis by ``balance_cells`` (the centroid order is
+    arbitrary: the layout changes, the scan results do not)."""
+    counts = torch.bincount(assign, minlength=nlist).cpu().numpy()
+    perm = balance_cells(counts, shards)
+    inv = np.empty(nlist, np.int64)
+    inv[perm] = np.arange(nlist, dtype=np.int64)
+    return (cent[torch.from_numpy(perm).to(cent.device)],
+            torch.from_numpy(inv).to(assign.device)[assign])
 
 
 def probe_cells(centroids: torch.Tensor, lists: torch.Tensor,
@@ -111,13 +167,20 @@ def probe_cells(centroids: torch.Tensor, lists: torch.Tensor,
 
 def build_ivf(vectors: torch.Tensor, nlist: int, kmeans_iters: int = 12, *,
               init: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None) -> IVFIndex:
+              generator: Optional[torch.Generator] = None,
+              shards: int = 1, balance: bool = True) -> IVFIndex:
     """Coarse k-means over ``vectors`` (starting rows ``init``, else drawn
-    from ``generator``; see ``kmeans``), then the posting lists."""
+    from ``generator``; see ``kmeans``), then the posting lists, their
+    cell axis padded to a multiple of ``shards``; ``balance`` (with
+    ``shards > 1``) permutes the cells so the shard blocks carry
+    near-equal posting mass (``balance_cells``)."""
     vectors = vectors.to(torch.float32)
     cent = kmeans(vectors, nlist, kmeans_iters, init=init,
                   generator=generator)
-    lists = posting_lists(nearest(vectors, cent), nlist)
+    assign = nearest(vectors, cent)
+    if balance and shards > 1:
+        cent, assign = _balanced_layout(cent, assign, nlist, shards)
+    lists = posting_lists(assign, nlist, shards)
     return IVFIndex(centroids=cent, lists=lists, vectors=vectors)
 
 
@@ -142,6 +205,38 @@ def ivf_scan(index: IVFIndex, q: torch.Tensor, k: int, nprobe: int = 8):
     vals, sel = topk_smallest(d2, k)
     ids = torch.gather(cand, 1, sel)
     return vals.clamp_min(0.0).sqrt(), ids
+
+
+def ivf_local_scan(centroids: torch.Tensor, lists_loc: torch.Tensor,
+                   cell_vecs_loc: torch.Tensor, q: torch.Tensor, n_cand: int,
+                   nprobe: int, shard: int,
+                   live: Optional[torch.Tensor] = None):
+    """Shard-local IVF probe + scan (sharded serving).
+
+    The coarse probe runs on the replicated ``centroids``, so it equals
+    the single-device probe on every rank; only the probed cells this
+    rank owns (rows of ``lists_loc`` / ``cell_vecs_loc``, the cell block
+    starting at ``shard * nlist_local``) are scanned. Returns (d2 (Q,
+    n_cand), global ids (Q, n_cand)); slots of cells owned elsewhere, and
+    posting pads, are (+inf, -1). ``live`` (n_cap,) bool (streaming)
+    masks tombstoned and unallocated rows before the local top-k.
+    """
+    q = q.to(torch.float32)
+    _, probe = topk_smallest(sq_dists(q, centroids), nprobe)  # global ids
+    nl_loc = lists_loc.shape[0]
+    lp = probe - shard * nl_loc
+    own = (lp >= 0) & (lp < nl_loc)                       # (Q, nprobe)
+    lpc = lp.clamp(0, nl_loc - 1)
+    cand = torch.where(own[:, :, None], lists_loc[lpc], -1)
+    if live is not None:
+        n_cap = live.shape[0]
+        cand = torch.where(live[cand.clamp(0, n_cap - 1)], cand, -1)
+    cv = cell_vecs_loc[lpc]                               # (Q, P, mc, d)
+    d2 = ((cv - q[:, None, None, :]) ** 2).sum(dim=-1)
+    nq = q.shape[0]
+    cand = cand.reshape(nq, -1)
+    d2 = torch.where(cand >= 0, d2.reshape(nq, -1), float("inf"))
+    return masked_topk(d2, cand, n_cand)
 
 
 def ivf_search(index: IVFIndex, q: torch.Tensor, k: int, nprobe: int = 8):

@@ -1,5 +1,5 @@
 """IVF-PQ: coarse k-means quantizer + product-quantized residuals (port of
-``repro.search.ivfpq``, single-device read-only scans).
+``repro.search.ivfpq``).
 
 Scoring uses the exact residual decomposition, so the per-query lookup
 table is cell-independent; with reconstruction x^ = c + r^:
@@ -30,6 +30,14 @@ search whatever the batch). K1's cell-major entry reads it in place
 beside the cells' fills (a compacted store's lists stay left-packed, dead
 rows included); the other routes set a dead candidate's id to -1, where
 the JAX package masks ``base``: the same slots, the same scores.
+
+``ivfpq_local_scan`` is the shard-local scan of sharded serving: the
+probe and the tables run on replicated inputs, and only the probed cells
+the rank owns are scored, through the same cell-major entry with the
+probed ids of cells owned elsewhere set to -1 (K1 reads nothing for a
+probed id outside [0, nlist), and its plain version treats it as an empty
+cell). ``build_ivfpq(..., shards=, balance=)`` lays the cell axis out for
+it (see ``ivf.posting_lists`` and ``ivf.balance_cells``).
 """
 from __future__ import annotations
 
@@ -42,13 +50,15 @@ from repro_torch.kernels.pq_adc import ops as adc_ops
 from repro_torch.kernels.pq_adc.ref import (gather_cells, live_slots,
                                             pq_adc_gather_scores_ref)
 
-from .ivf import kmeans, nearest, posting_lists, probe_cells, sq_dists
+from .ivf import (_balanced_layout, kmeans, nearest, posting_lists,
+                  probe_cells, sq_dists)
 from .knn import topk_smallest
 from .pq import _check_adc_args, adc_tables, build_pq
 
 __all__ = ["IVFPQIndex", "build_ivfpq", "ivfpq_lut_stats", "live_cells",
            "ivfpq_adc_scan", "ivfpq_scan_given_probe", "ivfpq_scan_inputs",
-           "ivfpq_compact_scan", "ivfpq_scan", "ivfpq_search"]
+           "ivfpq_compact_scan", "ivfpq_local_scan", "ivfpq_scan",
+           "ivfpq_search"]
 
 
 class IVFPQIndex(NamedTuple):
@@ -69,12 +79,17 @@ def build_ivfpq(vectors: torch.Tensor, nlist: int, m_subspaces: int = 8,
                 pq_iters: int = 10, *, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None,
                 coarse_init: Optional[torch.Tensor] = None,
-                pq_inits: Optional[torch.Tensor] = None) -> IVFPQIndex:
+                pq_inits: Optional[torch.Tensor] = None,
+                shards: int = 1, balance: bool = True) -> IVFPQIndex:
     """Coarse k-means, then per-subspace codebooks on the residuals.
 
     ``coarse_init`` / ``pq_inits`` are the k-means starting rows (see
     ``kmeans`` and ``build_pq``); without them they are drawn from
-    ``generator``, coarse first.
+    ``generator``, coarse first. ``shards`` pads the cell axis of the
+    cell-major mirrors (``lists`` / ``codes_cell`` / ``bias_cell``) to a
+    multiple of the shard count; ``balance`` (with ``shards > 1``) also
+    permutes it so the shard blocks carry near-equal posting mass. The
+    quantization and the scan results are the same either way.
     """
     dev = resolve_device(device)
     vectors = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
@@ -82,7 +97,9 @@ def build_ivfpq(vectors: torch.Tensor, nlist: int, m_subspaces: int = 8,
     cent = kmeans(vectors, nlist, kmeans_iters, init=coarse_init,
                   generator=generator)
     assign = nearest(vectors, cent)                       # (N,)
-    lists = posting_lists(assign, nlist)
+    if balance and shards > 1:
+        cent, assign = _balanced_layout(cent, assign, nlist, shards)
+    lists = posting_lists(assign, nlist, shards)
     residuals = vectors - cent[assign]
     pq = build_pq(residuals, m_subspaces, n_centroids, pq_iters,
                   inits=pq_inits, generator=generator)
@@ -279,6 +296,41 @@ def ivfpq_scan(index: IVFPQIndex, q: torch.Tensor, k: int, nprobe: int = 8,
                              index.codebooks, q, k, nprobe, backend,
                              lut_dtype)
     return d2.clamp_min(0.0).sqrt(), ids
+
+
+def ivfpq_local_scan(centroids, lists_loc, codes_cell_loc, bias_cell_loc,
+                     lut_w, cbnorm, codebooks, q, n_cand: int, nprobe: int,
+                     shard: int, backend: str = "jnp", lut_dtype: str = "f32",
+                     live=None):
+    """Shard-local IVF-PQ probe + ADC scan (sharded serving).
+
+    The coarse probe and the per-query tables run on replicated inputs
+    (centroids, ``lut_w`` / ``cbnorm``), so they are the same on every
+    rank; only the probed cells this rank owns (rows of the cell-major
+    mirrors, the block starting at ``shard * nlist_local``) are scored: a
+    probe of a cell owned elsewhere is passed as -1, which K1's cell-major
+    entry (``backend="kernel"``) reads nothing for and its plain version
+    scores as an empty cell. The slot numbering p * max_cell + r is the
+    single-device scan's, so ties break the same way. ``live`` (n_cap,)
+    bool (streaming) masks tombstoned and unallocated rows, as a
+    cell-major map of the local block (``live_cells``). Returns (d2 (Q,
+    n_cand) squared approximate distances, global ids (Q, n_cand)) with
+    (+inf, -1) on masked or unfilled slots."""
+    _check_adc_args(backend, lut_dtype)
+    q = q.to(torch.float32)
+    cd2p, probe = topk_smallest(sq_dists(q, centroids), nprobe)
+    nl_loc = lists_loc.shape[0]
+    lp = probe - shard * nl_loc
+    own = (lp >= 0) & (lp < nl_loc)
+    cand = torch.where(own[:, :, None], lists_loc[lp.clamp(0, nl_loc - 1)],
+                       -1).reshape(q.shape[0], -1)
+    cell_len = (lists_loc >= 0).sum(dim=1) if backend == "kernel" else None
+    cell_live = None if live is None else live_cells(lists_loc, live)
+    return ivfpq_scan_given_probe(torch.where(own, lp, -1), cand, cd2p,
+                                  codes_cell_loc, bias_cell_loc, lut_w,
+                                  cbnorm, codebooks, q, n_cand,
+                                  backend=backend, lut_dtype=lut_dtype,
+                                  cell_len=cell_len, cell_live=cell_live)
 
 
 def ivfpq_search(index: IVFPQIndex, q: torch.Tensor, k: int,

@@ -19,8 +19,8 @@ import functools
 
 import torch
 
-__all__ = ["knn_scan", "knn_search", "knn_search_blocked", "masked_topk",
-           "recall_at_k", "amk_accuracy", "topk_smallest"]
+__all__ = ["knn_scan", "knn_scan_d2", "knn_search", "knn_search_blocked",
+           "masked_topk", "recall_at_k", "amk_accuracy", "topk_smallest"]
 
 # rows at most this wide are selected by one stable sort; wider rows (exact
 # ground truth over a whole corpus) by torch.topk plus an exact tie repair
@@ -70,15 +70,12 @@ def _k3():
     return ops
 
 
-def knn_scan(q: torch.Tensor, x: torch.Tensor, k: int):
-    """Exact k-NN: (dists (Q, k), indices (Q, k)) by L2 distance.
-
-    Tolerates k > N: short rows are right-padded with (inf, -1). On a CUDA
-    tensor this is kernel K3, for any k.
-    """
+def knn_scan_d2(q: torch.Tensor, x: torch.Tensor, k: int):
+    """Exact k-NN by squared L2: (d2 (Q, k), indices (Q, k)), ascending,
+    ties to the lower row; short rows right-padded with (inf, -1). On a
+    CUDA tensor this is kernel K3, for any k."""
     if q.device.type == "cuda":
-        d2, idx = _k3().knn_topk_d2(q.contiguous(), x.contiguous(), k)
-        return d2.sqrt(), idx
+        return _k3().knn_topk_d2(q.contiguous(), x.contiguous(), k)
     d2 = _sq_dists(q, x)
     k_eff = min(k, x.shape[0])
     vals, idx = topk_smallest(d2, k_eff)
@@ -86,7 +83,17 @@ def knn_scan(q: torch.Tensor, x: torch.Tensor, k: int):
         pad = k - k_eff
         vals = torch.nn.functional.pad(vals, (0, pad), value=float("inf"))
         idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
-    return vals.clamp_min(0.0).sqrt(), idx
+    return vals, idx
+
+
+def knn_scan(q: torch.Tensor, x: torch.Tensor, k: int):
+    """Exact k-NN: (dists (Q, k), indices (Q, k)) by L2 distance.
+
+    Tolerates k > N: short rows are right-padded with (inf, -1). On a CUDA
+    tensor this is kernel K3, for any k (``knn_scan_d2``).
+    """
+    d2, idx = knn_scan_d2(q, x, k)
+    return d2.clamp_min(0.0).sqrt(), idx
 
 
 def knn_search(q: torch.Tensor, x: torch.Tensor, k: int):

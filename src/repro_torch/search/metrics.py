@@ -350,7 +350,8 @@ def collect_metrics(engine) -> EngineMetrics:
     info = EngineInfo(
         index=engine.config.index, spec=format_spec(engine.spec),
         streaming=engine.store is not None,
-        sharded=False,               # sharded serving: ROADMAP.md item 11
+        sharded=(engine.sharded_state is not None
+                 or engine._stream_sharded_base is not None),
         role=engine._role, compile_count=engine.compile_count)
     stream = compact = policy = wal = snapshot = replication = None
     store = engine.store

@@ -1,12 +1,13 @@
 """Product quantization: codebook training, per-query ADC tables and the
-plain-PQ scan (port of ``repro.search.pq``, single-device read-only part).
+plain-PQ scans (port of ``repro.search.pq``).
 
 ``pq_scan`` scores the candidate-varying table part through the shared-
 codes ADC top-k: kernel K2 (``repro_torch.kernels.pq_adc.ops.pq_adc_topk``)
 under ``backend="kernel"``, its plain version under ``backend="jnp"`` (the
 spec grammar's token, so one spec string drives both packages).
-
-Not ported yet: ``pq_local_scan`` (sharded serving, ROADMAP item 11).
+``pq_local_scan`` is the shard-local scan of sharded serving: one rank's
+row block of the codes, global ids, K2 through its global entry
+(``pq_adc_topk_global``) under ``backend="kernel"``.
 """
 from __future__ import annotations
 
@@ -16,11 +17,13 @@ import torch
 
 from repro_torch.kernels.pq_adc import ops as adc_ops
 from repro_torch.kernels.pq_adc.lut import LUT_DTYPES, center_lut
+from repro_torch.kernels.pq_adc.ref import pq_adc_scores_ref
 
 from .ivf import kmeans, nearest
+from .knn import masked_topk
 
 __all__ = ["PQIndex", "adc_tables", "build_pq", "lut_projection",
-           "pq_reconstruct", "pq_scan", "pq_search"]
+           "pq_local_scan", "pq_reconstruct", "pq_scan", "pq_search"]
 
 
 class PQIndex(NamedTuple):
@@ -124,6 +127,55 @@ def pq_scan(index: PQIndex, q: torch.Tensor, k: int, backend: str = "jnp",
             else adc_ops.pq_adc_topk_plain)
     d2, ids = topk(tables, index.codes, k, lut_dtype)
     return (d2 + const[:, None]).clamp_min(0.0).sqrt(), ids
+
+
+def pq_local_scan(lut_w: torch.Tensor, cbnorm: torch.Tensor,
+                  codes_loc: torch.Tensor, q: torch.Tensor, n_cand: int,
+                  n_real: int, shard: int, backend: str = "jnp",
+                  lut_dtype: str = "f32", slack: int = 0, live=None):
+    """Shard-local plain-PQ ADC scan (sharded serving): score this rank's
+    row block of the row-padded code matrix and return global row ids.
+
+    ``codes_loc`` is block ``shard`` (n_loc, M); rows whose global id
+    ``shard * n_loc + row`` is at or past ``n_real`` are shard padding,
+    (+inf, -1). Under ``backend="kernel"`` K2's global entry over-fetches
+    ``slack`` rows (at least the pad rows: shards - 1) and drops the pads
+    after. The table is quantized as on the single-device path; the
+    per-query constant is dropped (it cannot change the ranking, and the
+    final distances come from the exact re-rank). ``live`` (n_cap,) bool
+    (streaming) masks tombstoned and unallocated rows; K2 only masks a
+    row-count prefix, so it needs ``backend="jnp"``. On that streaming
+    route the scores keep the per-query constant, as the single-device
+    streaming scan's do: they are merged with the delta segment's exact
+    distances, where a dropped constant would favour base rows (fault F6:
+    the JAX package's sharded streaming scan drops it). Returns (d2 (Q,
+    n_cand), global ids (Q, n_cand)).
+    """
+    _check_adc_args(backend, lut_dtype)
+    q = q.to(torch.float32)
+    tables = adc_tables(lut_w, cbnorm, q)
+    const = (q * q).sum(dim=1)
+    if lut_dtype != "f32":
+        tables, offs = center_lut(tables)
+        const = const + offs
+    n_loc = codes_loc.shape[0]
+    off = shard * n_loc
+    if backend == "kernel":
+        if live is not None:
+            raise ValueError(
+                "pq_local_scan(live=...) needs backend='jnp': the "
+                "shared-codes kernel only masks a row-count prefix")
+        return adc_ops.pq_adc_topk_global(tables, codes_loc, n_cand,
+                                          row_offset=off, n_valid=n_real,
+                                          slack=slack, lut_dtype=lut_dtype)
+    scores = pq_adc_scores_ref(tables, codes_loc, lut_dtype)
+    gid = off + torch.arange(n_loc, device=q.device)
+    ok = gid < n_real
+    if live is not None:
+        scores = scores + const[:, None]
+        ok = ok & live[gid.clamp(0, live.shape[0] - 1)]
+    scores = torch.where(ok[None, :], scores, float("inf"))
+    return masked_topk(scores, gid.expand(q.shape[0], n_loc), n_cand)
 
 
 def pq_search(index: PQIndex, q: torch.Tensor, k: int, backend: str = "jnp",

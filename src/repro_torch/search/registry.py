@@ -1,7 +1,8 @@
 """The tagged index union and the per-kind operation registry (port of
-``repro.search.registry``, with the hooks of the single-device path:
-the read-only ``build`` and ``scan``, and the streaming ``stream_scan``,
-``store_parts``, ``encode_delta``, ``rebuild`` and ``drift_stats``).
+``repro.search.registry``): the read-only ``build`` and ``scan``, the
+streaming ``stream_scan``, ``store_parts``, ``encode_delta``, ``rebuild``
+and ``drift_stats``, and the sharded ``local_scan``, ``shard_payload``,
+``payload_specs`` and ``stream_base_payload``.
 
 Registered kinds: ``flat`` (exact scan of the reduced rows, kernel K3 on
 the card), ``ivf`` (coarse cells, probed exact scan), ``pq``, ``opq`` (a
@@ -13,8 +14,17 @@ torch, as the JAX package's do in plain jnp (its streaming pq scan calls
 ``pq_adc_scores_ref``; K2 has no masked entry). ivfpq streams on K1's
 cell-major entry under ``@kernel``, the mask riding the candidate ids.
 
-Not ported yet (ROADMAP.md, item 11): ``local_scan``, ``shard_payload``,
-``payload_specs`` and ``stream_base_payload``.
+Sharded serving (``repro_torch.parallel.engine.shard_engine``) lays a
+kind's payload out with ``shard_payload`` (pure padding: row-major
+leaves padded to a multiple of the shard count, cell-major ones with
+empty cells; ``ShardedIVF`` / ``ShardedPQ`` / ``ShardedOPQ`` /
+``ShardedIVFPQ``) and splits it by ``payload_specs``, one marker a leaf
+where JAX has a ``PartitionSpec``: ``ROWS`` and ``CELLS`` split dim 0
+over the ranks, ``REPLICATED`` is kept whole. ``local_scan`` scans one
+rank's block and returns global ids: flat on K3 over the rank's rows
+(the single-device flat scan's kernel), ivf in plain torch (no kernel in
+the JAX package either), pq / opq on K2's global entry, ivfpq on K1's
+cell-major entry with the probes of cells owned elsewhere set to -1.
 """
 from __future__ import annotations
 
@@ -26,16 +36,22 @@ import torch
 from repro_torch.kernels.pq_adc.lut import center_lut
 from repro_torch.kernels.pq_adc.ref import pq_adc_scores_ref
 
-from .ivf import (IVFIndex, build_ivf, ivf_scan, posting_lists, probe_cells,
-                  sq_dists)
+from .ivf import (IVFIndex, build_ivf, cell_vectors, ivf_local_scan,
+                  ivf_scan, posting_lists, probe_cells, sq_dists)
 from .ivfpq import (IVFPQIndex, build_ivfpq, ivfpq_adc_scan,
-                    ivfpq_compact_scan, ivfpq_scan)
-from .knn import _sq_dists, knn_scan, masked_topk
-from .pq import PQIndex, adc_tables, build_pq, pq_reconstruct, pq_scan
+                    ivfpq_compact_scan, ivfpq_local_scan, ivfpq_scan)
+from .knn import _sq_dists, knn_scan, knn_scan_d2, masked_topk
+from .pq import (PQIndex, adc_tables, build_pq, pq_local_scan,
+                 pq_reconstruct, pq_scan)
 
 __all__ = ["Index", "IndexOps", "ScanParams", "BuildInits", "INDEX_KINDS",
            "OPQIndex", "PQQuant", "OPQQuant", "IVFPQQuant", "register_index",
-           "get_ops", "encode_pq", "ivfpq_encode"]
+           "get_ops", "encode_pq", "ivfpq_encode", "ShardedIVF", "ShardedPQ",
+           "ShardedIVFPQ", "ShardedOPQ", "ROWS", "CELLS", "REPLICATED"]
+
+# payload_specs' split markers (JAX's PartitionSpecs): ROWS / CELLS split
+# dim 0 into per-rank blocks, REPLICATED keeps the leaf whole on every rank
+ROWS, CELLS, REPLICATED = "rows", "cells", "replicated"
 
 # every index kind of the spec grammar, ported or not
 INDEX_KINDS = ("flat", "ivf", "pq", "opq", "ivfpq")
@@ -79,12 +95,19 @@ class IndexOps:
     lossy: bool          # scan scores approximate the metric (forces re-rank)
     build: Callable      # (reduced, spec, generator, inits) -> payload
     scan: Callable       # (state, qr, n_cand, p) -> (dists, cand)
+    local_scan: Callable     # (sstate, qr, n_cand, p, shard, slack,
+    #                          live=None) -> (d2, global cand)
     stream_scan: Callable    # (store, frozen, qr, n_cand, live, p) ->
     #                          (d2, internal row ids), masked by ``live``
+    shard_payload: Callable  # (state, shards) -> padded sharded payload
+    payload_specs: Callable  # (payload, axis) -> split marker a leaf
     store_parts: Callable    # (state, n_cap, cell_slack) -> (store field
     #                          overrides, frozen quantizer payload)
     encode_delta: Callable   # (frozen, rows) -> (assign, codes, bias)
-    rebuild: Callable        # (frozen, reduced) -> payload
+    rebuild: Callable        # (frozen, reduced, shards) -> payload
+    stream_base_payload: Callable  # (store, frozen, corpus) -> dense
+    #                          payload over the store's own tensors
+    #                          (shard_stream copies this rank's blocks)
     drift_stats: Optional[Callable] = None  # (frozen, rows) -> (B,) squared
     #                          reconstruction error under the frozen
     #                          quantizers (None: the kind quantizes nothing)
@@ -127,6 +150,19 @@ def _pad_cells(a: torch.Tensor, slack: int, fill=0) -> torch.Tensor:
     out = a.new_full((a.shape[0], a.shape[1] + slack) + tuple(a.shape[2:]),
                      fill)
     out[:, :a.shape[1]] = a
+    return out
+
+
+def _pad_dim0(a: Optional[torch.Tensor], multiple: int, fill=0):
+    """``a`` right-padded along dim 0 to a multiple of ``multiple``
+    (per-shard-equal blocks); ``a`` itself when no padding is needed."""
+    if a is None:
+        return None
+    pad = (-a.shape[0]) % multiple
+    if not pad:
+        return a
+    out = a.new_full((a.shape[0] + pad,) + tuple(a.shape[1:]), fill)
+    out[:a.shape[0]] = a
     return out
 
 
@@ -211,6 +247,39 @@ class OPQIndex(NamedTuple):
     cbnorm: torch.Tensor       # (M, K)
 
 
+class ShardedIVF(NamedTuple):
+    """IVF payload laid out for a mesh (cell-split)."""
+    centroids: torch.Tensor    # (nlist, d) replicated
+    lists: torch.Tensor        # (nlist_pad, mc) cell-split
+    cell_vecs: torch.Tensor    # (nlist_pad, mc, d) cell-split mirror
+
+
+class ShardedPQ(NamedTuple):
+    """Plain-PQ payload laid out for a mesh (row-split)."""
+    codes: torch.Tensor        # (N_pad, M) row-split, stored width
+    lut_w: torch.Tensor        # (d, M*K) replicated
+    cbnorm: torch.Tensor       # (M, K) replicated
+
+
+class ShardedIVFPQ(NamedTuple):
+    """IVF-PQ payload laid out for a mesh (cell-split)."""
+    centroids: torch.Tensor    # (nlist, d) replicated
+    lists: torch.Tensor        # (nlist_pad, mc) cell-split
+    codes_cell: torch.Tensor   # (nlist_pad, mc, M) cell-split
+    bias_cell: torch.Tensor    # (nlist_pad, mc) cell-split
+    lut_w: torch.Tensor        # (d, M*K) replicated
+    cbnorm: torch.Tensor       # (M, K) replicated
+    codebooks: torch.Tensor    # (M, K, dsub) replicated (the LUT stats)
+
+
+class ShardedOPQ(NamedTuple):
+    """OPQ payload laid out for a mesh (row-split)."""
+    rot: torch.Tensor          # (d, d) replicated
+    codes: torch.Tensor        # (N_pad, M) row-split
+    lut_w: torch.Tensor        # (d, M*K) replicated
+    cbnorm: torch.Tensor       # (M, K) replicated
+
+
 # --- flat: exact scan of the (reduced) vectors -------------------------------
 
 def _flat_build(reduced, spec, generator, inits):
@@ -220,6 +289,26 @@ def _flat_build(reduced, spec, generator, inits):
 
 def _flat_scan(state, qr, n_cand, p):
     return knn_scan(qr, state.index.payload, n_cand)
+
+
+def _flat_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
+    """Shard-local exact scan of this rank's row block, global ids. Rows
+    past ``n_real`` are shard padding: the block is cut before them, so
+    K3 (on the card) masks them as rows >= N, the single-device flat
+    scan's kernel and ranking. A streaming scan (``live``) masks in plain
+    torch, as the single-device streaming scan does."""
+    x_loc = (sstate.index.payload if sstate.index.payload is not None
+             else sstate.corpus)
+    n_loc = x_loc.shape[0]
+    off = shard * n_loc
+    if live is not None:
+        gid = off + torch.arange(n_loc, device=qr.device)
+        ok = (gid < sstate.n_real) & live[gid.clamp(0, live.shape[0] - 1)]
+        d2 = torch.where(ok[None, :], _sq_dists(qr, x_loc), float("inf"))
+        return masked_topk(d2, gid.expand(qr.shape[0], n_loc), n_cand)
+    valid = max(0, min(n_loc, sstate.n_real - off))
+    d2, idx = knn_scan_d2(qr, x_loc[:valid], n_cand)
+    return d2, torch.where(idx >= 0, idx + off, -1)
 
 
 def _flat_stream_scan(store, frozen, qr, n_cand, live, p):
@@ -235,11 +324,27 @@ def _flat_store_parts(state, n_cap, cell_slack):
     return {"reduced": _pad_rows(state.index.payload, n_cap)}, None
 
 
+def _flat_shard_payload(state, shards):
+    # flat with no Reduce stage scans the corpus itself: None routes the
+    # local scan to the rank's corpus rows (shipped once)
+    if state.index.payload is state.corpus:
+        return None
+    return _pad_dim0(state.index.payload, shards)
+
+
+def _flat_stream_base_payload(store, frozen, corpus):
+    return store.reduced if store.reduced is not None else corpus
+
+
 register_index(IndexOps(
     kind="flat", lossy=False, build=_flat_build, scan=_flat_scan,
-    stream_scan=_flat_stream_scan, store_parts=_flat_store_parts,
+    local_scan=_flat_local_scan, stream_scan=_flat_stream_scan,
+    shard_payload=_flat_shard_payload,
+    payload_specs=lambda payload, axis: None if payload is None else ROWS,
+    store_parts=_flat_store_parts,
     encode_delta=lambda frozen, rows: (None, None, None),
-    rebuild=lambda frozen, reduced: reduced))
+    rebuild=lambda frozen, reduced, shards: reduced,
+    stream_base_payload=_flat_stream_base_payload))
 
 
 # --- ivf: coarse k-means quantizer + probed exact scan -----------------------
@@ -251,6 +356,12 @@ def _ivf_build(reduced, spec, generator, inits):
 
 def _ivf_scan(state, qr, n_cand, p):
     return ivf_scan(state.index.payload, qr, n_cand, p.nprobe)
+
+
+def _ivf_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
+    ix = sstate.index.payload
+    return ivf_local_scan(ix.centroids, ix.lists, ix.cell_vecs, qr, n_cand,
+                          p.nprobe, shard, live=live)
 
 
 def _ivf_stream_scan(store, frozen, qr, n_cand, live, p):
@@ -276,10 +387,22 @@ def _ivf_assign(frozen, rows):
     return sq_dists(rows.to(torch.float32), frozen.centroids).argmin(dim=1)
 
 
-def _ivf_rebuild(frozen, reduced):
+def _ivf_shard_payload(state, shards):
+    ix = state.index.payload
+    lists = _pad_dim0(ix.lists, shards, fill=-1)
+    return ShardedIVF(centroids=ix.centroids, lists=lists,
+                      cell_vecs=cell_vectors(lists, ix.vectors))
+
+
+def _ivf_rebuild(frozen, reduced, shards):
     lists = posting_lists(_ivf_assign(frozen, reduced),
-                          frozen.centroids.shape[0])
+                          frozen.centroids.shape[0], shards)
     return IVFIndex(centroids=frozen.centroids, lists=lists, vectors=reduced)
+
+
+def _ivf_stream_base_payload(store, frozen, corpus):
+    return IVFIndex(centroids=frozen.centroids, lists=store.lists,
+                    vectors=_scan_rows(store))
 
 
 def _ivf_drift_stats(frozen, rows):
@@ -289,10 +412,15 @@ def _ivf_drift_stats(frozen, rows):
 
 register_index(IndexOps(
     kind="ivf", lossy=False, build=_ivf_build, scan=_ivf_scan,
-    stream_scan=_ivf_stream_scan, store_parts=_ivf_store_parts,
+    local_scan=_ivf_local_scan, stream_scan=_ivf_stream_scan,
+    shard_payload=_ivf_shard_payload,
+    payload_specs=lambda payload, axis: ShardedIVF(
+        centroids=REPLICATED, lists=CELLS, cell_vecs=CELLS),
+    store_parts=_ivf_store_parts,
     encode_delta=lambda frozen, rows: (_ivf_assign(frozen, rows), None,
                                        None),
-    rebuild=_ivf_rebuild, drift_stats=_ivf_drift_stats))
+    rebuild=_ivf_rebuild, stream_base_payload=_ivf_stream_base_payload,
+    drift_stats=_ivf_drift_stats))
 
 
 # --- pq: product-quantized vectors, shared-codes ADC scan (K2) ---------------
@@ -305,6 +433,13 @@ def _pq_build(reduced, spec, generator, inits):
 def _pq_scan(state, qr, n_cand, p):
     return pq_scan(state.index.payload, qr, n_cand, backend=p.backend,
                    lut_dtype=p.lut_dtype)
+
+
+def _pq_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
+    ix = sstate.index.payload
+    return pq_local_scan(ix.lut_w, ix.cbnorm, ix.codes, qr, n_cand,
+                         sstate.n_real, shard, backend=p.backend,
+                         lut_dtype=p.lut_dtype, slack=slack, live=live)
 
 
 def _pq_stream_scan(store, frozen, qr, n_cand, live, p):
@@ -328,10 +463,22 @@ def _pq_store_parts(state, n_cap, cell_slack):
         codebooks=ix.codebooks, lut_w=ix.lut_w, cbnorm=ix.cbnorm)
 
 
-def _pq_rebuild(frozen, reduced):
+def _pq_shard_payload(state, shards):
+    ix = state.index.payload
+    # codes keep their stored width (uint8 for K <= 256)
+    return ShardedPQ(codes=_pad_dim0(ix.codes, shards), lut_w=ix.lut_w,
+                     cbnorm=ix.cbnorm)
+
+
+def _pq_rebuild(frozen, reduced, shards):
     codes = encode_pq(frozen.codebooks, reduced)
     return PQIndex(codebooks=frozen.codebooks,
                    codes=codes.to(_code_dtype(frozen.codebooks)),
+                   lut_w=frozen.lut_w, cbnorm=frozen.cbnorm)
+
+
+def _pq_stream_base_payload(store, frozen, corpus):
+    return PQIndex(codebooks=frozen.codebooks, codes=store.codes,
                    lut_w=frozen.lut_w, cbnorm=frozen.cbnorm)
 
 
@@ -342,10 +489,15 @@ def _pq_drift_stats(frozen, rows):
 
 register_index(IndexOps(
     kind="pq", lossy=True, build=_pq_build, scan=_pq_scan,
-    stream_scan=_pq_stream_scan, store_parts=_pq_store_parts,
+    local_scan=_pq_local_scan, stream_scan=_pq_stream_scan,
+    shard_payload=_pq_shard_payload,
+    payload_specs=lambda payload, axis: ShardedPQ(
+        codes=ROWS, lut_w=REPLICATED, cbnorm=REPLICATED),
+    store_parts=_pq_store_parts,
     encode_delta=lambda frozen, rows: (
         None, encode_pq(frozen.codebooks, rows), None),
-    rebuild=_pq_rebuild, drift_stats=_pq_drift_stats))
+    rebuild=_pq_rebuild, stream_base_payload=_pq_stream_base_payload,
+    drift_stats=_pq_drift_stats))
 
 
 # --- opq: learned orthogonal rotation + PQ codes -----------------------------
@@ -390,6 +542,13 @@ def _opq_scan(state, qr, n_cand, p):
                    lut_dtype=p.lut_dtype)
 
 
+def _opq_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
+    ix = sstate.index.payload
+    return pq_local_scan(ix.lut_w, ix.cbnorm, ix.codes, qr @ ix.rot, n_cand,
+                         sstate.n_real, shard, backend=p.backend,
+                         lut_dtype=p.lut_dtype, slack=slack, live=live)
+
+
 def _opq_stream_scan(store, frozen, qr, n_cand, live, p):
     # rotate, then the masked pq scan serves the rotated space
     return _pq_stream_scan(store, frozen, qr @ frozen.quant.payload.rot,
@@ -406,7 +565,19 @@ def _opq_encode(frozen, rows):
     return encode_pq(frozen.codebooks, rows @ frozen.quant.payload.rot)
 
 
-def _opq_rebuild(frozen, reduced):
+def _opq_shard_payload(state, shards):
+    ix = state.index.payload
+    return ShardedOPQ(rot=ix.rot, codes=_pad_dim0(ix.codes, shards),
+                      lut_w=ix.lut_w, cbnorm=ix.cbnorm)
+
+
+def _opq_stream_base_payload(store, frozen, corpus):
+    q = frozen.quant.payload
+    return OPQIndex(rot=q.rot, codebooks=q.codebooks, codes=store.codes,
+                    lut_w=q.lut_w, cbnorm=q.cbnorm)
+
+
+def _opq_rebuild(frozen, reduced, shards):
     q = frozen.quant.payload
     return OPQIndex(rot=q.rot, codebooks=q.codebooks,
                     codes=_opq_encode(frozen, reduced).to(
@@ -422,10 +593,15 @@ def _opq_drift_stats(frozen, rows):
 
 register_index(IndexOps(
     kind="opq", lossy=True, build=_opq_build, scan=_opq_scan,
-    stream_scan=_opq_stream_scan, store_parts=_opq_store_parts,
+    local_scan=_opq_local_scan, stream_scan=_opq_stream_scan,
+    shard_payload=_opq_shard_payload,
+    payload_specs=lambda payload, axis: ShardedOPQ(
+        rot=REPLICATED, codes=ROWS, lut_w=REPLICATED, cbnorm=REPLICATED),
+    store_parts=_opq_store_parts,
     encode_delta=lambda frozen, rows: (None, _opq_encode(frozen, rows),
                                        None),
-    rebuild=_opq_rebuild, drift_stats=_opq_drift_stats))
+    rebuild=_opq_rebuild, stream_base_payload=_opq_stream_base_payload,
+    drift_stats=_opq_drift_stats))
 
 
 # --- ivfpq: coarse cells + PQ residual codes, ADC-gather scan (K1) -----------
@@ -450,6 +626,14 @@ def _ivfpq_scan(state, qr, n_cand, p):
                       lut_dtype=p.lut_dtype)
 
 
+def _ivfpq_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
+    ix = sstate.index.payload
+    return ivfpq_local_scan(ix.centroids, ix.lists, ix.codes_cell,
+                            ix.bias_cell, ix.lut_w, ix.cbnorm, ix.codebooks,
+                            qr, n_cand, p.nprobe, shard, backend=p.backend,
+                            lut_dtype=p.lut_dtype, live=live)
+
+
 def _ivfpq_stream_scan(store, frozen, qr, n_cand, live, p):
     return ivfpq_adc_scan(frozen.centroids, store.lists, store.codes_cell,
                           store.bias_cell, frozen.lut_w, frozen.cbnorm,
@@ -468,10 +652,28 @@ def _ivfpq_store_parts(state, n_cap, cell_slack):
                              lut_w=ix.lut_w, cbnorm=ix.cbnorm)
 
 
-def _ivfpq_rebuild(frozen, reduced):
+def _ivfpq_shard_payload(state, shards):
+    ix = state.index.payload
+    return ShardedIVFPQ(
+        centroids=ix.centroids, lists=_pad_dim0(ix.lists, shards, fill=-1),
+        codes_cell=_pad_dim0(ix.codes_cell, shards),
+        bias_cell=_pad_dim0(ix.bias_cell, shards),
+        lut_w=ix.lut_w, cbnorm=ix.cbnorm, codebooks=ix.codebooks)
+
+
+def _ivfpq_stream_base_payload(store, frozen, corpus):
+    # rerr stays zero: the pre-filter never runs on a streaming engine
+    return IVFPQIndex(
+        centroids=frozen.centroids, lists=store.lists,
+        codebooks=frozen.codebooks, codes=store.codes, bias=store.bias,
+        rerr=torch.zeros_like(store.bias), codes_cell=store.codes_cell,
+        bias_cell=store.bias_cell, lut_w=frozen.lut_w, cbnorm=frozen.cbnorm)
+
+
+def _ivfpq_rebuild(frozen, reduced, shards):
     assign, codes, bias = ivfpq_encode(frozen.centroids, frozen.codebooks,
                                        reduced)
-    lists = posting_lists(assign, frozen.centroids.shape[0])
+    lists = posting_lists(assign, frozen.centroids.shape[0], shards)
     lid = lists.clamp_min(0)
     code_dt = _code_dtype(frozen.codebooks)
     recon = frozen.centroids[assign] + _pq_decode(frozen.codebooks, codes)
@@ -492,7 +694,14 @@ def _ivfpq_drift_stats(frozen, rows):
 
 register_index(IndexOps(
     kind="ivfpq", lossy=True, build=_ivfpq_build, scan=_ivfpq_scan,
-    stream_scan=_ivfpq_stream_scan, store_parts=_ivfpq_store_parts,
+    local_scan=_ivfpq_local_scan, stream_scan=_ivfpq_stream_scan,
+    shard_payload=_ivfpq_shard_payload,
+    payload_specs=lambda payload, axis: ShardedIVFPQ(
+        centroids=REPLICATED, lists=CELLS, codes_cell=CELLS,
+        bias_cell=CELLS, lut_w=REPLICATED, cbnorm=REPLICATED,
+        codebooks=REPLICATED),
+    store_parts=_ivfpq_store_parts,
     encode_delta=lambda frozen, rows: ivfpq_encode(
         frozen.centroids, frozen.codebooks, rows),
-    rebuild=_ivfpq_rebuild, drift_stats=_ivfpq_drift_stats))
+    rebuild=_ivfpq_rebuild, stream_base_payload=_ivfpq_stream_base_payload,
+    drift_stats=_ivfpq_drift_stats))

@@ -167,12 +167,14 @@ MutableEngineState = StreamStore
 
 
 def live_mask(store: StreamStore) -> torch.Tensor:
-    """(n_cap,) bool: base rows that are allocated and not tombstoned."""
+    """(n_cap,) bool: base rows that are allocated and not tombstoned (of
+    a store, or of its ``stream.StreamReplica``)."""
     return (store.row_ids >= 0) & ~store.dead
 
 
 def delta_alive(store: StreamStore) -> torch.Tensor:
-    """(cap,) bool: delta slots below the append pointer holding an id."""
+    """(cap,) bool: delta slots below the append pointer holding an id (of
+    a store, or of its ``stream.StreamReplica``)."""
     cap = store.delta_ids.shape[0]
     slots = torch.arange(cap, device=store.delta_ids.device)
     return (slots < store.delta_count) & (store.delta_ids >= 0)
@@ -370,12 +372,13 @@ def grow_store(store: StreamStore, *, row_extra: int = 0,
 
 
 def rebuild_state(frozen: FrozenParams, vectors, *,
-                  index: Optional[str] = None):
+                  index: Optional[str] = None, shards: int = 1):
     """A read-only ``EngineState`` over ``vectors`` with the FROZEN
     quantizers (no retraining): the offline full rebuild, and the oracle
     the streaming engine must equal after ``compact()``. ``index``
-    defaults to the frozen kind. ``vectors`` go to the frozen quantizers'
-    device."""
+    defaults to the frozen kind; ``shards`` pads the ivf kinds' cell axis
+    to a multiple of the shard count (``ivf.posting_lists``). ``vectors``
+    go to the frozen quantizers' device."""
     from .serve import EngineState
 
     kind = index if index is not None else frozen.quant.kind
@@ -387,7 +390,7 @@ def rebuild_state(frozen: FrozenParams, vectors, *,
     if dev is not None:
         vectors = vectors.to(dev)
     reduced = reduce_vectors(frozen.proj, vectors)
-    payload = get_ops(kind).rebuild(frozen, reduced)
+    payload = get_ops(kind).rebuild(frozen, reduced, shards)
     return EngineState(corpus=vectors, proj=frozen.proj,
                        index=Index(kind, payload))
 

@@ -1,5 +1,5 @@
-"""Batched vector-search serving engine (port of the single-device half of
-``repro.search.serve``: the read-only engine and the streaming one).
+"""Batched vector-search serving engine (port of ``repro.search.serve``:
+the read-only engine, the streaming one, and sharded serving).
 
 Pipeline: corpus -> [fit MPAD on a sample] -> reduce the corpus -> build
 the index over the reduced vectors -> serve batched queries: reduce the
@@ -35,7 +35,18 @@ deep traces, slow-query capture and shadow-exact recall.
 ``compile_count`` counts the distinct programs the engine has run, as
 the JAX engine counts its jit compilations.
 
-Not ported yet (see ROADMAP.md): sharding (item 11).
+Sharded serving splits the database axis over the ranks of a mesh, one
+process a shard (``repro_torch.parallel``): ``shard_engine`` keeps this
+rank's block of corpus rows and of the kind's payload (row- or
+cell-split; quantizers and projection replicated) as a
+``ShardedEngineState``, and ``sharded_search_fn`` runs the pipeline on
+it: the replicated probe, the shard-local scan with global ids
+(``IndexOps.local_scan``), an all-gather of every rank's top-n_cand and
+a global top-n_cand merge, then the re-rank in which each rank scores the
+candidates it owns and a MIN all-reduce assembles the row. Every rank
+returns the same result, the single-device one. ``SearchEngine.shard``
+routes ``search`` there; on a streaming engine the base shards and the
+delta, tombstones and id maps stay replicated (``stream``).
 """
 from __future__ import annotations
 
@@ -52,6 +63,8 @@ from repro_torch._device import DeviceLike, cpu_generator, resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.core.mpad import MPADConfig
 from repro_torch.kernels.pq_adc.lut import LUT_DTYPES, lut_error_bound
+from repro_torch.parallel.context import (Mesh, all_gather, all_reduce_min,
+                                          require_mesh)
 
 from . import segments
 from .durability.policy import MaintenancePolicy
@@ -67,10 +80,10 @@ from .registry import (INDEX_KINDS, BuildInits, Index, ScanParams, get_ops)
 from .segments import StreamConfig
 from .spec import IndexSpec, parse_spec, spec_from_config
 
-__all__ = ["ServeConfig", "SearchEngine", "EngineState", "search_fn",
-           "exact_rerank", "prefiltered_rerank", "build_engine",
-           "config_from_spec", "as_serve_config", "StreamConfig",
-           "INDEX_KINDS"]
+__all__ = ["ServeConfig", "SearchEngine", "EngineState", "ShardedEngineState",
+           "search_fn", "sharded_search_fn", "exact_rerank",
+           "prefiltered_rerank", "build_engine", "config_from_spec",
+           "as_serve_config", "StreamConfig", "INDEX_KINDS"]
 
 _ADC_BACKENDS = ("jnp", "kernel")
 
@@ -165,6 +178,21 @@ class EngineState(NamedTuple):
     corpus: torch.Tensor                  # (N, D) re-rank space
     proj: Optional[Reducer]               # fitted Reduce stage
     index: Index                          # kind + payload
+
+
+class ShardedEngineState(NamedTuple):
+    """This rank's part of an ``EngineState`` laid out for a mesh
+    (``repro_torch.parallel.engine.shard_engine``): ``corpus`` its block
+    of the rows (the corpus padded to a multiple of the shard count),
+    ``index`` the kind and this rank's block of its sharded payload
+    (``IndexOps.shard_payload``: row- or cell-split database leaves,
+    replicated quantizers), ``proj`` the replicated reducer. ``n_real``
+    is the unpadded row count: rows at or past it are shard padding,
+    masked out of every scan."""
+    corpus: torch.Tensor                  # (n_loc, D) this rank's rows
+    proj: Optional[Reducer]               # replicated reducer
+    n_real: int                           # the unpadded corpus size
+    index: Index                          # kind + this rank's payload block
 
 
 def _dedupe_candidates(cand: torch.Tensor):
@@ -290,6 +318,90 @@ def search_fn(state: EngineState, queries: torch.Tensor, k: int, *,
     return exact_rerank(queries, state.corpus, cand, k)
 
 
+# --- sharded serving (one process a shard of a database-axis mesh) ----------
+
+def _sharded_rerank(mesh: Mesh, queries: torch.Tensor,
+                    corpus_loc: torch.Tensor, cand: torch.Tensor, k: int):
+    """``exact_rerank`` with the corpus split over the ranks: the same sort
+    and dedupe run on every rank, each rank scores only the candidates it
+    owns, and a MIN all-reduce assembles the full exact distance row
+    (each candidate has one owner)."""
+    cand, valid = _dedupe_candidates(cand)
+    n_loc = corpus_loc.shape[0]
+    local = cand - mesh.rank * n_loc
+    own = valid & (local >= 0) & (local < n_loc)
+    cv = corpus_loc[local.clamp(0, n_loc - 1)]
+    d2 = ((cv - queries[:, None, :]) ** 2).sum(dim=-1)
+    d2 = all_reduce_min(mesh, torch.where(own, d2, float("inf")))
+    vals, sel = topk_smallest(d2, k)
+    return vals.clamp_min(0.0).sqrt(), torch.gather(cand, 1, sel)
+
+
+def _merge_local(mesh: Mesh, d2: torch.Tensor, cand: torch.Tensor,
+                 n_cand: int):
+    """The distributed merge: every rank's local top-n_cand gathered in
+    rank order, then the global top-n_cand (ties to the lower slot, as
+    ``lax.top_k``); (+inf, -1) where nothing is finite. Each rank's local
+    list holds every global top-n_cand member it owns, so the merged set
+    is the single-device candidate set."""
+    # one collective for both: f64 holds every f32 distance and every id
+    # (< 2^53) exactly
+    both = all_gather(mesh, torch.stack([d2.double(), cand.double()]), dim=2)
+    vals, sel = topk_smallest(both[0].float(), n_cand)
+    merged = torch.gather(both[1].long(), 1, sel)
+    return vals, torch.where(vals == float("inf"), -1, merged)
+
+
+def _sharded_core(mesh: Mesh, sstate: ShardedEngineState,
+                  queries: torch.Tensor, *, k: int, nprobe: int, rerank: int,
+                  backend: str, lut_dtype: str, slack: int,
+                  scan_cap: int = 0, prefilter: int = 0):
+    """One rank's pipeline: project, shard-local scan, merge, re-rank."""
+    if scan_cap or prefilter:
+        raise ValueError(
+            "scan_cap/prefilter are single-device read-only fast paths: "
+            "the compact scan sizes on the unsharded posting mass and the "
+            "pre-filter bounds assume the full candidate row; leave both "
+            "0 on the sharded path")
+    ops = get_ops(sstate.index.kind)
+    queries = queries.to(torch.float32)
+    qr = reduce_vectors(sstate.proj, queries)
+    approximate = sstate.proj is not None or ops.lossy
+    _check_rerank_budget(approximate, rerank, k)
+    n_cand = rerank if approximate else k
+    p = ScanParams(nprobe=nprobe, backend=backend, lut_dtype=lut_dtype)
+    d2, cand = ops.local_scan(sstate, qr, n_cand, p, mesh.rank, slack)
+    _, merged = _merge_local(mesh, d2, cand, n_cand)
+    return _sharded_rerank(mesh, queries, sstate.corpus, merged, k)
+
+
+def sharded_search_fn(sstate: ShardedEngineState, queries: torch.Tensor,
+                      k: int, *, mesh: Optional[Mesh] = None,
+                      axis: str = "data", nprobe: int = 8, rerank: int = 64,
+                      backend: str = "jnp", lut_dtype: str = "f32",
+                      scan_cap: int = 0, prefilter: int = 0):
+    """``search_fn`` over the ``axis`` of ``mesh`` (default: the context's
+    mesh), run by every rank on its own ``sstate`` with the same queries.
+
+    The same contract and, by the construction of the merge, the same
+    results as ``search_fn`` on the unsharded state; every rank returns
+    them. K2's over-fetch ``slack`` is ``shards - 1``, the most pad rows
+    a rank's block can hold.
+    """
+    if mesh is None:
+        mesh = require_mesh("sharded_search_fn")
+    _check_axis(mesh, axis)
+    return _sharded_core(mesh, sstate, queries, k=k, nprobe=nprobe,
+                         rerank=rerank, backend=backend, lut_dtype=lut_dtype,
+                         slack=mesh.size - 1, scan_cap=scan_cap,
+                         prefilter=prefilter)
+
+
+def _check_axis(mesh: Mesh, axis: str):
+    if axis != mesh.axis:
+        raise ValueError(f"the mesh has axis {mesh.axis!r}, not {axis!r}")
+
+
 def _bucket(nq: int, floor: int, small: int = 0) -> int:
     """Smallest power of two >= nq, floored at ``floor``; batches of at
     most ``small`` take their own power-of-two bucket."""
@@ -301,14 +413,17 @@ def _bucket(nq: int, floor: int, small: int = 0) -> int:
 
 # the engine's programs, as the JAX engine jits them: compile_count counts
 # the distinct keys each has run
-_PROGRAMS = ("search", "stream", "upsert", "delete", "compact")
-_STREAM_PROGRAMS = _PROGRAMS[1:]
+_PROGRAMS = ("search", "sharded", "stream", "stream_sharded", "upsert",
+             "delete", "compact")
+_STREAM_PROGRAMS = _PROGRAMS[2:]
 
 
 def _shapes(tree) -> tuple:
-    """The shapes of a NamedTuple's tensor fields (None where a field is
-    None): the part of a JAX jit key that a store's grow changes."""
-    return tuple(None if t is None else tuple(t.shape) for t in tree)
+    """The shapes of every tensor leaf of ``tree``, in leaf order: the
+    part of a JAX jit key that a store's grow (or a re-shard) changes."""
+    from repro_torch._tree import tree_leaves
+    return tuple(tuple(t.shape) for t in tree_leaves(tree)
+                 if isinstance(t, torch.Tensor))
 
 
 def _sync(device: torch.device):
@@ -346,7 +461,9 @@ class SearchEngine:
     store's shapes, compaction by the store's shapes. Streaming programs
     start afresh at ``streaming()`` and at a quantizer rebuild, as JAX
     re-jits them there. ``metrics()`` returns the typed ``EngineMetrics``;
-    ``tracing(...)`` attaches a ``Tracer``.
+    ``tracing(...)`` attaches a ``Tracer``. ``shard(mesh)`` splits the
+    engine over a serving mesh (``sharded_state``; a streaming engine's
+    base); its programs key on the mesh's axis and size as well.
     """
 
     def __init__(self, corpus, config=ServeConfig(), *,
@@ -356,6 +473,7 @@ class SearchEngine:
         spec = config.to_spec()
         self.device = resolve_device(device)
         inits = inits if inits is not None else BuildInits()
+        corpus_in = corpus
         corpus = torch.as_tensor(corpus, dtype=torch.float32).to(self.device)
         n = corpus.shape[0]
         gen = cpu_generator(config.seed)
@@ -388,6 +506,9 @@ class SearchEngine:
         self.build_seconds = times
         self._attach(config, EngineState(corpus=corpus, proj=proj,
                                          index=Index(config.index, payload)))
+        # a caller's tensor that passes through unconverted stays the
+        # caller's: shard(donate=True) must not free it
+        self._user_corpus = corpus if corpus is corpus_in else None
 
     @classmethod
     def from_state(cls, state: EngineState, config) -> "SearchEngine":
@@ -429,9 +550,12 @@ class SearchEngine:
     @property
     def reducer(self) -> Optional[Reducer]:
         """The fitted Reduce stage (None without one): the read-only
-        state's, or a streaming engine's frozen one."""
-        holder = self.state if self.state is not None else self.frozen
-        return holder.proj
+        state's, a streaming engine's frozen one, or (after
+        ``shard(donate=True)``) the sharded state's replicated one."""
+        for holder in (self.state, self.frozen, self.sharded_state):
+            if holder is not None:
+                return holder.proj
+        return None
 
     @property
     def spec(self) -> IndexSpec:
@@ -455,6 +579,13 @@ class SearchEngine:
     def _attach(self, config: ServeConfig, state, store=None, frozen=None):
         self.config = config
         self.state = state
+        self._user_corpus = None
+        # sharded serving (shard()): this rank's part of the state, the
+        # mesh, and a streaming engine's sharded base
+        self.sharded_state: Optional[ShardedEngineState] = None
+        self._mesh: Optional[Mesh] = None
+        self._shard_axis = "data"
+        self._stream_sharded_base: Optional[ShardedEngineState] = None
         self.last_bucket: Optional[int] = None
         self._scan_caps: dict = {}   # nprobe -> compact-scan gather width
         self._programs = {name: set() for name in _PROGRAMS}
@@ -576,7 +707,8 @@ class SearchEngine:
                   backend=cfg.pq_backend if coded else "jnp",
                   lut_dtype=cfg.lut_dtype if coded else "f32",
                   scan_cap=0, prefilter=0)
-        if self.store is None and cfg.index == "ivfpq":
+        if (self.store is None and self.sharded_state is None
+                and cfg.index == "ivfpq"):
             if 0 < bucket <= cfg.compact_batch:
                 kw["scan_cap"] = self._scan_cap(cfg.nprobe)
             if 0 < bucket <= cfg.prefilter_batch and cfg.target_dim is None:
@@ -590,11 +722,27 @@ class SearchEngine:
               if tracer is not None and tracer.active else None)
         key = (k, bucket) + tuple(kw.values())
         if self.store is not None:
-            from .stream import stream_search_fn
+            from .stream import (replica_from_store, sharded_stream_search_fn,
+                                 stream_search_fn)
             self._poll_compaction()
-            self._programs["stream"].add(key + (_shapes(self.store),))
-            d, ids = stream_search_fn(self.store, self.frozen, queries, k,
-                                      **kw)
+            sbase = self._stream_sharded_base
+            if sbase is not None:
+                repl = replica_from_store(self.store)
+                self._programs["stream_sharded"].add(
+                    key + self._mesh_key() + _shapes(
+                        (sbase.corpus, sbase.index.payload, repl)))
+                d, ids = sharded_stream_search_fn(
+                    sbase, repl, queries, k, mesh=self._mesh,
+                    axis=self._shard_axis, **kw)
+            else:
+                self._programs["stream"].add(key + (_shapes(self.store),))
+                d, ids = stream_search_fn(self.store, self.frozen, queries,
+                                          k, **kw)
+        elif self.sharded_state is not None:
+            self._programs["sharded"].add(key + self._mesh_key())
+            d, ids = sharded_search_fn(self.sharded_state, queries, k,
+                                       mesh=self._mesh,
+                                       axis=self._shard_axis, **kw)
         else:
             self._programs["search"].add(key)
             d, ids = search_fn(self.state, queries, k,
@@ -605,17 +753,84 @@ class SearchEngine:
             tracer.on_search(self, queries, nq, k, kw, t0, d, ids)
         return d[:nq], ids[:nq]
 
+    # --- sharding ---------------------------------------------------------
+
+    def _mesh_key(self) -> tuple:
+        """The part of a sharded program's key the mesh gives (JAX's jit
+        caches key on the mesh and the axis)."""
+        return (self._mesh.axis, self._mesh.size)
+
+    def _shard_stream_base(self):
+        from repro_torch.parallel.engine import shard_stream
+        self._stream_sharded_base = shard_stream(
+            self.store, self.frozen, self._mesh, axis=self._shard_axis)
+
+    def shard(self, mesh: Optional[Mesh] = None, axis: str = "data",
+              donate: bool = False) -> "SearchEngine":
+        """Partition the engine over the ``axis`` of ``mesh`` (default: the
+        mesh of ``repro_torch.parallel.context.mesh_context``); every rank
+        of the mesh calls it on its own engine, built or restored alike.
+
+        Later ``search`` calls (made by every rank with the same queries)
+        run ``sharded_search_fn``: the same results, the database split
+        over the ranks. Returns ``self``. Re-call with another mesh to
+        re-shard.
+
+        ``donate=True`` frees the dense state once this rank's block is
+        taken (no second copy of the database): its tensors are emptied
+        (``Tensor.set_()``), except a corpus tensor the caller handed in;
+        re-sharding then raises. On a streaming engine the **base** shards
+        and the delta, tombstones and id maps stay replicated (writes keep
+        working; ``compact()`` re-lays the base out); donation is refused
+        there, since the dense store is the write path.
+        """
+        if mesh is None:
+            mesh = require_mesh("SearchEngine.shard()")
+        _check_axis(mesh, axis)
+        self._mesh, self._shard_axis = mesh, axis
+        if self.store is not None:
+            if donate:
+                raise ValueError(
+                    "donate=True is not supported on a streaming engine: "
+                    "the dense StreamStore backs upsert/delete/compact")
+            if self._compact_future is not None:
+                self.finish_compact()    # lay out the post-fold base, once
+            self._shard_stream_base()
+            return self
+        if self.state is None:
+            raise RuntimeError(
+                "the dense EngineState is gone: its tensors were freed by "
+                "shard(donate=True); rebuild the engine (or load_engine "
+                "from a snapshot) to re-shard")
+        from repro_torch.parallel.engine import shard_engine
+        keep = (self._user_corpus,) if self._user_corpus is not None else ()
+        self.sharded_state = shard_engine(self.state, mesh, axis=axis,
+                                          donate=donate, keep=keep)
+        if donate:
+            self.state = None
+        return self
+
     # --- streaming (mutable) serving -------------------------------------
 
     def streaming(self, config: Optional[StreamConfig] = None
                   ) -> "SearchEngine":
         """Enable the write path on a built engine: the index becomes the
         frozen base of a ``StreamStore`` with a delta segment and
-        tombstones, and the dense state is released. Call once. Returns
-        ``self``."""
+        tombstones, and the dense state is released. Call once, after the
+        build and before ``shard``. Returns ``self``."""
         if self.store is not None:
             raise RuntimeError("this engine is already streaming; "
                                "re-configure by rebuilding it")
+        if self.sharded_state is not None:
+            raise RuntimeError(
+                "enable streaming BEFORE shard(): the store takes over the "
+                "dense tensors, which would leave the sharded state stale; "
+                "rebuild, call streaming(...), then shard(mesh)")
+        if self.state is None:
+            raise RuntimeError(
+                "the dense EngineState is gone (shard(donate=True)); "
+                "streaming needs the dense tensors: rebuild the engine or "
+                "load_engine from a snapshot")
         # replace() re-runs the config's validation (pq + kernel refused)
         self.config = dataclasses.replace(
             self.config, stream=config or StreamConfig())
@@ -842,6 +1057,8 @@ class SearchEngine:
         self.grow_count += grows
         self.counters["compactions"] += 1
         self.counters["swaps"] += 1
+        if self._stream_sharded_base is not None:
+            self._shard_stream_base()        # re-lay the (grown) base out
         self._crash("compact_done")
         if not self._replaying:      # a replayed log holds its decisions
             self._post_compact_maintenance()
@@ -908,9 +1125,22 @@ class SearchEngine:
         return self
 
     def _poll_compaction(self):
-        """Swap in a background compaction whose fold has finished."""
+        """Swap in a background compaction whose fold has finished. On a
+        sharded engine every rank folds on its own worker thread, so the
+        swap is the mesh's decision: it happens once every rank's fold is
+        done (an all-reduce MIN of the flags), else one search would scan
+        the new base layout on some ranks and the old one on others. Every
+        rank polls at the same calls (the same writes and searches start
+        the same folds), so the collective is matched."""
         fut = self._compact_future
-        if fut is not None and fut.done():
+        if fut is None:
+            return
+        done = fut.done()
+        if self._stream_sharded_base is not None:
+            flag = torch.tensor([int(done)], dtype=torch.int32,
+                                device=self._mesh.device)
+            done = bool(all_reduce_min(self._mesh, flag)[0])
+        if done:
             self.finish_compact()
 
     def close(self):
@@ -974,6 +1204,8 @@ class SearchEngine:
                                          cell_extra=cell_extra)
         self._base_dirty = True
         self.counters["policy_grows"] += 1
+        if self._stream_sharded_base is not None:
+            self._shard_stream_base()
 
     def _gather_live(self):
         """Every live row: base survivors in row order, then live delta
@@ -1006,6 +1238,8 @@ class SearchEngine:
         self._delta_used = 0
         self._base_dirty = True
         self.counters["vacuums"] += 1
+        if self._stream_sharded_base is not None:
+            self._shard_stream_base()
 
     def rebuild_quantizers(self, seed: Optional[int] = None
                            ) -> "SearchEngine":
@@ -1038,6 +1272,8 @@ class SearchEngine:
         self._base_dirty = True
         self._reset_stream_programs()        # new quantizers: re-keyed
         self.counters["rebuilds"] += 1
+        if self._stream_sharded_base is not None:
+            self._shard_stream_base()
 
     def _apply_policy_record(self, decision: dict):
         """Replay one RT_POLICY record (recovery and catch-up)."""

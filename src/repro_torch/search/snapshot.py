@@ -36,7 +36,13 @@ the restored store, so recovery lands on the exact pre-crash state (see
 
 The JAX package's ``pq_interpret`` runtime knob (Pallas interpret mode)
 has no counterpart here: the port writes it as ``false`` and ignores it
-on read. ``mesh=`` waits for multi-GPU serving (ROADMAP.md item 11).
+on read.
+
+``load_engine(dir, mesh=...)`` restores onto a serving mesh: snapshots
+are shard-agnostic, so every rank reads the whole snapshot onto its
+device and keeps its slice (``SearchEngine.shard``; a read-only engine
+frees the dense copy, a streaming one shards its base and keeps the
+replicated write state).
 """
 from __future__ import annotations
 
@@ -220,6 +226,11 @@ def save_engine(engine: SearchEngine, directory: str,
     if incremental:
         return _save_incremental(engine, directory)
     streaming = engine.store is not None
+    if not streaming and engine.state is None:
+        raise RuntimeError(
+            "nothing to save: the dense EngineState was freed by "
+            "shard(donate=True); call save() before donating the dense "
+            "tensors")
     if streaming and engine._compact_future is not None:
         engine.finish_compact()      # snapshot the post-swap store
     wal = None
@@ -362,8 +373,8 @@ def _read_arrays(path: str, overlay: Optional[str]) -> dict:
     return arrays
 
 
-def load_engine(directory: str, mesh=None, role: str = "primary", *,
-                device: DeviceLike = None,
+def load_engine(directory: str, mesh=None, axis: str = "data",
+                role: str = "primary", *, device: DeviceLike = None,
                 **runtime_overrides) -> SearchEngine:
     """Restore a ``save_engine`` snapshot (the port's or the JAX
     package's) into a serving ``SearchEngine`` on ``device`` (``cuda``
@@ -377,6 +388,13 @@ def load_engine(directory: str, mesh=None, role: str = "primary", *,
     (``query_bucket=...``, ...); ``stream=`` is refused (its capacities
     are the saved tensors' shapes).
 
+    ``mesh`` (a ``repro_torch.parallel.Mesh``; ``device`` defaults to its
+    device) restores onto a serving mesh: the engine comes back whole on
+    this rank, then ``shard(mesh, axis=axis)`` keeps its slice, freeing
+    the dense copy of a read-only engine (``donate=True``); a streaming
+    engine shards its base and keeps the replicated write path. Every
+    rank of the mesh makes the same call.
+
     ``role="follower"`` builds a read replica: the snapshot's tensors and
     WAL *position* are restored, but the local log is neither replayed
     nor resumed (the directory may be a shipped copy; a follower's
@@ -385,10 +403,8 @@ def load_engine(directory: str, mesh=None, role: str = "primary", *,
     writes. Otherwise a durable snapshot is recovered: the WAL's tail is
     replayed and the engine resumes appending to the same log.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "load_engine(mesh=...) is not ported yet (see ROADMAP.md, "
-            "'Modules still to port', item 11 (multi-GPU))")
+    if mesh is not None and device is None:
+        device = mesh.device
     if role not in ("primary", "follower"):
         raise ValueError(
             f"unknown role {role!r}; expected 'primary' or 'follower'")
@@ -485,4 +501,6 @@ def load_engine(directory: str, mesh=None, role: str = "primary", *,
             # the floor pin is engine state, not log state: re-pin from
             # the manifest so chained truncation holds past a restart
             engine._wal.pin_floor(engine._base_ref["wal_seq"])
+    if mesh is not None:
+        engine.shard(mesh, axis=axis, donate=not meta["streaming"])
     return engine

@@ -1,5 +1,5 @@
 """Streaming search over a base index, a delta segment and tombstones
-(port of the single-device half of ``repro.search.stream``).
+(port of ``repro.search.stream``).
 
 ``stream_search_fn`` is the mutable engine's counterpart of
 ``repro_torch.search.serve.search_fn``: the same project -> scan ->
@@ -15,21 +15,57 @@ re-rank pipeline, extended with
   slot ``n_cap + s``), the dedup'd exact re-rank with a two-source
   gather, and a final map from internal ids to external ids.
 
-Not ported yet (ROADMAP.md, item 11): ``sharded_stream_search_fn``,
-``StreamReplica`` and ``replica_from_store``.
+``sharded_stream_search_fn`` runs the same pipeline with the base split
+over the ranks of a mesh (``repro_torch.parallel.engine.shard_stream``):
+the delta segment, the tombstones and the id maps are replicated, taken
+from each rank's own store (``StreamReplica``), so writes touch only
+those and the sharded base stays valid between compactions. Each rank
+scans its base block with the replicated ``live`` mask
+(``IndexOps.local_scan``); the ranks' lists are merged, every rank scans
+the delta alike, and the two-source re-rank scores base rows on their
+owner and delta rows everywhere, a MIN all-reduce assembling the row.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
+
+from repro_torch.parallel.context import Mesh, all_reduce_min, require_mesh
 
 from .knn import _sq_dists, masked_topk, topk_smallest
 from .pq import _check_adc_args
 from .reducers import reduce_vectors
 from .registry import ScanParams, get_ops
 from .segments import FrozenParams, StreamStore, delta_alive, live_mask
-from .serve import _check_rerank_budget, _dedupe_candidates
+from .serve import (ShardedEngineState, _check_axis, _check_rerank_budget,
+                    _dedupe_candidates, _merge_local)
 
-__all__ = ["stream_search_fn"]
+__all__ = ["stream_search_fn", "sharded_stream_search_fn", "StreamReplica",
+           "replica_from_store"]
+
+
+class StreamReplica(NamedTuple):
+    """The replicated, write-hot tensors a sharded streaming search needs
+    beside the sharded base: the id maps, the tombstones and the delta
+    segment. Taken from the ``StreamStore`` for every call, so upserts and
+    deletes never touch the sharded base."""
+    row_ids: torch.Tensor                   # (n_cap,)
+    dead: torch.Tensor                      # (n_cap,) bool
+    delta_vectors: torch.Tensor             # (cap, D)
+    delta_reduced: Optional[torch.Tensor]   # (cap, m)
+    delta_ids: torch.Tensor                 # (cap,)
+    delta_count: torch.Tensor               # ()
+
+
+def replica_from_store(store: StreamStore) -> StreamReplica:
+    """The write-hot replicated tensors of a ``StreamStore`` (the same
+    tensors, no copy; fresh every call so the sharded read path serves the
+    latest writes)."""
+    return StreamReplica(
+        row_ids=store.row_ids, dead=store.dead,
+        delta_vectors=store.delta_vectors, delta_reduced=store.delta_reduced,
+        delta_ids=store.delta_ids, delta_count=store.delta_count)
 
 
 def _check_stream_backend(kind: str, backend: str):
@@ -114,3 +150,68 @@ def stream_search_fn(store: StreamStore, frozen: FrozenParams,
     dists, internal = _stream_rerank(queries, store.corpus,
                                      store.delta_vectors, mids, k)
     return dists, _to_external(internal, store.row_ids, store.delta_ids)
+
+
+# --- sharded streaming (base sharded, delta and tombstones replicated) ------
+
+def sharded_stream_search_fn(sbase: ShardedEngineState, repl: StreamReplica,
+                             queries: torch.Tensor, k: int, *,
+                             mesh: Optional[Mesh] = None, axis: str = "data",
+                             nprobe: int = 8, rerank: int = 64,
+                             backend: str = "jnp", lut_dtype: str = "f32",
+                             scan_cap: int = 0, prefilter: int = 0):
+    """``stream_search_fn`` with the base split over the ``axis`` of
+    ``mesh`` (default: the context's mesh); every rank calls it on its
+    own base block with the same replica and queries.
+
+    Each rank's masked base scan keeps a full local top-n_cand, so the
+    merged base candidate set is the single-device one, and the delta
+    scan is the same on every rank: the results are the single-device
+    streaming search's, on every rank. Returns (dists (Q, k), external
+    ids (Q, k))."""
+    if mesh is None:
+        mesh = require_mesh("sharded_stream_search_fn")
+    _check_axis(mesh, axis)
+    if scan_cap or prefilter:
+        raise ValueError(
+            "scan_cap/prefilter are single-device read-only fast paths; "
+            "leave both 0 on the sharded streaming path")
+    kind = sbase.index.kind
+    ops = get_ops(kind)
+    _check_adc_args(backend, lut_dtype)
+    _check_stream_backend(kind, backend)
+    queries = queries.to(torch.float32)
+    qr = reduce_vectors(sbase.proj, queries)
+    approximate = sbase.proj is not None or ops.lossy
+    _check_rerank_budget(approximate, rerank, k)
+    n_cand = rerank if approximate else k
+    live = live_mask(repl)
+    n_cap = repl.row_ids.shape[0]
+    p = ScanParams(nprobe=nprobe, backend=backend, lut_dtype=lut_dtype)
+    d2, cand = ops.local_scan(sbase, qr, n_cand, p, mesh.rank, 0, live=live)
+    bd2, bids = _merge_local(mesh, d2, cand, n_cand)
+    cap = repl.delta_ids.shape[0]
+    delta_rows = (repl.delta_reduced if repl.delta_reduced is not None
+                  else repl.delta_vectors)
+    dd2, dids = _delta_scan(qr, delta_rows, delta_alive(repl), n_cap,
+                            n_cand)
+    _, mids = masked_topk(torch.cat([bd2, dd2], dim=1),
+                          torch.cat([bids, dids], dim=1), n_cand)
+    # the two-source re-rank: base rows scored by their owner, delta rows
+    # alike on every rank; the MIN all-reduce assembles the row
+    cand2, valid = _dedupe_candidates(mids)
+    n_loc = sbase.corpus.shape[0]
+    isd = cand2 >= n_cap
+    local = cand2 - mesh.rank * n_loc
+    own_base = valid & ~isd & (local >= 0) & (local < n_loc)
+    bv = sbase.corpus[local.clamp(0, n_loc - 1)]
+    dv = repl.delta_vectors[(cand2 - n_cap).clamp(0, cap - 1)]
+    cv = torch.where(isd[..., None], dv, bv)
+    d2 = ((cv - queries[:, None, :]) ** 2).sum(dim=-1)
+    d2 = all_reduce_min(mesh, torch.where(own_base | (valid & isd), d2,
+                                          float("inf")))
+    vals, sel = topk_smallest(d2, k)
+    internal = torch.gather(cand2, 1, sel)
+    internal = torch.where(vals == float("inf"), -1, internal)
+    return (vals.clamp_min(0.0).sqrt(),
+            _to_external(internal, repl.row_ids, repl.delta_ids))

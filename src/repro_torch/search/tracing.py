@@ -125,8 +125,8 @@ def deep_trace(engine, queries, k: int, kw: Mapping) -> Optional[dict]:
     project/probe/scan/rerank (the scan given the probe is
     ``ivfpq_scan_given_probe``, the search's own scan: K1's cell-major
     entry on the cells' fills with ``backend="kernel"``); other kinds as
-    project/scan/rerank. Only read-only engines qualify (``engine.state``);
-    returns None otherwise.
+    project/scan/rerank. Only unsharded read-only engines qualify
+    (``engine.state``); returns None otherwise.
 
     Returns ``{"stages": [(name, ms), ...], "e2e_ms": float}``: the stage
     list is ordered, non-overlapping, and sums to ``e2e_ms`` up to the
@@ -135,7 +135,8 @@ def deep_trace(engine, queries, k: int, kw: Mapping) -> Optional[dict]:
     kernel's first call at a shape is never timed.
     """
     state = engine.state
-    if state is None or engine.store is not None:
+    if (state is None or engine.store is not None
+            or engine.sharded_state is not None):
         return None
     kind = state.index.kind
     ops = get_ops(kind)

@@ -2,10 +2,10 @@
 name ``repro_torch.search.__all__`` exports resolves and is documented,
 the composable entry points are exported, and every module of
 ``repro_torch`` exports at least what its JAX twin's ``__all__`` does,
-less a named list of what ROADMAP.md items 11 (multi-GPU) and 13 (the
-other model families, the dry-run tools) still owe, the Pallas kernels'
-entry points (the port's CUDA kernels are their own wrappers) and the one
-rename ``jax_profile -> torch_profile``. Then the public functions the
+less a named list of what ROADMAP.md item 13 (the other model families,
+their sharding spec sets, the dry-run tools) still owes, the Pallas
+kernels' entry points (the port's CUDA kernels are their own wrappers)
+and the one rename ``jax_profile -> torch_profile``. Then the public functions the
 surface gained in the same slice, each against its JAX twin:
 ``ivf_search``, ``ivfpq_search``, ``as_serve_config``,
 ``dequantize_lut``, ``mu_b_fast`` and ``mu_b_fast_value_and_grad``."""
@@ -22,24 +22,14 @@ torch.set_num_threads(1)
 
 import repro_torch.search as search  # noqa: E402
 
-# JAX module -> names its __all__ has that the port does not export yet
-_ITEM_11 = {
-    "repro.search": {"ShardedEngineState", "sharded_search_fn",
-                     "StreamReplica", "replica_from_store",
-                     "sharded_stream_search_fn", "balance_cells"},
-    "repro.search.serve": {"ShardedEngineState", "sharded_search_fn"},
-    "repro.search.stream": {"sharded_stream_search_fn", "StreamReplica",
-                            "replica_from_store"},
-    "repro.search.ivf": {"balance_cells", "ivf_local_scan"},
-    "repro.search.ivfpq": {"ivfpq_local_scan"},
-    "repro.search.pq": {"pq_local_scan"},
-    "repro.search.registry": {"ShardedIVF", "ShardedPQ", "ShardedIVFPQ",
-                              "ShardedOPQ"},
-    "repro.runtime": {"restore_resharded"},
-    "repro.runtime.checkpoint": {"restore_resharded"},
-    "repro.kernels.pq_adc": {"pq_adc_topk_global"},
-}
+# JAX module -> names its __all__ has that the port does not export yet:
+# the model side's sharding (the LM spec sets, ``constrain``)
 _ITEM_13 = {
+    "repro.parallel": {"constrain", "lm_param_specs", "opt_specs",
+                       "tree_named", "lm_cache_specs"},
+    "repro.parallel.context": {"constrain"},
+    "repro.parallel.sharding": {"lm_param_specs", "opt_specs", "tree_named",
+                                "lm_cache_specs"},
     "repro.configs": {"get_arch", "all_arch_names", "ArchSpec", "ShapeDef"},
     "repro.configs.lm_family": {"make_lm_arch"},
     "repro.data": {"make_random_graph", "sample_neighborhood_batch"},
@@ -58,7 +48,6 @@ _RENAMED = {"repro.search": {"jax_profile": "torch_profile"},
             "repro.search.tracing": {"jax_profile": "torch_profile"}}
 # JAX modules with no port twin yet, and the item that ports each
 _MODULES_OWED = {
-    "repro.parallel": 11, "repro.core.distributed": 11,
     "repro.configs.common": 13, "repro.configs.gnn_family": 13,
     "repro.configs.recsys_family": 13, "repro.data.graph": 13,
     "repro.models.embedding": 13, "repro.models.gnn": 13,
@@ -116,12 +105,14 @@ def test_reducer_registry_covers_kinds():
 
 def test_registry_covers_index_kinds():
     """Every index kind of the grammar is registered with the hooks the
-    single-device stack calls (the sharded hooks wait for item 11)."""
+    single-device and the sharded stacks call."""
     for kind in search.INDEX_KINDS:
         ops = search.get_ops(kind)
         assert ops.kind == kind
         for hook in ("build", "scan", "stream_scan", "store_parts",
-                     "encode_delta", "rebuild"):
+                     "encode_delta", "rebuild", "local_scan",
+                     "shard_payload", "payload_specs",
+                     "stream_base_payload"):
             assert callable(getattr(ops, hook)), (kind, hook)
 
 
@@ -173,8 +164,7 @@ def test_every_module_covers_its_jax_twin():
         if jall is None:
             continue
         tall = set(getattr(tmod, "__all__", ()))
-        owed = (_ITEM_11.get(name, set()) | _ITEM_13.get(name, set())
-                | _PALLAS.get(name, set()))
+        owed = _ITEM_13.get(name, set()) | _PALLAS.get(name, set())
         renamed = _RENAMED.get(name, {})
         for jname in jall:
             if jname in owed:
@@ -190,7 +180,7 @@ def test_every_module_covers_its_jax_twin():
 def test_renamed_and_owed_lists_name_real_jax_exports():
     """The exclusions name what JAX really exports (a stale entry would
     hide a gap)."""
-    for table in (_ITEM_11, _ITEM_13, _PALLAS, _RENAMED):
+    for table in (_ITEM_13, _PALLAS, _RENAMED):
         for name, names in table.items():
             jall = set(importlib.import_module(name).__all__)
             assert set(names) <= jall, (name, set(names) - jall)

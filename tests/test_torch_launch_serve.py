@@ -3,10 +3,11 @@ tiny size: its read-only, streaming and persistence flags keep the JAX
 launcher's names and defaults, it builds and serves each reducer kind and
 the ivf kind with recall against exact search, runs the streaming write
 leg (blocking and background compaction), a snapshot round trip and a
-durable engine reloaded through recovery under each fsync mode, and
-every flag of a layer not ported yet raises with a pointer to ROADMAP.md. The launchers draw their
-queries from different generators, so this compares behaviour, not
-numbers."""
+durable engine reloaded through recovery under each fsync mode, and the
+sharding flags (``--shards`` / ``--mesh host`` / ``--donate``) through
+gloo ranks, whose ids and recall equal the unsharded run's. The launchers
+draw their queries from different generators, so this compares
+behaviour, not numbers."""
 import os
 import sys
 
@@ -21,6 +22,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.search import load_engine  # noqa: E402
 
 TINY = ["--corpus", "600", "--dim", "32", "--batch", "16", "--batches", "2"]
+SHARDING = ("shards", "mesh", "donate")
 READ_ONLY = ("corpus", "dim", "spec", "target_dim", "reducer", "batch",
              "batches", "k", "index", "nlist", "nprobe", "pq_subspaces",
              "lut_dtype", "pq_backend", "query_bucket", "stream",
@@ -35,12 +37,11 @@ def test_flags_and_defaults_match_the_jax_launcher(monkeypatch):
     targs = vars(serve._parse_args([]))
     for name in READ_ONLY:
         assert targs[name] == jargs[name], name
-    # every other flag of the JAX launcher is accepted (and refused when
-    # set), except the Pallas interpret switch
+    # every other flag of the JAX launcher is accepted, with its default,
+    # except the Pallas interpret switch
     assert set(jargs) - set(targs) == {"interpret"}
-    for flag, (kw, _) in serve._UNPORTED.items():
-        dest = flag[2:].replace("-", "_")
-        assert targs[dest] == jargs[dest] == kw.get("default", False)
+    for dest in SHARDING:
+        assert targs[dest] == jargs[dest], dest
 
 
 @pytest.mark.parametrize("argv", [
@@ -59,19 +60,6 @@ def test_serves_with_recall(argv, capsys):
     assert 0.5 <= out["recall"] <= 1.0 and out["ms_per_batch"] > 0
     if argv == ["--target-dim", "0"]:
         assert out["spec"] == "rr40" and out["recall"] == 1.0   # exact
-
-
-@pytest.mark.parametrize("flag", sorted(serve._UNPORTED))
-def test_unported_flags_raise_with_a_pointer(flag):
-    kw, _ = serve._UNPORTED[flag]
-    if kw.get("action") == "store_true":
-        argv = [flag]
-    elif "choices" in kw:
-        argv = [flag, next(c for c in kw["choices"] if c != kw["default"])]
-    else:
-        argv = [flag, "3"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(TINY + argv, device="cpu")
 
 
 def test_ivf_kind_raises_with_a_pointer(capsys):
@@ -188,8 +176,7 @@ def test_observability_flags_match_the_jax_launcher(monkeypatch):
     targs = vars(serve._parse_args([]))
     for name, default in OBSERVABILITY.items():
         assert targs[name] == jargs[name] == default, name
-    assert not set(OBSERVABILITY) & {f[2:].replace("-", "_")
-                                     for f in serve._UNPORTED}
+    assert not set(OBSERVABILITY) & set(SHARDING)
 
 
 @pytest.mark.parametrize("argv,lines", [
@@ -243,9 +230,70 @@ def test_metrics_port_serves_the_typed_metrics(tmp_path, capsys):
     assert out["metrics"]["latency.queries"] == 5
 
 
-@pytest.mark.parametrize("flag", ["--shards", "--mesh", "--donate"])
-def test_sharding_flags_still_name_item_11(flag):
-    argv = {"--shards": [flag, "2"], "--mesh": [flag, "host"],
-            "--donate": [flag]}[flag]
-    with pytest.raises(NotImplementedError, match="item 11"):
+SHARDED = TINY + ["--index", "ivfpq", "--nlist", "16", "--nprobe", "4",
+                  "--target-dim", "8"]
+_UNSHARDED = {}
+
+
+def _unsharded(stream: bool):
+    """The unsharded run's result and every batch's ids, built with the
+    CPU threads a rank of two takes (a build's float sums follow the
+    thread count)."""
+    from repro_torch.launch.mesh import rank_threads
+    from repro_torch.search.serve import SearchEngine
+    if stream not in _UNSHARDED:
+        served = []
+        search = SearchEngine.search
+
+        def record(self, queries, k):
+            d, ids = search(self, queries, k)
+            served.append(ids.numpy())
+            return d, ids
+
+        SearchEngine.search = record
+        torch.set_num_threads(rank_threads(2))
+        try:
+            out = serve.main(SHARDED + (["--stream"] if stream else []),
+                             device="cpu")
+        finally:
+            SearchEngine.search = search
+            torch.set_num_threads(1)
+        _UNSHARDED[stream] = (out, served)
+    return _UNSHARDED[stream]
+
+
+@pytest.mark.parametrize("extra", [[], ["--donate"], ["--stream"],
+                                   ["--snapshot-dir"]],
+                         ids=["shards", "donate", "stream", "snapshot"])
+def test_sharding_flags_run_through_gloo(extra, tmp_path):
+    """``--shards 2 --mesh host`` serves over two gloo ranks on the CPU
+    (with ``--donate``, ``--stream``, and ``--snapshot-dir``, which
+    restores onto the mesh with ``load_engine(dir, mesh=...)``): every
+    batch's ids and the recall equal the unsharded run's."""
+    if extra == ["--snapshot-dir"]:
+        extra = extra + [str(tmp_path / "snap")]
+    stream = "--stream" in extra
+    want, served = _unsharded(stream)
+    out = serve.main(SHARDED + ["--shards", "2", "--mesh", "host"] + extra,
+                     device="cpu")
+    sh = out["sharded"]
+    assert sh["shards"] == 2 and sh["backend"] == "gloo"
+    assert sh["donated"] == (extra == ["--donate"]
+                             or extra[:1] == ["--snapshot-dir"])
+    assert len(sh["ids"]) == len(served) == 2
+    for got, ids in zip(sh["ids"], served):
+        assert (got == ids).all()
+    assert out["recall"] == want["recall"]
+    if stream:
+        assert out["stream"] == {**want["stream"],
+                                 "rows_per_s": out["stream"]["rows_per_s"]}
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--shards", "2", "--mesh", "device"], "--mesh host"),
+    (["--shards", "2", "--mesh", "host", "--stream", "--durable", "d"],
+     "one write-ahead log"),
+], ids=["nccl_on_cpu", "durable"])
+def test_sharding_flags_refuse_what_cannot_run(argv, match):
+    with pytest.raises(ValueError, match=match):
         serve.main(TINY + argv, device="cpu")

@@ -4,8 +4,8 @@ package's in both directions.
 
 * save / load parity for every index kind and LUT dtype, the qpad, pca
   and mlp reducers, streaming snapshots taken mid-delta, the flat alias,
-  runtime overrides, and the guard rails (``stream=`` refused at load,
-  ``mesh=`` waits for multi-GPU);
+  runtime overrides, the guard rails (``stream=`` refused at load), and
+  ``load_engine(dir, mesh=...)`` through two gloo ranks;
 * the files: ``engine.json`` with the JAX package's schema and fields,
   ``ckpt_*.npz`` keyed and typed as the JAX package keys and types them;
 * a snapshot the JAX package wrote (read-only, mid-delta streaming, an
@@ -190,10 +190,48 @@ def test_flat_alias_not_saved_twice(tmp_path):
     np.testing.assert_array_equal(_ids(eng, q), _ids(eng2, q))
 
 
-def test_mesh_restore_waits_for_multi_gpu(tmp_path):
-    _engine("flat").save(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load_engine(str(tmp_path), mesh=object(), device="cpu")
+def rank_restore(mesh, dirs, q):
+    """One rank: each snapshot restored onto the mesh and searched."""
+    out = {}
+    for name, d in dirs.items():
+        eng = load_engine(d, mesh=mesh)
+        out[name] = (_ids(eng, torch.from_numpy(q)),
+                     eng.state is None and eng.store is None,
+                     eng.metrics().engine.sharded)
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_restores(tmp_path_factory):
+    """A read-only and a mid-delta streaming snapshot, their unsharded
+    ids, and what two gloo ranks restore from them."""
+    from repro_torch.launch.mesh import run_ranks
+    root = tmp_path_factory.mktemp("mesh_restore")
+    q = _queries()
+    ro = _engine("qpad8>ivf12x4>pq8x64:i8>rr64")
+    st = _engine("ivf12x4>rr64", stream=StreamConfig(delta_capacity=64))
+    rng = np.random.default_rng(3)
+    st.upsert(np.arange(N, N + 20), rng.normal(size=(20, DIM)).astype(
+        np.float32))
+    st.delete(np.arange(0, 40, 4))
+    dirs = {"read_only": str(root / "ro"), "streaming": str(root / "st")}
+    ro.save(dirs["read_only"])
+    st.save(dirs["streaming"])
+    want = {"read_only": _ids(ro, q), "streaming": _ids(st, q)}
+    st.close()
+    return want, run_ranks(rank_restore, 2, (dirs, q), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["read_only", "streaming"])
+def test_mesh_restore_through_gloo(mesh_restores, name):
+    """``load_engine(dir, mesh=...)`` on two gloo ranks: every rank reads
+    the shard-agnostic snapshot and keeps its slice (a read-only engine
+    frees its dense copy, a streaming one keeps the replicated write
+    state); the ids equal the unsharded engine's."""
+    want, got = mesh_restores
+    ids, dense_freed, sharded = got[name]
+    np.testing.assert_array_equal(ids, want[name])
+    assert sharded and dense_freed == (name == "read_only")
 
 
 def test_load_runs_on_cuda_unless_told_otherwise(tmp_path):
