@@ -306,11 +306,58 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               and their spread under a reordering of the rows are
               --fit-spread's, below. A failing rank fails the run.
 
+  31. path 10  the MoE LMs served on K5, after path 4 (whose tensors are
+              freed first): granite-moe-1b-a400m's and olmoe-1b-7b's
+              CONFIGs in turn at full width and depth, bf16, random
+              weights from lm_init_params(cfg, seed=0), attn_impl="flash".
+              Prefill 4 x 4096 on the configured MoE impl (ep: dispatch
+              on one card), then 64 greedy decode steps on the dense
+              combine (configs.shape_config(cfg, "decode")), then
+              lm_embed; K5's counts zeroed just before and read just after
+              each main run. (a) K5 n_layers times in the prefill, none in
+              the decode, all on mma_bf16; K5 against its plain version on
+              the path's own layer-0 q, k, v (k5_tolerance). (b) On the
+              path's own layer-0 MoE input (16,384 tokens): dispatch at
+              capacity_factor E / K (nothing dropped) against dense, the
+              expert ids equal and each token row within MOE_ROW_REL; at
+              capacity_factor 1.25 the dropped assignments equal a count
+              over the expert ids made on the host. (c) Two prefills give
+              bit-equal logits. (d) The chunked route, teacher-forced:
+              greedy agreement >= LM_AGREE_FLOOR; the logits' max |diff|
+              and the layer-0 expert sets that differ are reported. (e)
+              Logits finite, (4, vocab_padded). Reported: init s, prefill
+              ms, tokens/s and share of the bf16 peak (active parameters
+              plus attention), decode ms a step, peak memory, K5's time at
+              the shape beside its bound, plain version and SDPA, the MoE
+              block's times (router, dispatch tables, expert matmuls,
+              dense at the decode batch) and share of the prefill, and the
+              card's busy share over a prefill and 10 decode steps.
+  32. path 11  the recsys family at the published configs (f32, random
+              weights from seed 0), serve_p99's batch 512 and
+              retrieval_cand's 2^20 candidates: sasrec_serve_topk (k 100)
+              whose ids above the k-th score equal a one-shot topk over
+              the (512, 2^20) scores; dien_forward at 512 and dien_score
+              over 2^20 candidates, 256 of them against dien_forward
+              (RECSYS_RTOL / RECSYS_ATOL); autoint_forward at 512 and
+              autoint_score_candidates over 2^20, 256 against the
+              unchunked forward; the two-tower item tower over 2^20 items
+              (the 1 GB candidate cache), fit_mpad at m 64 on a 2048-row
+              sample on K4 (counts zeroed just before the fit, read just
+              after: 3,072 launches), quantize_candidates (codes and
+              scales bit-equal to the host's), twotower_retrieve in full,
+              mpad and int8 modes (k 100, re-rank 256): full's ids above
+              the k-th score equal an f64 scan's, every returned score
+              the id's exact u . cand within its f32 rounding bound;
+              overlap@100 with full (reported only); the pairwise
+              serve_p99 scoring at 512. p50 ms by CUDA events and items
+              scored a second for every serve step.
+
 Before those, one line {"result": {...}} holds every measurement of the
 run (``result.path4`` for the training path, ``result.path5`` for the
 evaluation path, ``result.path6``, ``result.ivf``,
-``result.prefilter``, ``result.path7``, ``result.path8`` and
-``result.path9``). The line before the last is {"kernels": [...]}
+``result.prefilter``, ``result.path7``, ``result.path8``,
+``result.path9``, ``result.path10`` and ``result.path11``, and
+``result.wall_s``). The line before the last is {"kernels": [...]}
 (K1, K2, K4, K5, K6, K3); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -427,21 +474,60 @@ TRAIN_GRAD_REL = 0.05
 # AdamW update by far less than lr = 1e-3
 DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 8, 2, 5
 DRILL_ATOL = 1e-4
+# path 10: the MoE LMs (granite-moe-1b-a400m, olmoe-1b-7b) served as path
+# 3 serves TinyLlama (LM_BATCH x LM_SEQ prefill on the configured MoE
+# implementation, ep: dispatch on one card; LM_DECODE greedy steps on the
+# dense combine, as lm_family.shape_config gives decode). dispatch with
+# capacity_factor E / K (no assignment can be dropped) against dense on
+# the path's own layer-0 MoE input, bf16: the same router (the expert ids
+# equal) and the same expert matmuls (f32 sums rounded to bf16, maybe in
+# another order at another M); dispatch rounds each of a token's K gated
+# contributions to bf16 and adds them one after another in bf16, dense
+# sums them in f32 and rounds once. Each rounding is 2^-9 of one
+# contribution; K contributions of about one size in random directions sum
+# to about sqrt(K) of one, so K + 1 independent roundings come to about
+# 2^-9 of the row, and a bf16 ulp of every expert output (another matmul
+# order) to 2^-8. A token row's ||dispatch - dense|| / ||dense|| within
+# 2^-5 leaves 8x over that
+MOE_ROW_REL = 2.0 ** -5
+# path 11: the recsys family at the published configs (f32, random weights
+# from seed 0): serve_p99's batch and retrieval_cand's 2^20 candidates
+# (configs.recsys_family.RECSYS_SHAPES), k 100 (its _TOPK); DIEN's and
+# AutoInt's candidate scoring checked against the forward on
+# RECSYS_SAMPLE candidates at JAX's tests' tolerance (the same f32
+# operations in matmuls of other shapes); the two-tower reducer fitted on
+# a FIT_SAMPLE-row sample of the candidate cache with path 2's fit
+# settings at m = MPAD_DIM on K4; DIEN's AUGRU over RECSYS_DIEN_CHUNK
+# candidates a batch; the item tower RECSYS_TOWER_CHUNK items a call
+RECSYS_SAMPLE = 256
+RECSYS_RTOL, RECSYS_ATOL = 1e-4, 1e-5
+RECSYS_REPS = 5
+RECSYS_DIEN_CHUNK = 1 << 16
+RECSYS_TOWER_CHUNK = 1 << 18
 
 
 # kernel-name fragments for a trace's device time by group (first match)
-KERNEL_GROUPS = (
+_GROUPS_HEAD = (
     ("K5 flash_fwd", ("flash_fwd",)),
     ("K6 ce_partial/ce_merge", ("ce_partial", "ce_merge")),
     ("K1/K2/K4", ("adc_", "pair_")),
     ("K3 knn_select", ("knn_select", "row_sqnorms")),
     ("GEMM f32", ("f32f32_f32f32",)),
     ("GEMM bf16", ("gemm", "xmma", "cutlass", "nvjet")),
-    ("elementwise", ("elementwise",)),
-    ("reduce", ("reduce_kernel",)),
-    ("index/scatter/gather", ("index", "scatter", "gather")),
-    ("copy", ("copy", "cat")),
 )
+_ELEMENTWISE = ("elementwise", ("elementwise",))
+_REDUCE = ("reduce", ("reduce_kernel",))
+_MOVES = ("index/scatter/gather", ("index", "scatter", "gather"))
+_COPY = ("copy", ("copy", "cat"))
+_MOE = (("softmax (the MoE router)", ("softmax", "SoftMax")),
+        ("sort (the MoE top-k and dispatch)", ("sort", "Sort")))
+KERNEL_GROUPS = _GROUPS_HEAD + (_ELEMENTWISE, _REDUCE, _MOVES, _COPY) + _MOE
+# path 10's: the MoE dispatch's moves (index_elementwise_kernel,
+# _scatter_gather_elementwise_kernel) ahead of "elementwise", which takes
+# them first in KERNEL_GROUPS (kept in its order so that the older paths'
+# groups stay comparable across runs)
+MOE_KERNEL_GROUPS = _GROUPS_HEAD + _MOE + (_MOVES, _ELEMENTWISE, _REDUCE,
+                                           _COPY)
 
 
 # each ported kernel's name fragment in a trace, beside the wrappers whose
@@ -687,19 +773,20 @@ def cell_probe(rng, nq, sizes, nprobe, lists, n_cand):
     return probe.astype(np.int64), cd2p, cand
 
 
-def busy_share(torch, fn, reps, label, top=6):
+def busy_share(torch, fn, reps, label, top=6, by=KERNEL_GROUPS):
     """Share of a window of ``reps`` calls of ``fn`` in which the card runs
     a kernel: the kernels' device time (one stream, so no overlap) from a
     complete trace (``kernel_trace``) over the host time of the window.
     The profiler slows the host, so the idle share it implies is an upper
-    bound. Logs and returns the share, the kernels launched per call and
-    the top kernels with their device µs per call."""
+    bound. Logs and returns the share, the kernels launched per call, the
+    top kernels with their device µs per call and the device µs per call
+    by the groups of ``by`` (the first whose fragment a kernel's name
+    holds)."""
     kern, wall_us = kernel_trace(torch, fn, reps, label, warm=False)
     busy_us = sum(e.self_device_time_total for e in kern)
     groups = {}
     for e in kern:
-        g = next((g for g, keys in KERNEL_GROUPS if any(k in e.key
-                                                        for k in keys)),
+        g = next((g for g, keys in by if any(k in e.key for k in keys)),
                  "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / reps
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:top]
@@ -722,13 +809,17 @@ def device_busy(torch, eng, queries, label, reps=10):
     return busy_share(torch, lambda: eng.search(queries, K), reps, label)
 
 
-def lm_serve(torch, tf, fa, params, cfg, tokens, steps, teacher=None):
+def lm_serve(torch, tf, fa, params, cfg, tokens, steps, teacher=None,
+             decode_cfg=None):
     """One prefill of ``tokens`` (B, S) into a fresh cache of LM_MAX_LEN
     slots, then ``steps`` greedy decode steps, each fed the last step's
     argmax over [:vocab] (as lm_family's smoke does), or ``teacher``'s
-    token at that step when given. Returns (prefill logits, greedy tokens
-    (B, steps + 1), K5 launches in the prefill, K5 launches in the decode,
-    the prefill's host ms, each decode step's ms by CUDA events)."""
+    token at that step when given; the decode runs ``decode_cfg`` when
+    given (an MoE LM's dense combine), else ``cfg``. Returns (prefill
+    logits, greedy tokens (B, steps + 1), K5 launches in the prefill, K5
+    launches in the decode, the prefill's host ms, each decode step's ms
+    by CUDA events)."""
+    decode_cfg = cfg if decode_cfg is None else decode_cfg
     cache = tf.init_cache(cfg, tokens.shape[0], LM_MAX_LEN)
     torch.cuda.synchronize()
     n0 = fa.flash_attention_fwd.launches
@@ -744,8 +835,8 @@ def lm_serve(torch, tf, fa, params, cfg, tokens, steps, teacher=None):
         feed = toks[-1] if teacher is None else teacher[:, i]
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
-        logits, cache = tf.lm_decode_step(params, cfg, feed, tokens.shape[1]
-                                          + i, cache)
+        logits, cache = tf.lm_decode_step(params, decode_cfg, feed,
+                                          tokens.shape[1] + i, cache)
         e.record()
         toks.append(logits[:, :cfg.vocab].argmax(dim=-1))
         torch.cuda.synchronize()
@@ -756,13 +847,40 @@ def lm_serve(torch, tf, fa, params, cfg, tokens, steps, teacher=None):
             fa.flash_attention_fwd.launches - n1, prefill_ms, step_ms)
 
 
+def k5_timing(torch, fa, q, k, v):
+    """K5 on (q, k, v) (causal, bf16, no window), second call on: its ms
+    by CUDA events beside its plain version's, scaled_dot_product_attention
+    (the library yardstick; the port never calls it) and the bound."""
+    import torch.nn.functional as F
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    k5_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), reps=10)
+    k5_plain = cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v),
+                       reps=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True)
+    sdpa_err = float((sdpa.transpose(1, 2).float()
+                      - fa.flash_attention_fwd(q, k, v).float()).abs().max())
+    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+    bound, by, nops, nbytes = k5_bound(b, s, h, kvh, dh, None, 2)
+    log(f"[timings] K5 {k5_ms:.4f} ms, plain {k5_plain:.4f} ms, SDPA "
+        f"{lib_ms:.4f} ms (max |diff| to K5 {sdpa_err:.3e}), bound "
+        f"{bound:.4f} ms ({by}: {nops:.4g} ops, {nbytes} B) at B={b} "
+        f"S={s} H={h} KV={kvh} dh={dh} bf16")
+    return {"ms": k5_ms, "plain_ms": k5_plain, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by, "ops": nops, "bytes": nbytes,
+            "sdpa_max_abs_diff": sdpa_err,
+            "shape": {"b": b, "s": s, "h": h, "kv": kvh, "dh": dh}}
+
+
 def lm_path(torch, tf, fa, lm_param_count, rms_norm, base_cfg, counters):
     """Path 3: ``base_cfg`` (TinyLlama-1.1B) at full width, bf16, random
     weights from seed 0, served with attn_impl="flash" (K5 in every
     prefill layer), held against the chunked route. Returns (result
     dict, K5 launches on the main run, K5's max |err| on the path's own
     q, k, v, K5 timing dict)."""
-    import torch.nn.functional as F
     dev = torch.device("cuda")
     cfg = dataclasses.replace(base_cfg, attn_impl="flash")
     out = {"config": cfg.name, "batch": LM_BATCH, "seq": LM_SEQ,
@@ -858,26 +976,8 @@ def lm_path(torch, tf, fa, lm_param_count, rms_norm, base_cfg, counters):
                               out["k5_main_checks"]))
 
     # timings, second call on
-    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    k5_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), reps=10)
-    k5_plain = cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v),
-                       reps=3, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                          enable_gqa=True)
-    sdpa_err = float((sdpa.transpose(1, 2).float()
-                      - fa.flash_attention_fwd(q, k, v).float()).abs().max())
-    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
-    bound, by, nops, nbytes = k5_bound(LM_BATCH, LM_SEQ, h, kvh, dh, None, 2)
-    log(f"[timings] K5 {k5_ms:.4f} ms, plain {k5_plain:.4f} ms, SDPA "
-        f"{lib_ms:.4f} ms (max |diff| to K5 {sdpa_err:.3e}), bound "
-        f"{bound:.4f} ms ({by}: {nops:.4g} ops, {nbytes} B) at B={LM_BATCH} "
-        f"S={LM_SEQ} H={h} KV={kvh} dh={dh} bf16")
-    k5 = {"ms": k5_ms, "plain_ms": k5_plain, "library_ms": lib_ms,
-          "bound_ms": bound, "bound_by": by, "ops": nops, "bytes": nbytes,
-          "sdpa_max_abs_diff": sdpa_err}
-    del qt, kt, vt, sdpa
+    k5 = k5_timing(torch, fa, q, k, v)
+    nops = k5["ops"]
 
     def prefill_once(c):
         cache = tf.init_cache(c, LM_BATCH, LM_MAX_LEN)
@@ -1067,7 +1167,7 @@ def reference_loss(torch, tf, fce, cfg, params, batch):
     chunks."""
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
-    h = tf._final_hidden(cfg, params, tokens)
+    h = tf._final_hidden(cfg, params, tokens)[0]
     ck = min(cfg.seq_chunk, s)
     total = 0.0
     for c0 in range(0, s, ck):
@@ -1310,7 +1410,7 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
     # K6 on the path's own inputs: the first sequence chunk of batch 0
     log("[K6 main]")
     with torch.no_grad():
-        h = tf._final_hidden(cfg, params, batches[0]["tokens"])
+        h = tf._final_hidden(cfg, params, batches[0]["tokens"])[0]
         hc = h[:, :cfg.seq_chunk].reshape(-1, cfg.d_model)
         del h
         head = params["lm_head"].detach()
@@ -3900,9 +4000,10 @@ def apply_writes(eng, batch):
         eng.delete(gone)
 
 
-def events_ms(torch, fn, reps=SHARD_REPS):
-    """p50 of ``reps`` calls timed by CUDA events (2 warm-up calls)."""
-    for _ in range(2):
+def events_ms(torch, fn, reps=SHARD_REPS, warmup=2):
+    """p50 of ``reps`` calls timed by CUDA events (``warmup`` calls
+    first)."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -4414,6 +4515,567 @@ def prefilter_phase(torch, mods, xd, qd):
     return out
 
 
+def moe_layer0(torch, tf, fa, rms_norm, chunked_attention, cfg, params,
+               tokens, flash):
+    """Layer 0 of ``tokens`` as the prefill runs it, up to its MoE input:
+    (the normed residual after attention, (B * S, D); layer 0's q, k, v),
+    the attention on K5 (``flash``) or on the chunked route."""
+    lp0 = {key: t[0] for key, t in params["runs"][0].items() if key != "moe"}
+    with torch.inference_mode():
+        h = params["embed"][tokens].to(cfg.dtype)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        q, k, v = tf._qkv(cfg, rms_norm(h, lp0["ln1"]), lp0, pos, None)
+        attn = (fa.flash_attention(q, k, v, None) if flash else
+                chunked_attention(q, k, v, pos, pos, window=None,
+                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk))
+        h = h + attn.reshape(h.shape[0], h.shape[1], -1) @ lp0["wo"]
+        return rms_norm(h, lp0["ln2"]).reshape(-1, cfg.d_model), (q, k, v)
+
+
+def moe_block_checks(torch, moe, cfg, lp, x2d):
+    """Path 10 (b) on layer 0's MoE parameters ``lp`` and its input x2d
+    (T, D): dispatch at capacity_factor E / K (nothing dropped) against
+    dense (the expert ids equal, each token row within MOE_ROW_REL); at the
+    config's capacity_factor, the dropped (token, expert) assignments
+    against a count over the expert ids made on the host; then the block's
+    times (the configured impl at this T, its router, its dispatch tables,
+    its expert matmuls alone; dense at the decode batch) by CUDA events."""
+    import torch.nn.functional as F
+    t, d = x2d.shape
+    e, kk, f = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff
+    nodrop = dataclasses.replace(cfg.moe, impl="dispatch",
+                                 capacity_factor=e / kk)
+    dense = dataclasses.replace(cfg.moe, impl="dense")
+    out = {"tokens": t, "experts": e, "top_k": kk}
+    with torch.inference_mode():
+        y_disp, aux_disp = moe.moe_block(x2d[None], lp, nodrop)
+        y_dense, aux_dense = moe.moe_block(x2d[None], lp, dense)
+        _, topi_disp, _ = moe._route(x2d, lp["router"], nodrop)
+        topv, topi, _ = moe._route(x2d, lp["router"], dense)
+        cap = moe.capacity(t, nodrop)
+        valid = moe._dispatch_tables(x2d, nodrop, topv, topi, cap)[2]
+        check(bool(valid.all()), f"{cfg.name}: dispatch at capacity_factor "
+              f"E / K dropped {int((~valid).sum())} assignments")
+        check(torch.equal(topi_disp, topi), f"{cfg.name}: the expert ids "
+              "differ between dispatch and dense")
+        yd, yn = y_disp[0].float(), y_dense[0].float()
+        row = (torch.linalg.vector_norm(yd - yn, dim=-1)
+               / torch.linalg.vector_norm(yn, dim=-1).clamp_min(1e-30))
+        out["dispatch_vs_dense"] = {
+            "row_rel_max": float(row.max()), "row_rel_mean": float(row.mean()),
+            "max_abs_diff": float((yd - yn).abs().max()),
+            "abs_max": float(yn.abs().max()),
+            "aux": [float(aux_disp), float(aux_dense)],
+            "tolerance_row_rel": MOE_ROW_REL}
+        log(f"[path 10] {cfg.name} layer-0 MoE, {t} tokens: dispatch (no "
+            f"drop) vs dense row rel max {float(row.max()):.3e} (mean "
+            f"{float(row.mean()):.3e}), max |diff| "
+            f"{out['dispatch_vs_dense']['max_abs_diff']:.3e}; expert ids "
+            f"equal")
+        check(float(row.max()) <= MOE_ROW_REL and bool(
+            torch.isfinite(yd).all()), f"{cfg.name}: dispatch vs dense row "
+            f"rel {float(row.max())} > {MOE_ROW_REL}")
+        check(float(aux_disp) == float(aux_dense), "aux differs")
+        del y_disp, y_dense, yd, yn
+        # the configured capacity: the dropped assignments
+        cap = moe.capacity(t, cfg.moe)
+        valid = moe._dispatch_tables(x2d, cfg.moe, topv, topi, cap)[2]
+        counts = np.bincount(topi.cpu().numpy().ravel(), minlength=e)
+        host = int(np.maximum(counts - cap, 0).sum())
+        dev_dropped = int((~valid).sum())
+        out["capacity"] = {"capacity_factor": cfg.moe.capacity_factor,
+                           "slots": cap, "dropped": dev_dropped,
+                           "dropped_host": host,
+                           "dropped_share": dev_dropped / (t * kk),
+                           "max_expert_load": int(counts.max())}
+        log(f"[path 10] {cfg.name} capacity_factor "
+            f"{cfg.moe.capacity_factor}: {cap} slots an expert, the fullest "
+            f"{int(counts.max())}; dropped {dev_dropped} of {t * kk} "
+            f"assignments ({dev_dropped / (t * kk):.4f}), host count {host}")
+        check(dev_dropped == host, f"{cfg.name}: dispatch dropped "
+              f"{dev_dropped} assignments, the host counts {host}")
+        # times at this T (the prefill's layer shape)
+        x3 = x2d[None]
+        xe = torch.zeros((e, cap, d), dtype=x2d.dtype, device=x2d.device)
+        wg, wu, wd = lp["w_gate"], lp["w_up"], lp["w_down"]
+        timing = {
+            "block_ms": events_ms(torch, lambda: moe.moe_block(x3, lp,
+                                                               cfg.moe), 5),
+            "route_ms": events_ms(torch, lambda: moe._route(
+                x2d, lp["router"], cfg.moe), 5),
+            "tables_ms": events_ms(torch, lambda: moe._dispatch_tables(
+                x2d, cfg.moe, topv, topi, cap), 5),
+            "experts_ms": events_ms(torch, lambda: torch.bmm(
+                F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu), wd), 5),
+            "dense_decode_ms": events_ms(torch, lambda: moe.moe_block(
+                x3[:, :LM_BATCH], lp, dense), 10)}
+        flops = 2 * 3 * e * cap * d * f
+        timing["experts_tflops"] = flops / (timing["experts_ms"] / 1e3) / 1e12
+        timing["experts_bound_ms"] = max(
+            flops / BF16_OPS_PER_S,
+            (3 * e * d * f + 2 * e * cap * d) * 2 / HBM_BYTES_PER_S) * 1e3
+        wbytes = 3 * e * d * f * 2 + d * e * 4
+        timing["dense_decode_bound_ms"] = wbytes / HBM_BYTES_PER_S * 1e3
+        timing["dispatch_rest_ms"] = (timing["block_ms"] - timing["route_ms"]
+                                      - timing["tables_ms"]
+                                      - timing["experts_ms"])
+        out["timing"] = timing
+        log(f"[path 10] {cfg.name} MoE block at T {t}: "
+            f"{timing['block_ms']:.3f} ms (router {timing['route_ms']:.3f}, "
+            f"tables {timing['tables_ms']:.3f}, expert matmuls "
+            f"{timing['experts_ms']:.3f} = {timing['experts_tflops']:.1f} "
+            f"TFLOP/s, bound {timing['experts_bound_ms']:.3f}; the rest "
+            f"{timing['dispatch_rest_ms']:.3f}); dense at T {LM_BATCH} "
+            f"{timing['dense_decode_ms']:.3f} ms (weights' bytes bound "
+            f"{timing['dense_decode_bound_ms']:.3f})")
+        del xe
+    return out
+
+
+def moe_config_path(torch, mods, base_cfg, counters):
+    """Path 10 for one MoE LM: ``base_cfg`` at full width and depth, bf16,
+    random weights from seed 0, attn_impl="flash"; the prefill on its
+    configured MoE impl, the decode on ``shape_config``'s dense one.
+    Checks (a)-(e) (see the module docstring). Returns (result dict, K5
+    launches on the main run, K5's max |err| on the path's own q, k, v)."""
+    tf, fa, moe, lm_param_count, shape_config, rms_norm, chunked = mods
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(base_cfg, attn_impl="flash")
+    dec_cfg = shape_config(cfg, "decode")
+    check(cfg.moe.impl == "ep" and dec_cfg.moe.impl == "dense",
+          f"{cfg.name}: prefill impl {cfg.moe.impl}, decode "
+          f"{dec_cfg.moe.impl}")
+    out = {"config": cfg.name, "batch": LM_BATCH, "seq": LM_SEQ,
+           "max_len": LM_MAX_LEN, "decode_steps": LM_DECODE,
+           "prefill_moe_impl": cfg.moe.impl,
+           "decode_moe_impl": dec_cfg.moe.impl,
+           "params": lm_param_count(cfg),
+           "active_params": lm_param_count(cfg, active_only=True)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["mem_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = tf.lm_init_params(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params_gb"] = torch.cuda.memory_allocated() / 1e9 - \
+        out["mem_before_gb"]
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, (LM_BATCH, LM_SEQ))).to(dev)
+
+    # the main run: counts zeroed just before, read just after
+    for fn in counters:
+        fn.launches = 0
+    fa.flash_attention_fwd.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
+    logits, toks, n_pre, n_dec, pre_ms, step_ms = lm_serve(
+        torch, tf, fa, params, cfg, tokens, LM_DECODE, decode_cfg=dec_cfg)
+    launches = fa.flash_attention_fwd.launches
+    routes = dict(fa.flash_attention_fwd.launches_by_route)
+    others = {fn.__name__: fn.launches for fn in counters
+              if fn is not fa.flash_attention_fwd}
+    out["k5_launches_by_route"] = routes
+    log(f"[path 10] {cfg.name} prefill {LM_BATCH} x {LM_SEQ} ({cfg.moe.impl})"
+        f" + {LM_DECODE} decode steps (dense): K5 launches {n_pre} in the "
+        f"prefill, {n_dec} in the decode, by route {routes}; other kernels "
+        f"{others}")
+    # (a), (e)
+    check(n_pre == cfg.n_layers and n_dec == 0 and launches == n_pre,
+          f"K5 launched {n_pre} times in the prefill (want {cfg.n_layers}) "
+          f"and {n_dec} in the decode (want 0)")
+    check(routes["mma_bf16"] == launches, f"K5's launches did not all take "
+          f"the tensor-core route: {routes}")
+    check(not any(others.values()), "a search or CE kernel ran on path 10")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()), "bad prefill logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "bad tokens")
+    out["k5_launches_prefill"] = n_pre
+    out["k5_launches_decode"] = n_dec
+    out["first_prefill_ms"] = pre_ms
+    out["decode_step_ms"] = {"p50": float(np.median(step_ms)),
+                             "p90": float(np.percentile(step_ms, 90)),
+                             "first": step_ms[0]}
+    out["decode_tok_per_s"] = LM_BATCH / (out["decode_step_ms"]["p50"] / 1e3)
+
+    # (c) repeatability: a second prefill into a fresh cache
+    cache = tf.init_cache(cfg, LM_BATCH, LM_MAX_LEN)
+    again, _ = tf.lm_prefill(params, cfg, tokens, cache)
+    del cache
+    out["prefill_bit_equal"] = bool(torch.equal(again, logits))
+    check(out["prefill_bit_equal"], f"{cfg.name}: two prefills differ (max "
+          f"|diff| {float((again.float() - logits.float()).abs().max())})")
+    del again
+
+    # (d) the chunked route (teacher-forced decode on the flash tokens)
+    cfg_c = dataclasses.replace(cfg, attn_impl="chunked")
+    logits_c, toks_c, n_pre_c, _, _, _ = lm_serve(
+        torch, tf, fa, params, cfg_c, tokens, LM_DECODE, teacher=toks,
+        decode_cfg=shape_config(cfg_c, "decode"))
+    check(n_pre_c == 0, "K5 ran on the chunked route")
+    ldiff = float((logits[:, :cfg.vocab].float()
+                   - logits_c[:, :cfg.vocab].float()).abs().max())
+    agree = float((toks_c == toks).float().mean())
+    x_f, (q, k, v) = moe_layer0(torch, tf, fa, rms_norm, chunked, cfg,
+                                params, tokens, flash=True)
+    x_c, _ = moe_layer0(torch, tf, fa, rms_norm, chunked, cfg, params,
+                        tokens, flash=False)
+    router = params["runs"][0]["moe"]["router"][0]
+    with torch.inference_mode():
+        sets_f = moe._route(x_f, router, cfg.moe)[1].sort(dim=-1).values
+        sets_c = moe._route(x_c, router, cfg.moe)[1].sort(dim=-1).values
+    set_diff = int((sets_f != sets_c).any(dim=-1).sum())
+    del x_c, sets_f, sets_c, logits_c
+    out["flash_vs_chunked"] = {
+        "logits_max_abs_diff": ldiff,
+        "logits_abs_max": float(logits[:, :cfg.vocab].float().abs().max()),
+        "greedy_agreement": agree,
+        "layer0_expert_sets_differ": set_diff,
+        "layer0_tokens": LM_BATCH * LM_SEQ,
+        "tolerance": {"agreement_floor": LM_AGREE_FLOOR}}
+    log(f"[path 10] {cfg.name} flash vs chunked: logits max |diff| "
+        f"{ldiff:.4f} (|logits| up to "
+        f"{out['flash_vs_chunked']['logits_abs_max']:.3f}), greedy tokens "
+        f"agree on {agree:.4f} of {toks.numel()}, layer-0 expert sets differ "
+        f"on {set_diff} of {LM_BATCH * LM_SEQ} tokens")
+    check(agree >= LM_AGREE_FLOOR, f"{cfg.name}: greedy agreement {agree} < "
+          f"{LM_AGREE_FLOOR}")
+
+    # lm_embed (K5 in every layer)
+    n0 = fa.flash_attention_fwd.launches
+    emb = tf.lm_embed(params, cfg, tokens)
+    torch.cuda.synchronize()
+    check(tuple(emb.shape) == (LM_BATCH, cfg.d_model)
+          and bool(torch.isfinite(emb).all())
+          and fa.flash_attention_fwd.launches - n0 == cfg.n_layers,
+          f"lm_embed: {tuple(emb.shape)}, "
+          f"{fa.flash_attention_fwd.launches - n0} K5 launches")
+    out["embed_k5_launches"] = cfg.n_layers
+    del emb
+
+    # (a) K5 on the path's own layer-0 q, k, v; (b) the MoE block
+    out["k5_main_checks"] = {}
+    err = compare_k5(torch, fa, f"K5 {cfg.name} bf16", q, k, v, None,
+                     out["k5_main_checks"])
+    lp0 = {key: t[0] for key, t in params["runs"][0]["moe"].items()}
+    out["moe_block"] = moe_block_checks(torch, moe, cfg, lp0, x_f)
+    del x_f
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # timings, second call on
+    k5 = k5_timing(torch, fa, q, k, v)
+    del q, k, v
+
+    def prefill_once():
+        cache = tf.init_cache(cfg, LM_BATCH, LM_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tf.lm_prefill(params, cfg, tokens, cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    pre = [prefill_once() for _ in range(3)]
+    p50 = float(np.median(pre))
+    model_flops = (2 * out["active_params"] * LM_BATCH * LM_SEQ
+                   + cfg.n_layers * k5["ops"])
+    out["prefill_ms"] = pre
+    out["prefill_tok_per_s"] = LM_BATCH * LM_SEQ / (p50 / 1e3)
+    out["prefill_model_flops"] = model_flops
+    out["prefill_peak_share"] = model_flops / (p50 / 1e3) / BF16_OPS_PER_S
+    out["moe_share_of_prefill"] = (cfg.n_layers
+                                   * out["moe_block"]["timing"]["block_ms"]
+                                   / p50)
+    out["k5_share_of_prefill"] = cfg.n_layers * k5["ms"] / p50
+    log(f"[timings] {cfg.name} prefill {LM_BATCH} x {LM_SEQ}: "
+        f"{[round(t, 2) for t in pre]} ms, {out['prefill_tok_per_s']:.0f} "
+        f"tok/s, {model_flops:.4g} FLOPs (active params + attention) = "
+        f"{out['prefill_peak_share']:.4f} of the bf16 peak; MoE blocks "
+        f"{out['moe_share_of_prefill']:.3f} of it, K5 "
+        f"{out['k5_share_of_prefill']:.3f}; decode p50 "
+        f"{out['decode_step_ms']['p50']:.3f} ms a step "
+        f"({out['decode_tok_per_s']:.1f} tok/s); init {out['init_s']:.2f} s "
+        f"({out['params_gb']:.2f} GB); peak memory "
+        f"{out['peak_mem_gb']:.2f} GB")
+
+    # the card's busy share: one prefill, then 10 decode steps
+    cache = tf.init_cache(cfg, LM_BATCH, LM_MAX_LEN)
+    step = iter(range(LM_SEQ, LM_MAX_LEN))
+    nxt = toks[:, 0]
+    out["busy"] = {
+        "prefill": busy_share(
+            torch, lambda: tf.lm_prefill(params, cfg, tokens, cache), 1,
+            f"path 10 {cfg.name} prefill", by=MOE_KERNEL_GROUPS),
+        "decode": busy_share(
+            torch, lambda: tf.lm_decode_step(params, dec_cfg, nxt,
+                                             next(step), cache), 10,
+            f"path 10 {cfg.name} decode", by=MOE_KERNEL_GROUPS)}
+    del params, cache
+    torch.cuda.empty_cache()
+    return out, launches, err, k5
+
+
+def moe_path(torch, mods, configs, counters):
+    """Path 10: ``moe_config_path`` for each MoE LM in turn (the first's
+    tensors freed before the next). Returns (result dict, K5 launches on
+    the main runs, K5's max |err|)."""
+    out, launches, err = {"configs": []}, 0, 0.0
+    for base_cfg in configs:
+        res, n, e, k5 = moe_config_path(torch, mods, base_cfg, counters)
+        res["k5_timing"] = k5
+        out[base_cfg.name] = res
+        out["configs"].append(base_cfg.name)
+        launches += n
+        err = max(err, e)
+    check(launches > 0, "K5 never launched on path 10")
+    return out, launches, err
+
+
+def serve_rate(torch, fn, items, reps=RECSYS_REPS, warmup=1):
+    """p50 ms of ``fn`` by CUDA events and the items it scores a second."""
+    ms = events_ms(torch, fn, reps, warmup=warmup)
+    return {"p50_ms": ms, "items_per_s": items / (ms / 1e3)}
+
+
+def recsys_path(torch, mods, counters):
+    """Path 11: the recsys family at the published configs (see the module
+    docstring), without autograd. Returns (result dict, K4 launches in the
+    two-tower fit)."""
+    with torch.no_grad():
+        return _recsys_path(torch, mods, counters)
+
+
+def _recsys_path(torch, mods, counters):
+    (rs, family, cfgs, recsys_ranking_batch, MPADConfig, fit_mpad, pw,
+     cpu_generator) = mods
+    sas_cfg, dien_cfg, ai_cfg, tt_mod = cfgs
+    dev = torch.device("cuda")
+    b = family.RECSYS_SHAPES["serve_p99"]["batch"]
+    c = family.RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    k = family._TOPK
+    rng = np.random.default_rng(SEED + 11)
+    out = {"batch": b, "candidates": c, "k": k}
+
+    # SASRec: the blocked running top-k over the 2^20-item catalog
+    p = rs.sasrec_init(sas_cfg, seed=SEED)
+    seq = rng.integers(0, sas_cfg.n_items, (b, sas_cfg.seq_len))
+    seq[: b // 4, :10] = -1                  # a quarter left-padded
+    seq = torch.from_numpy(seq).to(dev)
+    s, ids = rs.sasrec_serve_topk(p, sas_cfg, seq, k=k)
+    full = rs.sasrec_forward(p, sas_cfg, seq)[:, -1] @ p["item_emb"].T
+    vals, oids = torch.topk(full, k, dim=1)
+    kth = vals[:, -1:]
+
+    def above(i):
+        sc = full.gather(1, i)
+        return torch.sort(torch.where(sc > kth, i, -1), dim=1).values
+
+    same = bool(torch.equal(above(ids), above(oids)))
+    sdiff = float((s - full.gather(1, ids)).abs().max())
+    out["sasrec"] = {
+        "serve_topk": serve_rate(torch, lambda: rs.sasrec_serve_topk(
+            p, sas_cfg, seq, k=k), b * sas_cfg.n_items),
+        "ids_equal_one_shot_above_kth": same,
+        "positions_differing_from_one_shot": int((ids != oids).sum()),
+        "score_max_abs_diff": sdiff}
+    log(f"[path 11] sasrec serve_p99: batch {b} over {sas_cfg.n_items} "
+        f"items, k {k}: {out['sasrec']['serve_topk']['p50_ms']:.3f} ms "
+        f"({out['sasrec']['serve_topk']['items_per_s']:.4g} items/s); ids "
+        f"above the k-th score equal a one-shot topk: {same} "
+        f"({out['sasrec']['positions_differing_from_one_shot']} positions "
+        f"differ in order), scores max |diff| {sdiff:.3e}")
+    check(same and sdiff <= 1e-5 * float(vals.abs().max()),
+          "sasrec_serve_topk differs from a one-shot topk")
+    del p, full, vals, oids, kth, s, ids
+
+    # DIEN: the ranking forward at batch b, then one history against c
+    # candidates (GRU-1 once, the AUGRU over the candidates as a batch)
+    p = rs.dien_init(dien_cfg, seed=SEED)
+    batch = recsys_ranking_batch(SEED + 12, b, dien_cfg.seq_len,
+                                 dien_cfg.n_items, dien_cfg.n_cats)
+    logit, _ = rs.dien_forward(p, dien_cfg, batch)
+    check(tuple(logit.shape) == (b,) and bool(torch.isfinite(logit).all()),
+          "bad dien_forward logits")
+    cand_items = torch.from_numpy(rng.integers(0, dien_cfg.n_items, c)).to(
+        dev)
+    cand_cats = torch.from_numpy(rng.integers(0, dien_cfg.n_cats, c)).to(dev)
+    sb = {"hist_items": batch["hist_items"][:1],
+          "hist_cats": batch["hist_cats"][:1], "cand_items": cand_items,
+          "cand_cats": cand_cats}
+    scores = rs.dien_score(p, dien_cfg, sb, chunk=RECSYS_DIEN_CHUNK)
+    idx = torch.from_numpy(rng.choice(c, RECSYS_SAMPLE, replace=False)).to(
+        dev)
+    one, _ = rs.dien_forward(p, dien_cfg, {
+        "hist_items": sb["hist_items"].expand(RECSYS_SAMPLE, -1),
+        "hist_cats": sb["hist_cats"].expand(RECSYS_SAMPLE, -1),
+        "target_item": cand_items[idx], "target_cat": cand_cats[idx]})
+    ddiff = float((scores[idx] - one).abs().max())
+    dok = bool(torch.allclose(scores[idx], one, rtol=RECSYS_RTOL,
+                              atol=RECSYS_ATOL))
+    out["dien"] = {
+        "forward": serve_rate(torch, lambda: rs.dien_forward(p, dien_cfg,
+                                                             batch), b),
+        "score": serve_rate(torch, lambda: rs.dien_score(
+            p, dien_cfg, sb, chunk=RECSYS_DIEN_CHUNK), c, reps=2, warmup=0),
+        "score_chunk": RECSYS_DIEN_CHUNK,
+        "score_vs_forward_max_abs_diff": ddiff, "sample": RECSYS_SAMPLE}
+    log(f"[path 11] dien forward batch {b}: "
+        f"{out['dien']['forward']['p50_ms']:.3f} ms; dien_score over {c} "
+        f"candidates: {out['dien']['score']['p50_ms']:.1f} ms "
+        f"({out['dien']['score']['items_per_s']:.4g} items/s); against the "
+        f"forward on {RECSYS_SAMPLE}: max |diff| {ddiff:.3e}")
+    check(dok and bool(torch.isfinite(scores).all()), f"dien_score differs "
+          f"from dien_forward by {ddiff} (rtol {RECSYS_RTOL}, atol "
+          f"{RECSYS_ATOL})")
+    del p, batch, scores, sb, cand_items, cand_cats, one, logit
+
+    # AutoInt: the forward at batch b, then c candidates in field 0
+    p = rs.autoint_init(ai_cfg, seed=SEED)
+    v, nf = ai_cfg.vocab_per_field, ai_cfg.n_fields
+    fields = torch.from_numpy(rng.integers(0, v, (b, nf))).to(dev)
+    logit = rs.autoint_forward(p, ai_cfg, fields)
+    check(tuple(logit.shape) == (b,) and bool(torch.isfinite(logit).all()),
+          "bad autoint_forward logits")
+    user = torch.from_numpy(rng.integers(0, v, nf - 1)).to(dev)
+    cand = torch.from_numpy(rng.integers(0, v, c)).to(dev)
+    sc = rs.autoint_score_candidates(p, ai_cfg, user, cand)
+    idx = torch.from_numpy(rng.choice(c, RECSYS_SAMPLE, replace=False)).to(
+        dev)
+    rows = torch.cat([cand[idx, None],
+                      user[None].expand(RECSYS_SAMPLE, nf - 1)], dim=1)
+    direct = rs.autoint_forward(p, ai_cfg, rows)
+    adiff = float((sc[idx] - direct).abs().max())
+    aok = bool(torch.allclose(sc[idx], direct, rtol=RECSYS_RTOL,
+                              atol=RECSYS_ATOL))
+    out["autoint"] = {
+        "forward": serve_rate(torch, lambda: rs.autoint_forward(
+            p, ai_cfg, fields), b),
+        "score_candidates": serve_rate(
+            torch, lambda: rs.autoint_score_candidates(p, ai_cfg, user,
+                                                       cand), c),
+        "candidates_vs_forward_max_abs_diff": adiff}
+    log(f"[path 11] autoint forward batch {b}: "
+        f"{out['autoint']['forward']['p50_ms']:.3f} ms; "
+        f"score_candidates over {c}: "
+        f"{out['autoint']['score_candidates']['p50_ms']:.2f} ms "
+        f"({out['autoint']['score_candidates']['items_per_s']:.4g} "
+        f"items/s); against the unchunked forward on {RECSYS_SAMPLE}: max "
+        f"|diff| {adiff:.3e}")
+    check(aok and bool(torch.isfinite(sc).all()), f"autoint candidate "
+          f"scores differ from the forward by {adiff}")
+    del p, fields, logit, user, cand, sc, rows, direct
+
+    # two-tower: the item tower over c items gives the candidate cache;
+    # the MPAD reducer fitted on K4 (counts zeroed just before the fit,
+    # read just after); the three retrieval modes
+    tt_cfg = tt_mod.CONFIG
+    p = rs.twotower_init(tt_cfg, seed=SEED)
+    items = torch.arange(c, device=dev)
+
+    def tower():
+        return torch.cat([
+            rs.twotower_item(p, tt_cfg, items[i:i + RECSYS_TOWER_CHUNK])
+            for i in range(0, c, RECSYS_TOWER_CHUNK)])
+
+    cand_emb = tower()
+    tower_rate = serve_rate(torch, tower, c, reps=3)
+    rows = torch.randperm(c, generator=cpu_generator(SEED + 13))[:FIT_SAMPLE]
+    sample = cand_emb[rows.to(dev)]
+    fit_cfg = MPADConfig(**dict(FIT, m=tt_mod.MPAD_DIM), backend="kernel")
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    red = fit_mpad(sample, fit_cfg)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k4_launches = pw.pairwise_stats_at_quantile.launches \
+        + pw.pairwise_stats.launches
+    check(pw.pairwise_stats_at_quantile.launches
+          == fit_cfg.m * fit_cfg.iters, f"the two-tower fit launched K4's "
+          f"fused entry {pw.pairwise_stats_at_quantile.launches} times, "
+          f"want {fit_cfg.m * fit_cfg.iters}")
+    cand_red = (cand_emb - red.mean) @ red.matrix.T
+    cq, scale = rs.quantize_candidates(cand_red)
+    hq, hscale = rs.quantize_candidates(cand_red.cpu())
+    q_equal = bool(torch.equal(cq.cpu(), hq)) and bool(torch.equal(
+        scale.cpu().view(torch.int32), hscale.view(torch.int32)))
+    check(q_equal, "the int8 codes or scales differ from the host's")
+    uid = torch.from_numpy(rng.integers(0, tt_cfg.n_users, 1)).to(dev)
+    hist = torch.from_numpy(rng.integers(0, tt_cfg.n_items,
+                                         (1, tt_cfg.n_user_feats))).to(dev)
+    base = {"user_ids": uid, "hist_ids": hist, "cand_emb": cand_emb}
+    modes = {
+        "full": (base, {}),
+        "mpad": (dict(base, cand_red=cand_red),
+                 dict(reducer=(red.matrix, red.mean), rerank=tt_mod.RERANK)),
+        "int8": (dict(base, cand_red_q=cq, cand_scale=scale),
+                 dict(reducer=(red.matrix, red.mean), rerank=tt_mod.RERANK,
+                      quantized=True))}
+    u = rs.twotower_user(p, tt_cfg, uid, hist)
+    s64 = (u.double() @ cand_emb.double().T)[0]
+    v64, i64 = torch.topk(s64, k)
+    kth64 = v64[-1]
+    want = set(i64[v64 > kth64].tolist())
+    got, retr = {}, {}
+    for mode, (bt, kw) in modes.items():
+        sm, im = rs.twotower_retrieve(p, tt_cfg, bt, k=k, **kw)
+        got[mode] = im
+        exact = s64[im]
+        bound = tt_cfg.embed_dim * 2.0 ** -24 * (
+            u.abs().double() @ cand_emb[im].abs().double().T)[0]
+        retr[mode] = dict(serve_rate(torch, lambda: rs.twotower_retrieve(
+            p, tt_cfg, bt, k=k, **kw), c, reps=10), **{
+            "score_max_abs_diff_f64": float((sm.double() - exact).abs().max()),
+            "scores_exact": bool(((sm.double() - exact).abs()
+                                  <= bound).all()),
+            "overlap_at_k_with_full": None})
+        check(retr[mode]["scores_exact"], f"two-tower {mode}: a returned "
+              f"score is not its id's exact score (max |diff| "
+              f"{retr[mode]['score_max_abs_diff_f64']:.3e})")
+    full_ids = set(got["full"].tolist())
+    full_above = set(i for i in got["full"].tolist()
+                     if float(s64[i]) > float(kth64))
+    check(full_above == want and len(full_ids) == k, "two-tower full: the "
+          "ids above the k-th score differ from an f64 scan's")
+    for mode in modes:
+        retr[mode]["overlap_at_k_with_full"] = len(
+            full_ids & set(got[mode].tolist())) / k
+    users = torch.from_numpy(rng.integers(0, tt_cfg.n_users, b)).to(dev)
+    hists = torch.from_numpy(rng.integers(0, tt_cfg.n_items,
+                                          (b, tt_cfg.n_user_feats))).to(dev)
+    pitems = torch.from_numpy(rng.integers(0, tt_cfg.n_items, b)).to(dev)
+
+    def pairwise():
+        return torch.sum(rs.twotower_user(p, tt_cfg, users, hists)
+                         * rs.twotower_item(p, tt_cfg, pitems), dim=-1)
+
+    pw_scores = pairwise()
+    check(tuple(pw_scores.shape) == (b,) and bool(
+        torch.isfinite(pw_scores).all()), "bad pairwise scores")
+    out["two_tower"] = {
+        "item_tower": tower_rate, "fit_s": fit_s, "fit": dataclasses.asdict(
+            fit_cfg), "k4_launches": k4_launches,
+        "int8_codes_bit_equal_host": q_equal,
+        "cache_bytes": {"full_f32": cand_emb.numel() * 4,
+                        "mpad_f32": cand_red.numel() * 4,
+                        "int8": cq.numel()},
+        "retrieve": retr, "rerank": tt_mod.RERANK,
+        "pairwise_serve_p99": serve_rate(torch, pairwise, b)}
+    log(f"[path 11] two-tower: item tower over {c} items "
+        f"{tower_rate['p50_ms']:.1f} ms; fit m {fit_cfg.m} on "
+        f"{FIT_SAMPLE} rows {fit_s:.2f} s ({k4_launches} K4 launches); int8 "
+        f"codes bit-equal to the host's: {q_equal}")
+    for mode in modes:
+        r = retr[mode]
+        log(f"[path 11] two-tower retrieve {mode:4s}: p50 "
+            f"{r['p50_ms']:.3f} ms ({r['items_per_s']:.4g} candidates/s), "
+            f"overlap@{k} with full {r['overlap_at_k_with_full']:.2f}, "
+            f"scores max |diff| to f64 {r['score_max_abs_diff_f64']:.2e}")
+    log(f"[path 11] two-tower pairwise serve_p99 batch {b}: "
+        f"{out['two_tower']['pairwise_serve_p99']['p50_ms']:.3f} ms")
+    del p, cand_emb, cand_red, cq, sample
+    torch.cuda.empty_cache()
+    return out, k4_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4463,6 +5125,14 @@ def main():
         from repro_torch.core.distributed import (fit_mpad_sharded,
                                                   make_phi_dist)
         from repro_torch.launch.mesh import make_serving_mesh, run_ranks
+        from repro_torch.configs import recsys_family, shape_config
+        from repro_torch.configs import (autoint, dien, sasrec,
+                                         two_tower_retrieval)
+        from repro_torch.configs.granite_moe_1b import CONFIG as GRANITE_MOE
+        from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
+        from repro_torch.models import moe
+        from repro_torch.models import recsys as rs
+        from repro_torch.models.layers import chunked_attention
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -4920,6 +5590,21 @@ def main():
     result["k6_timing"] = k6
     k6_err = max(k6_err, k6_main_err)
 
+    # 31. path 10: the MoE LMs served on K5, path 4's tensors freed first
+    torch.cuda.empty_cache()
+    result["path10"], k5_path10, k5_moe_err = moe_path(
+        torch, (tf, fa, moe, lm_param_count, shape_config, rms_norm,
+                chunked_attention), (GRANITE_MOE, OLMOE), counters)
+    k5_err = max(k5_err, k5_moe_err)
+
+    # 32. path 11: the recsys family; the two-tower reducer fitted on K4
+    result["path11"], k4_path11 = recsys_path(
+        torch, (rs, recsys_family, (sasrec.CONFIG, dien.CONFIG,
+                                    autoint.CONFIG, two_tower_retrieval),
+                data.recsys_ranking_batch, MPADConfig, fit_mpad, pw,
+                cpu_generator), counters)
+    check(k4_path11 > 0, "K4 never launched on path 11")
+
     k1b = k1t["bounds"]
     k1_src = "src/repro_torch/kernels/pq_adc/csrc/pq_adc_gather_topk.cu"
     k4_src = "src/repro_torch/kernels/mpad_pairwise/csrc/pairwise_stats.cu"
@@ -4998,11 +5683,14 @@ def main():
                      "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
                      "bound_by": k4_by, "library_ms": None,
                      "floor_ms": k4t["floor_device_ms"]}, k4_at_tau],
+        "launches_path11": k4_path11,
         "note": "two entries of one kernel: the fused threshold search and "
                 "statistics (one launch a fit step, path 2's fit; its "
                 "times are the kernel's here, device time at N 2048) and "
                 "the statistics at a given tau (off the main path: "
-                "its edge cases and timings)"}, {
+                "its edge cases and timings); launches_path11: the fused "
+                "entry in path 11's two-tower reducer fit (m 64, N 2048)"},
+        {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bf16.cu",
@@ -5013,8 +5701,12 @@ def main():
         "note": "forward + autograd.Function; bf16 on the tensor cores "
                 "(mma.sync), f32 inputs on flash_attention_fwd.cu (the "
                 "edge cases); launches: path 3's prefill and decode; "
-                "launches_path4: path 4's training steps",
-        "launches_path4": k5_train_launches}, {
+                "launches_path4: path 4's training steps; "
+                "launches_path10: path 10's MoE prefills and decodes "
+                "(granite-moe-1b-a400m and olmoe-1b-7b; their K5 times "
+                "are in result.path10.<config>.k5_timing)",
+        "launches_path4": k5_train_launches,
+        "launches_path10": k5_path10}, {
         "name": "fused_ce_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce_bf16.cu",
         "replaces": "src/repro/kernels/fused_ce/kernel.py:64",

@@ -9,8 +9,11 @@ engine's state (``.corpus``, ``.proj.params[0]``, ...). The port cannot
 reproduce ``jax.random`` streams, so this is how a test serves the very
 arrays the JAX package built. ``lm_params_from_arrays`` does the same for
 the parameters of ``repro.models.transformer`` (``['embed']``,
-``['runs'][0]['wq']``, ...), and ``opt_state_from_arrays`` for the AdamW
-state of ``repro.optim`` (``['step']``, ``['m']['embed']``, ...).
+``['runs'][0]['wq']``, an MoE layer's ``['runs'][0]['moe']['router']``,
+...), ``params_from_arrays`` for any parameter tree whose shape the port
+can build (the recsys models' ``['blocks'][0]['wq']``,
+``['user_mlp'][1]['b']``, ...), and ``opt_state_from_arrays`` for the
+AdamW state of ``repro.optim`` (``['step']``, ``['m']['embed']``, ...).
 ``affine_reducer`` wraps a linear baseline's fitted ``(matrix, mean)``
 pair (``repro.core.baselines`` pca, rp and mds) as the port's baselines
 ``Reducer``. ``stream_from_arrays`` carries a streaming engine's
@@ -21,7 +24,7 @@ through these two readers.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,7 +32,8 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import keyed_leaves, tree_unflatten
 from repro_torch.core import baselines
-from repro_torch.models.transformer import LMConfig, Params, layer_runs
+from repro_torch.models.transformer import (LMConfig, Params,
+                                            lm_init_params)
 from repro_torch.search.ivf import IVFIndex
 from repro_torch.search.ivfpq import IVFPQIndex
 from repro_torch.search.pq import PQIndex
@@ -41,7 +45,8 @@ from repro_torch.search.serve import EngineState
 from repro_torch.search.spec import IndexSpec, parse_spec
 
 __all__ = ["state_from_arrays", "stream_from_arrays", "affine_reducer",
-           "lm_params_from_arrays", "opt_state_from_arrays"]
+           "lm_params_from_arrays", "params_from_arrays",
+           "opt_state_from_arrays"]
 
 _SNAPSHOT_PREFIX = "['state']"
 # the NamedTuple payloads, carried field by field
@@ -156,44 +161,45 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+def _checked(arrays: Mapping[str, np.ndarray], key: str, shape,
+             dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """``arrays[key]`` bit for bit on ``dev``; it must have ``shape`` and
+    ``dtype``."""
+    if key not in arrays:
+        raise KeyError(f"no array under {key}")
+    t = _tensor(np.asarray(arrays[key]))
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{key}: {tuple(t.shape)} {t.dtype}, expected "
+                         f"{tuple(shape)} {dtype}")
+    return t.to(dev)
+
+
 def lm_params_from_arrays(arrays: Mapping[str, np.ndarray], cfg: LMConfig,
                           device: DeviceLike = None) -> Params:
     """The port's LM parameters for ``cfg`` from JAX arrays keyed by
-    ``jax.tree_util.keystr`` paths, copied bit for bit; each must have the
-    shape and dtype ``cfg`` gives it."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet (see "
-                                  "ROADMAP.md)")
+    ``jax.tree_util.keystr`` paths, copied bit for bit by
+    ``params_from_arrays`` against ``lm_init_params(cfg)`` drawn on the
+    CPU: each must have the shape and dtype ``cfg`` gives it (an MoE
+    router is f32 whatever ``cfg.dtype`` is)."""
+    return params_from_arrays(arrays, lm_init_params(cfg, 0, device="cpu"),
+                              device)
+
+
+def params_from_arrays(arrays: Mapping[str, np.ndarray], template: Any,
+                       device: DeviceLike = None) -> Any:
+    """A tree shaped like ``template`` (the port's own parameters of the
+    same model and configuration, e.g. ``recsys.sasrec_init(cfg, 0,
+    device="cpu")``) holding ``arrays`` keyed by the ``keystr`` path of
+    each leaf, copied bit for bit; each must have its template leaf's
+    shape and dtype, and every array must be used."""
     dev = resolve_device(device)
-    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                       cfg.d_ff)
-
-    def get(key, shape):
-        if key not in arrays:
-            raise KeyError(f"no array under {key}")
-        t = _tensor(np.asarray(arrays[key]))
-        if tuple(t.shape) != tuple(shape) or t.dtype != cfg.dtype:
-            raise ValueError(f"{key}: {tuple(t.shape)} {t.dtype}, expected "
-                             f"{tuple(shape)} {cfg.dtype}")
-        return t.to(dev)
-
-    def run(ri, n):
-        shapes: Dict[str, tuple] = {
-            "ln1": (n, d), "ln2": (n, d), "wq": (n, d, h * dh),
-            "wk": (n, d, kv * dh), "wv": (n, d, kv * dh),
-            "wo": (n, h * dh, d), "w_gate": (n, d, f), "w_up": (n, d, f),
-            "w_down": (n, f, d)}
-        return {name: get(f"['runs'][{ri}]['{name}']", shape)
-                for name, shape in shapes.items()}
-
-    params = {
-        "embed": get("['embed']", (cfg.vocab_padded, d)),
-        "final_norm": get("['final_norm']", (d,)),
-        "runs": [run(ri, n) for ri, (_, n) in enumerate(layer_runs(cfg))],
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = get("['lm_head']", (d, cfg.vocab_padded))
-    return params
+    leaves = keyed_leaves(template)
+    extra = sorted(set(arrays) - {key for key, _ in leaves})
+    if extra:
+        raise KeyError(f"arrays with no place in the template: {extra}")
+    return tree_unflatten(template, [
+        _checked(arrays, key, leaf.shape, leaf.dtype, dev)
+        for key, leaf in leaves])
 
 
 def opt_state_from_arrays(arrays: Mapping[str, np.ndarray], params: Params,
@@ -205,13 +211,7 @@ def opt_state_from_arrays(arrays: Mapping[str, np.ndarray], params: Params,
     dev = resolve_device(device)
 
     def get(key, shape, dtype):
-        if key not in arrays:
-            raise KeyError(f"no array under {key}")
-        t = _tensor(np.asarray(arrays[key]))
-        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-            raise ValueError(f"{key}: {tuple(t.shape)} {t.dtype}, expected "
-                             f"{tuple(shape)} {dtype}")
-        return t.to(dev)
+        return _checked(arrays, key, shape, dtype, dev)
 
     leaves = keyed_leaves(params)
 

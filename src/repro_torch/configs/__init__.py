@@ -1,13 +1,16 @@
-"""The dense LM configurations the port serves and trains (port of the
-dense part of ``repro.configs``): each module keeps the JAX file's
-``CONFIG`` (the published widths) and ``SMOKE`` (a small test size) with
-the same values. The MoE configurations wait for the MoE block; the
-``--arch`` names are in ``registry``."""
-from . import gemma3_4b, stablelm_1_6b, tinyllama_1_1b
-from .lm_family import LM_SHAPES, lm_param_count
+"""The configurations the port serves and trains (port of
+``repro.configs``): each LM module keeps the JAX file's ``CONFIG`` (the
+published widths) and ``SMOKE`` (a small test size) with the same values,
+for the three dense LMs and the two MoE ones; the recsys modules keep
+JAX's ``CONFIG`` (``recsys_family`` holds their shapes, FLOP counts and
+smoke steps). The ``--arch`` names are in ``registry``."""
+from . import (gemma3_4b, granite_moe_1b, olmoe_1b_7b, stablelm_1_6b,
+               tinyllama_1_1b)
+from .lm_family import LM_SHAPES, lm_param_count, shape_config
 
-__all__ = ["LM_CONFIGS", "LM_SHAPES", "lm_param_count"]
+__all__ = ["LM_CONFIGS", "LM_SHAPES", "lm_param_count", "shape_config"]
 
 # name -> (CONFIG, SMOKE)
 LM_CONFIGS = {m.CONFIG.name: (m.CONFIG, m.SMOKE)
-              for m in (tinyllama_1_1b, stablelm_1_6b, gemma3_4b)}
+              for m in (tinyllama_1_1b, stablelm_1_6b, gemma3_4b,
+                        granite_moe_1b, olmoe_1b_7b)}

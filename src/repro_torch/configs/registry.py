@@ -1,7 +1,6 @@
 """Architecture registry (port of ``repro.configs.registry``): ``--arch``
-names to the port's configuration modules. The port has the three dense
-LMs; every other architecture of the JAX package (the MoE LMs, the recsys,
-GNN and two-tower models) raises until its model family is ported."""
+names to the port's configuration modules. The port has the dense and MoE
+LMs and the recsys family; gin-tu raises until the GNN family is ported."""
 from __future__ import annotations
 
 import importlib
@@ -13,15 +12,21 @@ ARCH_MODULES = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "sasrec": "repro_torch.configs.sasrec",
+    "dien": "repro_torch.configs.dien",
+    "autoint": "repro_torch.configs.autoint",
+    "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
 }
 
-# the JAX package's other architectures, in its registry's order
-NOT_PORTED = ("granite-moe-1b-a400m", "olmoe-1b-7b", "gin-tu", "sasrec",
-              "dien", "autoint", "two-tower-retrieval")
+# the JAX package's other architectures
+NOT_PORTED = ("gin-tu",)
 
 
 def config_module(name: str) -> ModuleType:
-    """The configuration module (``CONFIG``, ``SMOKE``) of arch ``name``."""
+    """The configuration module of arch ``name``: ``CONFIG`` and, for an
+    LM, ``SMOKE``."""
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to PyTorch yet (see ROADMAP.md, "

@@ -1,9 +1,12 @@
 """Train launcher (port of ``repro.launch.train``): ``--arch <id>``
 resolves a registry configuration and trains its reduced (``SMOKE``) size
-end to end.
+end to end: a dense or MoE LM, or, for a recsys arch (no ``SMOKE``),
+``configs.recsys_family.smoke(name)``'s train step and serve call, as
+JAX's launcher runs ``arch.smoke()``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --steps 10 --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec
 
 Exercised: the deterministic data pipeline, AdamW, checkpoint/restart
 (resumes from the newest checkpoint in --ckpt-dir) and optional int8
@@ -16,6 +19,7 @@ import argparse
 from typing import Any, List, Optional
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs import recsys_family
 from repro_torch.configs.registry import config_module
 from repro_torch.data.pipeline import lm_token_batches
 from repro_torch.models.transformer import lm_init_params, lm_train_forward
@@ -28,7 +32,7 @@ from repro_torch.runtime import run_with_restarts
 def main(argv: Optional[List[str]] = None,
          device: DeviceLike = None) -> Any:
     """Parse ``argv`` (the command line when None), train, and return the
-    final ``{"params", "opt"}`` state."""
+    final ``{"params", "opt"}`` state (a recsys arch: its smoke result)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--steps", type=int, default=20)
@@ -40,10 +44,16 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--lr", type=float, default=1e-3)
     args = ap.parse_args(argv)
 
-    cfg = config_module(args.arch).SMOKE
+    mod = config_module(args.arch)
+    dev = resolve_device(device)
+    if not hasattr(mod, "SMOKE"):
+        # non-LM archs: their smoke train step and serve call
+        out = recsys_family.smoke(args.arch, device=dev)
+        print(f"{args.arch}: non-LM arch; smoke train step ran: {out}")
+        return out
+    cfg = mod.SMOKE
     print(f"training reduced {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
           f"vocab={cfg.vocab}")
-    dev = resolve_device(device)
     params = lm_init_params(cfg, seed=0, device=dev)
     opt = init_opt_state(params)
     cstate = init_compression_state(params) if args.grad_compression else None

@@ -1,0 +1,183 @@
+"""Mixture-of-Experts FFN block (port of ``repro.models.moe``; granite-moe,
+olmoe).
+
+Two implementations with identical no-drop semantics:
+
+* ``dense``    — every expert processes every token, combined by the gate
+                 matrix. O(E) overcompute; the mathematical reference, used
+                 for decode shapes (where the token count is tiny) and as
+                 the oracle in tests.
+* ``dispatch`` — sort-by-expert + capacity buffers: the (token, expert)
+                 assignments are sorted by expert id (a stable sort), each
+                 expert receives a fixed-capacity (C) slice, the per-expert
+                 FFNs run as batched matmuls over the (E, C, D) buffer, and
+                 the results come back weighted by the renormalized router
+                 gates. Capacity overflow drops the assignment (the
+                 residual passes through), as in Switch/GShard.
+* ``ep``       — JAX's expert parallelism over a mesh's "model" axis. The
+                 port's mesh is 1-D (``parallel.context.Mesh``), so ``ep``
+                 runs ``dispatch``, as JAX's does without such a mesh.
+
+Router: top-k softmax gating with renormalization (Mixtral/OLMoE style) and
+the Switch load-balancing auxiliary loss. The router weights stay f32
+whatever the experts' dtype.
+
+Two orders are JAX's and not PyTorch's defaults:
+
+* the top-k keeps the lower expert among tied probabilities, as
+  ``lax.top_k`` does (``torch.topk`` promises no order among ties), so the
+  top-k is a stable descending sort;
+* the combine adds each token's ``top_k`` contributions one after another
+  in ascending expert order, in the activations' dtype: the order of JAX's
+  scatter-add on the CPU (its updates sorted by expert). A scatter-add
+  with ``index_add_`` would add with atomics on a CUDA tensor and not
+  repeat; this order repeats bit for bit on every device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .layers import he_init
+
+__all__ = ["MoEConfig", "init_moe_params", "moe_block"]
+
+IMPLS = ("dense", "dispatch", "ep")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                        # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    impl: str = "dense"              # dense | dispatch | ep (= dispatch here)
+
+
+def init_moe_params(gen: torch.Generator, mcfg: MoEConfig, d_model: int,
+                    length: int,
+                    dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """A run of ``length`` layers' MoE parameters, drawn with ``gen`` on
+    its device: the f32 router (length, D, E) and the experts' SwiGLU
+    weights in ``dtype``."""
+    e, f = mcfg.n_experts, mcfg.d_ff
+    return {
+        "router": he_init(gen, (length, d_model, e), d_model, torch.float32),
+        "w_gate": he_init(gen, (length, e, d_model, f), d_model, dtype),
+        "w_up": he_init(gen, (length, e, d_model, f), d_model, dtype),
+        "w_down": he_init(gen, (length, e, f, d_model), f, dtype),
+    }
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` along the last axis: the k largest values in
+    descending order, the lower index first among equal values (a stable
+    descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(x2d, router, mcfg: MoEConfig):
+    """(renormalized gates (T, K) f32, expert ids (T, K), aux loss)."""
+    logits = x2d.float() @ router                        # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = top_k(probs, mcfg.top_k)                # (T, K)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    # Switch aux loss: E * sum_e f_e * P_e (the counts are exact in f32)
+    t = x2d.shape[0]
+    f_e = torch.bincount(topi.reshape(-1), minlength=mcfg.n_experts).float() \
+        / (t * mcfg.top_k)
+    p_e = probs.mean(dim=0)
+    aux = mcfg.n_experts * torch.sum(f_e * p_e)
+    return topv, topi, aux
+
+
+def _moe_dense(x2d, p, mcfg: MoEConfig, topv, topi):
+    """Every expert on every token. The expert products run as (E, T, .)
+    batched matmuls, which read each weight once (an einsum over "td,edf"
+    would copy the weights into another layout first)."""
+    gates = torch.zeros((x2d.shape[0], mcfg.n_experts), dtype=x2d.dtype,
+                        device=x2d.device).scatter_(
+        1, topi, topv.to(x2d.dtype))                     # (T, E)
+    hg = torch.matmul(x2d, p["w_gate"])                  # (E, T, F)
+    hu = torch.matmul(x2d, p["w_up"])
+    hd = torch.bmm(F.silu(hg) * hu, p["w_down"])         # (E, T, D)
+    return torch.einsum("etd,te->td", hd, gates)
+
+
+def capacity(t: int, mcfg: MoEConfig) -> int:
+    """Each expert's buffer rows for ``t`` tokens: ceil(T * K / E * cf),
+    rounded up to a multiple of 8, at least 8."""
+    cap = int(math.ceil(t * mcfg.top_k / mcfg.n_experts
+                        * mcfg.capacity_factor))
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def _dispatch_tables(x2d, mcfg: MoEConfig, topv, topi, cap):
+    """Sort-by-expert dispatch bookkeeping: the flat (token, expert)
+    assignments sorted by expert (stable: by token within an expert), as
+    (token, gate, valid, buffer slot, sort order). An assignment past its
+    expert's capacity is not valid and goes to the scratch slot E * cap."""
+    t = x2d.shape[0]
+    e, k = mcfg.n_experts, mcfg.top_k
+    flat_e = topi.reshape(-1)
+    flat_t = torch.arange(t, device=x2d.device).repeat_interleave(k)
+    flat_w = topv.reshape(-1)
+    se, order = torch.sort(flat_e, stable=True)
+    st, sw = flat_t[order], flat_w[order]
+    pos = torch.arange(t * k, device=x2d.device) - torch.searchsorted(
+        se, se, side="left")
+    valid = pos < cap
+    slot = torch.where(valid, se * cap + pos, e * cap)
+    return st, sw, valid, slot, order
+
+
+def _moe_dispatch(x2d, p, mcfg: MoEConfig, topv, topi):
+    t, d = x2d.shape
+    e, k = mcfg.n_experts, mcfg.top_k
+    cap = capacity(t, mcfg)
+    # each token's K assignments in ascending expert order: a token's
+    # experts are distinct, so the stable sort by expert orders the same
+    # tables by token within an expert whatever the order within a token,
+    # and the contributions come back in ascending expert order
+    topi, by_expert = torch.sort(topi, dim=-1)
+    topv = topv.gather(1, by_expert)
+    st, sw, valid, slot, order = _dispatch_tables(x2d, mcfg, topv, topi, cap)
+    buf = x2d.new_zeros((e * cap + 1, d))
+    buf[slot] = x2d[st]                                  # overflow -> scratch
+    xe = buf[:-1].reshape(e, cap, d)                     # (E, C, D)
+    hg = torch.bmm(xe, p["w_gate"])
+    hu = torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(F.silu(hg) * hu, p["w_down"])         # (E, C, D)
+    out_rows = ye.reshape(e * cap, d)[torch.clamp_max(slot, e * cap - 1)]
+    contrib = out_rows * (sw * valid).to(x2d.dtype)[:, None]
+    # back to (token, expert rank) places, then each token's K
+    # contributions added one after another in x's dtype
+    per_token = torch.empty_like(contrib)
+    per_token[order] = contrib
+    per_token = per_token.reshape(t, k, d)
+    y = per_token[:, 0]
+    for j in range(1, k):
+        y = y + per_token[:, j]
+    return y
+
+
+def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
+              mcfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (B, S, D), plus the scalar f32 aux loss. ``ep``
+    runs ``dispatch`` (the port's 1-D mesh has no "model" axis)."""
+    if mcfg.impl not in IMPLS:
+        raise ValueError(f"unknown moe impl {mcfg.impl!r}")
+    b, s, d = x.shape
+    x2d = x.reshape(b * s, d)
+    topv, topi, aux = _route(x2d, p["router"], mcfg)
+    if mcfg.impl == "dense":
+        y = _moe_dense(x2d, p, mcfg, topv, topi)
+    else:
+        y = _moe_dispatch(x2d, p, mcfg, topv, topi)
+    return y.reshape(b, s, d), aux

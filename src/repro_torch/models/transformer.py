@@ -1,4 +1,4 @@
-"""Decoder-only LM (port of ``repro.models.transformer``): dense
+"""Decoder-only LM (port of ``repro.models.transformer``): dense and MoE
 configurations, the training loss, prefill, decode and the embedding hook.
 
 The structure is the JAX package's:
@@ -23,13 +23,19 @@ The structure is the JAX package's:
 * **Remat**: with ``remat`` set and grad enabled, each layer runs under
   ``torch.utils.checkpoint`` (the port of ``jax.checkpoint``): the
   backward keeps only each layer's input and recomputes the rest.
+* **MoE**: with ``cfg.moe`` set, each layer's MLP is ``moe.moe_block``
+  (parameters under the run's ``"moe"`` key); the training forward sums
+  the layers' router aux losses and ``lm_loss`` adds
+  ``router_aux_weight * aux / n_layers``. Prefill and decode drop the aux
+  loss. Which MoE implementation runs is ``cfg.moe.impl``:
+  ``configs.lm_family.shape_config`` gives decode the ``dense`` one, as
+  the JAX package's ``make_lm_arch`` does.
 
 Parameters are a dict of tensors with the JAX pytree's names and shapes
 (``{"embed", "final_norm", "runs": [per-run dict of (length, ...) stacks],
 "lm_head"?}``), so ``bridge.lm_params_from_arrays`` is a copy. Unlike JAX,
 ``lm_prefill`` and ``lm_decode_step`` update the cache in place (and
-return it), and run under ``torch.inference_mode()``. MoE configurations
-wait for a later slice (ROADMAP.md).
+return it), and run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_ce import fused_ce
 
 from .layers import chunked_attention, he_init, rms_norm, rope, swiglu
+from .moe import MoEConfig, init_moe_params, moe_block
 
 __all__ = ["LMConfig", "lm_init_params", "lm_loss", "lm_train_forward",
            "lm_prefill", "lm_decode_step", "init_cache", "lm_embed",
@@ -59,9 +66,9 @@ Cache = List[Dict[str, torch.Tensor]]
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The JAX ``LMConfig``, field for field. ``dtype`` is a torch dtype.
-    ``moe`` must stay None here (the MoE block is not ported yet).
-    ``seq_chunk`` is the sequence chunk of ``lm_loss``'s cross-entropy;
-    ``remat`` checkpoints each layer of the training forward (it changes
+    ``moe`` (a ``moe.MoEConfig``) makes every layer's MLP a mixture of
+    experts. ``seq_chunk`` is the sequence chunk of ``lm_loss``'s
+    cross-entropy; ``remat`` checkpoints each layer of the training forward (it changes
     nothing when grad is disabled, as in serving)."""
     name: str
     n_layers: int
@@ -75,7 +82,7 @@ class LMConfig:
     rope_theta_local: Optional[float] = None   # gemma3: 10k local / 1M global
     sliding_window: Optional[int] = None   # window for "local" layers
     global_every: Optional[int] = None     # every k-th layer global (gemma 5:1 -> 6)
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.float32
     seq_chunk: int = 1024                  # chunked-CE sequence chunk
@@ -89,10 +96,7 @@ class LMConfig:
         return ((self.vocab + 255) // 256) * 256
 
 
-def _dense_only(cfg: LMConfig):
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (see ROADMAP.md)")
+def _check_attn_impl(cfg: LMConfig):
     if cfg.attn_impl not in ("chunked", "flash"):
         raise ValueError(f"attn_impl must be 'chunked' or 'flash', got "
                          f"{cfg.attn_impl!r}")
@@ -118,17 +122,23 @@ def _init_run_params(gen: torch.Generator, cfg: LMConfig, length: int):
     d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                        cfg.d_ff)
     dt, dev = cfg.dtype, gen.device
-    return {
+    p = {
         "ln1": torch.zeros((length, d), dtype=dt, device=dev),
         "ln2": torch.zeros((length, d), dtype=dt, device=dev),
         "wq": he_init(gen, (length, d, h * dh), d, dt),
         "wk": he_init(gen, (length, d, kv * dh), d, dt),
         "wv": he_init(gen, (length, d, kv * dh), d, dt),
         "wo": he_init(gen, (length, h * dh, d), h * dh, dt),
-        "w_gate": he_init(gen, (length, d, f), d, dt),
-        "w_up": he_init(gen, (length, d, f), d, dt),
-        "w_down": he_init(gen, (length, f, d), f, dt),
     }
+    if cfg.moe is None:
+        p.update({
+            "w_gate": he_init(gen, (length, d, f), d, dt),
+            "w_up": he_init(gen, (length, d, f), d, dt),
+            "w_down": he_init(gen, (length, f, d), f, dt),
+        })
+    else:
+        p["moe"] = init_moe_params(gen, cfg.moe, d, length, dt)
+    return p
 
 
 def lm_init_params(cfg: LMConfig, seed: int,
@@ -138,7 +148,7 @@ def lm_init_params(cfg: LMConfig, seed: int,
     same seed gives the same weights on one device type; the CPU and CUDA
     streams differ, and neither is JAX's). Runs on ``cuda`` unless
     ``device`` names another device."""
-    _dense_only(cfg)
+    _check_attn_impl(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     params = {
@@ -169,14 +179,19 @@ def _qkv(cfg: LMConfig, x, lp, q_pos, window):
 
 
 def _mlp(cfg: LMConfig, h, lp):
+    """The MLP sublayer: (h_out, aux loss (f32 scalar, 0 when dense))."""
     x2 = rms_norm(h, lp["ln2"])
-    return h + swiglu(x2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if cfg.moe is None:
+        return (h + swiglu(x2, lp["w_gate"], lp["w_up"], lp["w_down"]),
+                torch.zeros((), dtype=torch.float32, device=h.device))
+    y, aux = moe_block(x2, lp["moe"], cfg.moe)
+    return h + y, aux
 
 
 def _layer_self(cfg: LMConfig, window, h, lp, q_pos):
     """Self-contained segment attention (training, prefill, embedding).
 
-    Returns (h_out, k, v)."""
+    Returns (h_out, k, v, aux)."""
     b, sq, _ = h.shape
     q, k, v = _qkv(cfg, rms_norm(h, lp["ln1"]), lp, q_pos, window)
     if cfg.attn_impl == "flash":
@@ -185,7 +200,8 @@ def _layer_self(cfg: LMConfig, window, h, lp, q_pos):
         attn = chunked_attention(q, k, v, q_pos, q_pos, window=window,
                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     h = h + attn.reshape(b, sq, -1) @ lp["wo"]
-    return _mlp(cfg, h, lp), k, v
+    h, aux = _mlp(cfg, h, lp)
+    return h, k, v, aux
 
 
 def _layer_cached(cfg: LMConfig, window, h, lp, q_pos, ck, cv, kv_pos,
@@ -200,17 +216,18 @@ def _layer_cached(cfg: LMConfig, window, h, lp, q_pos, ck, cv, kv_pos,
         q, ck.to(q.dtype), cv.to(q.dtype), q_pos, kv_pos, window=window,
         q_chunk=cfg.q_chunk, kv_chunk=ck.shape[1])
     h = h + attn.reshape(b, sq, -1) @ lp["wo"]
-    return _mlp(cfg, h, lp)
+    return _mlp(cfg, h, lp)[0]
 
 
-def _layers(run: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
-    """A run's (length, ...) stacks as one parameter dict per layer. One
-    ``unbind`` per stack, so the backward builds each stacked gradient
-    once (indexing layer by layer would write a full-size zero gradient
-    per layer)."""
+def _layers(run: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """A run's (length, ...) stacks as one parameter dict per layer (the
+    ``"moe"`` sub-dict likewise). One ``unbind`` per stack, so the
+    backward builds each stacked gradient once (indexing layer by layer
+    would write a full-size zero gradient per layer)."""
     keys = list(run)
-    return [dict(zip(keys, per_layer))
-            for per_layer in zip(*(run[key].unbind(0) for key in keys))]
+    per_key = [_layers(run[key]) if isinstance(run[key], dict)
+               else run[key].unbind(0) for key in keys]
+    return [dict(zip(keys, per_layer)) for per_layer in zip(*per_key)]
 
 
 def _window(cfg: LMConfig, kind: str) -> Optional[int]:
@@ -219,28 +236,35 @@ def _window(cfg: LMConfig, kind: str) -> Optional[int]:
 
 def _forward_no_cache(cfg: LMConfig, params, h, q_pos):
     """Training / embedding forward over all runs; no cache. With
-    ``cfg.remat`` and grad enabled, each layer is checkpointed."""
+    ``cfg.remat`` and grad enabled, each layer is checkpointed. Returns
+    (h, the sum of the layers' aux losses)."""
     remat = cfg.remat and torch.is_grad_enabled()
+    total_aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for ri, (kind, _) in enumerate(layer_runs(cfg)):
         window = _window(cfg, kind)
 
         def body(h, lp, _w=window):
-            return _layer_self(cfg, _w, h, lp, q_pos)[0]
+            h, _, _, aux = _layer_self(cfg, _w, h, lp, q_pos)
+            return h, aux
 
+        run_aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for lp in _layers(params["runs"][ri]):
             # the layer draws no random numbers: no RNG state to replay
-            h = (checkpoint(body, h, lp, use_reentrant=False,
-                            preserve_rng_state=False) if remat
-                 else body(h, lp))
-    return h
+            h, aux = (checkpoint(body, h, lp, use_reentrant=False,
+                                 preserve_rng_state=False) if remat
+                      else body(h, lp))
+            run_aux = run_aux + aux
+        total_aux = total_aux + run_aux
+    return h, total_aux
 
 
 def _final_hidden(cfg: LMConfig, params, tokens):
-    """The final-normed hidden states (B, S, d_model) of ``tokens``."""
+    """The final-normed hidden states (B, S, d_model) of ``tokens``, and
+    the layers' summed aux loss."""
     h = params["embed"][tokens].to(cfg.dtype)
-    h = _forward_no_cache(cfg, params, h,
-                          torch.arange(tokens.shape[1], device=tokens.device))
-    return rms_norm(h, params["final_norm"])
+    h, aux = _forward_no_cache(
+        cfg, params, h, torch.arange(tokens.shape[1], device=tokens.device))
+    return rms_norm(h, params["final_norm"]), aux
 
 
 def _head(cfg: LMConfig, params):
@@ -264,10 +288,12 @@ def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     through ``fused_ce`` over the head with the padded vocab masked. The
     per-token losses are summed and divided by B * S. Differentiable in
     ``params``; where JAX rounds the logits to ``cfg.dtype`` before the
-    f32 CE, K6 forms them in f32 from the same inputs."""
-    _dense_only(cfg)
+    f32 CE, K6 forms them in f32 from the same inputs. An MoE
+    configuration adds ``router_aux_weight * aux / n_layers``, aux the sum
+    of the layers' Switch losses."""
+    _check_attn_impl(cfg)
     b, s = tokens.shape
-    h = _final_hidden(cfg, params, tokens)
+    h, aux = _final_hidden(cfg, params, tokens)
     ck = min(cfg.seq_chunk, s)
     if s % ck:
         ck = math.gcd(ck, s)
@@ -277,7 +303,10 @@ def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
         hc = h[:, c0:c0 + ck].reshape(-1, cfg.d_model)
         total = total + fused_ce(hc, head, labels[:, c0:c0 + ck].reshape(-1),
                                  cfg.vocab).sum()
-    return total / (b * s)
+    loss = total / (b * s)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+    return loss
 
 
 def lm_train_forward(params: Params, cfg: LMConfig,
@@ -318,7 +347,7 @@ def lm_prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     Attention is self-contained within the prompt. The caches are written
     in place: local runs keep only the last ``window`` positions in their
     ring buffers (positions s - n_write .. s-1 go to slots pos % s_run)."""
-    _dense_only(cfg)
+    _check_attn_impl(cfg)
     b, s = tokens.shape
     dev = tokens.device
     h = params["embed"][tokens].to(cfg.dtype)
@@ -330,7 +359,7 @@ def lm_prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
         src = torch.arange(s - n_write, s, device=dev)   # positions written
         dst = src % s_run                   # ring slots (identity if s <= s_run)
         for i, lp in enumerate(_layers(params["runs"][ri])):
-            h, k, v = _layer_self(cfg, _window(cfg, kind), h, lp, q_pos)
+            h, k, v, _ = _layer_self(cfg, _window(cfg, kind), h, lp, q_pos)
             rc["k"][i][:, dst] = k[:, src].to(rc["k"].dtype)
             rc["v"][i][:, dst] = v[:, src].to(rc["v"].dtype)
         rc["pos"][dst] = src.to(torch.int32)
@@ -346,7 +375,7 @@ def lm_decode_step(params: Params, cfg: LMConfig, token: torch.Tensor,
 
     Writes this step's K/V into the caches in place. Returns (logits
     (B, vocab_padded), cache)."""
-    _dense_only(cfg)
+    _check_attn_impl(cfg)
     cur_len = int(cur_len)
     dev = token.device
     h = params["embed"][token][:, None, :].to(cfg.dtype)
@@ -375,5 +404,5 @@ def lm_embed(params: Params, cfg: LMConfig,
              tokens: torch.Tensor) -> torch.Tensor:
     """Mean-pooled final hidden states (B, d_model): the hook that turns
     the LM into an embedder for the vector index."""
-    _dense_only(cfg)
-    return _final_hidden(cfg, params, tokens).mean(dim=1)
+    _check_attn_impl(cfg)
+    return _final_hidden(cfg, params, tokens)[0].mean(dim=1)

@@ -23,7 +23,8 @@ torch.set_num_threads(1)
 import repro_torch.search as search  # noqa: E402
 
 # JAX module -> names its __all__ has that the port does not export yet:
-# the model side's sharding (the LM spec sets, ``constrain``)
+# the model side's sharding (the LM spec sets, ``constrain``) and the
+# ArchSpec builders the dry-run tools lower
 _ITEM_13 = {
     "repro.parallel": {"constrain", "lm_param_specs", "opt_specs",
                        "tree_named", "lm_cache_specs"},
@@ -32,8 +33,10 @@ _ITEM_13 = {
                                 "lm_cache_specs"},
     "repro.configs": {"get_arch", "all_arch_names", "ArchSpec", "ShapeDef"},
     "repro.configs.lm_family": {"make_lm_arch"},
+    "repro.configs.recsys_family": {"make_sasrec_arch", "make_dien_arch",
+                                    "make_autoint_arch",
+                                    "make_twotower_arch"},
     "repro.data": {"make_random_graph", "sample_neighborhood_batch"},
-    "repro.data.pipeline": {"recsys_ranking_batch", "twotower_batch"},
 }
 # the Pallas kernels' entry points: the port launches CUDA kernels
 # through its own wrappers (knn_topk, pairwise_stats, pq_adc_topk,
@@ -49,13 +52,8 @@ _RENAMED = {"repro.search": {"jax_profile": "torch_profile"},
 # JAX modules with no port twin yet, and the item that ports each
 _MODULES_OWED = {
     "repro.configs.common": 13, "repro.configs.gnn_family": 13,
-    "repro.configs.recsys_family": 13, "repro.data.graph": 13,
-    "repro.models.embedding": 13, "repro.models.gnn": 13,
-    "repro.models.moe": 13, "repro.models.recsys": 13,
-    "repro.configs.autoint": 13, "repro.configs.dien": 13,
-    "repro.configs.gin_tu": 13, "repro.configs.granite_moe_1b": 13,
-    "repro.configs.olmoe_1b_7b": 13, "repro.configs.sasrec": 13,
-    "repro.configs.two_tower_retrieval": 13,
+    "repro.data.graph": 13, "repro.models.gnn": 13,
+    "repro.configs.gin_tu": 13,
 }
 
 

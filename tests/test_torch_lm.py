@@ -2,8 +2,8 @@
 prefill, decode steps and embedding against repro.models.transformer on
 the same parameters (carried over by bridge.lm_params_from_arrays), for a
 dense and a local/global configuration with both attention routes; the
-three dense configurations; the bridge's bf16 copy; and the entry points'
-device contract."""
+three dense and two MoE configurations; the bridge's bf16 copy; and the
+entry points' device contract."""
 import dataclasses
 
 import numpy as np
@@ -35,7 +35,9 @@ GEMMA = dict(name="g", n_layers=7, d_model=32, n_heads=4, n_kv_heads=2,
 NAMES = sorted(LM_CONFIGS)
 _JAX_CONFIG_MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
                        "stablelm-1.6b": "stablelm_1_6b",
-                       "gemma3-4b": "gemma3_4b"}
+                       "gemma3-4b": "gemma3_4b",
+                       "granite-moe-1b-a400m": "granite_moe_1b",
+                       "olmoe-1b-7b": "olmoe_1b_7b"}
 
 
 def _jax():
@@ -138,7 +140,8 @@ def test_decode_matches_prefill(kw):
 @pytest.mark.parametrize("attn_impl", ["chunked", "flash"])
 @pytest.mark.parametrize("name", NAMES)
 def test_smoke_configs_match_jax(name, attn_impl):
-    """Each dense config's SMOKE size: one prefill and one decode step."""
+    """Each config's SMOKE size: one prefill and one decode step (an MoE
+    config on its configured dispatch combine in both)."""
     jax, jnp, jtf = _jax()
     jcfg = dataclasses.replace(_jax_config_module(name).SMOKE,
                                attn_impl=attn_impl)
@@ -216,8 +219,22 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 
 def test_moe_and_unknown_attention_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.lm_init_params(tf.LMConfig(**CFG, moe=object()), 0, device="cpu")
+    """An MoE config builds and serves; an unknown MoE implementation
+    raises ValueError where the block runs, as JAX's moe_block does; an
+    unknown attention route still raises."""
+    from repro_torch.models.moe import MoEConfig
+    mcfg = tf.LMConfig(**dict(CFG, d_ff=0), moe=MoEConfig(
+        n_experts=4, top_k=2, d_ff=16, impl="dispatch"))
+    mparams = tf.lm_init_params(mcfg, 0, device="cpu")
+    assert set(mparams["runs"][0]["moe"]) == {"router", "w_gate", "w_up",
+                                              "w_down"}
+    assert "w_gate" not in mparams["runs"][0]
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    assert tf.lm_embed(mparams, mcfg, toks).shape == (1, CFG["d_model"])
+    bad = dataclasses.replace(mcfg, moe=dataclasses.replace(mcfg.moe,
+                                                            impl="a2a"))
+    with pytest.raises(ValueError, match="unknown moe impl"):
+        tf.lm_embed(mparams, bad, toks)
     cfg = tf.LMConfig(**CFG, attn_impl="pallas")
     params = tf.lm_init_params(tf.LMConfig(**CFG), 0, device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):

@@ -145,7 +145,7 @@ def test_lm_loss_ragged_seq_and_masked_vocab():
     tokens, labels = (torch.from_numpy(b[k]) for k in ("tokens", "labels"))
     loss = tf.lm_loss(params, cfg, tokens, labels)
     with torch.no_grad():
-        h = tf._final_hidden(cfg, params, tokens)
+        h = tf._final_hidden(cfg, params, tokens)[0]
         want = fce.ce_ref(h.reshape(-1, cfg.d_model), params["lm_head"],
                           labels.reshape(-1), cfg.vocab).mean()
     torch.testing.assert_close(loss, want, rtol=1e-6, atol=0)
@@ -451,13 +451,27 @@ def test_restart_limit(tmp_path):
 
 
 def test_registry_names_the_ported_archs():
-    for name in ("tinyllama-1.1b", "stablelm-1.6b", "gemma3-4b"):
+    """The dense and MoE LMs and the recsys archs resolve (each recsys
+    CONFIG JAX's value for value); gin-tu raises naming ROADMAP.md."""
+    for name in ("tinyllama-1.1b", "stablelm-1.6b", "gemma3-4b",
+                 "granite-moe-1b-a400m", "olmoe-1b-7b"):
         assert config_module(name).SMOKE == LM_CONFIGS[name][1]
     jax, _ = _jax()
+    import importlib
     from repro.configs.registry import ARCH_MODULES as JAX_ARCHS
     assert sorted(JAX_ARCHS) == sorted([*ARCH_MODULES, *NOT_PORTED])
+    assert NOT_PORTED == ("gin-tu",)
+    for name in ("sasrec", "dien", "autoint", "two-tower-retrieval"):
+        jcfg = importlib.import_module(JAX_ARCHS[name]).CONFIG
+        jd = dataclasses.asdict(jcfg)
+        td = dataclasses.asdict(config_module(name).CONFIG)
+        assert np.dtype(jd.pop("dtype")).name == str(td.pop("dtype")).split(
+            ".")[-1]
+        assert jd == td, name
+    tt = config_module("two-tower-retrieval")
+    assert (tt.MPAD_DIM, tt.RERANK) == (64, 256)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_module("olmoe-1b-7b")
+        config_module("gin-tu")
     with pytest.raises(KeyError, match="unknown arch"):
         config_module("gpt-5")
 
@@ -480,6 +494,33 @@ def test_train_launcher_runs_and_resumes(tmp_path, capsys, compress):
         assert torch.equal(a, b), k
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(["--arch", "gin-tu"], device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "olmoe-1b-7b"])
+def test_train_launcher_trains_the_moe_smoke_lms(tmp_path, capsys, arch):
+    """The MoE archs train their SMOKE config as the dense archs do: the
+    dispatch combine, the router aux term, AdamW over the MoE leaves."""
+    from repro_torch.launch import train
+    final = train.main(["--arch", arch, "--steps", "3", "--batch", "2",
+                        "--seq", "16", "--ckpt-dir", str(tmp_path)],
+                       device="cpu")
+    out = capsys.readouterr().out
+    assert f"training reduced {LM_CONFIGS[arch][1].name}" in out
+    assert "done; final step: 3" in out and out.count(" loss ") == 3
+    leaves = dict(keyed_leaves(final["params"]))
+    assert leaves["['runs'][0]['moe']['router']"].dtype == torch.float32
+    assert all(bool(torch.isfinite(v).all()) for v in leaves.values())
+
+
+@pytest.mark.parametrize("arch", ["sasrec", "dien", "autoint",
+                                  "two-tower-retrieval"])
+def test_train_launcher_runs_the_recsys_smoke(capsys, arch):
+    """A recsys arch runs recsys_family.smoke(name), as JAX's launcher runs
+    arch.smoke(): one AdamW step and one serve call, finite."""
+    from repro_torch.launch import train
+    out = train.main(["--arch", arch], device="cpu")
+    assert out["ok"] and np.isfinite(out["loss"])
+    assert "non-LM arch; smoke train step ran" in capsys.readouterr().out
 
 
 def test_train_lm_example_survives_its_failure():
