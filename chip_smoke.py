@@ -10,8 +10,8 @@ fit_spread.)
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. device   CUDA must be present; prints the card's name and power limit.
   2. build    builds every CUDA kernel of the port (K1, K2, K3, K4, K5,
-              K6) from the checkout's sources, one nvcc per source, all at
-              once (sm_90a), and times the build.
+              K6 and the GIN aggregate) from the checkout's sources, one
+              nvcc per source, all at once (sm_90a), and times the build.
   3. edges    each kernel against its plain PyTorch version on edge
               cases. K1's gathered entry (every call also repeated, bit
               for bit): ragged C, masked slots, k > #finite, exact int8
@@ -52,7 +52,12 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               queries; small-integer data (bit-equal, ties included) in
               f32 and bf16; bf16 inputs; N = 1,000,000 at D = 384;
               Q = 1,000,000 against N = 2048; one call repeated, bit for
-              bit.
+              bit. The GIN aggregate (csr_gather_sum, both orders of each
+              graph, bit-equal to its plain version on the host and
+              repeated bit for bit): ragged power-law degrees with empty
+              rows, masks 0, 1 and 0.37, F 1, 31, 64, 100 and 1433; a
+              20,000-edge destination row and a 20,000-edge source row;
+              a graph with no edges; f64 input raises.
   4. path 1   the ivfpq path at full size: build_engine over a
               1,000,000 x 384 clustered f32 corpus made with numpy from a
               seed, spec qpad64>ivf1024x16>pq16x256:i8@kernel>rr64, then
@@ -352,15 +357,63 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               serve_p99 scoring at 512. p50 ms by CUDA events and items
               scored a second for every serve step.
 
+  33. path 12  gin-tu (configs.gin_tu: 5 layers, d_hidden 64) trained at
+              the four GNN_SHAPES (configs.gnn_family), f32, random weights
+              from seed 0, GNN_STEPS AdamW steps each; the graphs from
+              make_random_graph (made on the host in a thread beside the
+              build and the edge cases, before any timed path), full-graph
+              edge lists padded with masked
+              edges to a multiple of 512. full_graph_sm (N 2,708, E
+              10,752, F 1,433) and ogb_products (N 2,449,029, E
+              61,859,328, F 100, full size) on the aggregate (build_csr
+              once a graph; 5 forward and 4 backward launches a step,
+              checked each step); minibatch_lg (1,024 seeds, fanout (15,
+              10), F 602, sampled from a Reddit-sized graph: 232,965
+              nodes, 11,606,919 edges); molecule (128 graphs of 30 nodes,
+              F 32). Checks: step 0's loss within GNN_RTOL of the port's
+              CPU route and every gradient leaf within GNN_RTOL of the CPU
+              route run with the card's ReLU decisions, each ReLU input of
+              another sign within GNN_FLIP_REL of its call's largest
+              (full_graph_sm, minibatch_lg, molecule); on full_graph_sm
+              every aggregate of step 0 (5 forward, 4 backward) bit-equal
+              to the plain version on the host copy, and a second run of
+              the steps bit for bit; on ogb_products layer 0's and 1's
+              aggregate on GNN_ROW_SAMPLE rows bit-equal to the host's
+              index_add over those rows' edges, layer 0's output there
+              within GNN_RTOL of the CPU route, and the source order (the
+              backward's) on GNN_ROW_SAMPLE source rows, node 0 (the
+              longest, ~19,800 edges) among them, bit-equal to the host's
+              index_add on the gradient agg_timing times; losses finite.
+              Reported:
+              step ms (p50 of steps 1-2), nodes / seeds / graphs a second,
+              gin_flops over the time, peak memory; the aggregate at
+              ogb_products forward F 100 and 64, backward 64, beside its
+              bounds, its plain version, torch.sparse.mm (the library
+              yardstick) and index_add_ on materialised messages.
+  34. path 13  training on the card at full width: granite-moe-1b-a400m
+              as path 4 trains TinyLlama (4 x 4096, bf16, remat, 4 steps;
+              step 0 flash + K6 against chunked + the plain CE within
+              TRAIN_LOSS_ATOL and TRAIN_GRAD_REL on embed, runs[0].wq and
+              its MoE w_down and router; K5 2 x n_layers and K6 4
+              launches a step, all on the bf16 routes), with K5 (and its
+              Function's backward a layer) and K6 over the tied head at
+              its shapes; then SASRec, DIEN, AutoInt and the two-tower
+              model at the published configs and train_batch (65,536), 3
+              steps each, step 0 on a RECSYS_CHECK_ROWS slice against the
+              port's CPU route (RECSYS_LOSS_RTOL, RECSYS_GRAD_REL). Step
+              ms, tokens or examples a second, peak memory.
+
 Before those, one line {"result": {...}} holds every measurement of the
 run (``result.path4`` for the training path, ``result.path5`` for the
 evaluation path, ``result.path6``, ``result.ivf``,
 ``result.prefilter``, ``result.path7``, ``result.path8``,
-``result.path9``, ``result.path10`` and ``result.path11``, and
-``result.wall_s``). The line before the last is {"kernels": [...]}
-(K1, K2, K4, K5, K6, K3); the last line is
+``result.path9``, ``result.path10``, ``result.path11``,
+``result.path12`` and ``result.path13``, and ``result.wall_s``). The line
+before the last is {"kernels": [...]} (K1, K2, K4, K5, K6, K3 and the
+GIN aggregate); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -504,6 +557,45 @@ RECSYS_RTOL, RECSYS_ATOL = 1e-4, 1e-5
 RECSYS_REPS = 5
 RECSYS_DIEN_CHUNK = 1 << 16
 RECSYS_TOWER_CHUNK = 1 << 18
+# path 12: gin-tu (configs.gin_tu: 5 layers, d_hidden 64) trained at the
+# four GNN_SHAPES of configs.gnn_family, f32, GNN_STEPS AdamW steps each
+# (gnn_family's AdamW), the graphs from data.make_random_graph at
+# GNN_SEED + i, each full-graph edge list padded to a multiple of 512
+# with masked (0 -> 0) edges. minibatch_lg samples its batch from a graph
+# of Reddit's size (GraphSAGE's dataset, whose width 602 and 41 classes
+# the shape carries). ogb_products runs at full size (features 0.98 GB,
+# both CSR orders ~1.5 GB); its CPU route cannot run (the full-graph loss
+# materialises 24.7 GB of messages a layer on the host), so it is held
+# against the host on GNN_ROW_SAMPLE rows instead
+GNN_STEPS = 3
+GNN_SEED = SEED + 20
+REDDIT_NODES, REDDIT_EDGES = 232_965, 11_606_919
+GNN_ROW_SAMPLE = 4096
+GNN_LABEL_SHARE = 0.5            # nodes with a training label (label_mask)
+GNN_MOL_EDGE_P = 0.1             # molecule adjacency: symmetric 0/1, no loops
+# step 0 on the card against the port's CPU route: the aggregate is
+# bit-equal, the MLP matmuls (cuBLAS against the host's BLAS) and the
+# reductions sum in other orders; each gradient leaf within GNN_RTOL of
+# an entry plus GNN_RTOL of the leaf's largest (entries near 0 are sums
+# of terms of that size)
+GNN_RTOL = 1e-4
+# a ReLU input within rounding of 0 may take another sign on the card than
+# on the host: each such input within GNN_FLIP_REL of its call's largest
+# (f32 rounds at 6e-8 relative; a matmul's sum of 64 to 1,433 products
+# differs by up to ~1e-6 between two orders)
+GNN_FLIP_REL = 1e-5
+# path 13: granite-moe-1b-a400m trained as path 4 trains TinyLlama
+# (TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps, bf16, remat as configured,
+# the same bounds on step 0), then the recsys family at train_batch
+# (65,536: DIEN's 100 GRU steps peak at 62.3 GB, so no model is cut),
+# RECSYS_TRAIN_STEPS steps each, step 0 held against the port's
+# CPU route on a RECSYS_CHECK_ROWS slice of the same batch at
+# tests/test_torch_recsys.py's tolerances (loss rtol 1e-5, each gradient
+# leaf's relative L2 1e-5 unless its norm is <= 1e-7): the same f32
+# operations, matmuls and scatter-adds in other orders
+RECSYS_TRAIN_STEPS = 3
+RECSYS_CHECK_ROWS = 512
+RECSYS_LOSS_RTOL, RECSYS_GRAD_REL = 1e-5, 1e-5
 
 
 # kernel-name fragments for a trace's device time by group (first match)
@@ -1113,13 +1205,15 @@ def k6_bound(t, d, v, h_bytes, w_bytes):
 
 def train_flops(cfg, lm_param_count, k5_nops):
     """Model FLOPs of one training step of TRAIN_BATCH x TRAIN_SEQ tokens:
-    6 * params * tokens (every parameter, the embedding and the head
-    included: forward 2, backward 4), plus each layer's causal attention
-    (``k5_nops``, the multiply-adds of q.k and p.v over the pairs the mask
-    keeps) four times: the forward, the backward (twice the forward) and
-    the remat recompute."""
+    6 * active params * tokens (every parameter of a dense model, the
+    embedding and the head included, and an MoE's top-k experts: forward 2,
+    backward 4), plus each layer's causal attention (``k5_nops``, the
+    multiply-adds of q.k and p.v over the pairs the mask keeps) four times:
+    the forward, the backward (twice the forward) and the remat
+    recompute."""
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    return 6 * lm_param_count(cfg) * tokens + 4 * cfg.n_layers * k5_nops
+    return (6 * lm_param_count(cfg, active_only=True) * tokens
+            + 4 * cfg.n_layers * k5_nops)
 
 
 def k5_function_check(torch, fa, cfg):
@@ -1164,18 +1258,22 @@ def rel_l2(torch, a, b):
 def reference_loss(torch, tf, fce, cfg, params, batch):
     """The reference route of lm_loss: ``cfg``'s attention (chunked) and
     the plain materialized-logits CE (``ce_ref``) over the same sequence
-    chunks."""
+    chunks and head (the tied embed.T or lm_head), plus an MoE config's
+    aux term."""
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
-    h = tf._final_hidden(cfg, params, tokens)[0]
+    h, aux = tf._final_hidden(cfg, params, tokens)
+    head = tf._head(cfg, params)
     ck = min(cfg.seq_chunk, s)
     total = 0.0
     for c0 in range(0, s, ck):
         total = total + fce.ce_ref(h[:, c0:c0 + ck].reshape(-1, cfg.d_model),
-                                   params["lm_head"],
-                                   labels[:, c0:c0 + ck].reshape(-1),
+                                   head, labels[:, c0:c0 + ck].reshape(-1),
                                    cfg.vocab).sum()
-    return total / (b * s)
+    loss = total / (b * s)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+    return loss
 
 
 def restart_drill(torch, tf, optim, data, runtime, smoke_cfg):
@@ -1270,46 +1368,47 @@ def _keyed(tree):
     return keyed_leaves(tree)
 
 
-def train_path(torch, mods, base_cfg, smoke_cfg, counters):
-    """Path 4: ``base_cfg`` (TinyLlama-1.1B) at full width and depth, bf16,
-    random weights from seed 0, trained with attn_impl="flash" (K5 forward
-    and its remat recompute in every layer, K6 for each sequence chunk's
-    CE) and AdamW, held against the chunked route with the plain CE.
-    Returns (result dict, K6 launches on the main run, K5 launches on the
-    main run, K6's max |err| on the path's own inputs, K6 timing dict,
-    the K5 Function's max relative err)."""
-    import torch.nn.functional as F
-    tf, fa, fce, optim, data, runtime, lm_param_count = mods
+def lm_train_run(torch, mods, base_cfg, kept, counters, tag, n_batches):
+    """The training run of paths 4 and 13: ``base_cfg`` at full width and
+    depth, bf16, random weights from seed 0, trained with attn_impl="flash"
+    (K5 forward and its remat recompute in every layer, K6 over each
+    sequence chunk's head) and AdamW. Step 0's loss and the gradients that
+    ``kept`` picks are held against the chunked route with the plain CE
+    (TRAIN_LOSS_ATOL, TRAIN_GRAD_REL); then TRAIN_STEPS steps, every count
+    zeroed just before, each step checked for its K5 / K6 launches, both on
+    their bf16 tensor-core routes, no other kernel, and finite losses and
+    parameters. ``n_batches`` (>= TRAIN_STEPS) batches are drawn. Returns
+    (result dict, (params, opt, step, batches), K5 launches, K6 launches)."""
+    tf, fa, fce, optim, data, lm_param_count = mods
     cfg = dataclasses.replace(base_cfg, attn_impl="flash")
     cfg_c = dataclasses.replace(base_cfg, attn_impl="chunked")
     out = {"config": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "steps": TRAIN_STEPS, "seq_chunk": cfg.seq_chunk,
            "remat": cfg.remat}
-    k5_fn_err = k5_function_check(torch, fa, base_cfg)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out["mem_before_gb"] = torch.cuda.memory_allocated() / 1e9
     params = tf.lm_init_params(cfg, seed=SEED)
     batches = list(data.lm_token_batches(SEED, TRAIN_BATCH, TRAIN_SEQ,
-                                         cfg.vocab, n_steps=TRAIN_STEPS + 1))
-    n_chunks = TRAIN_SEQ // cfg.seq_chunk
-    want5, want6 = 2 * cfg.n_layers, n_chunks
+                                         cfg.vocab, n_steps=n_batches))
+    want5 = cfg.n_layers * (2 if cfg.remat else 1)
+    want6 = TRAIN_SEQ // cfg.seq_chunk
 
-    # step 0's loss and gradient on both routes, before any update
     def loss_fn(p, b):
         return tf.lm_train_forward(p, cfg, b)
 
+    # step 0's loss and gradient on both routes, before any update
     n5, n6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
     loss_f, grads = optim.value_and_grad(loss_fn, params, batches[0])
     torch.cuda.synchronize()
     check(fa.flash_attention_fwd.launches - n5 == want5
           and fce.fused_ce_fwd.launches - n6 == want6,
-          "step 0's gradient: K5 / K6 launched "
+          f"{cfg.name} step 0's gradient: K5 / K6 launched "
           f"{fa.flash_attention_fwd.launches - n5} / "
-          f"{fce.fused_ce_fwd.launches - n6} times")
+          f"{fce.fused_ce_fwd.launches - n6} times, want {want5} / {want6}")
     gnorm0 = float(optim.global_norm(grads))
-    keep = {"lm_head": grads["lm_head"], "runs[0].wq": grads["runs"][0]["wq"],
-            "embed": grads["embed"]}
+    keep = kept(grads)
     del grads
     n5, n6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
     loss_r, grads_r = optim.value_and_grad(
@@ -1319,8 +1418,7 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
     check(fa.flash_attention_fwd.launches == n5
           and fce.fused_ce_fwd.launches == n6, "a kernel ran on the "
           "reference route")
-    ref = {"lm_head": grads_r["lm_head"],
-           "runs[0].wq": grads_r["runs"][0]["wq"], "embed": grads_r["embed"]}
+    ref = kept(grads_r)
     gnorm_r = float(optim.global_norm(grads_r))
     del grads_r
     dloss = abs(float(loss_f) - float(loss_r))
@@ -1331,8 +1429,8 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
                     "grad_norm_reference": gnorm_r, "grad_rel_l2": rels,
                     "tolerance": {"loss_atol": TRAIN_LOSS_ATOL,
                                   "grad_rel_l2": TRAIN_GRAD_REL}}
-    log(f"[path 4] step 0: loss {float(loss_f):.5f} (flash + K6) vs "
-        f"{float(loss_r):.5f} (chunked + plain CE), |dloss| {dloss:.3e}; "
+    log(f"[{tag}] {cfg.name} step 0: loss {float(loss_f):.5f} (flash + K6) "
+        f"vs {float(loss_r):.5f} (chunked + plain CE), |dloss| {dloss:.3e}; "
         f"grad norm {gnorm0:.4f} vs {gnorm_r:.4f}; grad rel L2 "
         f"{ {k: round(v, 6) for k, v in rels.items()} }")
     check(np.isfinite(float(loss_f)) and np.isfinite(gnorm0),
@@ -1348,6 +1446,7 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
+    fa.flash_attention_fwd.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
     fce.fused_ce_fwd.launches_by_route = dict.fromkeys(fce.ROUTES, 0)
     losses, step_ms, per_step = [], [], []
     for i in range(TRAIN_STEPS):
@@ -1359,21 +1458,22 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
         losses.append(float(loss))
         per_step.append((fa.flash_attention_fwd.launches - n5,
                          fce.fused_ce_fwd.launches - n6))
-        log(f"[path 4] step {i}: loss {losses[-1]:.5f}, {step_ms[-1]:.1f} "
-            f"ms, K5 {per_step[-1][0]} / K6 {per_step[-1][1]} launches")
+        log(f"[{tag}] {cfg.name} step {i}: loss {losses[-1]:.5f}, "
+            f"{step_ms[-1]:.1f} ms, K5 {per_step[-1][0]} / K6 "
+            f"{per_step[-1][1]} launches")
     k5_launches = fa.flash_attention_fwd.launches
     k6_launches = fce.fused_ce_fwd.launches
+    routes5 = dict(fa.flash_attention_fwd.launches_by_route)
+    routes6 = dict(fce.fused_ce_fwd.launches_by_route)
     others = {fn.__name__: fn.launches for fn in counters
               if fn not in (fa.flash_attention_fwd, fce.fused_ce_fwd)}
+    out["k5_launches_by_route"], out["k6_launches_by_route"] = routes5, routes6
     check(all(p == (want5, want6) for p in per_step),
           f"launches per step {per_step}, want ({want5}, {want6})")
-    k6_routes = dict(fce.fused_ce_fwd.launches_by_route)
-    out["k6_launches_by_route"] = k6_routes
-    check(k6_routes == {"bf16": k6_launches, "f32": 0},
-          f"K6 launches by route {k6_routes}: path 4 must take the bf16 "
-          "tensor-core route only")
-    log(f"[path 4] K6 launches by route: {k6_routes}")
-    check(not any(others.values()), f"a search kernel ran on path 4: "
+    check(routes5["mma_bf16"] == k5_launches and routes6["bf16"] ==
+          k6_launches, f"K5 {routes5} / K6 {routes6} by route: {tag} takes "
+          "the bf16 tensor-core routes only")
+    check(not any(others.values()), f"another kernel ran on {tag}: "
           f"{others}")
     check(all(np.isfinite(x) for x in losses), f"non-finite loss {losses}")
     with torch.no_grad():
@@ -1391,13 +1491,34 @@ def train_path(torch, mods, base_cfg, smoke_cfg, counters):
         "model_flops": flops, "peak_share": flops / (p50 / 1e3)
         / BF16_OPS_PER_S, "launches_per_step": per_step,
         "param_norm_after": pnorm})
-    log(f"[path 4] {cfg.name} train {TRAIN_BATCH} x {TRAIN_SEQ}: step p50 "
+    log(f"[{tag}] {cfg.name} train {TRAIN_BATCH} x {TRAIN_SEQ}: step p50 "
         f"{p50:.1f} ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
         f"{step_ms[0]:.1f}), {out['tok_per_s']:.0f} tok/s, {flops:.4g} model "
         f"FLOPs = {out['peak_share']:.4f} of the bf16 peak; peak memory "
-        f"{out['peak_mem_gb']:.2f} GB (before path 4: "
-        f"{out['mem_before_gb']:.2f} GB); K5 {k5_launches}, K6 {k6_launches} "
+        f"{out['peak_mem_gb']:.2f} GB (before: {out['mem_before_gb']:.2f} "
+        f"GB); K5 {k5_launches} ({routes5}), K6 {k6_launches} ({routes6}) "
         "launches")
+    return out, (params, opt, step, batches), k5_launches, k6_launches
+
+
+def train_path(torch, mods, base_cfg, smoke_cfg, counters):
+    """Path 4: ``base_cfg`` (TinyLlama-1.1B) through ``lm_train_run``, then
+    one step under the profiler, K6 on the path's own inputs, the parts of
+    a step and the restart drill.
+    Returns (result dict, K6 launches on the main run, K5 launches on the
+    main run, K6's max |err| on the path's own inputs, K6 timing dict,
+    the K5 Function's max relative err)."""
+    import torch.nn.functional as F
+    tf, fa, fce, optim, data, runtime, lm_param_count = mods
+    k5_fn_err = k5_function_check(torch, fa, base_cfg)
+    out, (params, opt, step, batches), k5_launches, k6_launches = \
+        lm_train_run(torch, (tf, fa, fce, optim, data, lm_param_count),
+                     base_cfg, lambda g: {
+                         "lm_head": g["lm_head"],
+                         "runs[0].wq": g["runs"][0]["wq"],
+                         "embed": g["embed"]},
+                     counters, "path 4", TRAIN_STEPS + 1)
+    cfg = dataclasses.replace(base_cfg, attn_impl="flash")
 
     # one more step under the profiler: where the step's time goes
     out["busy"] = busy_share(
@@ -5076,6 +5197,754 @@ def _recsys_path(torch, mods, counters):
     return out, k4_launches
 
 
+def compare_agg(torch, ga, name, src, dst, mask, n, f, seed):
+    """The aggregate on both orders of one graph against its plain version
+    on the host copies, bit for bit, and repeated bit for bit; each
+    launch counted on its order. Returns max |err| (0 when it passes)."""
+    dev = torch.device("cuda")
+    agg = ga.csr_gather_sum
+    x = np.random.default_rng(seed).standard_normal((n, f), dtype=np.float32)
+    host = ga.build_csr(*(torch.from_numpy(a) for a in (src, dst, mask)), n)
+    card = ga.build_csr(*(torch.from_numpy(a).to(dev)
+                          for a in (src, dst, mask)), n)
+    xd = torch.from_numpy(x).to(dev)
+    for order in ("fwd", "bwd"):
+        o = getattr(card, order)
+        n0 = agg.launches_by_order[o.by]
+        got = agg(xd, o)
+        again = agg(xd, o)
+        torch.cuda.synchronize()
+        check(agg.launches_by_order[o.by] == n0 + 2, f"{name}: not "
+              f"launched on the {o.by} order")
+        want = ga.csr_gather_sum_plain(torch.from_numpy(x), getattr(host,
+                                                                   order))
+        check(torch.equal(got.cpu(), want) and torch.equal(got, again),
+              f"{name} ({o.by} order, F {f}): differs from the plain "
+              "version on the host or between two calls (max |err| "
+              f"{float((got.cpu() - want).abs().max())})")
+    log(f"  {name}: N {n} E {len(src)} F {f}: bit-equal to the host's "
+        "plain version on both orders, repeated bit for bit")
+    return 0.0
+
+
+def edge_cases_agg(torch, ga):
+    """The aggregate on ragged power-law degrees with empty rows (a
+    quarter of the nodes neither send nor receive), masks 0, 1 and 0.37,
+    F 1, 31, 64, 100 and 1433 (scalar and float4 loads, one to 45 feature
+    chunks); one 20,000-edge destination row and one 20,000-edge source
+    row among short ones; a graph with no edges (zeros); f64 raises."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 25)
+    n, e = 3000, 40_000
+    w = 1.0 / np.arange(1, 3 * n // 4 + 1) ** 0.5
+    src = rng.choice(3 * n // 4, size=e, p=w / w.sum()).astype(np.int32)
+    dst = rng.integers(0, 3 * n // 4, e).astype(np.int32)
+    mask = rng.choice(np.array([0.0, 1.0, 0.37], np.float32), e)
+    for f in (1, 31, 64, 100, 1433):
+        compare_agg(torch, ga, "ragged", src, dst, mask, n, f, f)
+    n, e = 5000, 60_000
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    dst[:20_000] = 17
+    src[20_000:40_000] = 4242
+    mask = (rng.random(e) > 0.1).astype(np.float32)
+    for f in (64, 100):
+        compare_agg(torch, ga, "long rows", src, dst, mask, n, f, f + 1)
+    empty = np.zeros(0, np.int32)
+    compare_agg(torch, ga, "no edges", empty, empty,
+                np.zeros(0, np.float32), 100, 64, 3)
+    csr = ga.build_csr(*(torch.zeros(4, dtype=torch.int32, device=dev),) * 2,
+                       None, 4)
+    try:
+        ga.csr_gather_sum(torch.zeros((4, 8), dtype=torch.float64,
+                                      device=dev), csr.fwd)
+    except TypeError:
+        pass
+    else:
+        check(False, "the aggregate took f64 input")
+    return 0.0
+
+
+def gnn_graphs(graph, fam):
+    """Path 12's inputs on the host (numpy, from GNN_SEED): the two full
+    graphs (make_random_graph, padded with masked 0 -> 0 edges to a
+    multiple of 512, a GNN_LABEL_SHARE training label mask), the
+    minibatch_lg batch sampled from a Reddit-sized graph, and the
+    molecule batch (symmetric 0/1 adjacency, no self-loops)."""
+    out = {}
+    for i, sname in enumerate(("full_graph_sm", "ogb_products")):
+        s = fam.GNN_SHAPES[sname]
+        n, e = s["n_nodes"], s["n_edges"]
+        feats, src, dst, labels = graph.make_random_graph(
+            GNN_SEED + i, n, e, s["d_feat"], s["n_classes"])
+        pad = fam.padded_edges(e) - e
+        rng = np.random.default_rng(GNN_SEED + 10 + i)
+        out[sname] = {
+            "feats": feats,
+            "edge_src": np.concatenate([src, np.zeros(pad, np.int32)]),
+            "edge_dst": np.concatenate([dst, np.zeros(pad, np.int32)]),
+            "edge_mask": np.concatenate([np.ones(e, np.float32),
+                                         np.zeros(pad, np.float32)]),
+            "labels": labels,
+            "label_mask": (rng.random(n) < GNN_LABEL_SHARE).astype(
+                np.float32)}
+    s = fam.GNN_SHAPES["minibatch_lg"]
+    feats, src, dst, labels = graph.make_random_graph(
+        GNN_SEED + 2, REDDIT_NODES, REDDIT_EDGES, s["d_feat"],
+        s["n_classes"])
+    out["minibatch_lg"] = graph.sample_neighborhood_batch(
+        GNN_SEED + 3, feats, src, dst, labels, s["batch_nodes"], s["fanout"])
+    s = fam.GNN_SHAPES["molecule"]
+    g, n = s["n_graphs"], s["n_nodes"]
+    rng = np.random.default_rng(GNN_SEED + 4)
+    upper = np.triu(rng.random((g, n, n)) < GNN_MOL_EDGE_P, 1)
+    out["molecule"] = {
+        "feats": rng.standard_normal((g, n, s["d_feat"]), dtype=np.float32),
+        "adj": (upper | upper.transpose(0, 2, 1)).astype(np.float32),
+        "labels": rng.integers(0, s["n_classes"], g).astype(np.int32)}
+    return out
+
+
+def start_gnn_graphs(graph, fam):
+    """``gnn_graphs`` in a thread, started beside the kernels' build and the
+    edge cases, where nothing is timed but the build (the host's generator
+    takes tens of seconds at ogb_products' 61.9 M edges). Returns
+    ``join()``, which waits and returns (graphs, seconds the thread took,
+    seconds waited), re-raising the thread's error."""
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["graphs"] = gnn_graphs(graph, fam)
+        except BaseException as exc:         # re-raised by join
+            box["error"] = exc
+        box["s"] = time.perf_counter() - t0
+
+    worker = threading.Thread(target=run, name="gnn-graphs", daemon=True)
+    worker.start()
+
+    def join():
+        t0 = time.perf_counter()
+        worker.join()
+        if "error" in box:
+            raise box["error"]
+        return box["graphs"], box["s"], time.perf_counter() - t0
+
+    return join
+
+
+@contextlib.contextmanager
+def recorded_aggregates(ops):
+    """Within the block every gin_aggregate forward and backward appends
+    (order, input, output) to the yielded list: ``ops._GinAggregate``
+    swapped for a subclass that calls it and records."""
+    records = []
+    base = ops._GinAggregate
+
+    class Recorded(base):
+        @staticmethod
+        def forward(ctx, h, csr):
+            out = base.forward(ctx, h, csr)
+            records.append(("dst", h.detach(), out))
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            gh, none = base.backward(ctx, g)
+            if gh is not None:
+                records.append(("src", g.detach(), gh))
+            return gh, none
+
+    ops._GinAggregate = Recorded
+    try:
+        yield records
+    finally:
+        ops._GinAggregate = base
+
+
+def leaf_err(torch, got, want):
+    """max |got - want| / (|want| + max |want|): a gradient leaf's error
+    against GNN_RTOL."""
+    want = want.to(got.device).float()
+    scale = float(want.abs().max())
+    return float(((got.float() - want).abs()
+                  / (want.abs() + max(scale, 1e-30))).max())
+
+
+class _ReluDecisions:
+    """Stands in for ``torch.nn.functional`` inside ``models.gnn``: its
+    ``relu`` records each call's input (``record``) or applies given
+    decisions (``masks``: x * mask, in call order); every other name is
+    the real module's."""
+
+    def __init__(self, functional, masks=None):
+        self._f, self.masks, self.inputs = functional, masks, []
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+    def relu(self, x):
+        if self.masks is None:
+            self.inputs.append(x.detach())
+            return self._f.relu(x)
+        mask = self.masks[len(self.inputs)]
+        self.inputs.append(x.detach())
+        return x * mask.to(x.dtype)
+
+
+@contextlib.contextmanager
+def relu_decisions(gnn, masks=None):
+    """Within the block ``gnn``'s ReLUs go through ``_ReluDecisions``."""
+    real = gnn.F
+    gnn.F = _ReluDecisions(real, masks)
+    try:
+        yield gnn.F
+    finally:
+        gnn.F = real
+
+
+def gin_step0(torch, mods, lf, params, batch, host, record):
+    """Step 0's loss and gradients on the card against the port's CPU
+    route on the same inputs (host copies of the parameters, the numpy
+    batch). A ReLU's gradient is 0 or 1 by the sign of its input, and the
+    card's matmuls round other than the host's, so an input within
+    rounding of 0 may take the other side (on full_graph_sm, on an H100,
+    one input of 1,733,120, at 7.6e-8 of its call's largest, moved layers
+    0-2's gradients by up to 7.2e-4 of their largest entry). So: the loss
+    within GNN_RTOL of the CPU route's; every ReLU input whose sign differs
+    between the two within GNN_FLIP_REL of its call's largest input; and
+    every gradient leaf within GNN_RTOL of the CPU route run with the
+    card's ReLU decisions (``leaf_err``). With ``record``, every
+    aggregate of the card's step (5 forward, 4 backward on a full graph)
+    is held bit for bit against the plain version on the host copy of its
+    input. Returns the readings."""
+    gnn, ga, fam, optim, tree_map = mods
+    fresh = tree_map(lambda t: t.detach().clone(), params)
+    with contextlib.ExitStack() as stack:
+        card = stack.enter_context(relu_decisions(gnn))
+        if record:
+            records = stack.enter_context(recorded_aggregates(ga.ops))
+        loss_d, grads_d = optim.value_and_grad(lf, fresh, batch)
+        torch.cuda.synchronize()
+    hb = {k: torch.from_numpy(v) for k, v in host.items()}
+
+    def cpu_params():
+        return tree_map(lambda t: t.detach().cpu().clone(), params)
+
+    with relu_decisions(gnn) as own:
+        loss_c, grads_c = optim.value_and_grad(lf, cpu_params(), hb)
+    masks = [x.cpu() > 0 for x in card.inputs]
+    flips, flip_rel = 0, 0.0
+    for x_d, x_c in zip(card.inputs, own.inputs):
+        differ = (x_d.cpu() > 0) != (x_c > 0)
+        if bool(differ.any()):
+            flips += int(differ.sum())
+            flip_rel = max(flip_rel, float(
+                x_c[differ].abs().max() / x_c.abs().max()))
+    with relu_decisions(gnn, masks):
+        _, grads_m = optim.value_and_grad(lf, cpu_params(), hb)
+    dloss = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    want, plain = dict(_keyed(grads_m)), dict(_keyed(grads_c))
+    errs = {k: leaf_err(torch, g, want[k]) for k, g in _keyed(grads_d)}
+    out = {"loss": float(loss_d), "loss_cpu": float(loss_c),
+           "loss_rel": dloss, "relu_units": sum(x.numel() for x in masks),
+           "relu_flips": flips, "relu_flip_max_rel": flip_rel,
+           "grad_max_err": max(errs.values()),
+           "grad_max_err_own_decisions": max(
+               leaf_err(torch, g, plain[k]) for k, g in _keyed(grads_d)),
+           "tolerance": {"rtol": GNN_RTOL, "flip_rel": GNN_FLIP_REL}}
+    log(f"[path 12] step 0 against the CPU route: loss {float(loss_d):.6g} "
+        f"/ {float(loss_c):.6g} (rel {dloss:.2e}); ReLU inputs of another "
+        f"sign {flips} of {out['relu_units']} (largest {flip_rel:.2e} of its "
+        f"call's); gradients within {out['grad_max_err']:.2e} of the CPU "
+        f"route with the card's ReLU decisions "
+        f"({out['grad_max_err_own_decisions']:.2e} with its own)")
+    check(np.isfinite(float(loss_d)), "GIN step 0: non-finite loss")
+    check(flip_rel <= GNN_FLIP_REL, f"GIN step 0: a ReLU input "
+          f"{flip_rel} of its call's largest took another sign on the card")
+    check(dloss <= GNN_RTOL and out["grad_max_err"] <= GNN_RTOL,
+          f"GIN step 0 against the CPU route: loss rel {dloss}, gradient "
+          f"errors {errs}")
+    if record:
+        src, dst, mask = (torch.from_numpy(host[k]) for k in (
+            "edge_src", "edge_dst", "edge_mask"))
+        n = host["feats"].shape[0]
+        by = {"dst": 0, "src": 0}
+        for order, x, y in records:
+            a, b = (src, dst) if order == "dst" else (dst, src)
+            want = ga.gather_sum_ref(x.cpu(), a, b, mask, n)
+            check(torch.equal(y.cpu(), want), f"GIN step 0: an aggregate "
+                  f"({order} order) differs from the plain version on the "
+                  "host")
+            by[order] += 1
+        out["aggregates_bit_equal_host"] = by
+        check(by == {"dst": 5, "src": 4}, f"GIN step 0 recorded {by} "
+              "aggregates, want 5 forward and 4 backward")
+    return out
+
+
+def gin_train(torch, mods, lf, cfg, batch, full, seed=SEED):
+    """GNN_STEPS AdamW steps (gnn_family's AdamW) of ``lf`` from
+    gin_init_params(cfg, seed) on ``batch``: (losses, step ms, aggregate
+    launches by order a step, final params)."""
+    dev = torch.device("cuda")
+    gnn, ga, fam, optim, _ = mods
+    agg = ga.csr_gather_sum
+    params = gnn.gin_init_params(cfg, seed=seed, device=dev)
+    opt = optim.init_opt_state(params)
+    step = optim.make_train_step(lf, fam._ADAM)
+    losses, step_ms, per_step = [], [], []
+    torch.cuda.synchronize()
+    for _ in range(GNN_STEPS):
+        n0 = dict(agg.launches_by_order)
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append({k: agg.launches_by_order[k] - n0[k] for k in n0})
+    want = ({"dst": cfg.n_layers, "src": cfg.n_layers - 1} if full
+            else {"dst": 0, "src": 0})
+    check(all(p == want for p in per_step), f"{cfg.name}: aggregate launches "
+          f"a step {per_step}, want {want}")
+    check(all(np.isfinite(x) for x in losses), f"{cfg.name}: non-finite "
+          f"loss {losses}")
+    return losses, step_ms, per_step, params
+
+
+def ogb_row_check(torch, mods, cfg, params, batch, host, csr):
+    """ogb_products against the host on GNN_ROW_SAMPLE destination rows:
+    layer 0's and layer 1's aggregate bit-equal to torch's CPU index_add
+    over those rows' edges in edge order (selected from the edge lists as
+    given, not from the card's CSR), and layer 0's output within GNN_RTOL
+    of the CPU route's on the same rows."""
+    gnn, ga, _, _, _ = mods
+    dev = batch["feats"].device
+    n = host["feats"].shape[0]
+    rows = np.sort(np.random.default_rng(GNN_SEED + 5).choice(
+        n, GNN_ROW_SAMPLE, replace=False))
+    sel = np.zeros(n, bool)
+    sel[rows] = True
+    edges = sel[host["edge_dst"]]
+    e_src = host["edge_src"][edges]
+    local = torch.from_numpy(np.searchsorted(rows, host["edge_dst"][edges]))
+    e_w = torch.from_numpy(host["edge_mask"][edges])
+    src_d = torch.from_numpy(e_src).to(dev).long()
+    rows_d = torch.from_numpy(rows).to(dev)
+    lp = params["layers"][0]
+    with torch.no_grad():
+        h0 = batch["feats"]
+        a0 = ga.gin_aggregate(h0, csr)
+        h1 = gnn._mlp(lp["mlp"], (1.0 + lp["eps"]) * h0 + a0)
+        a1 = ga.gin_aggregate(h1, csr)
+        host_agg = {}
+        for name, h, a in (("layer0", h0, a0), ("layer1", h1, a1)):
+            msg = h[src_d].cpu()                  # the gathered rows, exact
+            want = ga.gather_sum_ref(msg, torch.arange(msg.shape[0]), local,
+                                     e_w, GNN_ROW_SAMPLE)
+            check(torch.equal(a[rows_d].cpu(), want), f"ogb_products {name}: "
+                  f"the aggregate of {GNN_ROW_SAMPLE} rows differs from the "
+                  "host's index_add")
+            host_agg[name] = want
+        cpu0 = {k: v.detach().cpu() for k, v in lp["mlp"].items()}
+        eps0 = lp["eps"].detach().cpu()
+        h1_host = gnn._mlp(cpu0, (1.0 + eps0) * torch.from_numpy(
+            host["feats"][rows]) + host_agg["layer0"])
+        err = leaf_err(torch, h1[rows_d], h1_host)
+    check(err <= GNN_RTOL, f"ogb_products layer 0's output on {GNN_ROW_SAMPLE}"
+          f" rows: error {err} against the CPU route")
+    return {"rows": GNN_ROW_SAMPLE, "edges": int(edges.sum()),
+            "aggregates_bit_equal_host": ["layer0", "layer1"],
+            "layer0_output_err": err, "tolerance": GNN_RTOL}, h1
+
+
+def agg_bounds(n, e, f):
+    """The aggregate's least time at (N, E, F): (ms by the contract's
+    bytes, each input read once: x, rowptr, col, w, rows and out, bytes;
+    ms by the gathered rows, an x row and an index and mask for every
+    edge, bytes)."""
+    once = 2 * n * f * 4 + (n + 1) * 4 + e * 8 + n * 4
+    gathered = e * (4 * f + 8)
+    return (once / HBM_BYTES_PER_S * 1e3, once,
+            gathered / HBM_BYTES_PER_S * 1e3, gathered)
+
+
+def src_row_check(torch, ga, host, csr, g):
+    """The aggregate in the source order (the backward's) at ogb_products
+    against the host on GNN_ROW_SAMPLE source rows, node 0 (the power
+    law's longest row) among them: bit-equal to torch's CPU index_add of
+    ``g``'s destination rows over those rows' edges in edge order
+    (selected from the edge lists as given, not from the card's CSR)."""
+    n = host["feats"].shape[0]
+    rng = np.random.default_rng(GNN_SEED + 6)
+    rows = np.sort(np.concatenate([[0], 1 + rng.choice(
+        n - 1, GNN_ROW_SAMPLE - 1, replace=False)]))
+    sel = np.zeros(n, bool)
+    sel[rows] = True
+    edges = sel[host["edge_src"]]
+    local = torch.from_numpy(np.searchsorted(rows, host["edge_src"][edges]))
+    e_w = torch.from_numpy(host["edge_mask"][edges])
+    dst_d = torch.from_numpy(host["edge_dst"][edges]).to(g.device).long()
+    rows_d = torch.from_numpy(rows).to(g.device)
+    with torch.no_grad():
+        got = ga.csr_gather_sum(g, csr.bwd)[rows_d].cpu()
+        msg = g[dst_d].cpu()                      # the gathered rows, exact
+    want = ga.gather_sum_ref(msg, torch.arange(msg.shape[0]), local, e_w,
+                             rows.size)
+    check(torch.equal(got, want), f"ogb_products: the source-order "
+          f"aggregate of {rows.size} rows differs from the host's index_add")
+    row0 = int((host["edge_src"] == 0).sum())
+    log(f"[path 12] ogb_products source order: {rows.size} rows, "
+        f"{int(edges.sum())} edges (node 0's {row0}), bit-equal to the "
+        "host's index_add")
+    return {"rows": int(rows.size), "edges": int(edges.sum()),
+            "row0_edges": row0, "bit_equal_host": True}
+
+
+def agg_timing(torch, ga, batch, host, csr, h1):
+    """The aggregate at ogb_products: forward at F 100 (layer 0) and 64
+    (layers 1-4), backward at 64, each by CUDA events beside its bounds,
+    the backward's source order checked on a row sample of the gradient
+    it times (``src_row_check``); at F 64 the plain version, torch.sparse.mm of the destination-order
+    CSR by h (the library yardstick) and index_add_ on the materialised
+    messages (two yardsticks the port never calls on this path)."""
+    dev = torch.device("cuda")
+    agg = ga.csr_gather_sum
+    feats, n = batch["feats"], batch["feats"].shape[0]
+    e = csr.fwd.col.shape[0]
+    g = torch.randn(h1.shape, generator=torch.Generator(dev).manual_seed(
+        SEED), device=dev)
+    out = {}
+    for name, x, order in (("fwd_f100", feats, csr.fwd),
+                           ("fwd_f64", h1, csr.fwd),
+                           ("bwd_f64", g, csr.bwd)):
+        ms = cuda_ms(torch, lambda: agg(x, order), reps=5)
+        b_ms, b_bytes, g_ms, g_bytes = agg_bounds(n, e, x.shape[1])
+        out[name] = {"ms": ms, "bound_ms": b_ms, "bound_bytes": b_bytes,
+                     "gathered_bound_ms": g_ms, "gathered_bytes": g_bytes,
+                     "gathered_rate_tb_s": g_bytes / (ms / 1e3) / 1e12}
+    out["bwd_f64"]["row_check"] = src_row_check(torch, ga, host, csr, g)
+    del g
+    ref = agg(h1, csr.fwd)
+    check(torch.equal(ref, agg(h1, csr.fwd)), "the aggregate did not repeat "
+          "bit for bit")
+    r = out["fwd_f64"]
+    r["plain_ms"] = cuda_ms(torch, lambda: ga.csr_gather_sum_plain(
+        h1, csr.fwd), reps=2, warmup=1)
+    a = torch.sparse_csr_tensor(csr.fwd.rowptr, csr.fwd.col, csr.fwd.w,
+                                size=(n, n))
+    r["library_ms"] = cuda_ms(torch, lambda: torch.sparse.mm(a, h1), reps=5)
+    r["library_max_abs_diff"] = float((torch.sparse.mm(a, h1) - ref).abs()
+                                      .max())
+    msgs = h1[csr.src] * csr.mask[:, None]
+    buf = torch.zeros_like(h1)
+    r["index_add_ms"] = cuda_ms(
+        torch, lambda: buf.zero_().index_add_(0, csr.dst, msgs), reps=3)
+    r["index_add_max_abs_diff"] = float((buf - ref).abs().max())
+    del msgs, buf, a
+    log(f"[timings] aggregate at ogb_products (N {n}, E {e}): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, gathered rows "
+            f"{v['gathered_bound_ms']:.3f}: {v['gathered_rate_tb_s']:.2f} "
+            "TB/s)" for k, v in out.items())
+        + f"; at F 64 plain {r['plain_ms']:.2f} ms, torch.sparse.mm "
+        f"{r['library_ms']:.3f} ms (max |diff| "
+        f"{r['library_max_abs_diff']:.2e}), index_add_ on the messages "
+        f"{r['index_add_ms']:.3f} ms (max |diff| "
+        f"{r['index_add_max_abs_diff']:.2e})")
+    return out
+
+
+def gnn_path(torch, mods, graphs, counters):
+    """Path 12: gin-tu at the four GNN_SHAPES (see the module docstring).
+    Returns (result dict, aggregate launches on the main runs, the
+    aggregate's timing at ogb_products)."""
+    dev = torch.device("cuda")
+    gnn, ga, fam, optim, tree_map, base_cfg = mods
+    mods = mods[:5]
+    agg = ga.csr_gather_sum
+    losses_fn = {"full": gnn.gin_full_loss, "sampled": gnn.gin_sampled_loss,
+                 "mol": gnn.gin_mol_loss}
+    out, launches, timing = {}, 0, None
+    for sname in ("full_graph_sm", "ogb_products", "minibatch_lg",
+                  "molecule"):
+        s = fam.GNN_SHAPES[sname]
+        cfg = fam.shape_config(sname, base_cfg)
+        host = graphs.pop(sname)
+        full = s["regime"] == "full"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        r = {"regime": s["regime"], "config": cfg.name}
+        if full:
+            t0 = time.perf_counter()
+            batch["csr"] = ga.build_csr(batch["edge_src"], batch["edge_dst"],
+                                        batch["edge_mask"], s["n_nodes"])
+            torch.cuda.synchronize()
+            r["build_csr_s"] = time.perf_counter() - t0
+            r["edges_padded"] = int(batch["edge_src"].shape[0])
+
+        def lf(p, b, loss=losses_fn[s["regime"]], cfg=cfg):
+            return loss(p, cfg, b)
+
+        params = gnn.gin_init_params(cfg, seed=SEED, device=dev)
+        if sname == "ogb_products":
+            r["row_check"], h1 = ogb_row_check(torch, mods, cfg, params,
+                                               batch, host, batch["csr"])
+            del h1
+        else:
+            r["step0"] = gin_step0(torch, mods, lf, params, batch, host,
+                                   record=sname == "full_graph_sm")
+        del params
+        # the main run: counts zeroed just before, read just after
+        for fn in counters:
+            fn.launches = 0
+        agg.launches_by_order = {"dst": 0, "src": 0}
+        losses, step_ms, per_step, params = gin_train(torch, mods, lf, cfg,
+                                                      batch, full)
+        launches += agg.launches
+        r["launches_by_order"] = dict(agg.launches_by_order)
+        others = {fn.__name__: fn.launches for fn in counters
+                  if fn is not agg}
+        check(not any(others.values()), f"another kernel ran on path 12: "
+              f"{others}")
+        r["peak_mem_gb"] = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+        p50 = float(np.median(step_ms[1:]))
+        flops = fam.gin_flops(base_cfg, sname)
+        items = {"full": s.get("n_nodes"), "mol": s.get("n_graphs"),
+                 "sampled": s.get("batch_nodes")}[s["regime"]]
+        r.update({"losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+                  "items_per_s": items / (p50 / 1e3), "model_flops": flops,
+                  "tflop_per_s": flops / (p50 / 1e3) / 1e12,
+                  "launches_per_step": per_step})
+        what = {"full": "nodes", "mol": "graphs",
+                "sampled": "seed nodes"}[s["regime"]]
+        if s["regime"] == "sampled":
+            b, (f1, f2) = s["batch_nodes"], s["fanout"]
+            r["gathered_nodes_per_s"] = b * (1 + f1 + f1 * f2) / (p50 / 1e3)
+        log(f"[path 12] {cfg.name}: step p50 {p50:.2f} ms (steps 1-"
+            f"{GNN_STEPS - 1}; step 0 {step_ms[0]:.2f}), "
+            f"{r['items_per_s']:.4g} {what}/s, {flops:.4g} model FLOPs = "
+            f"{r['tflop_per_s']:.3f} TFLOP/s; losses "
+            f"{[round(x, 5) for x in losses]}; aggregate launches a step "
+            f"{per_step[0]}; peak memory {r['peak_mem_gb']:.2f} GB")
+        if sname == "full_graph_sm":
+            # the same 3 steps again from the same start: bit for bit
+            losses2, _, _, params2 = gin_train(torch, mods, lf, cfg, batch,
+                                               full)
+            same = losses2 == losses and all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(
+                    _keyed(params), _keyed(params2)))
+            check(same, f"full_graph_sm: a second run of {GNN_STEPS} steps "
+                  f"differs (losses {losses} / {losses2})")
+            r["repeat_bit_equal"] = True
+            del params2
+        if sname == "ogb_products":
+            lp = params["layers"][0]
+            with torch.no_grad():
+                h1 = gnn._mlp(lp["mlp"], (1.0 + lp["eps"]) * batch["feats"]
+                              + ga.gin_aggregate(batch["feats"],
+                                                 batch["csr"]))
+            del params
+            torch.cuda.empty_cache()
+            timing = agg_timing(torch, ga, batch, host, batch["csr"],
+                                h1)
+            r["aggregate_timing"] = timing
+            del h1
+        out[sname] = r
+        del batch, host
+        params = None
+    torch.cuda.empty_cache()
+    check(launches > 0, "the aggregate never launched on path 12")
+    return out, launches, timing
+
+
+def moe_train_path(torch, mods, base_cfg, counters):
+    """Path 13, first half: ``base_cfg`` (granite-moe-1b-a400m) through
+    ``lm_train_run`` as path 4 trains TinyLlama (K6 over the tied head
+    embed.T; the MoE on its configured impl, dispatch on one card), then
+    K5 and K6 timed at its shapes. Returns (result dict, K5 launches, K6
+    launches, K6's max |err| on the path's own inputs)."""
+    dev = torch.device("cuda")
+    import torch.nn.functional as F
+    tf, fa, fce, optim, data, lm_param_count = mods
+
+    def kept(g):
+        moe = g["runs"][0]["moe"]
+        return {"embed": g["embed"], "runs[0].wq": g["runs"][0]["wq"],
+                "runs[0].moe.w_down": moe["w_down"],
+                "runs[0].moe.router": moe["router"]}
+
+    out, (params, opt, _, batches), k5_launches, k6_launches = lm_train_run(
+        torch, mods, base_cfg, kept, counters, "path 13", TRAIN_STEPS)
+    cfg = dataclasses.replace(base_cfg, attn_impl="flash")
+    out.update({"moe_impl": cfg.moe.impl, "params": lm_param_count(cfg),
+                "active_params": lm_param_count(cfg, active_only=True)})
+
+    # K5 and K6 at the path's shapes
+    rng = np.random.default_rng(SEED + 13)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, TRAIN_SEQ, n, cfg.d_head), dtype=np.float32)).to(
+        dev).to(torch.bfloat16)
+        for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    k5 = k5_timing(torch, fa, q, k, v)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*leaves)
+    k5["function_backward_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        o, leaves, torch.ones_like(o), retain_graph=True), reps=2, warmup=1)
+    del q, k, v, leaves, o
+    with torch.no_grad():
+        h = tf._final_hidden(cfg, params, batches[0]["tokens"])[0]
+        hc = h[:, :cfg.seq_chunk].reshape(-1, cfg.d_model)
+        del h
+        head = tf._head(cfg, params).detach()
+        lab = batches[0]["labels"][:, :cfg.seq_chunk].reshape(-1)
+        err = compare_k6(torch, fce, "K6 path 13 bf16 tied", hc, head, lab,
+                         cfg.vocab)
+        k6_ms = cuda_ms(torch, lambda: fce.fused_ce_fwd(hc, head, lab,
+                                                        cfg.vocab), reps=10)
+        plain_ms = cuda_ms(torch, lambda: fce.fused_ce_fwd_plain(
+            hc, head, lab, cfg.vocab), reps=3, warmup=1)
+        yard_ms = cuda_ms(torch, lambda: F.cross_entropy(
+            (hc @ head[:, :cfg.vocab]).float(), lab, reduction="none"),
+            reps=10)
+    t = hc.shape[0]
+    bound, by, nops, nbytes = k6_bound(t, cfg.d_model, head.shape[1], 2, 2)
+    k6 = {"ms": k6_ms, "plain_ms": plain_ms, "bound_ms": bound,
+          "bound_by": by, "ops": nops, "bytes": nbytes,
+          "yardstick_cross_entropy_ms": yard_ms,
+          "shape": [t, cfg.d_model, head.shape[1]], "tied": True}
+    log(f"[timings] path 13: K5 {k5['ms']:.4f} ms (bound {k5['bound_ms']:.4f}"
+        f", SDPA {k5['library_ms']:.4f}), its Function's backward "
+        f"{k5['function_backward_ms']:.1f} ms a layer; K6 tied bf16 "
+        f"{k6_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({by}) at T={t} D={cfg.d_model} V={head.shape[1]}; yardstick "
+        f"cross_entropy((h @ w).float()) {yard_ms:.4f} ms")
+    out["k5_timing"], out["k6_timing"] = k5, k6
+    del hc, head, params, opt, batches
+    torch.cuda.empty_cache()
+    return out, k5_launches, k6_launches, err
+
+
+def recsys_train_batch(torch, data, cpu_generator, name, cfg, b):
+    """Model ``name``'s train_batch fields (JAX's batch_struct: int32 ids,
+    f32 labels) at batch ``b``, drawn on the host from SEED + 30 and moved
+    to the card; a quarter of the SASRec rows left-padded with -1."""
+    dev = torch.device("cuda")
+    gen = cpu_generator(SEED + 30)
+
+    def ids(high, *shape):
+        return torch.randint(0, high, shape, generator=gen,
+                             dtype=torch.int32)
+
+    if name == "sasrec":
+        out = {k: ids(cfg.n_items, b, cfg.seq_len)
+               for k in ("seq", "pos", "neg")}
+        for k in out:
+            out[k][: b // 4, :10] = -1
+    elif name == "dien":
+        return data.recsys_ranking_batch(gen, b, cfg.seq_len, cfg.n_items,
+                                         cfg.n_cats, device=dev)
+    elif name == "autoint":
+        out = {"field_ids": ids(cfg.vocab_per_field, b, cfg.n_fields),
+               "label": (torch.rand((b,), generator=gen) > 0.5).float()}
+    else:
+        return data.twotower_batch(gen, b, cfg.n_users, cfg.n_items,
+                                   cfg.n_user_feats, cfg.n_negatives,
+                                   device=dev)
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def recsys_train_path(torch, mods, counters):
+    """Path 13, second half: SASRec, DIEN, AutoInt and the two-tower model
+    trained at the published configs and train_batch, f32, from seed 0,
+    RECSYS_TRAIN_STEPS steps of recsys_family's AdamW each; step 0 on a
+    RECSYS_CHECK_ROWS slice of the batch on the card against the port's
+    CPU route on the same slice and parameters. Returns the result dict."""
+    dev = torch.device("cuda")
+    rs, family, cfgs, data, optim, tree_map, cpu_generator = mods
+    models = {
+        "sasrec": (cfgs[0], rs.sasrec_init, rs.sasrec_loss),
+        "dien": (cfgs[1], rs.dien_init, rs.dien_loss),
+        "autoint": (cfgs[2], rs.autoint_init, rs.autoint_loss),
+        "two-tower-retrieval": (cfgs[3], rs.twotower_init,
+                                rs.twotower_loss)}
+    b = family.RECSYS_SHAPES["train_batch"]["batch"]
+    out = {"batch": b}
+    for name, (cfg, init, loss) in models.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        params = init(cfg, seed=SEED)
+        batch = recsys_train_batch(torch, data, cpu_generator, name, cfg, b)
+
+        def lf(p, bb, loss=loss, cfg=cfg):
+            return loss(p, cfg, bb)
+
+        # step 0 on a slice: the card against the CPU route
+        # the two-tower's sampled negatives are the whole batch's
+        shared = (("neg_items", "neg_logq") if name == "two-tower-retrieval"
+                  else ())
+        sl = {k: (v if k in shared else v[:RECSYS_CHECK_ROWS])
+              for k, v in batch.items()}
+        ld, gd = optim.value_and_grad(
+            lf, tree_map(lambda t: t.detach().clone(), params), sl)
+        lc, gc = optim.value_and_grad(
+            lf, tree_map(lambda t: t.detach().cpu(), params),
+            {k: v.cpu() for k, v in sl.items()})
+        loss_rel = abs(float(ld) - float(lc)) / abs(float(lc))
+        rels = {}
+        for (key, a), (_, c) in zip(_keyed(gd), _keyed(gc)):
+            c = c.to(dev)
+            den = float(torch.linalg.vector_norm(c))
+            if den > 1e-7:
+                rels[key] = float(torch.linalg.vector_norm(a - c)) / den
+        del gd, gc
+        check(loss_rel <= RECSYS_LOSS_RTOL and all(
+            v <= RECSYS_GRAD_REL for v in rels.values()),
+            f"{name} step 0 on {RECSYS_CHECK_ROWS} rows against the CPU "
+            f"route: loss rel {loss_rel}, gradient rel L2 {rels}")
+        # the main run
+        for fn in counters:
+            fn.launches = 0
+        step = optim.make_train_step(lf, family._ADAM)
+        opt = optim.init_opt_state(params)
+        losses, step_ms = [], []
+        torch.cuda.synchronize()
+        for _ in range(RECSYS_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            lo, params, opt = step(params, opt, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(lo))
+        check(all(np.isfinite(x) for x in losses), f"{name}: non-finite "
+              f"loss {losses}")
+        check(not any(fn.launches for fn in counters), f"a kernel ran in "
+              f"{name}'s training")
+        p50 = float(np.median(step_ms[1:]))
+        r = {"batch": b, "losses": losses, "step_ms": step_ms,
+             "step_ms_p50": p50, "examples_per_s": b / (p50 / 1e3),
+             "peak_mem_gb": (torch.cuda.max_memory_allocated() - mem0) / 1e9,
+             "step0_slice": {"rows": RECSYS_CHECK_ROWS, "loss": float(ld),
+                             "loss_cpu": float(lc), "loss_rel": loss_rel,
+                             "grad_rel_l2_max": max(rels.values()),
+                             "leaves_compared": len(rels)}}
+        log(f"[path 13] {name} train batch {b}: step p50 {p50:.1f} ms (step "
+            f"0 {step_ms[0]:.1f}), {r['examples_per_s']:.4g} examples/s, "
+            f"peak {r['peak_mem_gb']:.2f} GB; losses "
+            f"{[round(x, 5) for x in losses]}; step 0 on {RECSYS_CHECK_ROWS} "
+            f"rows: loss rel {loss_rel:.2e}, gradient rel L2 max "
+            f"{r['step0_slice']['grad_rel_l2_max']:.2e} over {len(rels)} "
+            "leaves")
+        out[name] = r
+        del params, opt, batch, sl
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5133,6 +6002,10 @@ def main():
         from repro_torch.models import moe
         from repro_torch.models import recsys as rs
         from repro_torch.models.layers import chunked_attention
+        from repro_torch.configs import gin_tu, gnn_family
+        from repro_torch.data import graph as graph_data
+        from repro_torch.kernels import graph_agg as ga
+        from repro_torch.models import gnn
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -5149,7 +6022,10 @@ def main():
         f"{torch.version.cuda}")
     result["card"] = smi = card_line()
 
-    # 2. build
+    # 2. build, path 12's graphs made on the host beside it and the edge
+    # cases (no timed path runs until they are joined; the build's nvcc
+    # processes share the host's cores with the thread)
+    gnn_inputs = start_gnn_graphs(graph_data, gnn_family)
     t0 = time.perf_counter()
     build.build_libraries(verbose=True)
     result["build_s"] = time.perf_counter() - t0
@@ -5171,7 +6047,12 @@ def main():
     k6_err = edge_cases_k6(torch, fce)
     log("[K3 edges]")
     k3_err = edge_cases_k3(torch, knn_topk)
+    log("[aggregate edges]")
+    agg_err = edge_cases_agg(torch, ga)
     torch.cuda.synchronize()
+    gnn_graph_in, gen_s, gen_wait_s = gnn_inputs()
+    log(f"[path 12] graphs made on the host in {gen_s:.1f} s beside the "
+        f"build and the edge cases ({gen_wait_s:.1f} s waited after them)")
 
     # 4. the main path
     t0 = time.perf_counter()
@@ -5185,7 +6066,7 @@ def main():
     counters = (ops.pq_adc_gather_topk, ops.pq_adc_cells_topk,
                 ops.pq_adc_topk, pw.pairwise_stats,
                 pw.pairwise_stats_at_quantile, fa.flash_attention_fwd,
-                fce.fused_ce_fwd, knn_topk.knn_topk_d2)
+                fce.fused_ce_fwd, knn_topk.knn_topk_d2, ga.csr_gather_sum)
     TRACED_KERNELS.extend((
         ("adc_select<", (ops.pq_adc_gather_topk, ops.pq_adc_cells_topk)),
         ("adc_shared_select<", (ops.pq_adc_topk,)),
@@ -5193,7 +6074,8 @@ def main():
         ("quantile_stats", (pw.pairwise_stats_at_quantile,)),
         ("flash_fwd", (fa.flash_attention_fwd,)),
         ("ce_partial", (fce.fused_ce_fwd,)),
-        ("knn_select", (knn_topk.knn_topk_d2,))))
+        ("knn_select", (knn_topk.knn_topk_d2,)),
+        ("csr_gather_sum", (ga.csr_gather_sum,))))
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -5605,6 +6487,25 @@ def main():
                 cpu_generator), counters)
     check(k4_path11 > 0, "K4 never launched on path 11")
 
+    # 33. path 12: gin-tu at the four GNN_SHAPES, full graphs on the
+    # aggregate
+    result["path12"], agg_launches, agg_t = gnn_path(
+        torch, (gnn, ga, gnn_family, optim, tree_map, gin_tu.CONFIG),
+        gnn_graph_in, counters)
+    result["path12"]["host_generation_s"] = gen_s
+    result["path12"]["host_generation_wait_s"] = gen_wait_s
+
+    # 34. path 13: granite-moe-1b-a400m trained on K5 and K6, then the
+    # recsys family at train_batch
+    p13, k5_path13, k6_path13, k6_p13_err = moe_train_path(
+        torch, (tf, fa, fce, optim, data, lm_param_count), GRANITE_MOE,
+        counters)
+    k6_err = max(k6_err, k6_p13_err)
+    result["path13"] = {GRANITE_MOE.name: p13, "recsys": recsys_train_path(
+        torch, (rs, recsys_family, (sasrec.CONFIG, dien.CONFIG,
+                                    autoint.CONFIG, two_tower_retrieval.CONFIG),
+                data, optim, tree_map, cpu_generator), counters)}
+
     k1b = k1t["bounds"]
     k1_src = "src/repro_torch/kernels/pq_adc/csrc/pq_adc_gather_topk.cu"
     k4_src = "src/repro_torch/kernels/mpad_pairwise/csrc/pairwise_stats.cu"
@@ -5704,9 +6605,12 @@ def main():
                 "launches_path4: path 4's training steps; "
                 "launches_path10: path 10's MoE prefills and decodes "
                 "(granite-moe-1b-a400m and olmoe-1b-7b; their K5 times "
-                "are in result.path10.<config>.k5_timing)",
+                "are in result.path10.<config>.k5_timing); "
+                "launches_path13: granite-moe-1b-a400m's training steps "
+                "on path 13 (K5 at its shape, with the Function's "
+                "backward a layer, in result.path13.<config>.k5_timing)",
         "launches_path4": k5_train_launches,
-        "launches_path10": k5_path10}, {
+        "launches_path10": k5_path10, "launches_path13": k5_path13}, {
         "name": "fused_ce_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce_bf16.cu",
         "replaces": "src/repro/kernels/fused_ce/kernel.py:64",
@@ -5716,7 +6620,10 @@ def main():
         "note": "bf16 on the tensor cores (mma.sync), every launch of path "
                 "4 on it; f32 and mixed inputs on fused_ce_fwd.cu (the "
                 "edge cases; result.k6_timing.f32_route_ms at path 4's "
-                "shape)"}, {
+                "shape); launches_path13: granite-moe-1b-a400m's training "
+                "steps on path 13, tied head embed.T (its time at T 4096, "
+                "D 1024, V 49408 in result.path13.<config>.k6_timing)",
+        "launches_path13": k6_path13}, {
         "name": "knn_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
         "replaces": "src/repro/kernels/knn_topk/kernel.py:72",
@@ -5731,7 +6638,26 @@ def main():
                 "launches_path9: the flat engine's shard-local scans on "
                 "path 9 (world 1, NCCL); "
                 "library_ms: the two-call yardstick topk(cdist(q, "
-                "x), k, largest=False), which the port never calls"}]
+                "x), k, largest=False), which the port never calls"}, {
+        "name": "csr_gather_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/graph_agg/csrc/csr_gather_sum.cu",
+        "replaces": "src/repro/models/gnn.py:81 (jax.ops.segment_sum: no "
+                    "pallas_call; a port-only kernel)",
+        "launches": agg_launches, "max_abs_err": agg_err,
+        "ms": agg_t["fwd_f64"]["ms"], "plain_ms": agg_t["fwd_f64"]["plain_ms"],
+        "bound_ms": agg_t["fwd_f64"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": agg_t["fwd_f64"]["library_ms"],
+        "gathered_bound_ms": agg_t["fwd_f64"]["gathered_bound_ms"],
+        "note": "GIN's neighbour sum in edge order (no atomics), forward on "
+                "the destination order, backward on the source order; "
+                "times at ogb_products' layers 1-4 forward (N 2,449,029, E "
+                "61,859,328, F 64; result.path12.ogb_products."
+                "aggregate_timing has F 100 and the backward); bound_ms "
+                "reads each input once, gathered_bound_ms an x row for "
+                "every edge; library_ms: torch.sparse.mm of the CSR by h, "
+                "which the port never calls; launches: path 12's main "
+                "runs (full_graph_sm and ogb_products, 5 forward and 4 "
+                "backward a step)"}]
     result["trace_losses"] = TRACE_LOSSES
     log(f"[trace] {len(TRACE_LOSSES)} traces lacked records, "
         f"{sum(r['used'] for r in TRACE_LOSSES)} of them used")

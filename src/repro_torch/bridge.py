@@ -12,7 +12,9 @@ the parameters of ``repro.models.transformer`` (``['embed']``,
 ``['runs'][0]['wq']``, an MoE layer's ``['runs'][0]['moe']['router']``,
 ...), ``params_from_arrays`` for any parameter tree whose shape the port
 can build (the recsys models' ``['blocks'][0]['wq']``,
-``['user_mlp'][1]['b']``, ...), and ``opt_state_from_arrays`` for the
+``['user_mlp'][1]['b']``, ...), ``gin_params_from_arrays`` for GIN's
+(``['layers'][0]['mlp']['w1']``, ``['layers'][0]['eps']``, ``['head']``),
+and ``opt_state_from_arrays`` for the
 AdamW state of ``repro.optim`` (``['step']``, ``['m']['embed']``, ...).
 ``affine_reducer`` wraps a linear baseline's fitted ``(matrix, mean)``
 pair (``repro.core.baselines`` pca, rp and mds) as the port's baselines
@@ -32,6 +34,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import keyed_leaves, tree_unflatten
 from repro_torch.core import baselines
+from repro_torch.models.gnn import GINConfig, gin_init_params
 from repro_torch.models.transformer import (LMConfig, Params,
                                             lm_init_params)
 from repro_torch.search.ivf import IVFIndex
@@ -45,8 +48,8 @@ from repro_torch.search.serve import EngineState
 from repro_torch.search.spec import IndexSpec, parse_spec
 
 __all__ = ["state_from_arrays", "stream_from_arrays", "affine_reducer",
-           "lm_params_from_arrays", "params_from_arrays",
-           "opt_state_from_arrays"]
+           "lm_params_from_arrays", "gin_params_from_arrays",
+           "params_from_arrays", "opt_state_from_arrays"]
 
 _SNAPSHOT_PREFIX = "['state']"
 # the NamedTuple payloads, carried field by field
@@ -182,6 +185,18 @@ def lm_params_from_arrays(arrays: Mapping[str, np.ndarray], cfg: LMConfig,
     CPU: each must have the shape and dtype ``cfg`` gives it (an MoE
     router is f32 whatever ``cfg.dtype`` is)."""
     return params_from_arrays(arrays, lm_init_params(cfg, 0, device="cpu"),
+                              device)
+
+
+def gin_params_from_arrays(arrays: Mapping[str, np.ndarray], cfg: GINConfig,
+                           device: DeviceLike = None) -> Params:
+    """The port's GIN parameters for ``cfg`` from JAX's
+    (``repro.models.gnn.gin_init_params``) keyed by ``keystr`` paths,
+    copied bit for bit by ``params_from_arrays`` against
+    ``gin_init_params(cfg)`` drawn on the CPU: every layer's
+    ``['mlp']['w1' | 'b1' | 'w2' | 'b2']`` and ``['eps']``, and
+    ``['head']``, each of its shape and dtype."""
+    return params_from_arrays(arrays, gin_init_params(cfg, 0, device="cpu"),
                               device)
 
 

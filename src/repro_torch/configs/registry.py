@@ -1,6 +1,7 @@
 """Architecture registry (port of ``repro.configs.registry``): ``--arch``
-names to the port's configuration modules. The port has the dense and MoE
-LMs and the recsys family; gin-tu raises until the GNN family is ported."""
+names to the port's configuration modules: the dense and MoE LMs, the
+recsys family and the GNN family (gin-tu), every arch of the JAX
+package."""
 from __future__ import annotations
 
 import importlib
@@ -18,20 +19,18 @@ ARCH_MODULES = {
     "dien": "repro_torch.configs.dien",
     "autoint": "repro_torch.configs.autoint",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
+    "gin-tu": "repro_torch.configs.gin_tu",
 }
 
-# the JAX package's other architectures
-NOT_PORTED = ("gin-tu",)
+# the JAX package's architectures the port does not have yet: none
+NOT_PORTED = ()
 
 
 def config_module(name: str) -> ModuleType:
     """The configuration module of arch ``name``: ``CONFIG`` and, for an
-    LM, ``SMOKE``."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet (see ROADMAP.md, "
-            "item 13)")
+    LM, ``SMOKE``; for a non-LM arch ``smoke(device)``, its family's smoke
+    step (gin-tu's shapes are in ``configs.gnn_family``, the recsys archs'
+    in ``configs.recsys_family``)."""
     if name not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: "
-                       f"{list(ARCH_MODULES) + list(NOT_PORTED)}")
+        raise KeyError(f"unknown arch {name!r}; known: {list(ARCH_MODULES)}")
     return importlib.import_module(ARCH_MODULES[name])

@@ -1,12 +1,15 @@
 """Train launcher (port of ``repro.launch.train``): ``--arch <id>``
 resolves a registry configuration and trains its reduced (``SMOKE``) size
-end to end: a dense or MoE LM, or, for a recsys arch (no ``SMOKE``),
-``configs.recsys_family.smoke(name)``'s train step and serve call, as
-JAX's launcher runs ``arch.smoke()``.
+end to end: a dense or MoE LM, or, for an arch with no ``SMOKE``, its
+configuration module's ``smoke()``, as JAX's launcher runs
+``arch.smoke()`` (gin-tu: ``configs.gnn_family.smoke()``, a full-graph
+train step and the sampled and molecule losses; a recsys arch:
+``configs.recsys_family.smoke(name)``'s train step and serve call).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --steps 10 --ckpt-dir ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu
 
 Exercised: the deterministic data pipeline, AdamW, checkpoint/restart
 (resumes from the newest checkpoint in --ckpt-dir) and optional int8
@@ -19,7 +22,6 @@ import argparse
 from typing import Any, List, Optional
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.configs import recsys_family
 from repro_torch.configs.registry import config_module
 from repro_torch.data.pipeline import lm_token_batches
 from repro_torch.models.transformer import lm_init_params, lm_train_forward
@@ -32,7 +34,8 @@ from repro_torch.runtime import run_with_restarts
 def main(argv: Optional[List[str]] = None,
          device: DeviceLike = None) -> Any:
     """Parse ``argv`` (the command line when None), train, and return the
-    final ``{"params", "opt"}`` state (a recsys arch: its smoke result)."""
+    final ``{"params", "opt"}`` state (gin-tu or a recsys arch: its smoke
+    result)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--steps", type=int, default=20)
@@ -47,8 +50,8 @@ def main(argv: Optional[List[str]] = None,
     mod = config_module(args.arch)
     dev = resolve_device(device)
     if not hasattr(mod, "SMOKE"):
-        # non-LM archs: their smoke train step and serve call
-        out = recsys_family.smoke(args.arch, device=dev)
+        # non-LM archs: their family's smoke train step
+        out = mod.smoke(device=dev)
         print(f"{args.arch}: non-LM arch; smoke train step ran: {out}")
         return out
     cfg = mod.SMOKE

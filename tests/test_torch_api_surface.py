@@ -36,7 +36,7 @@ _ITEM_13 = {
     "repro.configs.recsys_family": {"make_sasrec_arch", "make_dien_arch",
                                     "make_autoint_arch",
                                     "make_twotower_arch"},
-    "repro.data": {"make_random_graph", "sample_neighborhood_batch"},
+    "repro.configs.gnn_family": {"make_gin_arch"},
 }
 # the Pallas kernels' entry points: the port launches CUDA kernels
 # through its own wrappers (knn_topk, pairwise_stats, pq_adc_topk,
@@ -51,9 +51,7 @@ _RENAMED = {"repro.search": {"jax_profile": "torch_profile"},
             "repro.search.tracing": {"jax_profile": "torch_profile"}}
 # JAX modules with no port twin yet, and the item that ports each
 _MODULES_OWED = {
-    "repro.configs.common": 13, "repro.configs.gnn_family": 13,
-    "repro.data.graph": 13, "repro.models.gnn": 13,
-    "repro.configs.gin_tu": 13,
+    "repro.configs.common": 13,
 }
 
 

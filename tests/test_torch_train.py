@@ -451,8 +451,9 @@ def test_restart_limit(tmp_path):
 
 
 def test_registry_names_the_ported_archs():
-    """The dense and MoE LMs and the recsys archs resolve (each recsys
-    CONFIG JAX's value for value); gin-tu raises naming ROADMAP.md."""
+    """The dense and MoE LMs, the recsys archs and gin-tu resolve (each
+    recsys CONFIG and gin-tu's JAX's value for value); nothing is left
+    unported, and an unknown name raises."""
     for name in ("tinyllama-1.1b", "stablelm-1.6b", "gemma3-4b",
                  "granite-moe-1b-a400m", "olmoe-1b-7b"):
         assert config_module(name).SMOKE == LM_CONFIGS[name][1]
@@ -460,8 +461,9 @@ def test_registry_names_the_ported_archs():
     import importlib
     from repro.configs.registry import ARCH_MODULES as JAX_ARCHS
     assert sorted(JAX_ARCHS) == sorted([*ARCH_MODULES, *NOT_PORTED])
-    assert NOT_PORTED == ("gin-tu",)
-    for name in ("sasrec", "dien", "autoint", "two-tower-retrieval"):
+    assert NOT_PORTED == ()
+    for name in ("sasrec", "dien", "autoint", "two-tower-retrieval",
+                 "gin-tu"):
         jcfg = importlib.import_module(JAX_ARCHS[name]).CONFIG
         jd = dataclasses.asdict(jcfg)
         td = dataclasses.asdict(config_module(name).CONFIG)
@@ -470,8 +472,7 @@ def test_registry_names_the_ported_archs():
         assert jd == td, name
     tt = config_module("two-tower-retrieval")
     assert (tt.MPAD_DIM, tt.RERANK) == (64, 256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_module("gin-tu")
+    assert config_module("gin-tu").CONFIG.n_layers == 5
     with pytest.raises(KeyError, match="unknown arch"):
         config_module("gpt-5")
 
@@ -492,8 +493,8 @@ def test_train_launcher_runs_and_resumes(tmp_path, capsys, compress):
     assert capsys.readouterr().out.count(" loss ") == 0
     for (k, a), (_, b) in zip(keyed_leaves(final), keyed_leaves(again)):
         assert torch.equal(a, b), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--arch", "gin-tu"], device="cpu")
+    gin = train.main(["--arch", "gin-tu"], device="cpu")
+    assert gin["ok"] and np.isfinite(gin["loss"])
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "olmoe-1b-7b"])
