@@ -315,8 +315,8 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               freed first): granite-moe-1b-a400m's and olmoe-1b-7b's
               CONFIGs in turn at full width and depth, bf16, random
               weights from lm_init_params(cfg, seed=0), attn_impl="flash".
-              Prefill 4 x 4096 on the configured MoE impl (ep: dispatch
-              on one card), then 64 greedy decode steps on the dense
+              Prefill 4 x 4096 on the configured MoE impl (ep with no mesh:
+              dispatch), then 64 greedy decode steps on the dense
               combine (configs.shape_config(cfg, "decode")), then
               lm_embed; K5's counts zeroed just before and read just after
               each main run. (a) K5 n_layers times in the prefill, none in
@@ -402,13 +402,44 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               steps each, step 0 on a RECSYS_CHECK_ROWS slice against the
               port's CPU route (RECSYS_LOSS_RTOL, RECSYS_GRAD_REL). Step
               ms, tokens or examples a second, peak memory.
+  35. path 14  granite-moe-1b-a400m trained over a ("data", "model") mesh
+              of ranks (repro_torch.parallel.step: expert parallelism
+              over "model" on the MoE layers, every other parameter
+              gathered at use, the gradients' mean over "data", ZeRO-1
+              moments). (a), between path 13's two halves: one rank over
+              NCCL, a (1, 1) mesh, at path 13's shapes (full width and
+              depth, 4 x 4096, bf16, impl "ep"): 2 steps, counts zeroed
+              just before, K5 48 and K6 4 launches a step on their bf16
+              routes; the losses and every parameter against path 13's
+              first 2 steps (lm_train_run) on the same parameters and
+              batches, bit for bit. (b), after path 13: 4 gloo ranks on
+              cuda:0, a (2, 2) mesh, at full width cut to 6 layers and
+              4 x 1024 tokens (gloo stages every collective through host
+              memory): at capacity_factor E / K = 4.0 (nothing dropped),
+              step 0's gradient and 2 steps against the same in one
+              process (|dloss| within TRAIN_LOSS_ATOL, each leaf's step-0
+              gradient rel L2 within TRAIN_GRAD_REL; each leaf's update
+              rel L2 reported); each rank's K5 12 and K6 1
+              launches a step on the bf16 routes; a third step's ZeRO-1
+              update bit-equal, on every rank, to the one-process
+              adamw_update of the rank's parameter blocks from the same
+              parameters, moments and gradient blocks and the step's
+              norm (zero_check_step); at the config's 1.25,
+              layer 0's EP block on the one-process layer-0 input against
+              dispatch on each model slice at the slice's capacity: the
+              expert ids equal, rows within MOE_ROW_REL, the dropped
+              assignments the host's count, aux within SHARD_AUX_RTOL.
+              Step ms ((b): gloo on one card, not a deployment's number),
+              per-rank peak memory, the bytes each rank puts into each
+              collective kind a step.
 
 Before those, one line {"result": {...}} holds every measurement of the
 run (``result.path4`` for the training path, ``result.path5`` for the
 evaluation path, ``result.path6``, ``result.ivf``,
 ``result.prefilter``, ``result.path7``, ``result.path8``,
 ``result.path9``, ``result.path10``, ``result.path11``,
-``result.path12`` and ``result.path13``, and ``result.wall_s``). The line
+``result.path12``, ``result.path13`` and ``result.path14``, and
+``result.wall_s``). The line
 before the last is {"kernels": [...]} (K1, K2, K4, K5, K6, K3 and the
 GIN aggregate); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -529,7 +560,7 @@ DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 8, 2, 5
 DRILL_ATOL = 1e-4
 # path 10: the MoE LMs (granite-moe-1b-a400m, olmoe-1b-7b) served as path
 # 3 serves TinyLlama (LM_BATCH x LM_SEQ prefill on the configured MoE
-# implementation, ep: dispatch on one card; LM_DECODE greedy steps on the
+# implementation, ep with no mesh: dispatch; LM_DECODE greedy steps on the
 # dense combine, as lm_family.shape_config gives decode). dispatch with
 # capacity_factor E / K (no assignment can be dropped) against dense on
 # the path's own layer-0 MoE input, bf16: the same router (the expert ids
@@ -596,6 +627,34 @@ GNN_FLIP_REL = 1e-5
 RECSYS_TRAIN_STEPS = 3
 RECSYS_CHECK_ROWS = 512
 RECSYS_LOSS_RTOL, RECSYS_GRAD_REL = 1e-5, 1e-5
+# path 14: granite-moe-1b-a400m trained over a ("data", "model") mesh of
+# ranks (parallel.step: EP over "model" on the MoE layers, every other
+# parameter gathered at use, ZeRO-1 moments). (a) one rank over NCCL, a
+# (1, 1) mesh, at path 13's shapes (full width and depth): its first
+# SHARD_TRAIN_STEPS steps against path 13's on the same parameters and
+# batches. (b) SHARD_MESH gloo ranks on the one card: gloo stages every
+# collective through host memory, so (b) is cut to SHARD_B_LAYERS layers
+# and SHARD_B_BATCH x SHARD_B_SEQ tokens (full width: d 1024, 16 / 8
+# heads, 32 experts of d_ff 512, top-8, vocab 49,408); two steps at
+# capacity_factor E / K (no assignment dropped anywhere, so EP's output is
+# dispatch's and only the aux loss's slices differ) against the same
+# steps in one process: |dloss| within TRAIN_LOSS_ATOL and step 0's
+# gradient within TRAIN_GRAD_REL (path 4's bf16 bounds). The parameters'
+# updates after the two steps are reported, not held to 0.05: Adam's first
+# steps move an element by about lr * sign(g), so the elements whose
+# gradient is within the two routes' rounding of 0 move the other way,
+# and bf16 parameters round an update of about an ulp either way:
+# gradients 0.2-2.7% apart gave updates 1-13% apart on an H100 80GB HBM3
+# at 700 W (PERF.md, path 14). The update's mechanism is held apart from
+# that: a third step's ZeRO-1 update against the one-process adamw_update
+# on each rank's blocks, bit for bit (zero_check_step). At the config's
+# 1.25 layer 0's EP block against dispatch on each model slice at that
+# slice's capacity (the expert ids equal, rows within MOE_ROW_REL, the
+# dropped assignments the host's count, aux within SHARD_AUX_RTOL)
+SHARD_TRAIN_STEPS = 2
+SHARD_MESH = (2, 2)
+SHARD_B_LAYERS, SHARD_B_BATCH, SHARD_B_SEQ = 6, 4, 1024
+SHARD_AUX_RTOL = 1e-5
 
 
 # kernel-name fragments for a trace's device time by group (first match)
@@ -1368,7 +1427,8 @@ def _keyed(tree):
     return keyed_leaves(tree)
 
 
-def lm_train_run(torch, mods, base_cfg, kept, counters, tag, n_batches):
+def lm_train_run(torch, mods, base_cfg, kept, counters, tag, n_batches,
+                 snap=None):
     """The training run of paths 4 and 13: ``base_cfg`` at full width and
     depth, bf16, random weights from seed 0, trained with attn_impl="flash"
     (K5 forward and its remat recompute in every layer, K6 over each
@@ -1377,8 +1437,11 @@ def lm_train_run(torch, mods, base_cfg, kept, counters, tag, n_batches):
     (TRAIN_LOSS_ATOL, TRAIN_GRAD_REL); then TRAIN_STEPS steps, every count
     zeroed just before, each step checked for its K5 / K6 launches, both on
     their bf16 tensor-core routes, no other kernel, and finite losses and
-    parameters. ``n_batches`` (>= TRAIN_STEPS) batches are drawn. Returns
-    (result dict, (params, opt, step, batches), K5 launches, K6 launches)."""
+    parameters. ``n_batches`` (>= TRAIN_STEPS) batches are drawn. Given a
+    dict ``snap``, the losses and a host copy of the parameters after
+    SHARD_TRAIN_STEPS steps go into it (path 14 (a) holds its steps
+    against them). Returns (result dict, (params, opt, step, batches), K5
+    launches, K6 launches)."""
     tf, fa, fce, optim, data, lm_param_count = mods
     cfg = dataclasses.replace(base_cfg, attn_impl="flash")
     cfg_c = dataclasses.replace(base_cfg, attn_impl="chunked")
@@ -1448,7 +1511,7 @@ def lm_train_run(torch, mods, base_cfg, kept, counters, tag, n_batches):
         fn.launches = 0
     fa.flash_attention_fwd.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
     fce.fused_ce_fwd.launches_by_route = dict.fromkeys(fce.ROUTES, 0)
-    losses, step_ms, per_step = [], [], []
+    losses, step_ms, per_step, losses_t = [], [], [], []
     for i in range(TRAIN_STEPS):
         n5, n6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
         t0 = time.perf_counter()
@@ -1456,11 +1519,16 @@ def lm_train_run(torch, mods, base_cfg, kept, counters, tag, n_batches):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
+        losses_t.append(loss)
         per_step.append((fa.flash_attention_fwd.launches - n5,
                          fce.fused_ce_fwd.launches - n6))
         log(f"[{tag}] {cfg.name} step {i}: loss {losses[-1]:.5f}, "
             f"{step_ms[-1]:.1f} ms, K5 {per_step[-1][0]} / K6 "
             f"{per_step[-1][1]} launches")
+        if snap is not None and i + 1 == SHARD_TRAIN_STEPS:
+            snap["losses"] = [loss.clone() for loss in losses_t]
+            snap["params"] = {key: p.detach().to("cpu", copy=True)
+                              for key, p in _keyed(params)}
     k5_launches = fa.flash_attention_fwd.launches
     k6_launches = fce.fused_ce_fwd.launches
     routes5 = dict(fa.flash_attention_fwd.launches_by_route)
@@ -5761,12 +5829,13 @@ def gnn_path(torch, mods, graphs, counters):
     return out, launches, timing
 
 
-def moe_train_path(torch, mods, base_cfg, counters):
+def moe_train_path(torch, mods, base_cfg, counters, snap=None):
     """Path 13, first half: ``base_cfg`` (granite-moe-1b-a400m) through
     ``lm_train_run`` as path 4 trains TinyLlama (K6 over the tied head
-    embed.T; the MoE on its configured impl, dispatch on one card), then
-    K5 and K6 timed at its shapes. Returns (result dict, K5 launches, K6
-    launches, K6's max |err| on the path's own inputs)."""
+    embed.T; the MoE on its configured impl: with no mesh, ep runs
+    dispatch), then K5 and K6 timed at its shapes. ``snap``: as
+    ``lm_train_run``'s (path 14 (a)). Returns (result dict, K5 launches,
+    K6 launches, K6's max |err| on the path's own inputs)."""
     dev = torch.device("cuda")
     import torch.nn.functional as F
     tf, fa, fce, optim, data, lm_param_count = mods
@@ -5778,7 +5847,8 @@ def moe_train_path(torch, mods, base_cfg, counters):
                 "runs[0].moe.router": moe["router"]}
 
     out, (params, opt, _, batches), k5_launches, k6_launches = lm_train_run(
-        torch, mods, base_cfg, kept, counters, "path 13", TRAIN_STEPS)
+        torch, mods, base_cfg, kept, counters, "path 13", TRAIN_STEPS,
+        snap=snap)
     cfg = dataclasses.replace(base_cfg, attn_impl="flash")
     out.update({"moe_impl": cfg.moe.impl, "params": lm_param_count(cfg),
                 "active_params": lm_param_count(cfg, active_only=True)})
@@ -5945,6 +6015,540 @@ def recsys_train_path(torch, mods, counters):
     return out
 
 
+def shard_adam(optim):
+    """The AdamW of paths 4, 13 and 14."""
+    return optim.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+
+
+def leaf_update_rel(torch, got, want, start):
+    """||got - want|| / ||want - start|| of one parameter leaf after some
+    steps from ``start``: the relative L2 of its update, in f32."""
+    g, w, p0 = got.float(), want.float(), start.float()
+    return float(torch.linalg.vector_norm(g - w)
+                 / torch.clamp_min(torch.linalg.vector_norm(w - p0), 1e-30))
+
+
+def shard_train_a(torch, mods, base_cfg, snap, counters):
+    """Path 14 (a): ``base_cfg`` at path 13's shapes on a (1, 1) mesh over
+    NCCL in this process, SHARD_TRAIN_STEPS sharded steps (EP at mp 1,
+    ZeRO at dp 1) from path 13's parameters and batches, counts zeroed
+    just before; their losses and parameters against path 13's first
+    steps (``snap``). Returns (result dict, K5 launches, K6 launches)."""
+    tf, fa, fce, optim, data, sh, pstep, make_mesh = mods
+    import torch.distributed as dist
+    cfg = dataclasses.replace(base_cfg, attn_impl="flash")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((1, 1), ("data", "model"), backend="nccl")
+    try:
+        params = tf.lm_init_params(cfg, seed=SEED)
+        batches = list(data.lm_token_batches(
+            SEED, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab,
+            n_steps=SHARD_TRAIN_STEPS))
+        pspec = sh.lm_param_specs(cfg)
+        ospec = sh.zero_opt_specs(params, pspec, mesh)
+        params = sh.shard_tree(mesh, params, pspec)
+        opt = optim.init_zero_opt_state(mesh, params, pspec, ospec)
+        step = pstep.make_sharded_train_step(cfg, shard_adam(optim), mesh,
+                                             pspec, ospec)
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        fa.flash_attention_fwd.launches_by_route = dict.fromkeys(fa.ROUTES,
+                                                                 0)
+        fce.fused_ce_fwd.launches_by_route = dict.fromkeys(fce.ROUTES, 0)
+        losses, step_ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        k5, k6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
+        routes5 = dict(fa.flash_attention_fwd.launches_by_route)
+        routes6 = dict(fce.fused_ce_fwd.launches_by_route)
+        others = {fn.__name__: fn.launches for fn in counters
+                  if fn not in (fa.flash_attention_fwd, fce.fused_ce_fwd)}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        dist.destroy_process_group()
+    want5 = SHARD_TRAIN_STEPS * cfg.n_layers * (2 if cfg.remat else 1)
+    want6 = SHARD_TRAIN_STEPS * (TRAIN_SEQ // cfg.seq_chunk)
+    check(k5 == want5 and k6 == want6, f"path 14 (a): K5 / K6 launched "
+          f"{k5} / {k6} times, want {want5} / {want6}")
+    check(routes5["mma_bf16"] == k5 and routes6["bf16"] == k6,
+          f"path 14 (a): K5 {routes5} / K6 {routes6} by route")
+    check(not any(others.values()), f"another kernel ran on path 14 (a): "
+          f"{others}")
+    loss_equal = [bool(torch.equal(a, b)) for a, b in
+                  zip(losses, snap["losses"])]
+    start = dict(_keyed(tf.lm_init_params(cfg, seed=SEED)))
+    leaves = {}
+    for key, p in _keyed(params):
+        want = snap["params"][key].to(p.device)
+        leaves[key] = {
+            "bit_equal": bool(torch.equal(p.detach(), want)),
+            "max_abs_diff": float((p.detach().float() - want.float()).abs()
+                                  .max()),
+            "update_rel_l2": leaf_update_rel(torch, p.detach(), want,
+                                             start[key])}
+    del start, params, opt
+    torch.cuda.empty_cache()
+    out = {"mesh": [1, 1], "backend": "nccl", "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": SHARD_TRAIN_STEPS,
+           "losses": [float(x) for x in losses],
+           "losses_path13": [float(x) for x in snap["losses"]],
+           "loss_bit_equal": loss_equal, "leaves": leaves,
+           "bit_equal": all(loss_equal)
+           and all(v["bit_equal"] for v in leaves.values()),
+           "step_ms": step_ms, "peak_mem_gb": peak,
+           "k5_launches_by_route": routes5, "k6_launches_by_route": routes6}
+    worst = max(v["update_rel_l2"] for v in leaves.values())
+    log(f"[path 14] (a) {cfg.name} on a (1, 1) NCCL mesh, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: steps {[round(t, 1) for t in step_ms]}"
+        f" ms, losses {out['losses']} (path 13: {out['losses_path13']}), "
+        f"bit-equal: losses {loss_equal}, "
+        f"{sum(v['bit_equal'] for v in leaves.values())} of {len(leaves)} "
+        f"leaves; worst update rel L2 {worst:.3e}; peak {peak:.2f} GB; K5 "
+        f"{k5} / K6 {k6} launches")
+    check(loss_equal[0], "path 14 (a): step 0's loss is not path 13's")
+    check(out["bit_equal"], "path 14 (a): the sharded steps are not path "
+          "13's bit for bit")
+    return out, k5, k6
+
+
+def shard_b_config(base_cfg, cf):
+    """Path 14 (b)'s cut of ``base_cfg``: SHARD_B_LAYERS layers, K5,
+    capacity_factor ``cf``."""
+    return dataclasses.replace(
+        base_cfg, n_layers=SHARD_B_LAYERS, attn_impl="flash",
+        moe=dataclasses.replace(base_cfg.moe, capacity_factor=cf))
+
+
+def zero_split(pspec, mspec, ndim):
+    """[(dim, axes)] of the dims a moment's ZeRO-1 spec splits beyond its
+    parameter's spec (``zero_opt_specs`` splits one whole dim over the
+    data axes)."""
+    pe = list(pspec) + [None] * (ndim - len(pspec))
+    me = list(mspec) + [None] * (ndim - len(mspec))
+    return [(d, b) for d, (a, b) in enumerate(zip(pe, me)) if a != b]
+
+
+def zero_check_step(torch, mesh, step, params, opt, batch, adam, pspec,
+                    ospec):
+    """Path 14 (b)'s ZeRO-1 check: one more sharded step, whose update
+    (``sharded_adamw_update``: each rank updates its data block of its
+    parameter block with its moments, then all-gathers it over "data")
+    is held bit for bit against the one-process ``adamw_update`` on this
+    rank's parameter blocks from the same parameters, moments (gathered
+    over the dims ZeRO splits) and gradient blocks, clipped by the norm
+    the step used. A block updated in the wrong place, a gather left
+    out or a moment block taken from another rank shows here, apart
+    from Adam's sign amplification of rounding. Updates ``params`` and
+    ``opt`` in place; returns the readings."""
+    from repro_torch import optim
+    from repro_torch._tree import tree_map
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.parallel import context as ctx
+    from repro_torch.parallel import step as pstep
+    seen = {}
+    real_update, real_norm = (pstep.sharded_adamw_update,
+                              adamw_mod.sharded_global_norm)
+
+    def clone(tree):
+        return tree_map(lambda t: t.detach().clone(), tree)
+
+    def recording_update(mesh_, grads, opt_state, params_, *rest):
+        seen.update(grads=clone(grads), params=clone(params_),
+                    m=clone(opt_state["m"]), v=clone(opt_state["v"]),
+                    step=opt_state["step"].clone())
+        return real_update(mesh_, grads, opt_state, params_, *rest)
+
+    def recording_norm(*a):
+        seen["norm"] = real_norm(*a)
+        return seen["norm"]
+
+    pstep.sharded_adamw_update = recording_update
+    adamw_mod.sharded_global_norm = recording_norm
+    try:
+        _, params, opt = step(params, opt, batch)
+    finally:
+        pstep.sharded_adamw_update = real_update
+        adamw_mod.sharded_global_norm = real_norm
+    torch.cuda.synchronize()
+
+    def param_block(mom, ps, ms):
+        for dim, axes in zero_split(ps, ms, mom.dim()):
+            mom = ctx.all_gather(mesh, mom, dim, axes)
+        return mom
+
+    # AdamW's clip: min(clip_norm / max(norm, 1e-9), 1)
+    scale = torch.clamp_max(
+        adam.clip_norm / torch.clamp_min(seen["norm"], 1e-9), 1.0)
+    grads = tree_map(lambda g: g.float() * scale, seen["grads"])
+    moments = {"step": seen["step"],
+               "m": tree_map(param_block, seen["m"], pspec, ospec["m"]),
+               "v": tree_map(param_block, seen["v"], pspec, ospec["v"])}
+    want_p, want_o = optim.adamw_update(
+        grads, moments, seen["params"],
+        dataclasses.replace(adam, clip_norm=None))
+    del seen, grads
+
+    def zero_block(mom, ps, ms):
+        for dim, axes in zero_split(ps, ms, mom.dim()):
+            per = mom.shape[dim] // mesh.axis_size(axes)
+            mom = mom.narrow(dim, mesh.axis_index(axes) * per, per)
+        return mom
+
+    out = {"leaves": 0, "params_bit_equal": 0, "moments_bit_equal": 0,
+           "params_max_abs_diff": 0.0, "moments_max_abs_diff": 0.0,
+           "zero_split_leaves": 0,
+           "step_equal": bool(torch.equal(opt["step"], want_o["step"]))}
+    got_p, got_m, got_v = (_keyed(params), _keyed(opt["m"]),
+                           _keyed(opt["v"]))
+    for (key, got), (_, want), (_, gm), (_, wm), (_, gv), (_, wv), \
+            (_, ps), (_, ms) in zip(
+                got_p, _keyed(want_p), got_m, _keyed(want_o["m"]), got_v,
+                _keyed(want_o["v"]), _keyed(pspec), _keyed(ospec["m"])):
+        wm, wv = zero_block(wm, ps, ms), zero_block(wv, ps, ms)
+        out["leaves"] += 1
+        out["zero_split_leaves"] += bool(zero_split(ps, ms, got.dim()))
+        out["params_bit_equal"] += bool(torch.equal(got.detach(), want))
+        out["moments_bit_equal"] += bool(torch.equal(gm, wm)
+                                         and torch.equal(gv, wv))
+        out["params_max_abs_diff"] = max(
+            out["params_max_abs_diff"],
+            float((got.detach().float() - want.float()).abs().max()))
+        out["moments_max_abs_diff"] = max(
+            out["moments_max_abs_diff"], float((gm - wm).abs().max()),
+            float((gv - wv).abs().max()))
+    return out
+
+
+def shard_train_rank(mesh, tmp):
+    """One gloo rank of path 14 (b) on the card (the module docstring, phase
+    35): step 0's gradient blocks (the mean over "data"), two sharded steps
+    timed with the bytes this rank puts into each collective kind and its
+    K5 / K6 launches, the parameters gathered after them, a third step's
+    ZeRO-1 update against the one-process update (``zero_check_step``);
+    then layer 0's
+    EP block at capacity_factor 1.25 on the reference's layer-0 input,
+    recording the expert ids and the dropped assignments. Returns every
+    rank's readings, and rank 0's comparisons with the one-process
+    reference in ``tmp``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import data, optim
+    from repro_torch._tree import keyed_leaves
+    from repro_torch.configs.granite_moe_1b import CONFIG
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ce as fce
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import context as ctx
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel import step as pstep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    cfg = shard_b_config(CONFIG, CONFIG.moe.n_experts / CONFIG.moe.top_k)
+    full = tf.lm_init_params(cfg, seed=SEED, device=dev)
+    pspec = sh.lm_param_specs(cfg)
+    ospec = sh.zero_opt_specs(full, pspec, mesh)
+    params = sh.shard_tree(mesh, full, pspec)
+    del full
+    opt = optim.init_zero_opt_state(mesh, params, pspec, ospec)
+    step = pstep.make_sharded_train_step(cfg, shard_adam(optim), mesh, pspec,
+                                         ospec)
+    bspec = pstep.lm_batch_specs(mesh)
+    batches = [sh.shard_tree(mesh, b, bspec) for b in data.lm_token_batches(
+        SEED, SHARD_B_BATCH, SHARD_B_SEQ, cfg.vocab,
+        n_steps=SHARD_TRAIN_STEPS, device=dev)]
+    ref = (torch.load(os.path.join(tmp, "reference.pt"), map_location=dev)
+           if mesh.rank == 0 else None)
+    mine = {"rank": mesh.rank, "coords": mesh.coords}
+
+    # step 0's gradient, every leaf gathered to full
+    loss0, g0 = pstep.sharded_value_and_grad(cfg, mesh, pspec, params,
+                                             batches[0])
+    g0 = sh.gather_tree(mesh, g0, pspec)
+    mine["loss0"] = float(loss0)
+    grad_rel = None
+    if ref is not None:
+        grad_rel = {key: float(
+            torch.linalg.vector_norm(g.float() - ref["grads0"][key].float())
+            / torch.linalg.vector_norm(ref["grads0"][key].float()))
+            for key, g in keyed_leaves(g0)}
+    del g0
+
+    # the timed steps: launches, the bytes each collective kind takes
+    moved = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0}
+    wrapped = {}
+
+    def counting(kind, fn, arg):
+        def call(*a, **kw):           # the collectives pass tensors by place
+            moved[kind] += a[arg].numel() * a[arg].element_size()
+            return fn(*a, **kw)
+        return call
+
+    for kind, name, arg in (("all_gather", "all_gather", 1),
+                            ("all_reduce", "all_reduce", 0),
+                            ("all_to_all", "all_to_all_single", 1)):
+        wrapped[name] = getattr(dist, name)
+        setattr(dist, name, counting(kind, wrapped[name], arg))
+    for fn in (fa.flash_attention_fwd, fce.fused_ce_fwd):
+        fn.launches = 0
+    fa.flash_attention_fwd.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
+    fce.fused_ce_fwd.launches_by_route = dict.fromkeys(fce.ROUTES, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step = [], [], []
+    try:
+        for b in batches:
+            n5, n6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            per_step.append((fa.flash_attention_fwd.launches - n5,
+                             fce.fused_ce_fwd.launches - n6))
+    finally:
+        for name, fn in wrapped.items():
+            setattr(dist, name, fn)
+    mine.update({
+        "step_ms": step_ms, "losses": losses, "launches_per_step": per_step,
+        "k5_launches_by_route": dict(fa.flash_attention_fwd.launches_by_route),
+        "k6_launches_by_route": dict(fce.fused_ce_fwd.launches_by_route),
+        "collective_bytes_per_step": {k: v / len(batches)
+                                      for k, v in moved.items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    # a replicated leaf's gathered tree is the rank's own tensor, which the
+    # ZeRO check's step updates in place: read the updates first
+    after = sh.gather_tree(mesh, params, pspec)
+    start = dict(keyed_leaves(tf.lm_init_params(cfg, seed=SEED, device=dev)))
+    update_rel = None
+    if ref is not None:
+        update_rel = {key: leaf_update_rel(torch, p.detach(),
+                                           ref["params"][key], start[key])
+                      for key, p in keyed_leaves(after)}
+    del after, ref
+    mine["zero_check"] = zero_check_step(torch, mesh, step, params, opt,
+                                         batches[-1], shard_adam(optim),
+                                         pspec, ospec)
+    del params, opt
+
+    # layer 0's EP block at capacity_factor 1.25
+    mcfg = dataclasses.replace(cfg.moe, capacity_factor=CONFIG.moe.
+                               capacity_factor)
+    x0 = torch.load(os.path.join(tmp, "layer0_input.pt"), map_location=dev)
+    x0 = sh.rank_block(mesh, x0.reshape(SHARD_B_BATCH, SHARD_B_SEQ, -1),
+                       sh.P("data"))
+    lp = {n: sh.rank_block(mesh, start[f"['runs'][0]['moe']['{n}']"][0],
+                           spec)
+          for n, spec in (("router", sh.P(None, "model")),
+                          ("w_gate", sh.P("model")), ("w_up", sh.P("model")),
+                          ("w_down", sh.P("model")))}
+    del start
+    seen = {}
+    route, tables = moe._route, moe._dispatch_tables
+
+    def recording_route(x2d, router, c):
+        res = route(x2d, router, c)
+        seen["ids"] = res[1].cpu().numpy()
+        return res
+
+    def recording_tables(*a):
+        res = tables(*a)
+        seen["dropped"] = int((~res[2]).sum())
+        return res
+
+    moe._route, moe._dispatch_tables = recording_route, recording_tables
+    try:
+        with torch.no_grad(), ctx.mesh_context(mesh):
+            y, aux = moe.moe_block(x0, lp, mcfg)
+    finally:
+        moe._route, moe._dispatch_tables = route, tables
+    t_mp = SHARD_B_BATCH // mesh.shape["data"] * SHARD_B_SEQ \
+        // mesh.shape["model"]
+    m = mesh.coords["model"]
+    mine["ep"] = {"y": y.reshape(-1, y.shape[-1])[m * t_mp:(m + 1) * t_mp]
+                  .float().cpu().numpy(), "aux": float(aux),
+                  "ids": seen["ids"], "dropped": seen["dropped"]}
+    every = [None] * mesh.size
+    dist.all_gather_object(every, mine)
+    return {"ranks": every, "grad0_rel_l2": grad_rel,
+            "update_rel_l2": update_rel}
+
+
+def shard_train_b(torch, mods, base_cfg, run_ranks, smi):
+    """Path 14 (b): the one-process reference (two make_train_step steps of
+    ``shard_b_config`` at capacity_factor E / K on SHARD_B_BATCH x
+    SHARD_B_SEQ, step 0's gradient, layer 0's MoE input), then
+    SHARD_MESH gloo ranks on cuda:0 (``shard_train_rank``), then the
+    one-process oracle of layer 0's EP block at the config's capacity
+    factor: dispatch on each model slice at its own capacity. Returns
+    (result dict, each rank's K5 and K6 launches)."""
+    tf, fa, fce, optim, data, moe, rms_norm, chunked_attention = mods
+    import tempfile
+    e, k = base_cfg.moe.n_experts, base_cfg.moe.top_k
+    cfg = shard_b_config(base_cfg, e / k)
+    tmp = tempfile.mkdtemp(prefix="qpad-path14-")
+    out = {"mesh": list(SHARD_MESH), "axes": ["data", "model"],
+           "backend": "gloo", "device": "cuda:0", "layers": cfg.n_layers,
+           "batch": SHARD_B_BATCH, "seq": SHARD_B_SEQ,
+           "steps": SHARD_TRAIN_STEPS, "capacity_factor": e / k,
+           "note": "gloo on one card (every collective staged through host "
+                   "memory): not a deployment's number", "card": smi}
+    try:
+        torch.cuda.empty_cache()
+        params = tf.lm_init_params(cfg, seed=SEED)
+        batches = list(data.lm_token_batches(
+            SEED, SHARD_B_BATCH, SHARD_B_SEQ, cfg.vocab,
+            n_steps=SHARD_TRAIN_STEPS))
+        x0 = moe_layer0(torch, tf, fa, rms_norm, chunked_attention, cfg,
+                        params, batches[0]["tokens"], flash=True)[0]
+        torch.save(x0.clone(), os.path.join(tmp, "layer0_input.pt"))
+
+        def loss_fn(p, b):
+            return tf.lm_train_forward(p, cfg, b)
+
+        _, g0 = optim.value_and_grad(loss_fn, params, batches[0])
+        grads0 = {key: g.detach() for key, g in _keyed(g0)}
+        del g0
+        step = optim.make_train_step(loss_fn, shard_adam(optim))
+        opt = optim.init_opt_state(params)
+        losses, step_ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        torch.save({"grads0": grads0, "params": {
+            key: p.detach() for key, p in _keyed(params)}},
+            os.path.join(tmp, "reference.pt"))
+        out["one_process"] = {"losses": losses, "step_ms": step_ms}
+        del params, opt, grads0, step
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        got = run_ranks(shard_train_rank, SHARD_MESH, (tmp,),
+                        backend="gloo", device="cuda:0",
+                        axis=("data", "model"), timeout=900)
+        out["ranks_wall_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = got["ranks"]
+    dloss = [abs(a - b) for a, b in zip(ranks[0]["losses"], losses)]
+    out.update({
+        "losses": ranks[0]["losses"], "abs_dloss": dloss,
+        "grad0_rel_l2": got["grad0_rel_l2"],
+        "update_rel_l2": got["update_rel_l2"],
+        "tolerance": {"loss_atol": TRAIN_LOSS_ATOL,
+                      "rel_l2": TRAIN_GRAD_REL},
+        "ranks": [{key: r[key] for key in (
+            "rank", "coords", "step_ms", "launches_per_step",
+            "k5_launches_by_route", "k6_launches_by_route",
+            "collective_bytes_per_step", "peak_mem_gb")} for r in ranks]})
+    want = (2 * cfg.n_layers if cfg.remat else cfg.n_layers,
+            SHARD_B_SEQ // cfg.seq_chunk)
+    for r in ranks:
+        check(all(tuple(p) == want for p in r["launches_per_step"]),
+              f"path 14 (b) rank {r['rank']}: K5 / K6 launches a step "
+              f"{r['launches_per_step']}, want {want}")
+        check(r["k5_launches_by_route"]["mma_bf16"] == want[0] *
+              SHARD_TRAIN_STEPS and r["k6_launches_by_route"]["bf16"] ==
+              want[1] * SHARD_TRAIN_STEPS, f"path 14 (b) rank {r['rank']}: "
+              "K5 / K6 off their bf16 routes")
+        check(r["losses"] == ranks[0]["losses"], "path 14 (b): the ranks "
+              "report different losses")
+    check(all(np.isfinite(ranks[0]["losses"])), "path 14 (b): a loss is "
+          "not finite")
+    log(f"[path 14] (b) {cfg.name} cut to {cfg.n_layers} layers, "
+        f"{SHARD_B_BATCH} x {SHARD_B_SEQ}, {SHARD_MESH} gloo ranks on one "
+        f"card: losses {ranks[0]['losses']} vs one process {losses}; step "
+        f"ms by rank {[[round(t, 1) for t in r['step_ms']] for r in ranks]}"
+        f" (one process {[round(t, 1) for t in step_ms]}); peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in ranks]}; bytes a step by "
+        f"kind (rank 0) {ranks[0]['collective_bytes_per_step']}; step 0 "
+        f"gradient rel L2 worst {max(got['grad0_rel_l2'].values()):.3e}, "
+        f"update rel L2 worst {max(got['update_rel_l2'].values()):.3e} "
+        f"({smi})")
+    check(all(d <= TRAIN_LOSS_ATOL for d in dloss),
+          f"path 14 (b): |dloss| {dloss} beyond {TRAIN_LOSS_ATOL}")
+    check(all(v <= TRAIN_GRAD_REL for v in got["grad0_rel_l2"].values()),
+          f"path 14 (b): step 0's gradient rel L2 {got['grad0_rel_l2']} "
+          f"beyond {TRAIN_GRAD_REL}")
+    zc = [r["zero_check"] for r in ranks]
+    out["zero_check"] = zc
+    log(f"[path 14] (b) ZeRO-1 check (a third step against the "
+        f"one-process adamw_update on each rank's blocks): parameters "
+        f"bit-equal {[z['params_bit_equal'] for z in zc]}, moments "
+        f"{[z['moments_bit_equal'] for z in zc]} of {zc[0]['leaves']} leaves "
+        f"({zc[0]['zero_split_leaves']} with ZeRO-split moments); max abs "
+        f"diff {max(z['params_max_abs_diff'] for z in zc):.3e} / "
+        f"{max(z['moments_max_abs_diff'] for z in zc):.3e}")
+    check(all(z["step_equal"] and z["params_bit_equal"] == z["leaves"]
+              and z["moments_bit_equal"] == z["leaves"] for z in zc),
+          f"path 14 (b): the ZeRO-1 update is not the one-process update "
+          f"on the ranks' blocks: {zc}")
+
+    # layer 0's EP block at the config's capacity factor, against dispatch
+    # on each model slice with its own capacity
+    mcfg = dataclasses.replace(base_cfg.moe, impl="dispatch")
+    p0 = tf.lm_init_params(cfg, seed=SEED)["runs"][0]["moe"]
+    lp = {n: t[0] for n, t in p0.items()}
+    del p0
+    dp, mp = SHARD_MESH
+    xs_all = x0.reshape(dp, -1, x0.shape[-1])
+    t_mp = xs_all.shape[1] // mp
+    ep = {"capacity_factor": mcfg.capacity_factor,
+          "capacity": moe.capacity(t_mp, mcfg), "tokens_a_slice": t_mp,
+          "row_rel_max": 0.0, "dropped": [], "dropped_host": []}
+    slice_aux = []
+    with torch.no_grad():
+        for r in ranks:
+            d, m = r["coords"]["data"], r["coords"]["model"]
+            xs = xs_all[d, m * t_mp:(m + 1) * t_mp]
+            y, aux = moe.moe_block(xs[None], lp, mcfg)
+            _, ids, _ = moe._route(xs, lp["router"], mcfg)
+            ids = ids.cpu().numpy()
+            slice_aux.append(float(aux))
+            check(np.array_equal(r["ep"]["ids"], ids), f"path 14 (b) rank "
+                  f"{r['rank']}: EP's expert ids are not its slice's")
+            counts = np.bincount(ids.ravel(), minlength=e)
+            host = int(np.maximum(counts - ep["capacity"], 0).sum())
+            ep["dropped"].append(r["ep"]["dropped"])
+            ep["dropped_host"].append(host)
+            want_y = y[0].float()
+            got_y = torch.from_numpy(r["ep"]["y"]).to(want_y.device)
+            rel = float((torch.linalg.vector_norm(got_y - want_y, dim=1)
+                         / torch.linalg.vector_norm(want_y, dim=1)
+                         .clamp_min(1e-30)).max())
+            ep["row_rel_max"] = max(ep["row_rel_max"], rel)
+    ep["aux"] = ranks[0]["ep"]["aux"]
+    ep["aux_oracle"] = float(np.mean(slice_aux))
+    ep["aux_rel"] = abs(ep["aux"] - ep["aux_oracle"]) / abs(ep["aux_oracle"])
+    out["ep_block"] = ep
+    log(f"[path 14] (b) layer 0's EP block at cf {mcfg.capacity_factor} "
+        f"(capacity {ep['capacity']} for {t_mp} tokens a slice): ids equal "
+        f"the oracle's on every rank, rows rel max {ep['row_rel_max']:.3e}, "
+        f"dropped {ep['dropped']} (host {ep['dropped_host']}), aux "
+        f"{ep['aux']:.6f} vs {ep['aux_oracle']:.6f}")
+    check(ep["row_rel_max"] <= MOE_ROW_REL, f"path 14 (b): EP rows "
+          f"{ep['row_rel_max']} beyond {MOE_ROW_REL}")
+    check(ep["dropped"] == ep["dropped_host"], "path 14 (b): EP's dropped "
+          "assignments are not the host's count")
+    check(ep["aux_rel"] <= SHARD_AUX_RTOL, f"path 14 (b): aux "
+          f"{ep['aux']} vs {ep['aux_oracle']}")
+    del x0, xs_all
+    torch.cuda.empty_cache()
+    launches = [sum(r["k5_launches_by_route"].values()) for r in ranks], \
+        [sum(r["k6_launches_by_route"].values()) for r in ranks]
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5993,7 +6597,10 @@ def main():
         from repro_torch.core import mpad as mpad_mod
         from repro_torch.core.distributed import (fit_mpad_sharded,
                                                   make_phi_dist)
-        from repro_torch.launch.mesh import make_serving_mesh, run_ranks
+        from repro_torch.launch.mesh import (make_mesh, make_serving_mesh,
+                                             run_ranks)
+        from repro_torch.parallel import sharding as psh
+        from repro_torch.parallel import step as pstep
         from repro_torch.configs import recsys_family, shape_config
         from repro_torch.configs import (autoint, dien, sasrec,
                                          two_tower_retrieval)
@@ -6497,14 +7104,28 @@ def main():
 
     # 34. path 13: granite-moe-1b-a400m trained on K5 and K6, then the
     # recsys family at train_batch
+    snap13 = {}
     p13, k5_path13, k6_path13, k6_p13_err = moe_train_path(
         torch, (tf, fa, fce, optim, data, lm_param_count), GRANITE_MOE,
-        counters)
+        counters, snap=snap13)
     k6_err = max(k6_err, k6_p13_err)
+
+    # 35. path 14 (a): the sharded step on a (1, 1) mesh over NCCL against
+    # path 13's first steps
+    p14a, k5_path14, k6_path14 = shard_train_a(
+        torch, (tf, fa, fce, optim, data, psh, pstep, make_mesh),
+        GRANITE_MOE, snap13, counters)
+    del snap13
     result["path13"] = {GRANITE_MOE.name: p13, "recsys": recsys_train_path(
         torch, (rs, recsys_family, (sasrec.CONFIG, dien.CONFIG,
                                     autoint.CONFIG, two_tower_retrieval.CONFIG),
                 data, optim, tree_map, cpu_generator), counters)}
+
+    # 35. path 14 (b): SHARD_MESH gloo ranks on the card
+    p14b, (k5_ranks14, k6_ranks14) = shard_train_b(
+        torch, (tf, fa, fce, optim, data, moe, rms_norm, chunked_attention),
+        GRANITE_MOE, run_ranks, smi)
+    result["path14"] = {"a": p14a, "b": p14b}
 
     k1b = k1t["bounds"]
     k1_src = "src/repro_torch/kernels/pq_adc/csrc/pq_adc_gather_topk.cu"
@@ -6608,9 +7229,14 @@ def main():
                 "are in result.path10.<config>.k5_timing); "
                 "launches_path13: granite-moe-1b-a400m's training steps "
                 "on path 13 (K5 at its shape, with the Function's "
-                "backward a layer, in result.path13.<config>.k5_timing)",
+                "backward a layer, in result.path13.<config>.k5_timing); "
+                "launches_path14: path 14 (a)'s two sharded steps on a "
+                "(1, 1) NCCL mesh; launches_path14_ranks: each of path 14 "
+                "(b)'s 4 gloo ranks over its two steps, all bf16",
         "launches_path4": k5_train_launches,
-        "launches_path10": k5_path10, "launches_path13": k5_path13}, {
+        "launches_path10": k5_path10, "launches_path13": k5_path13,
+        "launches_path14": k5_path14,
+        "launches_path14_ranks": k5_ranks14}, {
         "name": "fused_ce_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce_bf16.cu",
         "replaces": "src/repro/kernels/fused_ce/kernel.py:64",
@@ -6622,8 +7248,12 @@ def main():
                 "edge cases; result.k6_timing.f32_route_ms at path 4's "
                 "shape); launches_path13: granite-moe-1b-a400m's training "
                 "steps on path 13, tied head embed.T (its time at T 4096, "
-                "D 1024, V 49408 in result.path13.<config>.k6_timing)",
-        "launches_path13": k6_path13}, {
+                "D 1024, V 49408 in result.path13.<config>.k6_timing); "
+                "launches_path14: path 14 (a)'s two sharded steps; "
+                "launches_path14_ranks: each of path 14 (b)'s 4 gloo ranks "
+                "over its two steps (the tied head, bf16)",
+        "launches_path13": k6_path13, "launches_path14": k6_path14,
+        "launches_path14_ranks": k6_ranks14}, {
         "name": "knn_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
         "replaces": "src/repro/kernels/knn_topk/kernel.py:72",

@@ -1,26 +1,30 @@
-"""Serving mesh construction (port of ``repro.launch.mesh``, the serving
-part).
+"""Mesh construction (port of ``repro.launch.mesh``).
 
-``make_serving_mesh`` joins (or starts) the default ``torch.distributed``
-process group and returns this process's ``Mesh`` record. Under torchrun
-the world comes from ``WORLD_SIZE`` / ``RANK`` (and ``MASTER_ADDR`` /
-``MASTER_PORT``); a lone process with no such variables is a world of one.
-``run_ranks`` starts ``shards`` processes on 127.0.0.1 itself, each of
+``make_serving_mesh`` (the 1-D serving mesh) and ``make_mesh`` (an N-D
+mesh: the counterpart of ``jax.make_mesh``) join (or start) the default
+``torch.distributed`` process group and return this process's ``Mesh``
+record. Under torchrun the world comes from ``WORLD_SIZE`` / ``RANK`` (and
+``MASTER_ADDR`` / ``MASTER_PORT``); a lone process with no such variables
+is a world of one. ``make_production_mesh`` gives JAX's production shapes,
+(16, 16) over ``("data", "model")`` and (2, 16, 16) over ``("pod", "data",
+"model")``. ``run_ranks`` starts the ranks on 127.0.0.1 itself, each of
 which builds its mesh and runs a function, for a caller that is not under
 torchrun (the serving launcher, the tests); they meet through a file
 store.
 
-``backend="nccl"`` is one rank a card and refuses more shards than cards;
+``backend="nccl"`` is one rank a card and refuses more ranks than cards;
 ``backend="gloo"`` (the launcher's ``--mesh host``) puts every rank on the
 caller's device: CPU tensors, or several ranks on one card.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import pickle
 import socket
 import traceback
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -28,22 +32,14 @@ import torch.distributed as dist
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.parallel.context import BACKENDS, Mesh
 
-__all__ = ["make_serving_mesh", "run_ranks", "rank_threads", "free_port"]
+__all__ = ["make_serving_mesh", "make_mesh", "make_production_mesh",
+           "run_ranks", "rank_threads", "free_port"]
 
 
-def make_serving_mesh(shards: Optional[int] = None, axis: str = "data",
-                      backend: str = "nccl", device: DeviceLike = None,
-                      init_method: Optional[str] = None) -> Mesh:
-    """1-D data-parallel serving mesh of ``shards`` ranks (default: the
-    world's size) under ``axis``; returns this process's ``Mesh``.
-
-    Joins the default process group when one is initialized, else starts
-    it at ``init_method`` when given, else from torchrun's environment
-    where set, else as a world of one on 127.0.0.1. Under ``"nccl"`` rank r serves from ``cuda:LOCAL_RANK``
-    (r without torchrun) and more shards than cards is an error; under
-    ``"gloo"`` every rank serves from ``device`` (default: CUDA, which must
-    be present, unless the caller names the CPU).
-    """
+def _join(ranks: int, backend: str, device: DeviceLike,
+          init_method: Optional[str], what: str):
+    """Join (or start) the default process group of ``ranks`` processes;
+    returns (this process's rank, its device)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
@@ -52,22 +48,20 @@ def make_serving_mesh(shards: Optional[int] = None, axis: str = "data",
     else:
         world = int(os.environ.get("WORLD_SIZE", "1"))
         rank = int(os.environ.get("RANK", "0"))
-    if shards is None:
-        shards = world
-    if shards < 1:
-        raise ValueError("shards must be >= 1")
-    if shards != world:
+    if ranks < 1:
+        raise ValueError("a mesh needs >= 1 rank")
+    if ranks != world:
         raise RuntimeError(
-            f"need {shards} ranks for a serving mesh, the world has {world}: "
-            "start one process a shard (torchrun --nproc-per-node "
-            f"{shards}, or repro_torch.launch.mesh.run_ranks)")
+            f"need {ranks} ranks for {what}, the world has {world}: start "
+            f"one process a rank (torchrun --nproc-per-node {ranks}, or "
+            "repro_torch.launch.mesh.run_ranks)")
     if backend == "nccl":
         cards = torch.cuda.device_count()
-        if shards > cards:
+        if ranks > cards:
             raise RuntimeError(
-                f"need {shards} CUDA devices for an NCCL serving mesh (one "
-                f"rank a card), have {cards}: use backend='gloo' (the "
-                "launcher's --mesh host) to put several ranks on one device")
+                f"need {ranks} CUDA devices for an NCCL mesh (one rank a "
+                f"card), have {cards}: use backend='gloo' (the launcher's "
+                "--mesh host) to put several ranks on one device")
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
         torch.cuda.set_device(dev)
     else:
@@ -85,8 +79,83 @@ def make_serving_mesh(shards: Optional[int] = None, axis: str = "data",
         raise RuntimeError(
             f"the default process group runs {dist.get_backend()!r}, not "
             f"{backend!r}")
+    return rank, dev
+
+
+def make_serving_mesh(shards: Optional[int] = None, axis: str = "data",
+                      backend: str = "nccl", device: DeviceLike = None,
+                      init_method: Optional[str] = None) -> Mesh:
+    """1-D data-parallel serving mesh of ``shards`` ranks (default: the
+    world's size) under ``axis``; returns this process's ``Mesh``.
+
+    Joins the default process group when one is initialized, else starts
+    it at ``init_method`` when given, else from torchrun's environment
+    where set, else as a world of one on 127.0.0.1. Under ``"nccl"`` rank
+    r serves from ``cuda:LOCAL_RANK`` (r without torchrun) and more
+    shards than cards is an error; under
+    ``"gloo"`` every rank serves from ``device`` (default: CUDA, which must
+    be present, unless the caller names the CPU).
+    """
+    if shards is None:
+        shards = (dist.get_world_size() if dist.is_initialized()
+                  else int(os.environ.get("WORLD_SIZE", "1")))
+    rank, dev = _join(shards, backend, device, init_method,
+                      "a serving mesh")
     return Mesh(axis=axis, size=shards, rank=rank,
                 group=dist.group.WORLD, backend=backend, device=dev)
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              backend: str = "nccl", device: DeviceLike = None,
+              init_method: Optional[str] = None) -> Mesh:
+    """An N-D mesh of prod(``shape``) ranks named ``axes`` (the
+    counterpart of ``jax.make_mesh(shape, axes)``); returns this process's
+    ``Mesh``. The world must have exactly that many ranks; it is joined as
+    ``make_serving_mesh`` joins it. Ranks are laid out row-major over
+    ``axes`` (JAX's device order), and every rank creates every axis's
+    process groups in the same order (``torch.distributed.new_group`` is
+    collective), keeping its own."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or min(shape, default=0) < 1:
+        raise ValueError(f"mesh shape {shape} for axes {axes}")
+    size = math.prod(shape)
+    rank, dev = _join(size, backend, device, init_method,
+                      f"a {shape} mesh")
+    groups = []
+    for i in range(len(axes)):
+        mine = None
+        others = [range(n) for j, n in enumerate(shape) if j != i]
+        for rest in itertools.product(*others):
+            members = []
+            for c in range(shape[i]):
+                coord = list(rest)
+                coord.insert(i, c)
+                members.append(_ravel(coord, shape))
+            g = dist.new_group(members)
+            if rank in members:
+                mine = g
+        groups.append(mine)
+    return Mesh(axis=axes[0], size=size, rank=rank, group=dist.group.WORLD,
+                backend=backend, device=dev, names=axes, dims=shape,
+                groups=tuple(groups))
+
+
+def _ravel(coord: Sequence[int], shape: Sequence[int]) -> int:
+    r = 0
+    for c, n in zip(coord, shape):
+        r = r * n + c
+    return r
+
+
+def make_production_mesh(multi_pod: bool = False) -> Mesh:
+    """JAX's production mesh: (16, 16) over ``("data", "model")``, 256
+    ranks, or with ``multi_pod`` (2, 16, 16) over ``("pod", "data",
+    "model")``, 512 ranks, one rank a card (``make_mesh``'s defaults). A
+    world of another size raises ``RuntimeError``, as JAX's does with
+    too few devices."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
 
 
 def free_port() -> int:
@@ -104,16 +173,22 @@ def rank_threads(world: int) -> int:
     return max(1, (os.cpu_count() or 1) // (2 * world))
 
 
-def _rank_main(rank: int, world: int, store: str, backend: str, device,
-               axis: str, job: str, queue):
+def _rank_main(rank: int, shards, store: str, backend: str, device,
+               axis, job: str, queue):
+    world = shards if isinstance(shards, int) else math.prod(shards)
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
                       LOCAL_RANK=str(rank))
     torch.set_num_threads(rank_threads(world))
     try:
         with open(job, "rb") as f:
             fn, args = pickle.load(f)
-        mesh = make_serving_mesh(world, axis=axis, backend=backend,
-                                 device=device, init_method=f"file://{store}")
+        init = f"file://{store}"
+        if isinstance(shards, int):
+            mesh = make_serving_mesh(world, axis=axis, backend=backend,
+                                     device=device, init_method=init)
+        else:
+            mesh = make_mesh(shards, axis, backend=backend, device=device,
+                             init_method=init)
         try:
             out = fn(mesh, *args)
         finally:
@@ -124,12 +199,17 @@ def _rank_main(rank: int, world: int, store: str, backend: str, device,
         raise
 
 
-def run_ranks(fn: Callable, shards: int, args: Sequence[Any] = (), *,
-              backend: str = "gloo", device: DeviceLike = None,
-              axis: str = "data", timeout: float = 600.0):
-    """Run ``fn(mesh, *args)`` in ``shards`` new processes, one a rank of
-    a serving mesh on 127.0.0.1, each with ``rank_threads(shards)`` CPU
-    threads, and return rank 0's return value (which must pickle; return
+def run_ranks(fn: Callable, shards: Union[int, Tuple[int, ...]],
+              args: Sequence[Any] = (), *, backend: str = "gloo",
+              device: DeviceLike = None,
+              axis: Union[str, Tuple[str, ...]] = "data",
+              timeout: float = 600.0):
+    """Run ``fn(mesh, *args)`` in new processes on 127.0.0.1, one a rank:
+    ``shards`` ranks of a serving mesh under ``axis``, or, given a shape
+    (a tuple) and its axis names (a tuple, e.g. ``(2, 2)`` and ``("data",
+    "model")``), the ranks of that N-D mesh (``make_mesh``). Each rank
+    takes ``rank_threads(world)`` CPU threads. Returns rank 0's return
+    value (which must pickle; return
     host data). ``fn`` must be importable by name (a
     module-level function). A rank that raises, or dies, fails the call
     with the rank's traceback; every process is joined (or killed past
@@ -144,6 +224,10 @@ def run_ranks(fn: Callable, shards: int, args: Sequence[Any] = (), *,
     import tempfile
     import time
 
+    if isinstance(shards, int) != isinstance(axis, str):
+        raise ValueError("a 1-D mesh takes a rank count and an axis name, "
+                         "an N-D one a shape and a tuple of names")
+    world = shards if isinstance(shards, int) else math.prod(shards)
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     store_dir = tempfile.mkdtemp(prefix="qpad-ranks-")
@@ -155,13 +239,13 @@ def run_ranks(fn: Callable, shards: int, args: Sequence[Any] = (), *,
     procs = [ctx.Process(target=_rank_main,
                          args=(r, shards, store, backend, dev, axis, job, q),
                          daemon=True)
-             for r in range(shards)]
+             for r in range(world)]
     for p in procs:
         p.start()
     result, errors, reported = None, [], set()
     deadline = time.monotonic() + timeout
     try:
-        while len(reported) < shards:
+        while len(reported) < world:
             try:
                 rank, ok, payload = q.get(timeout=1.0)
             except queue_mod.Empty:
@@ -172,7 +256,7 @@ def run_ranks(fn: Callable, shards: int, args: Sequence[Any] = (), *,
                                   f"{procs[dead[0]].exitcode} and no report")
                     break
                 if time.monotonic() > deadline:
-                    errors.append(f"ranks {sorted(set(range(shards)) - reported)}"
+                    errors.append(f"ranks {sorted(set(range(world)) - reported)}"
                                   f" still running after {timeout} s")
                     break
                 continue

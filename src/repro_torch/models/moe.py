@@ -14,9 +14,27 @@ Two implementations with identical no-drop semantics:
                  the results come back weighted by the renormalized router
                  gates. Capacity overflow drops the assignment (the
                  residual passes through), as in Switch/GShard.
-* ``ep``       — JAX's expert parallelism over a mesh's "model" axis. The
-                 port's mesh is 1-D (``parallel.context.Mesh``), so ``ep``
-                 runs ``dispatch``, as JAX's does without such a mesh.
+* ``ep``       — expert parallelism over the active mesh's "model" axis
+                 (JAX's ``_moe_ep_shardmap``). Each model rank routes its
+                 slice of the data rank's tokens with the capacity of that
+                 slice, sends each expert's rows to the rank that holds
+                 it (an all-to-all over "model"), runs its local experts,
+                 sends the results back, combines them and all-gathers
+                 the slices; the aux loss is the mean of the slices'
+                 Switch losses over every rank. Where JAX's
+                 ``_ep_applicable`` is false under a mesh, ``ep`` runs
+                 JAX's fall-through: the expert blocks and the data
+                 ranks' tokens gathered, then ``dispatch`` over the whole
+                 batch. Without a mesh ``ep`` runs ``dispatch``.
+
+Under an active mesh (``parallel.context.mesh_context``; the sharded
+train step, ``parallel.step``) ``moe_block`` takes this rank's rows of
+the batch (its data block) and this rank's blocks of the layer's
+parameters under ``parallel.sharding.lm_param_specs``: the router's
+(D, E / mp) and the experts' (E / mp, D, F). Its output is this rank's
+rows. Its gradients follow ``parallel.context``'s convention (a rank's
+gradient is its data replica's; the step takes the mean over the data
+axes).
 
 Router: top-k softmax gating with renormalization (Mixtral/OLMoE style) and
 the Switch load-balancing auxiliary loss. The router weights stay f32
@@ -42,6 +60,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import context as ctx
+
 from .layers import he_init
 
 __all__ = ["MoEConfig", "init_moe_params", "moe_block"]
@@ -56,7 +76,7 @@ class MoEConfig:
     d_ff: int                        # per-expert hidden dim
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
-    impl: str = "dense"              # dense | dispatch | ep (= dispatch here)
+    impl: str = "dense"              # dense | dispatch | ep
 
 
 def init_moe_params(gen: torch.Generator, mcfg: MoEConfig, d_model: int,
@@ -137,10 +157,11 @@ def _dispatch_tables(x2d, mcfg: MoEConfig, topv, topi, cap):
     return st, sw, valid, slot, order
 
 
-def _moe_dispatch(x2d, p, mcfg: MoEConfig, topv, topi):
+def _dispatch_in(x2d, mcfg: MoEConfig, topv, topi, cap):
+    """The (E * cap, D) expert buffer of ``x2d``'s assignments and what
+    ``_combine`` needs to bring the experts' rows back."""
     t, d = x2d.shape
-    e, k = mcfg.n_experts, mcfg.top_k
-    cap = capacity(t, mcfg)
+    e = mcfg.n_experts
     # each token's K assignments in ascending expert order: a token's
     # experts are distinct, so the stable sort by expert orders the same
     # tables by token within an expert whatever the order within a token,
@@ -150,29 +171,117 @@ def _moe_dispatch(x2d, p, mcfg: MoEConfig, topv, topi):
     st, sw, valid, slot, order = _dispatch_tables(x2d, mcfg, topv, topi, cap)
     buf = x2d.new_zeros((e * cap + 1, d))
     buf[slot] = x2d[st]                                  # overflow -> scratch
-    xe = buf[:-1].reshape(e, cap, d)                     # (E, C, D)
+    return buf[:-1], (sw, valid, slot, order, cap)
+
+
+def _experts(xe, p):
+    """The experts' SwiGLU over their (E, C, D) rows, as batched
+    matmuls."""
     hg = torch.bmm(xe, p["w_gate"])
     hu = torch.bmm(xe, p["w_up"])
-    ye = torch.bmm(F.silu(hg) * hu, p["w_down"])         # (E, C, D)
-    out_rows = ye.reshape(e * cap, d)[torch.clamp_max(slot, e * cap - 1)]
-    contrib = out_rows * (sw * valid).to(x2d.dtype)[:, None]
-    # back to (token, expert rank) places, then each token's K
-    # contributions added one after another in x's dtype
+    return torch.bmm(F.silu(hg) * hu, p["w_down"])       # (E, C, D)
+
+
+def _combine(rows, tables, mcfg: MoEConfig, t: int):
+    """The (T, D) output from the experts' (E * cap, D) rows: each
+    assignment's row times its gate (0 when dropped), back at its (token,
+    expert rank) place, then each token's K contributions added one after
+    another in the rows' dtype."""
+    sw, valid, slot, order, cap = tables
+    e, k = mcfg.n_experts, mcfg.top_k
+    out_rows = rows[torch.clamp_max(slot, e * cap - 1)]
+    contrib = out_rows * (sw * valid).to(rows.dtype)[:, None]
     per_token = torch.empty_like(contrib)
     per_token[order] = contrib
-    per_token = per_token.reshape(t, k, d)
+    per_token = per_token.reshape(t, k, -1)
     y = per_token[:, 0]
     for j in range(1, k):
         y = y + per_token[:, j]
     return y
 
 
+def _moe_dispatch(x2d, p, mcfg: MoEConfig, topv, topi):
+    t, d = x2d.shape
+    cap = capacity(t, mcfg)
+    buf, tables = _dispatch_in(x2d, mcfg, topv, topi, cap)
+    ye = _experts(buf.reshape(mcfg.n_experts, cap, d), p)
+    return _combine(ye.reshape(-1, d), tables, mcfg, t)
+
+
+def _ep_applicable(x, mcfg: MoEConfig, mesh) -> bool:
+    """JAX's ``_ep_applicable`` on this rank's rows ``x`` (B / dp, S, D):
+    a "model" axis that divides the experts, and at least 8 of the data
+    rank's tokens a model rank, evenly. (JAX's check that the data axes
+    divide the batch holds here: each data rank has its own rows.)"""
+    if "model" not in mesh.axis_names:
+        return False
+    mp = mesh.shape["model"]
+    if mcfg.n_experts % mp:
+        return False
+    t_loc = x.shape[0] * x.shape[1]
+    return t_loc % mp == 0 and t_loc // mp >= 8
+
+
+def _moe_ep(x, p, mcfg: MoEConfig, mesh):
+    """Expert parallelism (JAX's ``_moe_ep_shardmap``) on this rank's rows
+    ``x`` (B / dp, S, D), the router's block (D, E / mp) and the local
+    experts (E / mp, D, F). The collectives' payload per layer is
+    O(tokens * D). At mp = 1 every collective is the identity and the
+    block runs ``dispatch``'s operations in ``dispatch``'s order."""
+    mp = mesh.shape["model"]
+    e_loc = mcfg.n_experts // mp
+    b, s, d = x.shape
+    t_mp = b * s // mp
+    xs = ctx.take_block(mesh, x.reshape(b * s, d), "model", 0)
+    router = ctx.gather_partial(mesh, p["router"], "model", 1)
+    topv, topi, aux = _route(xs, router, mcfg)
+    cap = capacity(t_mp, mcfg)
+    buf, tables = _dispatch_in(xs, mcfg, topv, topi, cap)
+    recv = ctx.all_to_all(mesh, buf.reshape(mp, e_loc, cap, d), "model")
+    xe = recv.transpose(0, 1).reshape(e_loc, mp * cap, d)
+    ye = _experts(xe, p)
+    back = ye.reshape(e_loc, mp, cap, d).transpose(0, 1).reshape(
+        mp, e_loc, cap, d)
+    ret = ctx.all_to_all(mesh, back, "model")
+    y_mp = _combine(ret.reshape(-1, d), tables, mcfg, t_mp)
+    y = ctx.gather_replicated(mesh, y_mp, "model", 0)
+    return y.reshape(b, s, d), ctx.pmean(mesh, aux)
+
+
+def _moe_gathered(x, p, mcfg: MoEConfig, mesh):
+    """JAX's fall-through under a mesh where EP does not apply: its
+    ``dispatch`` runs on the whole batch with every expert. Every rank
+    gathers the data ranks' rows and the parameters' blocks, runs it, and
+    keeps its own rows."""
+    dp = tuple(a for a in mesh.axis_names if a in ctx.DP_AXES)
+    b = x.shape[0]
+    xg = ctx.gather_partial(mesh, x, dp, 0)
+    if "model" in mesh.axis_names:
+        p = {"router": ctx.gather_replicated(mesh, p["router"], "model", 1),
+             **{w: ctx.gather_replicated(mesh, p[w], "model", 0)
+                for w in ("w_gate", "w_up", "w_down")}}
+    bg, s, d = xg.shape
+    x2d = xg.reshape(bg * s, d)
+    topv, topi, aux = _route(x2d, p["router"], mcfg)
+    y = _moe_dispatch(x2d, p, mcfg, topv, topi).reshape(bg, s, d)
+    start = mesh.axis_index(dp) * b
+    return y[start:start + b], aux
+
+
 def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
               mcfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (B, S, D), plus the scalar f32 aux loss. ``ep``
-    runs ``dispatch`` (the port's 1-D mesh has no "model" axis)."""
+    under an active mesh takes this rank's rows and parameter blocks (the
+    module docstring) and runs expert parallelism, or JAX's fall-through
+    where it does not apply; without a mesh it runs ``dispatch``."""
     if mcfg.impl not in IMPLS:
         raise ValueError(f"unknown moe impl {mcfg.impl!r}")
+    if mcfg.impl == "ep":
+        mesh = ctx.active_mesh()
+        if mesh is not None:
+            if _ep_applicable(x, mcfg, mesh):
+                return _moe_ep(x, p, mcfg, mesh)
+            return _moe_gathered(x, p, mcfg, mesh)
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     topv, topi, aux = _route(x2d, p["router"], mcfg)

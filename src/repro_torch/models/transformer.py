@@ -29,7 +29,10 @@ The structure is the JAX package's:
   ``router_aux_weight * aux / n_layers``. Prefill and decode drop the aux
   loss. Which MoE implementation runs is ``cfg.moe.impl``:
   ``configs.lm_family.shape_config`` gives decode the ``dense`` one, as
-  the JAX package's ``make_lm_arch`` does.
+  the JAX package's ``make_lm_arch`` does. Under an active mesh (the
+  sharded train step, ``parallel.step``) ``impl="ep"`` runs expert
+  parallelism on the rank's rows and its blocks of the MoE parameters
+  (``moe.moe_block``), and the aux loss is the mean over every rank.
 
 Parameters are a dict of tensors with the JAX pytree's names and shapes
 (``{"embed", "final_norm", "runs": [per-run dict of (length, ...) stacks],

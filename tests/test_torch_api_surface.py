@@ -2,8 +2,8 @@
 name ``repro_torch.search.__all__`` exports resolves and is documented,
 the composable entry points are exported, and every module of
 ``repro_torch`` exports at least what its JAX twin's ``__all__`` does,
-less a named list of what ROADMAP.md item 13 (the other model families,
-their sharding spec sets, the dry-run tools) still owes, the Pallas
+less a named list of what ROADMAP.md item 13 (the dry-run tools and the
+ArchSpec builders they lower) still owes, the Pallas
 kernels' entry points (the port's CUDA kernels are their own wrappers)
 and the one rename ``jax_profile -> torch_profile``. Then the public functions the
 surface gained in the same slice, each against its JAX twin:
@@ -23,14 +23,8 @@ torch.set_num_threads(1)
 import repro_torch.search as search  # noqa: E402
 
 # JAX module -> names its __all__ has that the port does not export yet:
-# the model side's sharding (the LM spec sets, ``constrain``) and the
-# ArchSpec builders the dry-run tools lower
+# the ArchSpec builders the dry-run tools lower
 _ITEM_13 = {
-    "repro.parallel": {"constrain", "lm_param_specs", "opt_specs",
-                       "tree_named", "lm_cache_specs"},
-    "repro.parallel.context": {"constrain"},
-    "repro.parallel.sharding": {"lm_param_specs", "opt_specs", "tree_named",
-                                "lm_cache_specs"},
     "repro.configs": {"get_arch", "all_arch_names", "ArchSpec", "ShapeDef"},
     "repro.configs.lm_family": {"make_lm_arch"},
     "repro.configs.recsys_family": {"make_sasrec_arch", "make_dien_arch",
