@@ -5,7 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --k1-timings``, ``--k2-timings`` and
 ``--k4-timings`` time K1, K2 or K4 alone: see k1_alone, k2_alone and
 k4_alone; ``--fit-spread`` makes path 9 (c)'s m-64 fits once: see
-fit_spread.)
+fit_spread; ``--dryrun-smoke`` prints path 15 (c)'s fake traces, which
+path 15 runs in a subprocess: see dryrun_smoke; ``--custom-op-timings``
+times K5, K6 and the aggregate alone: see custom_op_timings.)
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. device   CUDA must be present; prints the card's name and power limit.
@@ -432,14 +434,39 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               Step ms ((b): gloo on one card, not a deployment's number),
               per-rank peak memory, the bytes each rank puts into each
               collective kind a step.
+  36. path 15  the dry-run tools (repro_torch.launch.dryrun and
+              dryrun_mpad), each cell in a subprocess of its own, all at
+              once, through their command lines (fake worlds on fake
+              CUDA tensors: no card). (a) One cell a family on both
+              production meshes (olmoe-1b-7b train_4k, two-tower
+              retrieval_cand, gin-tu ogb_products): status, argument
+              bytes a rank,
+              predicted peak, FLOPs against model_flops, collective bytes
+              by kind. (b) Against this run's path 14: at (a)'s cut ((1,
+              1), 4 x 4096) the argument bytes equal the rank's real
+              parameters, moments and int32 batch exactly, K5 48 and K6 4
+              launches a step, the predicted peak within DRY_PEAK_RTOL of
+              (a)'s max_memory_allocated; at (b)'s cut ((2, 2), 6 layers,
+              4 x 1024, cf 4.0) the bytes a rank a step by collective kind
+              equal (b)'s measured counts, K5 12 and K6 1, and the trace on
+              meta tensors equals the one on fake CUDA tensors. (c) At
+              SMOKE size (granite SMOKE, a small full-graph GIN) on a (1,
+              1) mesh: a real step on the card and its fake trace read the
+              same FLOPs (FlopCounterMode), unfused bytes, argument bytes
+              and K5 / K6 / aggregate launches. (d) dryrun_mpad at world 1,
+              N 2^20 x 1024: the fake trace against a real iteration on the
+              card (NCCL, world 1): FLOPs and collective bytes equal, the
+              peak within DRY_PEAK_RTOL. (e) olmoe-1b-7b at 4 x 4096 on a
+              (4, 1) ZeRO-1 and a (1, 4) EP mesh: the predicted peak a rank
+              against the card's 80 GB, reported.
 
 Before those, one line {"result": {...}} holds every measurement of the
 run (``result.path4`` for the training path, ``result.path5`` for the
 evaluation path, ``result.path6``, ``result.ivf``,
 ``result.prefilter``, ``result.path7``, ``result.path8``,
 ``result.path9``, ``result.path10``, ``result.path11``,
-``result.path12``, ``result.path13`` and ``result.path14``, and
-``result.wall_s``). The line
+``result.path12``, ``result.path13``, ``result.path14`` and
+``result.path15``, and ``result.wall_s``). The line
 before the last is {"kernels": [...]} (K1, K2, K4, K5, K6, K3 and the
 GIN aggregate); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -655,6 +682,23 @@ SHARD_TRAIN_STEPS = 2
 SHARD_MESH = (2, 2)
 SHARD_B_LAYERS, SHARD_B_BATCH, SHARD_B_SEQ = 6, 4, 1024
 SHARD_AUX_RTOL = 1e-5
+# path 15: the dry-run (repro_torch.launch.dryrun) in subprocesses, all at
+# once (one process a cell; its traces need no card), held against this
+# run's own path 14 and against real steps. DRY_PEAK_RTOL: a predicted
+# peak (live storage over a traced step, 512-byte blocks) against the
+# card's max_memory_allocated, written in PERF.md before the first card
+# run: the trace does not see cuBLAS's workspace or the kernels' scratch,
+# and the real run holds what was allocated before the step
+DRY_PEAK_RTOL = 0.05
+DRY_TIMEOUT_S = 600
+DRY_CELLS = (                    # (a): one cell a family, both meshes
+    ("olmoe-1b-7b", "train_4k", "single"),     # (the LM cells trace longest:
+    ("olmoe-1b-7b", "train_4k", "multi"),      # one job a mesh)
+    ("two-tower-retrieval", "retrieval_cand", "both"),
+    ("gin-tu", "ogb_products", "both"))
+DRY_FOUR_CARDS = ("4x1", "1x4")  # (e): olmoe-1b-7b at 4 x 4096 on 4 ranks
+DRY_SMOKE_BATCH, DRY_SMOKE_SEQ = 2, 32
+CARD_BYTES = 80e9
 
 
 # kernel-name fragments for a trace's device time by group (first match)
@@ -6036,6 +6080,7 @@ def shard_train_a(torch, mods, base_cfg, snap, counters):
     steps (``snap``). Returns (result dict, K5 launches, K6 launches)."""
     tf, fa, fce, optim, data, sh, pstep, make_mesh = mods
     import torch.distributed as dist
+    from repro_torch.launch.step_analysis import tensor_bytes
     cfg = dataclasses.replace(base_cfg, attn_impl="flash")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6052,6 +6097,12 @@ def shard_train_a(torch, mods, base_cfg, snap, counters):
         opt = optim.init_zero_opt_state(mesh, params, pspec, ospec)
         step = pstep.make_sharded_train_step(cfg, shard_adam(optim), mesh,
                                              pspec, ospec)
+        # the rank's argument bytes, which path 15 (b)'s dry-run predicts:
+        # the parameter and moment blocks, and a step's batch as int32 (the
+        # dry-run's dtype, JAX's; the pipeline yields int64)
+        arg_bytes = {"params": tensor_bytes(params), "opt": tensor_bytes(opt),
+                     "batch_int32": sum(t.numel() * 4
+                                        for t in batches[0].values())}
         torch.cuda.synchronize()
         for fn in counters:
             fn.launches = 0
@@ -6070,7 +6121,8 @@ def shard_train_a(torch, mods, base_cfg, snap, counters):
         routes6 = dict(fce.fused_ce_fwd.launches_by_route)
         others = {fn.__name__: fn.launches for fn in counters
                   if fn not in (fa.flash_attention_fwd, fce.fused_ce_fwd)}
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        peak_bytes = torch.cuda.max_memory_allocated()
+        peak = peak_bytes / 1e9
     finally:
         dist.destroy_process_group()
     want5 = SHARD_TRAIN_STEPS * cfg.n_layers * (2 if cfg.remat else 1)
@@ -6103,6 +6155,7 @@ def shard_train_a(torch, mods, base_cfg, snap, counters):
            "bit_equal": all(loss_equal)
            and all(v["bit_equal"] for v in leaves.values()),
            "step_ms": step_ms, "peak_mem_gb": peak,
+           "peak_mem_bytes": peak_bytes, "argument_bytes": arg_bytes,
            "k5_launches_by_route": routes5, "k6_launches_by_route": routes6}
     worst = max(v["update_rel_l2"] for v in leaves.values())
     log(f"[path 14] (a) {cfg.name} on a (1, 1) NCCL mesh, "
@@ -6281,21 +6334,9 @@ def shard_train_rank(mesh, tmp):
             for key, g in keyed_leaves(g0)}
     del g0
 
-    # the timed steps: launches, the bytes each collective kind takes
-    moved = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0}
-    wrapped = {}
-
-    def counting(kind, fn, arg):
-        def call(*a, **kw):           # the collectives pass tensors by place
-            moved[kind] += a[arg].numel() * a[arg].element_size()
-            return fn(*a, **kw)
-        return call
-
-    for kind, name, arg in (("all_gather", "all_gather", 1),
-                            ("all_reduce", "all_reduce", 0),
-                            ("all_to_all", "all_to_all_single", 1)):
-        wrapped[name] = getattr(dist, name)
-        setattr(dist, name, counting(kind, wrapped[name], arg))
+    # the timed steps: launches, the bytes each collective kind takes (the
+    # mesh wrappers' own counter, context.count_collectives, which the
+    # dry-run's trace reads too)
     for fn in (fa.flash_attention_fwd, fce.fused_ce_fwd):
         fn.launches = 0
     fa.flash_attention_fwd.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
@@ -6303,7 +6344,7 @@ def shard_train_rank(mesh, tmp):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, per_step = [], [], []
-    try:
+    with ctx.count_collectives() as moved:
         for b in batches:
             n5, n6 = fa.flash_attention_fwd.launches, fce.fused_ce_fwd.launches
             t0 = time.perf_counter()
@@ -6313,18 +6354,19 @@ def shard_train_rank(mesh, tmp):
             losses.append(float(loss))
             per_step.append((fa.flash_attention_fwd.launches - n5,
                              fce.fused_ce_fwd.launches - n6))
-    finally:
-        for name, fn in wrapped.items():
-            setattr(dist, name, fn)
     mine.update({
         "step_ms": step_ms, "losses": losses, "launches_per_step": per_step,
         "k5_launches_by_route": dict(fa.flash_attention_fwd.launches_by_route),
         "k6_launches_by_route": dict(fce.fused_ce_fwd.launches_by_route),
-        "collective_bytes_per_step": {k: v / len(batches)
-                                      for k, v in moved.items()},
+        "collective_bytes_per_step": {
+            kind.replace("-", "_"): moved.bytes[kind] / len(batches)
+            for kind in ("all-gather", "all-reduce", "all-to-all")},
+        "collective_calls_per_step": {
+            kind.replace("-", "_"): moved.calls[kind] / len(batches)
+            for kind in ("all-gather", "all-reduce", "all-to-all")},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    # a replicated leaf's gathered tree is the rank's own tensor, which the
-    # ZeRO check's step updates in place: read the updates first
+    # the parameters after the two timed steps (gather_tree's leaves hold
+    # values of their own: the ZeRO check's third step does not move them)
     after = sh.gather_tree(mesh, params, pspec)
     start = dict(keyed_leaves(tf.lm_init_params(cfg, seed=SEED, device=dev)))
     update_rel = None
@@ -6549,6 +6591,362 @@ def shard_train_b(torch, mods, base_cfg, run_ranks, smi):
     return out, launches
 
 
+def dry_smoke_cases():
+    """Path 15 (c)'s SMOKE cells: granite SMOKE's train step (K5 on the f32
+    route, K6, the dispatch MoE) and a small full-graph GIN's (the
+    aggregate); {name: (arch, cell, its config)}."""
+    from repro_torch.configs import LM_CONFIGS, gnn_family, lm_family
+    from repro_torch.models import gnn
+    cfg = LM_CONFIGS["granite-moe-1b-a400m"][1]
+    lm = lm_family.make_lm_arch(
+        "granite-moe-1b-a400m", cfg, cfg, long_ok=False,
+        shapes={"train_4k": dict(kind="train", batch=DRY_SMOKE_BATCH,
+                                 seq=DRY_SMOKE_SEQ)})
+    base = gnn.GINConfig(name="gin-smoke", n_layers=3, d_hidden=16)
+    shapes = {"full_graph_sm": dict(regime="full", n_nodes=500,
+                                    n_edges=2000, d_feat=8, n_classes=3)}
+    gin = gnn_family.make_gin_arch("gin-tu", base, shapes=shapes)
+    return {"lm": (lm, "train_4k", cfg),
+            "gin": (gin, "full_graph_sm",
+                    gnn_family.shape_config("full_graph_sm", base, shapes))}
+
+
+def dryrun_smoke():
+    """``--dryrun-smoke``: path 15 (c)'s fake traces (a (1, 1) fake world,
+    fake CUDA tensors), one JSON line."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.launch.dryrun import run_cell
+    out = {}
+    for name, (arch, cell, _) in dry_smoke_cases().items():
+        out[name] = run_cell(arch.name, cell, (1, 1), None, 0, "cuda",
+                             arch=arch, verbose=False)
+    print(json.dumps({"dryrun_smoke": out}))
+    return 0
+
+
+def dry_real_args(torch, name, arch, cell, cfg):
+    """Seeded arguments of a SMOKE cell on the card (int32 ids, as the
+    dry-run's abstract arguments)."""
+    from repro_torch.models import gnn
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import init_opt_state
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    dev = torch.device("cuda")
+
+    def ints(high, *shape):
+        return torch.randint(0, high, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    if name == "lm":
+        params = tf.lm_init_params(cfg, SEED, dev)
+        toks = ints(cfg.vocab, DRY_SMOKE_BATCH, DRY_SMOKE_SEQ)
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    else:
+        params = gnn.gin_init_params(cfg, SEED, dev)
+        fake = arch.abstract_args(cell, "meta")[-1]
+        n, ep = fake["feats"].shape[0], fake["edge_src"].shape[0]
+        mask = torch.zeros(ep, device=dev)
+        mask[:2000] = 1.0
+        batch = {"feats": torch.randn(fake["feats"].shape, generator=g,
+                                      device=dev),
+                 "edge_src": ints(n, ep), "edge_dst": ints(n, ep),
+                 "edge_mask": mask, "labels": ints(cfg.n_classes, n),
+                 "label_mask": torch.ones(n, device=dev)}
+    return params, init_opt_state(params), batch
+
+
+def dry_reading(rec):
+    """The numbers path 15 compares, from a dry-run record."""
+    coll = rec["collectives"]
+    return {"flops": rec["flops"], "bytes": rec["bytes_accessed"],
+            "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+            "coll": {k: coll[k] for k in coll if k not in ("total",
+                                                           "counts")},
+            "calls": coll["counts"], "launches": rec["launches"]}
+
+
+def dry_jobs(out):
+    """The path 15 subprocesses, the longest traces first: {name: argv}."""
+    dr = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+          "cuda", "--out", out]
+    granite = dr + ["--arch", "granite-moe-1b-a400m", "--shape", "train_4k"]
+    jobs = {"cut_a": granite + ["--mesh-shape", "1x1", "--batch",
+                                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]}
+    for shape in DRY_FOUR_CARDS:
+        jobs[f"olmoe_{shape}"] = dr + [
+            "--arch", "olmoe-1b-7b", "--shape", "train_4k", "--mesh-shape",
+            shape, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    for arch, cell, mesh in DRY_CELLS:
+        jobs[f"{arch}.{cell}.{mesh}"] = dr + ["--arch", arch, "--shape", cell,
+                                              "--mesh", mesh]
+    cut_b = ["--mesh-shape", "x".join(map(str, SHARD_MESH)), "--batch",
+             str(SHARD_B_BATCH), "--seq", str(SHARD_B_SEQ), "--layers",
+             str(SHARD_B_LAYERS), "--capacity-factor", "4.0"]
+    jobs["cut_b"] = granite + cut_b
+    jobs["cut_b_meta"] = [a if a != "cuda" else "meta" for a in granite] \
+        + cut_b
+    jobs["cut_b_meta"][jobs["cut_b_meta"].index(out)] = out + "_meta"
+    jobs["mpad_world1"] = [sys.executable, "-m",
+                           "repro_torch.launch.dryrun_mpad", "--ranks", "1",
+                           "--device", "cuda", "--out",
+                           os.path.join(out, "mpad_world1.json")]
+    jobs["smoke"] = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                     "--dryrun-smoke"]
+    return jobs
+
+
+def start_dry_jobs(out):
+    """Start every path 15 subprocess at once; {name: (Popen, log path)}."""
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for name, argv in dry_jobs(out).items():
+        logf = open(os.path.join(out, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(argv, cwd=HERE, env=env,
+                                        stdout=logf, stderr=subprocess.STDOUT),
+                       logf)
+    return procs
+
+
+def join_dry_jobs(procs, out, deadline):
+    """Wait for every job (killing all past the deadline); their logs."""
+    logs = {}
+    try:
+        for name, (proc, logf) in procs.items():
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for name, (proc, logf) in procs.items():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+            with open(os.path.join(out, f"{name}.log")) as f:
+                logs[name] = f.read()
+    for name, (proc, _) in procs.items():
+        check(proc.returncode == 0, f"path 15: {name} exited "
+              f"{proc.returncode}:\n{logs[name][-3000:]}")
+    return logs
+
+
+def dry_record(out, cell):
+    with open(os.path.join(out, cell + ".json")) as f:
+        return json.load(f)
+
+
+def dryrun_path(torch, mods, p14a, p14b, counters):
+    """Path 15 (the module docstring, phase 36). Returns (result dict,
+    K5 / K6 / aggregate launches of (c)'s real steps)."""
+    (sh, analyze_step, phi_step, phi_args, make_mesh, init_opt_state) = mods
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.parallel.context import Mesh
+    t_wall = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="qpad-path15-")
+    res = {"cells": {}, "peak_rtol": DRY_PEAK_RTOL}
+    try:
+        procs = start_dry_jobs(out)
+        deadline = time.perf_counter() + DRY_TIMEOUT_S
+        launched = {}
+        # (c), the real half: the SMOKE steps on the card, a (1, 1) mesh
+        # record (size-1 axes run no collective, so no process group)
+        mesh11 = Mesh(axis="data", size=1, rank=0, group=None,
+                      backend="nccl", device=torch.device("cuda"),
+                      names=("data", "model"), dims=(1, 1))
+        real_c = {}
+        for name, (arch, cell, cfg) in dry_smoke_cases().items():
+            args = dry_real_args(torch, name, arch, cell, cfg)
+            blocks = sh.shard_tree(mesh11, args, arch.arg_specs(cell,
+                                                                mesh11))
+            del args
+            r = analyze_step(arch.step_fn(cell, mesh11), blocks, mesh11)
+            torch.cuda.synchronize()
+            r.pop("out")
+            real_c[name] = r
+            del blocks
+        for k in ("flash_attention_fwd", "fused_ce_fwd", "csr_gather_sum"):
+            launched[k] = sum(r["launches"][k] for r in real_c.values())
+        # (d), the real half: one MPAD iteration at world 1 over NCCL
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mesh1 = make_mesh((1,), ("data",), backend="nccl")
+        try:
+            g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+            n, dim, m = 1 << 20, 1024, 128
+            args = tuple(torch.randn(a.shape, generator=g, device="cuda")
+                         for a in phi_args(n, dim, m, 1, "meta"))
+            args[3].copy_((args[3] > 0).float())
+            r = analyze_step(phi_step(mesh1, n), args, mesh1)
+            torch.cuda.synchronize()
+            real_d = {"dot_flops": r["dot_flops"],
+                      "coll_total": r["coll_total"],
+                      "coll_counts": r["coll_counts"],
+                      "tracked_peak_bytes": r["peak_bytes"],
+                      "max_memory_allocated": torch.cuda.max_memory_allocated()
+                      - base}
+            del args, r
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        logs = join_dry_jobs(procs, out, deadline)
+        res["jobs_wall_s"] = time.perf_counter() - t_wall
+
+        # (a) the production cells
+        for arch, cell, mesh in DRY_CELLS:
+            tags = {"single": ["pod_16x16"], "multi": ["multipod_2x16x16"],
+                    "both": ["pod_16x16", "multipod_2x16x16"]}[mesh]
+            for tag in tags:
+                rec = dry_record(out, f"{tag}.{arch}.{cell}")
+                check(rec["status"] == "ok", f"path 15 (a): {rec['cell']} "
+                      f"{rec['status']}: {rec.get('error')}")
+                keep = {k: rec[k] for k in (
+                    "status", "n_devices", "model_flops", "flops",
+                    "bytes_accessed", "memory", "collectives", "launches",
+                    "trace_s", "device")}
+                res["cells"][rec["cell"]] = keep
+                mem = rec["memory"]
+                ratio = rec["flops"] * rec["n_devices"] / rec["model_flops"]
+                log(f"[path 15] (a) {rec['cell']}: {rec['status']}, args "
+                    f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB a rank, "
+                    f"predicted peak {mem['peak_memory_in_bytes'] / 1e9:.2f}"
+                    f" GB, FLOPs {rec['flops']:.3e} a rank against "
+                    f"model_flops {rec['model_flops']:.3e} "
+                    f"({rec['n_devices']} ranks: "
+                    f"{ratio:.2f}x), collectives "
+                    + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in
+                                rec["collectives"].items()
+                                if k not in ("total", "counts") and v)
+                    + f"; traced in {rec['trace_s']} s")
+
+        # (b) against this run's path 14
+        tag_a = (f"mesh_1x1.granite-moe-1b-a400m@batch={TRAIN_BATCH},"
+                 f"seq={TRAIN_SEQ}.train_4k")
+        ra = dry_record(out, tag_a)
+        check(ra["status"] == "ok", f"path 15 (b): {ra.get('error')}")
+        want_args = sum(p14a["argument_bytes"].values())
+        got_args = ra["memory"]["argument_size_in_bytes"]
+        peak_a, real_peak = (ra["memory"]["peak_memory_in_bytes"],
+                             p14a["peak_mem_bytes"])
+        res["b_cut_a"] = {
+            "argument_bytes": got_args, "real_argument_bytes": want_args,
+            "real_argument_parts": p14a["argument_bytes"],
+            "launches": ra["launches"], "predicted_peak_bytes": peak_a,
+            "real_peak_bytes": real_peak,
+            "peak_rel": (peak_a - real_peak) / real_peak,
+            "flops": ra["flops"], "collectives": ra["collectives"]}
+        log(f"[path 15] (b) (1, 1) cut: argument bytes {got_args} (path 14 "
+            f"(a)'s blocks and int32 batch {want_args}), K5 "
+            f"{ra['launches']['flash_attention_fwd']} / K6 "
+            f"{ra['launches']['fused_ce_fwd']} a step, predicted peak "
+            f"{peak_a / 1e9:.3f} GB against path 14 (a)'s "
+            f"max_memory_allocated {real_peak / 1e9:.3f} GB "
+            f"({res['b_cut_a']['peak_rel']:+.2%})")
+        check(got_args == want_args, f"path 15 (b): argument bytes "
+              f"{got_args}, the real blocks' {want_args}")
+        check(ra["launches"]["flash_attention_fwd"] == 48
+              and ra["launches"]["fused_ce_fwd"] == 4,
+              f"path 15 (b): launches {ra['launches']}")
+        check(abs(res["b_cut_a"]["peak_rel"]) <= DRY_PEAK_RTOL,
+              f"path 15 (b): predicted peak {peak_a} against {real_peak}")
+        tag_b = (f"mesh_{'x'.join(map(str, SHARD_MESH))}.granite-moe-1b-"
+                 f"a400m@batch={SHARD_B_BATCH},seq={SHARD_B_SEQ},layers="
+                 f"{SHARD_B_LAYERS},capacity_factor=4.0.train_4k")
+        rb = dry_record(out, tag_b)
+        rb_meta = dry_record(out + "_meta", tag_b)
+        check(rb["status"] == "ok" and rb_meta["status"] == "ok",
+              f"path 15 (b): {rb.get('error')} {rb_meta.get('error')}")
+        measured = p14b["ranks"][0]["collective_bytes_per_step"]
+        traced = {k.replace("-", "_"): v for k, v in
+                  rb["collectives"].items() if k not in ("total", "counts")}
+        res["b_cut_b"] = {"traced": traced, "measured_rank0": measured,
+                          "launches": rb["launches"],
+                          "meta_equal": dry_reading(rb) ==
+                          dry_reading(rb_meta),
+                          "predicted_peak_bytes": rb["memory"][
+                              "peak_memory_in_bytes"],
+                          "real_peak_gb_rank0": p14b["ranks"][0][
+                              "peak_mem_gb"]}
+        log(f"[path 15] (b) (2, 2) cut: bytes a rank a step by kind "
+            f"{traced} against path 14 (b)'s {measured}; K5 "
+            f"{rb['launches']['flash_attention_fwd']} / K6 "
+            f"{rb['launches']['fused_ce_fwd']}; meta trace equal: "
+            f"{res['b_cut_b']['meta_equal']}")
+        for kind, v in measured.items():
+            check(traced[kind] == v, f"path 15 (b): {kind} traced "
+                  f"{traced[kind]}, measured {v}")
+        check(traced["reduce_scatter"] == 0
+              and traced["collective_permute"] == 0,
+              f"path 15 (b): {traced}")
+        check(rb["launches"]["flash_attention_fwd"] == 2 * SHARD_B_LAYERS
+              and rb["launches"]["fused_ce_fwd"] == 1,
+              f"path 15 (b): launches {rb['launches']}")
+        check(res["b_cut_b"]["meta_equal"], "path 15 (b): the meta trace "
+              "differs from the fake CUDA one")
+
+        # (c) SMOKE: fake against real
+        line = next(ln for ln in logs["smoke"].splitlines()
+                    if ln.startswith('{"dryrun_smoke"'))
+        fake_c = json.loads(line)["dryrun_smoke"]
+        res["c"] = {}
+        for name, r in real_c.items():
+            real = {"flops": r["dot_flops"], "bytes": r["bytes"],
+                    "argument_bytes": r["argument_bytes"],
+                    "launches": r["launches"]}
+            fr = dry_reading(fake_c[name])
+            fake = {k: fr[k] for k in real}
+            res["c"][name] = {"real": real, "fake": fake,
+                              "equal": real == fake}
+            log(f"[path 15] (c) {name} SMOKE: FLOPs real {real['flops']:.6e}"
+                f" fake {fake['flops']:.6e}, bytes {real['bytes']:.6e} / "
+                f"{fake['bytes']:.6e}, launches real "
+                f"{[real['launches'][k] for k in launched]} fake "
+                f"{[fake['launches'][k] for k in launched]}")
+            check(real == fake, f"path 15 (c) {name}: {real} against {fake}")
+
+        # (d) MPAD at world 1
+        with open(os.path.join(out, "mpad_world1.json")) as f:
+            fd = json.load(f)
+        peak_rel = (fd["peak_mem_dev"] - real_d["max_memory_allocated"]) \
+            / real_d["max_memory_allocated"]
+        res["d"] = {"fake": fd, "real": real_d, "peak_rel": peak_rel}
+        log(f"[path 15] (d) dryrun_mpad world 1, N 2^20 x 1024: FLOPs fake "
+            f"{fd['dot_flops_dev']:.6e} real {real_d['dot_flops']:.6e}; "
+            f"collective bytes {fd['coll_bytes_dev']} / "
+            f"{real_d['coll_total']}; peak fake {fd['peak_mem_dev'] / 1e9:.3f}"
+            f" GB, real max_memory_allocated "
+            f"{real_d['max_memory_allocated'] / 1e9:.3f} GB ({peak_rel:+.2%})")
+        check(fd["dot_flops_dev"] == real_d["dot_flops"]
+              and fd["coll_bytes_dev"] == real_d["coll_total"],
+              f"path 15 (d): {fd} against {real_d}")
+        check(abs(peak_rel) <= DRY_PEAK_RTOL, f"path 15 (d): peak "
+              f"{fd['peak_mem_dev']} against {real_d}")
+
+        # (e) olmoe-1b-7b on four cards
+        res["e"] = {}
+        for shape in DRY_FOUR_CARDS:
+            rec = dry_record(out, f"mesh_{shape}.olmoe-1b-7b@batch="
+                             f"{TRAIN_BATCH},seq={TRAIN_SEQ}.train_4k")
+            check(rec["status"] == "ok", f"path 15 (e): {rec.get('error')}")
+            peak = rec["memory"]["peak_memory_in_bytes"]
+            res["e"][shape] = {
+                "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+                "predicted_peak_bytes": peak,
+                "fits_80gb": peak <= CARD_BYTES,
+                "collectives": rec["collectives"]}
+            log(f"[path 15] (e) olmoe-1b-7b at {TRAIN_BATCH} x {TRAIN_SEQ} "
+                f"on a {shape} mesh: arguments "
+                f"{rec['memory']['argument_size_in_bytes'] / 1e9:.2f} GB a "
+                f"rank, predicted peak {peak / 1e9:.2f} GB against 80 GB")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(out + "_meta", ignore_errors=True)
+    res["wall_s"] = time.perf_counter() - t_wall
+    log(f"[path 15] wall {res['wall_s']:.1f} s")
+    return res, launched
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6613,6 +7011,8 @@ def main():
         from repro_torch.data import graph as graph_data
         from repro_torch.kernels import graph_agg as ga
         from repro_torch.models import gnn
+        from repro_torch.launch.step_analysis import analyze_step
+        from repro_torch.launch.dryrun_mpad import phi_args, phi_step
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -7127,6 +7527,12 @@ def main():
         GRANITE_MOE, run_ranks, smi)
     result["path14"] = {"a": p14a, "b": p14b}
 
+    # 36. path 15: the dry-run, against path 14 and real steps
+    p15, launches15 = dryrun_path(
+        torch, (psh, analyze_step, phi_step, phi_args, make_mesh,
+                optim.init_opt_state), p14a, p14b, counters)
+    result["path15"] = p15
+
     k1b = k1t["bounds"]
     k1_src = "src/repro_torch/kernels/pq_adc/csrc/pq_adc_gather_topk.cu"
     k4_src = "src/repro_torch/kernels/mpad_pairwise/csrc/pairwise_stats.cu"
@@ -7232,11 +7638,15 @@ def main():
                 "backward a layer, in result.path13.<config>.k5_timing); "
                 "launches_path14: path 14 (a)'s two sharded steps on a "
                 "(1, 1) NCCL mesh; launches_path14_ranks: each of path 14 "
-                "(b)'s 4 gloo ranks over its two steps, all bf16",
+                "(b)'s 4 gloo ranks over its two steps, all bf16; "
+                "launches_path15: path 15 (c)'s real SMOKE-size step (f32 "
+                "route), whose fake trace counts the same; the launch is "
+                "a torch.library custom op since PR 26",
         "launches_path4": k5_train_launches,
         "launches_path10": k5_path10, "launches_path13": k5_path13,
         "launches_path14": k5_path14,
-        "launches_path14_ranks": k5_ranks14}, {
+        "launches_path14_ranks": k5_ranks14,
+        "launches_path15": launches15["flash_attention_fwd"]}, {
         "name": "fused_ce_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce_bf16.cu",
         "replaces": "src/repro/kernels/fused_ce/kernel.py:64",
@@ -7251,9 +7661,12 @@ def main():
                 "D 1024, V 49408 in result.path13.<config>.k6_timing); "
                 "launches_path14: path 14 (a)'s two sharded steps; "
                 "launches_path14_ranks: each of path 14 (b)'s 4 gloo ranks "
-                "over its two steps (the tied head, bf16)",
+                "over its two steps (the tied head, bf16); "
+                "launches_path15: path 15 (c)'s real SMOKE-size step (f32 "
+                "route); the launch is a torch.library custom op",
         "launches_path13": k6_path13, "launches_path14": k6_path14,
-        "launches_path14_ranks": k6_ranks14}, {
+        "launches_path14_ranks": k6_ranks14,
+        "launches_path15": launches15["fused_ce_fwd"]}, {
         "name": "knn_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
         "replaces": "src/repro/kernels/knn_topk/kernel.py:72",
@@ -7287,7 +7700,9 @@ def main():
                 "every edge; library_ms: torch.sparse.mm of the CSR by h, "
                 "which the port never calls; launches: path 12's main "
                 "runs (full_graph_sm and ogb_products, 5 forward and 4 "
-                "backward a step)"}]
+                "backward a step); launches_path15: path 15 (c)'s real "
+                "SMOKE-size GIN step (3 forward, 2 backward)",
+        "launches_path15": launches15["csr_gather_sum"]}]
     result["trace_losses"] = TRACE_LOSSES
     log(f"[trace] {len(TRACE_LOSSES)} traces lacked records, "
         f"{sum(r['used'] for r in TRACE_LOSSES)} of them used")
@@ -7387,8 +7802,59 @@ def fit_spread():
     return 0
 
 
+def custom_op_timings():
+    """``--custom-op-timings``: K5 (bf16, path 3's shape), K6 (bf16, path
+    4's) and the GIN aggregate (forward at F 64 and 100, backward at F 64,
+    on a uniform random graph of ogb_products' size) alone on seeded
+    inputs, by CUDA events, through the package beside this script: a copy
+    of the script at the root of another commit's ``git archive`` times
+    that commit's launches in the same call (their custom-op binding
+    against the parent's direct calls). One JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ce as fce
+    from repro_torch.kernels import graph_agg as ga
+    smi = card_line()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    out = {"card": smi, "tree": HERE}
+    q, k, v = (randn(4, 4096, h, 64).bfloat16() for h in (32, 4, 4))
+    out["k5_ms"] = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v),
+                           reps=20)
+    del q, k, v
+    h = randn(4096, 2048).bfloat16()
+    w = (randn(2048, 32000) * 0.02).bfloat16()
+    lab = torch.randint(0, 32000, (4096,), generator=g, device="cuda")
+    out["k6_ms"] = cuda_ms(torch, lambda: fce.fused_ce_fwd(h, w, lab),
+                           reps=20)
+    del h, w
+    n, e = 2_449_029, 61_859_328
+    csr = ga.build_csr(*(torch.randint(0, n, (e,), generator=g,
+                                       device="cuda") for _ in range(2)),
+                       None, n)
+    for f in (64, 100):
+        x = randn(n, f)
+        out[f"agg_fwd_f{f}_ms"] = cuda_ms(
+            torch, lambda: ga.csr_gather_sum(x, csr.fwd), reps=10)
+        if f == 64:
+            out["agg_bwd_f64_ms"] = cuda_ms(
+                torch, lambda: ga.csr_gather_sum(x, csr.bwd), reps=10)
+        del x
+    print(json.dumps({"custom_op_timings": out}))
+    return 0
+
+
 ALONE = {"--k1-timings": k1_alone, "--k2-timings": k2_alone,
-         "--k4-timings": k4_alone, "--fit-spread": fit_spread}
+         "--k4-timings": k4_alone, "--fit-spread": fit_spread,
+         "--dryrun-smoke": dryrun_smoke,
+         "--custom-op-timings": custom_op_timings}
 
 if __name__ == "__main__":
     ARGS = sys.argv[1:]

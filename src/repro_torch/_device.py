@@ -13,6 +13,12 @@ import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
 
+# the device types whose tensors take a kernel's card route: a CUDA tensor
+# launches the kernel; a meta tensor (no data: the dry-run's model of the
+# card, ``launch.dryrun``) takes the launch's meta kernel, which gives the
+# output's shape and counts as a launch
+CARD_DEVICE_TYPES = ("cuda", "meta")
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means ``cuda``, which must

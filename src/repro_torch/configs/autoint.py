@@ -13,3 +13,7 @@ CONFIG = AutoIntConfig(name="autoint", n_fields=39, vocab_per_field=100_000,
 def smoke(device: DeviceLike = None):
     """autoint's smoke step: ``recsys_family.smoke("autoint")``."""
     return recsys_family.smoke("autoint", device)
+
+
+def get_arch():
+    return recsys_family.make_autoint_arch(CONFIG)

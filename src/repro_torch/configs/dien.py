@@ -12,3 +12,7 @@ CONFIG = DIENConfig(name="dien", n_items=1_048_576, n_cats=10_000,
 def smoke(device: DeviceLike = None):
     """dien's smoke step: ``recsys_family.smoke("dien")``."""
     return recsys_family.smoke("dien", device)
+
+
+def get_arch():
+    return recsys_family.make_dien_arch(CONFIG)

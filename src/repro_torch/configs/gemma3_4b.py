@@ -19,3 +19,8 @@ SMOKE = LMConfig(
     d_head=16, d_ff=128, vocab=256, sliding_window=8, global_every=3,
     rope_theta=1_000_000.0, rope_theta_local=10_000.0, tie_embeddings=True,
     seq_chunk=16, q_chunk=16, kv_chunk=16)
+
+
+def get_arch():
+    from repro_torch.configs.lm_family import make_lm_arch
+    return make_lm_arch("gemma3-4b", CONFIG, SMOKE, long_ok=True)

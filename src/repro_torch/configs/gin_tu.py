@@ -11,3 +11,8 @@ def smoke(device: DeviceLike = None):
     """gin-tu's smoke step: ``gnn_family.smoke()``."""
     from repro_torch.configs import gnn_family   # it imports CONFIG
     return gnn_family.smoke(device)
+
+
+def get_arch():
+    from repro_torch.configs.gnn_family import make_gin_arch
+    return make_gin_arch("gin-tu", CONFIG)

@@ -1,18 +1,22 @@
-"""The GNN family's input shapes, FLOP counts and smoke steps (port of
-the corresponding part of ``repro.configs.gnn_family``) for gin-tu.
+"""GNN-family ``ArchSpec`` builder (GIN; port of
+``repro.configs.gnn_family``): full_graph_sm / minibatch_lg /
+ogb_products / molecule cells, every one a train step.
 
-JAX's ``make_gin_arch`` builds an ``ArchSpec`` with ``PartitionSpec``s
-for its dry-run tools; that half waits with ``configs.common``, the model
-side's sharding and the dry-run tools (ROADMAP.md item 13). What the port
-keeps of it: ``GNN_SHAPES`` (each full-graph edge list padded to a
-multiple of ``EDGE_PAD``, masked), ``shape_config(sname)`` (its
-``shape_cfg``), ``gin_flops`` (its ``model_flops``) and its ``smoke()``
-body as ``smoke()``: one AdamW train step on the full-graph regime and
-the sampled and molecule losses at a reduced size.
+``GNN_SHAPES`` (each full-graph edge list padded to a multiple of
+``EDGE_PAD``, masked), ``shape_config(sname)`` (JAX's ``shape_cfg``),
+``gin_flops`` (its ``model_flops``) and ``smoke()`` (one AdamW train step
+on the full-graph regime and the sampled and molecule losses at a reduced
+size). ``make_gin_arch``'s specs are JAX's: the parameters whole on every
+rank, a full graph's nodes whole and its edges split over every axis, the
+sampled and molecule batches over the data axes. Its rank programs
+(``parallel.step``): ``make_sharded_step`` over the regime's loss, the
+full regime's through ``gin_full_rank_loss`` (each rank aggregates its
+block of the edges on ``kernels/graph_agg``, and the ranks' partial sums
+are added).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -22,10 +26,11 @@ from repro_torch._tree import tree_map
 from repro_torch.models import gnn
 from repro_torch.optim import AdamWConfig, init_opt_state, make_train_step
 
+from .common import ArchSpec, ShapeDef, abstract_tensor, abstract_tree
 from .gin_tu import CONFIG as GIN_TU
 
 __all__ = ["GNN_SHAPES", "EDGE_PAD", "padded_edges", "shape_config",
-           "gin_flops", "smoke"]
+           "gin_flops", "smoke", "make_gin_arch"]
 
 _ADAM = AdamWConfig(lr=1e-3, total_steps=10_000)
 EDGE_PAD = 512
@@ -48,22 +53,24 @@ def padded_edges(n_edges: int) -> int:
     return -(-n_edges // EDGE_PAD) * EDGE_PAD
 
 
-def shape_config(sname: str, base: gnn.GINConfig = GIN_TU) -> gnn.GINConfig:
+def shape_config(sname: str, base: gnn.GINConfig = GIN_TU,
+                 table: Optional[dict] = None) -> gnn.GINConfig:
     """``base``'s depth and width at shape ``sname``'s features, classes
-    and fanout (JAX's ``shape_cfg``)."""
-    s = GNN_SHAPES[sname]
+    and fanout (JAX's ``shape_cfg``; ``table`` default ``GNN_SHAPES``)."""
+    s = (GNN_SHAPES if table is None else table)[sname]
     return gnn.GINConfig(
         name=f"{base.name}:{sname}", n_layers=base.n_layers,
         d_hidden=base.d_hidden, d_feat=s["d_feat"],
         n_classes=s["n_classes"], fanout=s.get("fanout", (15, 10)))
 
 
-def gin_flops(cfg: gnn.GINConfig, sname: str) -> float:
+def gin_flops(cfg: gnn.GINConfig, sname: str,
+              table: Optional[dict] = None) -> float:
     """Model FLOPs of one training step of ``cfg`` (the base config) at
-    shape ``sname``: 3x the forward's (JAX's ``model_flops``; the edge
-    count unpadded)."""
-    s = GNN_SHAPES[sname]
-    c = shape_config(sname, cfg)
+    shape ``sname`` (of ``table``, default ``GNN_SHAPES``): 3x the
+    forward's (JAX's ``model_flops``; the edge count unpadded)."""
+    s = (GNN_SHAPES if table is None else table)[sname]
+    c = shape_config(sname, cfg, table)
     h = c.d_hidden
     if s["regime"] == "full":
         n, e = s["n_nodes"], s["n_edges"]
@@ -118,3 +125,93 @@ def smoke(device: DeviceLike = None) -> Dict[str, object]:
     vals = [float(x) for x in (loss, l2, l3)]
     return {"ok": all(np.isfinite(v) for v in vals), "loss": vals[0],
             "sampled_loss": vals[1], "mol_loss": vals[2]}
+
+
+def make_gin_arch(name: str, base_cfg: gnn.GINConfig,
+                  shapes: Optional[dict] = None) -> ArchSpec:
+    """gin at the four ``GNN_SHAPES``, each a train step (JAX's
+    ``make_gin_arch``); ``shapes`` may cut them."""
+    table = GNN_SHAPES if shapes is None else shapes
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.sharding import P
+    from repro_torch.parallel.step import gin_full_rank_loss, \
+        make_sharded_step
+    shape_defs = {k: ShapeDef(name=k, kind="train", desc=str(v))
+                  for k, v in table.items()}
+
+    def params_of(sname, device):
+        c = shape_config(sname, base_cfg, table)
+        return abstract_tree(lambda: gnn.gin_init_params(c, 0, "cpu"),
+                             device)
+
+    def batch_struct(sname):
+        s = table[sname]
+        f32, i32 = torch.float32, torch.int32
+        if s["regime"] == "full":
+            ep = padded_edges(s["n_edges"])
+            return {"feats": ((s["n_nodes"], s["d_feat"]), f32),
+                    "edge_src": ((ep,), i32), "edge_dst": ((ep,), i32),
+                    "edge_mask": ((ep,), f32),
+                    "labels": ((s["n_nodes"],), i32),
+                    "label_mask": ((s["n_nodes"],), f32)}
+        if s["regime"] == "sampled":
+            b, (f1, f2), d = s["batch_nodes"], s["fanout"], s["d_feat"]
+            return {"feat_l0": ((b, d), f32), "feat_l1": ((b, f1, d), f32),
+                    "feat_l2": ((b, f1, f2, d), f32),
+                    "labels": ((b,), i32)}
+        g, n, d = s["n_graphs"], s["n_nodes"], s["d_feat"]
+        return {"feats": ((g, n, d), f32), "adj": ((g, n, n), f32),
+                "labels": ((g,), i32)}
+
+    def abstract_args(sname, device: DeviceLike = "meta"):
+        params = params_of(sname, device)
+        opt = abstract_tree(lambda: init_opt_state(params), device)
+        batch = {k: abstract_tensor(shape, dt, device)
+                 for k, (shape, dt) in batch_struct(sname).items()}
+        return (params, opt, batch)
+
+    def _batch_specs(sname, mesh):
+        s = table[sname]
+        dp = sh.dp_axes(mesh)
+        allax = tuple(mesh.axis_names)
+        if s["regime"] == "full":
+            return {"feats": P(None, None),
+                    "edge_src": P(allax), "edge_dst": P(allax),
+                    "edge_mask": P(allax),
+                    "labels": P(None), "label_mask": P(None)}
+        if s["regime"] == "sampled":
+            return {"feat_l0": P(dp, None), "feat_l1": P(dp, None, None),
+                    "feat_l2": P(dp, None, None, None), "labels": P(dp)}
+        return {"feats": P(dp, None, None), "adj": P(dp, None, None),
+                "labels": P(dp)}
+
+    def _pspec(sname):
+        return sh.replicate_like(params_of(sname, "meta"))
+
+    def arg_specs(sname, mesh):
+        pspec = _pspec(sname)
+        return (pspec, sh.opt_specs(pspec), _batch_specs(sname, mesh))
+
+    def out_specs(sname, mesh):
+        pspec = _pspec(sname)
+        return (P(), pspec, sh.opt_specs(pspec))
+
+    def step_fn(sname, mesh):
+        regime = table[sname]["regime"]
+        c = shape_config(sname, base_cfg, table)
+        if regime == "full":
+            loss = gin_full_rank_loss(c, mesh)
+        else:
+            fn = {"sampled": gnn.gin_sampled_loss,
+                  "mol": gnn.gin_mol_loss}[regime]
+            loss = lambda p, b: fn(p, c, b)          # noqa: E731
+        pspec = _pspec(sname)
+        return make_sharded_step(loss, _ADAM, mesh, pspec,
+                                 sh.opt_specs(pspec))
+
+    return ArchSpec(name=name, family="gnn", shapes=shape_defs,
+                    abstract_args=abstract_args, arg_specs=arg_specs,
+                    out_specs=out_specs, step_fn=step_fn,
+                    smoke=lambda device=None: smoke(device),
+                    model_flops=lambda sname: gin_flops(base_cfg, sname,
+                                                        table))

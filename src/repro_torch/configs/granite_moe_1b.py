@@ -19,3 +19,8 @@ SMOKE = LMConfig(
     moe=MoEConfig(n_experts=8, top_k=2, d_ff=32, capacity_factor=2.0,
                   impl="dispatch"),
     tie_embeddings=True, seq_chunk=16, q_chunk=16, kv_chunk=16)
+
+
+def get_arch():
+    from repro_torch.configs.lm_family import make_lm_arch
+    return make_lm_arch("granite-moe-1b-a400m", CONFIG, SMOKE, long_ok=False)

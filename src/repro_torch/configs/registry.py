@@ -1,13 +1,17 @@
 """Architecture registry (port of ``repro.configs.registry``): ``--arch``
 names to the port's configuration modules: the dense and MoE LMs, the
 recsys family and the GNN family (gin-tu), every arch of the JAX
-package."""
+package. ``get_arch(name)`` is the module's ``get_arch()`` (cached)."""
 from __future__ import annotations
 
 import importlib
 from types import ModuleType
+from typing import Dict
 
-__all__ = ["ARCH_MODULES", "NOT_PORTED", "config_module"]
+from .common import ArchSpec
+
+__all__ = ["ARCH_MODULES", "NOT_PORTED", "config_module", "get_arch",
+           "all_arch_names"]
 
 ARCH_MODULES = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
@@ -34,3 +38,17 @@ def config_module(name: str) -> ModuleType:
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {list(ARCH_MODULES)}")
     return importlib.import_module(ARCH_MODULES[name])
+
+
+_cache: Dict[str, ArchSpec] = {}
+
+
+def get_arch(name: str) -> ArchSpec:
+    """Arch ``name``'s ``ArchSpec`` (built once)."""
+    if name not in _cache:
+        _cache[name] = config_module(name).get_arch()
+    return _cache[name]
+
+
+def all_arch_names():
+    return list(ARCH_MODULES)

@@ -13,3 +13,7 @@ CONFIG = SASRecConfig(name="sasrec", n_items=1_048_576, embed_dim=50,
 def smoke(device: DeviceLike = None):
     """sasrec's smoke step: ``recsys_family.smoke("sasrec")``."""
     return recsys_family.smoke("sasrec", device)
+
+
+def get_arch():
+    return recsys_family.make_sasrec_arch(CONFIG)

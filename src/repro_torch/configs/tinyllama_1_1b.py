@@ -13,3 +13,8 @@ SMOKE = LMConfig(
     name="tinyllama-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
     d_head=16, d_ff=128, vocab=256, tie_embeddings=False,
     seq_chunk=16, q_chunk=16, kv_chunk=16)
+
+
+def get_arch():
+    from repro_torch.configs.lm_family import make_lm_arch
+    return make_lm_arch("tinyllama-1.1b", CONFIG, SMOKE, long_ok=False)

@@ -21,3 +21,8 @@ RERANK = 256
 def smoke(device: DeviceLike = None):
     """two-tower-retrieval's smoke step: ``recsys_family.smoke("two-tower-retrieval")``."""
     return recsys_family.smoke("two-tower-retrieval", device)
+
+
+def get_arch():
+    return recsys_family.make_twotower_arch(CONFIG, mpad_dim=MPAD_DIM,
+                                            rerank=RERANK)

@@ -10,7 +10,14 @@ tensor-core kernel (``csrc/flash_attention_bf16.cu``, ``mma.sync`` with
 f32 accumulators, dh 8 zero-padded to 16 in shared memory), f32 to the
 CUDA-core kernel (``csrc/flash_attention_fwd.cu``). Each launch adds one
 to ``flash_attention_fwd.launches`` and to its route's entry of
-``flash_attention_fwd.launches_by_route``. ``flash_attention`` runs that forward
+``flash_attention_fwd.launches_by_route``.
+
+The launch itself is the custom op ``torch.ops.repro_torch.
+flash_attention_fwd`` (CUDA only: the stream, the library call and the
+error check). Its fake implementation gives the output's shape and dtype
+and its FLOP formula the kernel's work (``k5_flops``), so a trace on fake
+tensors (``launch.dryrun``) passes through the wrapper, counts the launch
+and the FLOPs as a real call does, and builds nothing. ``flash_attention`` runs that forward
 and saves only q, k and v; its backward recomputes the attention through
 the plain ``chunked_attention`` and differentiates it with
 ``torch.autograd.grad``, as the JAX ``_bwd`` does with ``jax.vjp`` (the
@@ -23,14 +30,16 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch._device import CARD_DEVICE_TYPES
 from repro_torch.models.layers import chunked_attention
 
 from .build import bf16_library, library
 
 __all__ = ["SUPPORTED_HEAD_DIMS", "ROUTES", "kernel_route",
            "flash_attention", "flash_attention_fwd",
-           "flash_attention_fwd_plain"]
+           "flash_attention_fwd_plain", "causal_pairs", "k5_flops"]
 
 # one compiled instance of each kernel per head dim
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
@@ -82,6 +91,20 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def causal_pairs(s: int, window: Optional[int] = None) -> int:
+    """The (query, key) pairs causal attention over ``s`` positions scores,
+    each query seeing at most ``window`` keys (itself included)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def k5_flops(b: int, s: int, h: int, dh: int,
+             window: Optional[int] = None) -> int:
+    """K5's work: 4 * B * H * dh FLOPs a scored pair (q k^T and p v)."""
+    return 4 * b * h * dh * causal_pairs(s, window)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernel reads it: the head dim contiguous, and every row
     starting on a 16-byte boundary (the kernel loads 16-byte vectors)."""
@@ -103,33 +126,55 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, window)
-    if q.device.type != "cuda":
+    if q.device.type not in CARD_DEVICE_TYPES:
         raise ValueError(f"no kernel for device {q.device}")
+    route = kernel_route(q.dtype, q.shape[3])
+    if q.numel() == 0:
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, 0 if window is None else int(window))
+    flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[route] += 1
+    return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            window: int) -> torch.Tensor:
+    """One launch of K5's kernel on ``kernel_route``'s library (``window``
+    0: no window)."""
     b, s, h, dh = q.shape
     route = kernel_route(q.dtype, dh)
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     scale = 1.0 / math.sqrt(dh)             # rounded to f32 as JAX does
-    win = 0 if window is None else int(window)
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "mma_bf16":
             err = bf16_library().qpad_flash_attention_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                s, h, k.shape[2], dh, win, scale, *strides, stream)
+                s, h, k.shape[2], dh, window, scale, *strides, stream)
         else:
             err = library().qpad_flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                s, h, k.shape[2], dh, win, scale, *strides, stream)
+                s, h, k.shape[2], dh, window, scale, *strides, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd ({route}) launch "
                            f"failed: CUDA error {err}")
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.launches_by_route[route] += 1
     return out
+
+
+@_launch.register_fake
+def _launch_fake(q, k, v, window):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _launch_flops(q_shape, k_shape, v_shape, window, *args, **kwargs):
+    b, s, h, dh = q_shape
+    return k5_flops(b, s, h, dh, window or None)
 
 
 flash_attention_fwd.launches = 0

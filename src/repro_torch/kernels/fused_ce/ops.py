@@ -9,7 +9,11 @@ to the tensor-core kernel (``csrc/fused_ce_bf16.cu``, ``mma.sync`` with
 f32 accumulators), f32 and mixed inputs to the CUDA-core kernel
 (``csrc/fused_ce_fwd.cu``, f32 FMAs; TF32 products would not be exact).
 Each launch adds one to ``fused_ce_fwd.launches`` and to its route's entry
-of ``fused_ce_fwd.launches_by_route``. ``fused_ce``'s backward is the JAX
+of ``fused_ce_fwd.launches_by_route``. The launch itself is the custom op
+``torch.ops.repro_torch.fused_ce_fwd`` (CUDA only), whose fake
+implementation gives the (T,) f32 output and whose FLOP formula gives
+the kernel's work, 2 * T * D * V: a trace on fake tensors counts the
+launch and the FLOPs as a real call does, and builds nothing. ``fused_ce``'s backward is the JAX
 ``_bwd``: an lse pass over vocab chunks of ``gcd(4096, V)`` columns, then
 a pass that forms ``dh`` and ``dw`` chunk by chunk; neither writes a
 (T, V) tensor. Its products are ``torch.matmul``, as JAX leaves them to
@@ -21,6 +25,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch._device import CARD_DEVICE_TYPES
 
 from .build import bf16_library, library
 from .ref import fused_ce_fwd_plain
@@ -91,19 +98,31 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     _check(h, w, labels, vocab)
     if h.device.type == "cpu":
         return fused_ce_fwd_plain(h, w, labels, vocab)
-    if h.device.type != "cuda":
+    if h.device.type not in CARD_DEVICE_TYPES:
         raise ValueError(f"no kernel for device {h.device}")
+    route = kernel_route(h.dtype, w.dtype)
+    if h.shape[0] == 0:
+        return torch.empty((0,), dtype=torch.float32, device=h.device)
+    out = torch.ops.repro_torch.fused_ce_fwd(
+        h, w, labels, w.shape[1] if vocab is None else int(vocab))
+    fused_ce_fwd.launches += 1
+    fused_ce_fwd.launches_by_route[route] += 1
+    return out
+
+
+@torch.library.custom_op("repro_torch::fused_ce_fwd", mutates_args=(),
+                         device_types="cuda")
+def _launch(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+            vocab: int) -> torch.Tensor:
+    """One launch of K6's kernel on ``kernel_route``'s library."""
     t, d = h.shape
     v = w.shape[1]
     route = kernel_route(h.dtype, w.dtype)
     out = torch.empty((t,), dtype=torch.float32, device=h.device)
-    if t == 0:
-        return out
     n_split, per = split_vocab(t, v, route)
     partial = torch.empty((3, n_split, t), dtype=torch.float32,
                           device=h.device)
     labels = labels.contiguous()
-    voc = v if vocab is None else int(vocab)
     i64 = int(labels.dtype == torch.int64)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -112,21 +131,29 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
             err = bf16_library().qpad_fused_ce_bf16(
                 hb.data_ptr(), wb.data_ptr(), labels.data_ptr(),
                 out.data_ptr(), partial.data_ptr(), int(tied), i64, t,
-                hb.shape[1], v, voc, n_split, per, hb.stride(0),
+                hb.shape[1], v, vocab, n_split, per, hb.stride(0),
                 wb.stride(1) if tied else wb.stride(0), stream)
         else:
             err = library().qpad_fused_ce_fwd(
                 h.data_ptr(), w.data_ptr(), labels.data_ptr(),
                 out.data_ptr(), partial.data_ptr(),
                 int(h.dtype == torch.bfloat16),
-                int(w.dtype == torch.bfloat16), i64, t, d, v, voc, n_split,
-                per, *h.stride(), *w.stride(), stream)
+                int(w.dtype == torch.bfloat16), i64, t, d, v, vocab,
+                n_split, per, *h.stride(), *w.stride(), stream)
     if err != 0:
         raise RuntimeError(f"fused_ce_fwd ({route}) launch failed: CUDA "
                            f"error {err}")
-    fused_ce_fwd.launches += 1
-    fused_ce_fwd.launches_by_route[route] += 1
     return out
+
+
+@_launch.register_fake
+def _launch_fake(h, w, labels, vocab):
+    return torch.empty((h.shape[0],), dtype=torch.float32, device=h.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.fused_ce_fwd)
+def _launch_flops(h_shape, w_shape, labels_shape, vocab, *args, **kwargs):
+    return 2 * h_shape[0] * h_shape[1] * w_shape[1]
 
 
 def _aligned_rows(x: torch.Tensor) -> bool:

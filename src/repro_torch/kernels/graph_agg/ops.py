@@ -20,6 +20,10 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch._subclasses import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch._device import CARD_DEVICE_TYPES
 
 from .build import library
 from .ref import gather_sum_ref
@@ -59,7 +63,9 @@ class GraphCSR(NamedTuple):
 def _order(by: str, key: torch.Tensor, other: torch.Tensor,
            mask: torch.Tensor, n_rows: int) -> CSROrder:
     perm = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=n_rows)
+    counts = torch.zeros(n_rows, dtype=torch.int64,
+                         device=key.device).index_add_(
+        0, key, torch.ones_like(key))
     rowptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=key.device)
     torch.cumsum(counts, 0, out=rowptr[1:])
     rows = torch.argsort(counts, descending=True, stable=True)
@@ -75,7 +81,7 @@ def build_csr(src: torch.Tensor, dst: torch.Tensor,
     dtype; sources in [0, n_src) (default n_dst), destinations in
     [0, n_dst). Each order is a stable sort, so a row keeps its edges in
     edge order. Run once per graph, on the graph's device (one host sync
-    checks the ids)."""
+    checks the ids; fake tensors, which hold no ids, skip it)."""
     n_src = n_dst if n_src is None else n_src
     if src.ndim != 1 or src.shape != dst.shape:
         raise ValueError(f"src {tuple(src.shape)} and dst "
@@ -91,9 +97,16 @@ def build_csr(src: torch.Tensor, dst: torch.Tensor,
         raise ValueError("src, dst and mask must be (E,) on one device")
     mask = mask.to(torch.float32)
     src, dst = src.long(), dst.long()
-    if e and not (0 <= int(src.min()) and int(src.max()) < n_src
-                  and 0 <= int(dst.min()) and int(dst.max()) < n_dst):
-        raise ValueError("an edge endpoint is out of range")
+    if e:
+        # one host sync reads the four ends (a fake tensor holds no ids:
+        # its trace makes the same ops and skips the check)
+        ends = torch.stack([src.min(), src.max(), dst.min(),
+                            dst.max()]).cpu()
+        if not isinstance(ends, FakeTensor):
+            s_lo, s_hi, d_lo, d_hi = ends.tolist()
+            if not (0 <= s_lo and s_hi < n_src and 0 <= d_lo
+                    and d_hi < n_dst):
+                raise ValueError("an edge endpoint is out of range")
     return GraphCSR(src, dst, mask, n_dst, n_src,
                     _order("dst", dst, src, mask, n_dst),
                     _order("src", src, dst, mask, n_src))
@@ -103,9 +116,9 @@ def csr_gather_sum_plain(x: torch.Tensor, order: CSROrder) -> torch.Tensor:
     """The kernel's plain version: ``ref.gather_sum_ref`` over the order's
     edges (row r's edges in stored order), out (n_rows, F). On the CPU it
     adds in that order, so its bits are the kernel's; any device."""
-    counts = (order.rowptr[1:] - order.rowptr[:-1]).long()
-    row_of_edge = torch.repeat_interleave(
-        torch.arange(order.n_rows, device=x.device), counts)
+    edges = torch.arange(order.col.shape[0], dtype=order.rowptr.dtype,
+                         device=x.device)
+    row_of_edge = torch.searchsorted(order.rowptr[1:], edges, right=True)
     return gather_sum_ref(x, order.col, row_of_edge, order.w, order.n_rows)
 
 
@@ -132,7 +145,7 @@ def csr_gather_sum(x: torch.Tensor, order: CSROrder) -> torch.Tensor:
     _check(x, order)
     if x.device.type == "cpu":
         return csr_gather_sum_plain(x, order)
-    if x.device.type != "cuda":
+    if x.device.type not in CARD_DEVICE_TYPES:
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype != torch.float32 or order.w.dtype != torch.float32:
         raise TypeError(f"the kernel takes f32 x and w, got {x.dtype} and "
@@ -142,22 +155,43 @@ def csr_gather_sum(x: torch.Tensor, order: CSROrder) -> torch.Tensor:
         raise TypeError("rowptr, col and rows must be int32")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    n_rows, f = order.n_rows, x.shape[1]
+    if order.n_rows == 0 or x.shape[1] == 0:
+        return torch.empty((order.n_rows, x.shape[1]), dtype=torch.float32,
+                           device=x.device)
+    out = torch.ops.repro_torch.csr_gather_sum(x, order.rowptr, order.col,
+                                               order.w, order.rows)
+    csr_gather_sum.launches += 1
+    csr_gather_sum.launches_by_order[order.by] += 1
+    return out
+
+
+@torch.library.custom_op("repro_torch::csr_gather_sum", mutates_args=(),
+                         device_types="cuda")
+def _launch(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
+            w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """One launch of the aggregate's kernel over one order's arrays."""
+    n_rows, f = rowptr.shape[0] - 1, x.shape[1]
     out = torch.empty((n_rows, f), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
     vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = library().qpad_csr_gather_sum(
-            x.data_ptr(), order.rowptr.data_ptr(), order.col.data_ptr(),
-            order.w.data_ptr(), order.rows.data_ptr(), n_rows, f, vec,
-            out.data_ptr(), stream)
+            x.data_ptr(), rowptr.data_ptr(), col.data_ptr(), w.data_ptr(),
+            rows.data_ptr(), n_rows, f, vec, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"csr_gather_sum launch failed: CUDA error {err}")
-    csr_gather_sum.launches += 1
-    csr_gather_sum.launches_by_order[order.by] += 1
     return out
+
+
+@_launch.register_fake
+def _launch_fake(x, rowptr, col, w, rows):
+    return torch.empty((rowptr.shape[0] - 1, x.shape[1]),
+                       dtype=torch.float32, device=x.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.csr_gather_sum)
+def _launch_flops(x_shape, rowptr_shape, col_shape, *args, **kwargs):
+    return 2 * col_shape[0] * x_shape[1]
 
 
 csr_gather_sum.launches = 0

@@ -15,9 +15,17 @@ store.
 ``backend="nccl"`` is one rank a card and refuses more ranks than cards;
 ``backend="gloo"`` (the launcher's ``--mesh host``) puts every rank on the
 caller's device: CPU tensors, or several ranks on one card.
+
+``fake_world`` joins a world of any size in this one process, as one of
+its ranks, on torch's ``"fake"`` backend (``backend="fake"``: the
+collectives return at once, moving nothing): the dry-run's way to trace
+rank r's program on a 256- or 512-rank production mesh
+(``launch.dryrun``). It builds the same per-axis groups ``make_mesh``
+builds for a real world, and tears the world down when its block ends.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -33,7 +41,8 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.parallel.context import BACKENDS, Mesh
 
 __all__ = ["make_serving_mesh", "make_mesh", "make_production_mesh",
-           "run_ranks", "rank_threads", "free_port"]
+           "production_shape", "fake_world", "run_ranks", "rank_threads",
+           "free_port"]
 
 
 def _join(ranks: int, backend: str, device: DeviceLike,
@@ -55,6 +64,9 @@ def _join(ranks: int, backend: str, device: DeviceLike,
             f"need {ranks} ranks for {what}, the world has {world}: start "
             f"one process a rank (torchrun --nproc-per-node {ranks}, or "
             "repro_torch.launch.mesh.run_ranks)")
+    if backend == "fake" and not dist.is_initialized():
+        raise RuntimeError("a fake mesh lives in a fake world: build it "
+                           "inside repro_torch.launch.mesh.fake_world")
     if backend == "nccl":
         cards = torch.cuda.device_count()
         if ranks > cards:
@@ -147,15 +159,48 @@ def _ravel(coord: Sequence[int], shape: Sequence[int]) -> int:
     return r
 
 
-def make_production_mesh(multi_pod: bool = False) -> Mesh:
-    """JAX's production mesh: (16, 16) over ``("data", "model")``, 256
-    ranks, or with ``multi_pod`` (2, 16, 16) over ``("pod", "data",
-    "model")``, 512 ranks, one rank a card (``make_mesh``'s defaults). A
-    world of another size raises ``RuntimeError``, as JAX's does with
-    too few devices."""
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axis names) of JAX's production mesh: (16, 16) over
+    ``("data", "model")``, or with ``multi_pod`` (2, 16, 16) over
+    ``("pod", "data", "model")``."""
     if multi_pod:
-        return make_mesh((2, 16, 16), ("pod", "data", "model"))
-    return make_mesh((16, 16), ("data", "model"))
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(multi_pod: bool = False) -> Mesh:
+    """JAX's production mesh (``production_shape``), 256 or 512 ranks, one
+    rank a card (``make_mesh``'s defaults). A world of another size raises
+    ``RuntimeError``, as JAX's does with too few devices."""
+    return make_mesh(*production_shape(multi_pod))
+
+
+@contextlib.contextmanager
+def fake_world(shape: Sequence[int], axes: Sequence[str], rank: int = 0,
+               device: DeviceLike = "cuda"):
+    """Join a world of prod(``shape``) ranks as rank ``rank``, in this one
+    process, on torch's fake process group, and yield rank ``rank``'s
+    ``Mesh`` over ``axes`` (``backend="fake"``, its tensors on
+    ``device``); the world is destroyed when the block ends. A process
+    that already has a default group raises: run a fake world in a
+    process of its own (the dry-run's tests and ``chip_smoke.py`` start
+    one), so that nothing after it finds a group initialised."""
+    # torch's fake process group lives in its testing package: a missing
+    # module fails here, loudly
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("this process already has a default process "
+                           "group; start the fake world in a fresh process")
+    world = math.prod(int(n) for n in shape)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield make_mesh(shape, axes, backend="fake", device=device)
+    finally:
+        dist.destroy_process_group()
 
 
 def free_port() -> int:

@@ -24,7 +24,7 @@ device (not JAX's streams).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,29 +90,33 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def gin_full_forward(params: Params, cfg: GINConfig, feats: torch.Tensor,
                      edge_src: torch.Tensor, edge_dst: torch.Tensor,
                      edge_mask: Optional[torch.Tensor] = None,
-                     csr: Optional[GraphCSR] = None) -> torch.Tensor:
+                     csr: Optional[GraphCSR] = None,
+                     aggregate: Callable = gin_aggregate) -> torch.Tensor:
     """feats (N, F); edge_{src,dst} (E,). Returns logits (N, n_classes).
 
     ``edge_mask`` (E,) zeroes padding edges (edge lists are padded to a
     multiple of 512). ``csr``: ``build_csr(edge_src, edge_dst, edge_mask,
-    N)`` made before; without it the call builds one."""
+    N)`` made before; without it the call builds one. ``aggregate(h,
+    csr)`` is the neighbour sum (a rank over a block of the edges adds
+    the ranks' partial sums: ``parallel.step.gin_full_rank_loss``)."""
     h = feats.to(cfg.dtype)
     n = feats.shape[0]
     if csr is None:
         csr = build_csr(edge_src, edge_dst, edge_mask, n)
     for lp in params["layers"]:
-        agg = gin_aggregate(h, csr)
+        agg = aggregate(h, csr)
         h = _mlp(lp["mlp"], (1.0 + lp["eps"]) * h + agg)
     return h @ params["head"]
 
 
-def gin_full_loss(params: Params, cfg: GINConfig,
-                  batch: Dict[str, Any]) -> torch.Tensor:
+def gin_full_loss(params: Params, cfg: GINConfig, batch: Dict[str, Any],
+                  aggregate: Callable = gin_aggregate) -> torch.Tensor:
     """Masked mean NLL over the nodes: sum(nll * label_mask) /
     max(sum(label_mask), 1). ``batch`` may hold a prebuilt ``csr``."""
     logits = gin_full_forward(params, cfg, batch["feats"],
                               batch["edge_src"], batch["edge_dst"],
-                              batch.get("edge_mask"), batch.get("csr"))
+                              batch.get("edge_mask"), batch.get("csr"),
+                              aggregate)
     labels = batch["labels"]
     mask = batch.get("label_mask")
     if mask is None:

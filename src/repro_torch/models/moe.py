@@ -110,8 +110,10 @@ def _route(x2d, router, mcfg: MoEConfig):
     topv = topv / topv.sum(dim=-1, keepdim=True)
     # Switch aux loss: E * sum_e f_e * P_e (the counts are exact in f32)
     t = x2d.shape[0]
-    f_e = torch.bincount(topi.reshape(-1), minlength=mcfg.n_experts).float() \
-        / (t * mcfg.top_k)
+    ids = topi.reshape(-1)
+    f_e = torch.zeros(mcfg.n_experts, dtype=torch.int64,
+                      device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids)).float() / (t * mcfg.top_k)
     p_e = probs.mean(dim=0)
     aux = mcfg.n_experts * torch.sum(f_e * p_e)
     return topv, topi, aux

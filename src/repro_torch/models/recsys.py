@@ -37,7 +37,7 @@ __all__ = [
     "DIENConfig", "dien_init", "dien_forward", "dien_loss", "dien_score",
     "AutoIntConfig", "autoint_init", "autoint_forward", "autoint_loss",
     "TwoTowerConfig", "twotower_init", "twotower_user", "twotower_item",
-    "twotower_loss", "twotower_retrieve",
+    "twotower_loss", "twotower_retrieve", "reduced_scores",
 ]
 
 Params = Dict[str, Any]
@@ -518,21 +518,30 @@ def twotower_retrieve(params: Params, cfg: TwoTowerConfig,
     if reducer is None:
         s, ids = top_k((u @ cand.T)[0], k)
         return s, ids
+    scores_r = reduced_scores(u, batch, reducer, quantized)
+    _, pre = top_k(scores_r, max(k, rerank))
+    full = (u @ cand[pre].T)[0]                            # exact re-rank
+    s, loc = top_k(full, k)
+    return s, pre[loc]
+
+
+def reduced_scores(u: torch.Tensor, batch: Dict[str, torch.Tensor],
+                   reducer, quantized: bool = False) -> torch.Tensor:
+    """``twotower_retrieve``'s first stage: the query (1, D) scored
+    against every candidate of ``batch`` in the reduced space of
+    ``reducer`` (matrix, mean): the (C,) reduced scores, from the int8
+    cache when ``quantized``, else from ``cand_red`` (or ``cand_emb``
+    reduced here)."""
     mat, mean = reducer
     ur = (u - mean) @ mat.T                                # (1, m)
     if quantized:
         cq, scale = batch["cand_red_q"], batch["cand_scale"]
         a = (ur * scale[None, :]).to(torch.bfloat16).float()
-        scores_r = (a @ cq.float().T)[0]                   # (C,)
-    else:
-        cr = batch.get("cand_red")
-        if cr is None:
-            cr = (cand - mean) @ mat.T
-        scores_r = (ur @ cr.T)[0]                          # reduced space
-    _, pre = top_k(scores_r, max(k, rerank))
-    full = (u @ cand[pre].T)[0]                            # exact re-rank
-    s, loc = top_k(full, k)
-    return s, pre[loc]
+        return (a @ cq.float().T)[0]                       # (C,)
+    cr = batch.get("cand_red")
+    if cr is None:
+        cr = (batch["cand_emb"] - mean) @ mat.T
+    return (ur @ cr.T)[0]                                  # reduced space
 
 
 def quantize_candidates(cand_red: torch.Tensor

@@ -23,6 +23,17 @@ with CUDA tensors (NCCL refuses two ranks on one GPU). The backend is the
 caller's choice, never a fallback: ``"nccl"`` is one rank a card (the
 deployment route), ``"gloo"`` serves CPU tensors and several ranks on one
 card; under gloo a CUDA tensor goes through host memory (``_staged``).
+``"fake"`` is torch's fake process group: one process plays one rank of a
+world of any size, every collective returns at once with its output's
+shape and no values moved, and tensors stay on their device as under
+NCCL (the dry-run traces a rank's program at full size on fake tensors:
+``launch.dryrun``).
+
+``count_collectives()`` records the bytes each collective call's operand
+takes (a rank's own block for an all-gather, its buffer for an
+all-reduce, its send buffer for an all-to-all: the operand JAX's HLO
+names) and the calls, by JAX's collective kind; a real run and a fake
+trace count through the same wrappers.
 
 ``mesh_context`` / ``active_mesh`` / ``require_mesh`` keep the JAX
 contracts: APIs that take ``mesh=None`` use the context's mesh, or raise
@@ -39,20 +50,30 @@ order JAX's ``NamedSharding`` gives a dim split over those axes),
 (``lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=True)``). Every
 rank of a group gets the same result.
 
+``use_partial`` and ``sum_partial`` bracket work split over ranks whose
+partial results add up (GIN's neighbour sum over a rank's block of the
+edges, as XLA partitions JAX's ``segment_sum`` over split edges): a value
+every rank holds whole enters the split work through ``use_partial``, and
+the partial results leave it through ``sum_partial`` (an all-reduce).
+
 **Gradients.** The model side differentiates through
 ``gather_replicated``, ``gather_partial``, ``take_block``,
-``all_to_all`` and ``pmean`` (``torch.autograd.Function``s over the
-collectives above). Their backward passes follow one convention: a
-rank's gradient is that of its **data replica's loss** (every rank of a
-data-parallel group computes the same loss on its own rows; the step takes
-the mean of the gradients over the data axes once, at the end), and a
+``all_to_all``, ``pmean``, ``use_partial`` and ``sum_partial``
+(``torch.autograd.Function``s over the collectives above). Their
+backward passes follow one convention: a rank's gradient is that of its
+**data replica's loss** (every rank of a data-parallel group computes
+the same loss on its own rows; the step takes the mean of the gradients
+over the data axes once, at the end), and a
 value that every rank of the other axes computes alike has the same full
 gradient on each of them. So a gather whose output feeds replicated
 compute passes back the rank's block with no collective (a reduce-scatter
 would count the gradient once a rank), a gather whose output feeds
 per-rank compute (each rank a slice of the tokens) sums the partial
 gradients over the axes first, and ``take_block``'s backward gathers the
-blocks' gradients. An axis of size 1 runs no collective and no Function.
+blocks' gradients; ``sum_partial``'s output feeds replicated compute, so
+its backward passes the gradient through, and ``use_partial``'s backward
+sums the partial gradients of the split work. An axis of size 1 runs no
+collective and no Function.
 """
 from __future__ import annotations
 
@@ -67,9 +88,13 @@ import torch.distributed as dist
 __all__ = ["Mesh", "mesh_context", "active_mesh", "require_mesh",
            "constrain", "all_gather", "all_reduce_min", "all_reduce_sum",
            "pmean", "all_to_all", "gather_replicated", "gather_partial",
-           "take_block"]
+           "take_block", "use_partial", "sum_partial", "count_collectives",
+           "CollectiveCounts", "COLLECTIVE_KINDS"]
 
-BACKENDS = ("nccl", "gloo")
+BACKENDS = ("nccl", "gloo", "fake")
+# JAX's collective kinds (its HLO op names), the keys of the counts
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
 DP_AXES = ("pod", "data")          # the data-parallel axis names
 
 Axes = Union[None, str, Sequence[str]]
@@ -85,7 +110,7 @@ class Mesh:
     size: int                 # ranks in the mesh
     rank: int                 # this process's rank (row-major over axes)
     group: Any                # the whole mesh's torch.distributed group
-    backend: str              # "nccl" (one rank a card) | "gloo"
+    backend: str              # "nccl" (one rank a card) | "gloo" | "fake"
     device: torch.device      # where this rank's tensors live
     names: Tuple[str, ...] = ()     # an N-D mesh's axes, row-major
     dims: Tuple[int, ...] = ()      # their sizes
@@ -205,6 +230,42 @@ def constrain(x, spec):
 
 # --------------------------------------------------------- collectives
 
+@dataclasses.dataclass(eq=False)         # each block is its own counter
+class CollectiveCounts:
+    """Operand bytes and calls by collective kind (``COLLECTIVE_KINDS``)
+    since the ``count_collectives`` block began."""
+    bytes: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
+    calls: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
+
+    @property
+    def total(self) -> int:
+        return sum(self.bytes.values())
+
+
+_COUNTS: List[CollectiveCounts] = []
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count every collective this process's mesh wrappers run inside the
+    ``with`` block (nested blocks each count); yields the
+    ``CollectiveCounts``."""
+    counts = CollectiveCounts()
+    _COUNTS.append(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTS.remove(counts)
+
+
+def _record(kind: str, operand: torch.Tensor):
+    for counts in _COUNTS:
+        counts.bytes[kind] += operand.numel() * operand.element_size()
+        counts.calls[kind] += 1
+
+
 def _staged(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """The tensor the backend's collective takes: gloo has no CUDA
     collectives, so under ``backend="gloo"`` a CUDA tensor goes through
@@ -231,6 +292,7 @@ def _gather_group(mesh: Mesh, t: torch.Tensor, group, n: int,
                   dim: int) -> torch.Tensor:
     src = _staged(mesh, t).contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
+    _record("all-gather", src)
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
 
@@ -255,6 +317,7 @@ def _all_reduce(mesh: Mesh, t: torch.Tensor, op, axes: Axes):
     buf = _staged(mesh, t).contiguous()
     for g in ([group] if group is not None
               else [mesh.axis_group(a) for a in axes]):
+        _record("all-reduce", buf)
         dist.all_reduce(buf, op=op, group=g)
     return buf.to(t.device)
 
@@ -288,6 +351,7 @@ def _all_to_all(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
                          f"{n} ranks along {axis!r}")
     src = _staged(mesh, t).contiguous()
     out = torch.empty_like(src)
+    _record("all-to-all", src)
     dist.all_to_all_single(out, src, group=mesh.axis_group(axis))
     return out.to(t.device)
 
@@ -358,6 +422,27 @@ class _PMean(torch.autograd.Function):
         return g * ctx.scale, None, None
 
 
+class _UsePartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(ctx.mesh, g, ctx.axes), None, None
+
+
+class _SumPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return all_reduce_sum(mesh, t, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 def _live(mesh: Mesh, axes: Axes) -> Tuple[str, ...]:
     """``axes`` less those of size 1 (no collective runs over them)."""
     return tuple(a for a in _axes(mesh, axes) if mesh.shape[a] > 1)
@@ -409,3 +494,22 @@ def pmean(mesh: Mesh, t: torch.Tensor, axes: Axes = None) -> torch.Tensor:
     non-data axes of ``axes`` (the data axes' mean is the step's)."""
     axes = _live(mesh, axes)
     return _PMean.apply(t, mesh, axes) if axes else t
+
+
+def use_partial(mesh: Mesh, t: torch.Tensor, axes: Axes = None
+                ) -> torch.Tensor:
+    """``t`` (a value every rank of ``axes`` holds alike) as the input of
+    work each rank does on its own part (its block of a graph's edges):
+    the identity, whose backward sums the ranks' partial gradients over
+    ``axes``."""
+    axes = _live(mesh, axes)
+    return _UsePartial.apply(t, mesh, axes) if axes else t
+
+
+def sum_partial(mesh: Mesh, t: torch.Tensor, axes: Axes = None
+                ) -> torch.Tensor:
+    """The sum over the ranks along ``axes`` of each rank's partial
+    result ``t``, which every rank then uses alike (an all-reduce); its
+    backward passes the gradient through to each rank's part."""
+    axes = _live(mesh, axes)
+    return _SumPartial.apply(t, mesh, axes) if axes else t

@@ -35,7 +35,8 @@ from .context import DP_AXES, Mesh, all_gather
 
 __all__ = ["P", "NamedSharding", "dp_axes", "tree_named", "replicate_like",
            "engine_state_specs", "lm_param_specs", "opt_specs",
-           "zero_opt_specs", "lm_cache_specs", "gin_param_specs",
+           "zero_opt_specs", "batch_axes", "lm_cache_specs",
+           "gin_param_specs",
            "sasrec_param_specs", "dien_param_specs", "autoint_param_specs",
            "twotower_param_specs", "rank_block", "gather_blocks",
            "shard_tree", "gather_tree", "ROWS", "CELLS", "REPLICATED"]
@@ -123,8 +124,9 @@ def rank_block(mesh, leaf, marker, copy: bool = False):
     blocks, this rank taking the block at its index along them
     (``Mesh.axis_index``: a dim over (a1, a2) takes block c(a1) * |a2| +
     c(a2), JAX's ``NamedSharding`` order), as a copy; a dim that does not
-    divide raises. ``P()`` (and a spec that splits nothing) passes the
-    leaf through.
+    divide raises. ``P()`` (and a spec that splits nothing) gives a copy
+    of the whole leaf too: a block never shares memory with ``leaf``, so an
+    in-place step on the blocks leaves the tree they came from as it was.
 
     Under a serving marker: a ``ROWS`` or ``CELLS`` leaf's dim 0 cut into
     ``mesh.size`` equal blocks (a copy, so the whole tensor can be freed);
@@ -162,19 +164,22 @@ def _spec_block(mesh, leaf, spec: P):
                              f"ranks along {axes}")
         per = leaf.shape[dim] // n
         out = out.narrow(dim, mesh.axis_index(axes) * per, per)
-    return out if out is leaf else out.clone(
-        memory_format=torch.contiguous_format)
+    return out.clone(memory_format=torch.contiguous_format)
 
 
 def gather_blocks(mesh: Mesh, block: torch.Tensor,
                   spec: P) -> torch.Tensor:
     """The full leaf from the ranks' blocks under ``spec`` (collective:
     every rank of each split dim's axes takes part), the inverse of
-    ``rank_block``."""
+    ``rank_block``. The result is a tensor of its own, also where no
+    collective runs (a leaf no axis of size > 1 splits): a later in-place
+    step on the blocks does not change it, as JAX's gathered arrays hold
+    values."""
+    out = block
     for dim, axes in _spec_dims(spec, block.dim()):
         if mesh.axis_size(axes) > 1:
-            block = all_gather(mesh, block, dim, axes)
-    return block
+            out = all_gather(mesh, out, dim, axes)
+    return out.clone() if out is block else out
 
 
 def shard_tree(mesh: Mesh, tree: Any, specs: Any) -> Any:
@@ -257,6 +262,13 @@ def _dp_size(mesh) -> int:
     for a in dp_axes(mesh):
         n *= mesh.shape[a]
     return n
+
+
+def batch_axes(mesh, batch: int):
+    """The axes JAX's arch builders split ``batch`` rows over: the data
+    axes when their size divides it (and is at most it), else None."""
+    size = _dp_size(mesh)
+    return dp_axes(mesh) if (batch % size == 0 and batch >= size) else None
 
 
 def zero_opt_specs(params_abstract, param_specs, mesh) -> Any:

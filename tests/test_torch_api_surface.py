@@ -2,10 +2,12 @@
 name ``repro_torch.search.__all__`` exports resolves and is documented,
 the composable entry points are exported, and every module of
 ``repro_torch`` exports at least what its JAX twin's ``__all__`` does,
-less a named list of what ROADMAP.md item 13 (the dry-run tools and the
-ArchSpec builders they lower) still owes, the Pallas
-kernels' entry points (the port's CUDA kernels are their own wrappers)
-and the one rename ``jax_profile -> torch_profile``. Then the public functions the
+less the Pallas kernels' entry points (the port's CUDA kernels are their
+own wrappers) and the one rename ``jax_profile -> torch_profile``; the
+lists of what a ROADMAP.md item still owes (``_ITEM_13``,
+``_MODULES_OWED``) are empty since the dry-run tools and the ArchSpec
+builders landed, and a name put back on them fails while the port exports
+it. Then the public functions the
 surface gained in the same slice, each against its JAX twin:
 ``ivf_search``, ``ivfpq_search``, ``as_serve_config``,
 ``dequantize_lut``, ``mu_b_fast`` and ``mu_b_fast_value_and_grad``."""
@@ -22,16 +24,9 @@ torch.set_num_threads(1)
 
 import repro_torch.search as search  # noqa: E402
 
-# JAX module -> names its __all__ has that the port does not export yet:
-# the ArchSpec builders the dry-run tools lower
-_ITEM_13 = {
-    "repro.configs": {"get_arch", "all_arch_names", "ArchSpec", "ShapeDef"},
-    "repro.configs.lm_family": {"make_lm_arch"},
-    "repro.configs.recsys_family": {"make_sasrec_arch", "make_dien_arch",
-                                    "make_autoint_arch",
-                                    "make_twotower_arch"},
-    "repro.configs.gnn_family": {"make_gin_arch"},
-}
+# JAX module -> names its __all__ has that the port does not export yet
+# (item 13's ArchSpec builders, the last, landed with the dry-run tools)
+_ITEM_13 = {}
 # the Pallas kernels' entry points: the port launches CUDA kernels
 # through its own wrappers (knn_topk, pairwise_stats, pq_adc_topk,
 # pq_adc_gather_topk, which it does export)
@@ -43,10 +38,8 @@ _PALLAS = {
 }
 _RENAMED = {"repro.search": {"jax_profile": "torch_profile"},
             "repro.search.tracing": {"jax_profile": "torch_profile"}}
-# JAX modules with no port twin yet, and the item that ports each
-_MODULES_OWED = {
-    "repro.configs.common": 13,
-}
+# JAX modules with no port twin yet, and the item that ports each (none)
+_MODULES_OWED = {}
 
 
 def test_all_names_resolve():

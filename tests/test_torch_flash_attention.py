@@ -158,8 +158,13 @@ def test_wrapper_rejects_bad_inputs():
         fa.flash_attention_fwd(q, k, v, 0)
     with pytest.raises(ValueError, match="fit q"):
         fa.flash_attention_fwd(q, k, v[:, :, :1])
-    with pytest.raises(ValueError, match="no kernel"):
-        fa.flash_attention_fwd(*(t.to("meta") for t in (q, k, v)))
+    # a meta tensor models the card (the dry-run): the launch's meta
+    # kernel gives the output's shape and dtype, and counts as a launch
+    before = fa.flash_attention_fwd.launches
+    out = fa.flash_attention_fwd(*(t.to("meta") for t in (q, k, v)))
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert out.dtype == q.dtype
+    assert fa.flash_attention_fwd.launches == before + 1
     before = fa.flash_attention_fwd.launches
     fa.flash_attention_fwd(q, k, v)                   # CPU: the plain path
     assert fa.flash_attention_fwd.launches == before

@@ -587,7 +587,12 @@ def test_rank_block_keeps_the_serving_markers():
     assert torch.equal(sh.rank_block(m, x, sh.ROWS), x[2:])
     assert torch.equal(sh.rank_block(m, x, sh.CELLS), x[2:])
     assert sh.rank_block(m, x, sh.REPLICATED) is x
-    assert sh.rank_block(m, x, sh.P()) is x
+    # under a spec, a whole leaf's block is a copy (F8: no block shares
+    # memory with the tree it came from)
+    whole = sh.rank_block(m, x, sh.P())
+    assert torch.equal(whole, x)
+    assert whole.untyped_storage().data_ptr() != \
+        x.untyped_storage().data_ptr()
     assert torch.equal(sh.rank_block(m, x, sh.P("data", None)), x[2:])
     with pytest.raises(ValueError, match="multiple"):
         sh.rank_block(_mesh_record("2x2", 0), torch.ones(3, 2),
