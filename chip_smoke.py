@@ -6,8 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 ``--k4-timings`` time K1, K2 or K4 alone: see k1_alone, k2_alone and
 k4_alone; ``--fit-spread`` makes path 9 (c)'s m-64 fits once: see
 fit_spread; ``--dryrun-smoke`` prints path 15 (c)'s fake traces, which
-path 15 runs in a subprocess: see dryrun_smoke; ``--custom-op-timings``
-times K5, K6 and the aggregate alone: see custom_op_timings.)
+path 15 runs in a subprocess: see dryrun_smoke; ``--dryrun-serve``
+prints the dry-run of path 16's cuts, likewise: see dryrun_serve;
+``--custom-op-timings`` times K5, K6 and the aggregate alone: see
+custom_op_timings.)
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. device   CUDA must be present; prints the card's name and power limit.
@@ -458,15 +460,52 @@ Phases (any failure exits nonzero; no phase's failure is caught):
               card (NCCL, world 1): FLOPs and collective bytes equal, the
               peak within DRY_PEAK_RTOL. (e) olmoe-1b-7b at 4 x 4096 on a
               (4, 1) ZeRO-1 and a (1, 4) EP mesh: the predicted peak a rank
-              against the card's 80 GB, reported.
+              against the card's 80 GB, reported. (a) also holds gemma3-4b
+              long_500k on both meshes (status ok), and one job traces
+              path 16's cuts (``--dryrun-serve``) for path 16 (d). Path
+              16 (b)'s gloo ranks run while the jobs finish (both host
+              work; the traces leave cores idle once the short ones end).
+  37. path 16  LM prefill and decode over a ("data", "model") mesh
+              (parallel.step's serving rank programs: the KV cache split
+              on the sequence under lm_cache_specs, decode attention
+              merged across the ranks). (a) TinyLlama-1.1B at full width
+              and depth on a (1, 1) NCCL mesh at one (16, 16) production
+              rank's share of each cell: prefill_32k's 2 x 32,768 (K5 22
+              launches, bf16) and decode_32k's 8 rows over a 32,768-slot
+              cache filled by a prefill of 32,752 tokens, then 16 decode
+              steps; logits and every cache leaf bit-equal to the
+              unsharded lm_prefill / lm_decode_step; prefill ms and tok/s,
+              decode ms a step (p50) and busy share, peak memory; K5 at
+              (B 2, S 32,768) beside its plain version, SDPA and its
+              bound. (b) gloo ranks on cuda:0 at full width and cut depth
+              (SERVE_B_CASES: TinyLlama on (1, 4), the sequence split over
+              "model"; granite-moe-1b-a400m on (2, 2), EP prefill and
+              dense decode; gemma3-4b 5 local + 1 global layers on (2, 2),
+              batch 1, the global cache over every axis, the windows
+              whole): a prefill, then decode steps fed one process's
+              greedy tokens; the cache blocks bit-equal to one process's
+              slices (granite: within SERVE_B_MOE_REL where EP's expert
+              matmuls round otherwise); the decode logits within
+              SERVE_B_LOGIT_ATOL * sqrt(layers / 22) of one process's
+              lm_decode_step from the ranks' own prefill cache, greedy
+              agreement >= LM_AGREE_FLOOR; the bytes a rank puts into each
+              collective kind. (c) gemma3-4b
+              long_500k at full size on a (1, 1) NCCL mesh: 34 layers,
+              batch 1, 524,288 slots seeded with K / V, 8 decode steps
+              bit-equal to lm_decode_step; ms a step beside its read bound
+              (the cache and the parameters at the HBM rate). (d) path
+              15's traces of (a)'s and (b)'s cuts: argument bytes equal
+              (a)'s real blocks, K5 22 in (a)'s prefill, the collective
+              bytes by kind equal (b)'s counts, the predicted peak within
+              DRY_PEAK_RTOL of (a)'s max_memory_allocated.
 
 Before those, one line {"result": {...}} holds every measurement of the
 run (``result.path4`` for the training path, ``result.path5`` for the
 evaluation path, ``result.path6``, ``result.ivf``,
 ``result.prefilter``, ``result.path7``, ``result.path8``,
 ``result.path9``, ``result.path10``, ``result.path11``,
-``result.path12``, ``result.path13``, ``result.path14`` and
-``result.path15``, and ``result.wall_s``). The line
+``result.path12``, ``result.path13``, ``result.path14``,
+``result.path15`` and ``result.path16``, and ``result.wall_s``). The line
 before the last is {"kernels": [...]} (K1, K2, K4, K5, K6, K3 and the
 GIN aggregate); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -695,10 +734,52 @@ DRY_CELLS = (                    # (a): one cell a family, both meshes
     ("olmoe-1b-7b", "train_4k", "single"),     # (the LM cells trace longest:
     ("olmoe-1b-7b", "train_4k", "multi"),      # one job a mesh)
     ("two-tower-retrieval", "retrieval_cand", "both"),
-    ("gin-tu", "ogb_products", "both"))
+    ("gin-tu", "ogb_products", "both"),
+    ("gemma3-4b", "long_500k", "both"))
 DRY_FOUR_CARDS = ("4x1", "1x4")  # (e): olmoe-1b-7b at 4 x 4096 on 4 ranks
 DRY_SMOKE_BATCH, DRY_SMOKE_SEQ = 2, 32
 CARD_BYTES = 80e9
+# path 16: LM serving over a ("data", "model") mesh (parallel.step's
+# prefill and decode rank programs). (a) TinyLlama-1.1B (full width and
+# depth, bf16) on a (1, 1) NCCL mesh at one (16, 16) production rank's
+# share of each cell: prefill_32k's 32 rows over 16 data ranks
+# (SERVE_PREFILL_BATCH x SERVE_SEQ) and decode_32k's 128 rows
+# (SERVE_DECODE_BATCH over SERVE_SEQ slots, filled by a prefill of
+# SERVE_FILL tokens, then SERVE_DECODE steps); one rank runs the unsharded
+# operations, so both are bit-equal to lm_prefill / lm_decode_step
+SERVE_PREFILL_BATCH, SERVE_SEQ = 2, 32768
+SERVE_DECODE_BATCH, SERVE_FILL, SERVE_DECODE = 8, 32752, 16
+# (b) gloo ranks on cuda:0 (every collective staged through the host), full
+# width, cut depth: (arch, mesh, layers, batch, prompt) into
+# SERVE_B_SLOTS-slot caches (lm_cache_specs' threshold: the global runs'
+# sequence split), then SERVE_B_STEPS greedy decode steps against one
+# process. The prompts leave the last blocks empty during the decode (a
+# rank with no visible slot: the merge's trap). granite runs at
+# capacity_factor E / K, so no assignment is dropped and EP's prefill is
+# one process's dispatch up to the expert matmuls' rounding
+SERVE_B_SLOTS, SERVE_B_STEPS = 8192, 4
+SERVE_B_CASES = (("tinyllama-1.1b", (1, 4), 4, 2, 3000),
+                 ("granite-moe-1b-a400m", (2, 2), 4, 4, 1024),
+                 ("gemma3-4b", (2, 2), 6, 1, 3000))
+# the decode logits against one process's lm_decode_step from the ranks'
+# own prefill cache, so that only the merge differs: it changes only the
+# f32 summation order inside decode attention (each rank's sums of its
+# block, then the ranks' sums), rounded to bf16 once a layer; path 3's
+# LM_LOGIT_ATOL bounds flash against chunked, which differ the same way and
+# more (K5 rounds P to bf16 before P·V) through 22 layers. Such errors add
+# over the layers about as a random walk, so a cut of L layers is held to
+# LM_LOGIT_ATOL * sqrt(L / 22): 0.107 at 4 layers, 0.131 at 6
+SERVE_B_LOGIT_ATOL = LM_LOGIT_ATOL
+# granite's prefill cache blocks against one process's: EP's expert bmms run
+# at other shapes than dispatch's (a slice's tokens, half the experts a
+# rank), so their bf16 outputs may round otherwise, and every layer after
+# the first reads them; each (layer, block) within MOE_ROW_REL relative L2,
+# its bound on one MoE block's rounding. The dense cases are held bit for
+# bit (every rank runs one process's operations on the same rows)
+SERVE_B_MOE_REL = MOE_ROW_REL
+# (c) gemma3-4b long_500k at full size: batch 1, LONG_SLOTS slots seeded
+# with K / V up to LONG_SLOTS - LONG_STEPS, then LONG_STEPS decode steps
+LONG_SLOTS, LONG_STEPS = 524288, 8
 
 
 # kernel-name fragments for a trace's device time by group (first match)
@@ -1042,16 +1123,17 @@ def lm_serve(torch, tf, fa, params, cfg, tokens, steps, teacher=None,
             fa.flash_attention_fwd.launches - n1, prefill_ms, step_ms)
 
 
-def k5_timing(torch, fa, q, k, v):
+def k5_timing(torch, fa, q, k, v, plain_reps=3):
     """K5 on (q, k, v) (causal, bf16, no window), second call on: its ms
-    by CUDA events beside its plain version's, scaled_dot_product_attention
-    (the library yardstick; the port never calls it) and the bound."""
+    by CUDA events beside its plain version's (``plain_reps`` calls after
+    one more), scaled_dot_product_attention (the library yardstick; the
+    port never calls it) and the bound."""
     import torch.nn.functional as F
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     k5_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), reps=10)
     k5_plain = cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v),
-                       reps=3, warmup=1)
+                       reps=plain_reps, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                           enable_gqa=True)
@@ -6692,6 +6774,8 @@ def dry_jobs(out):
                            os.path.join(out, "mpad_world1.json")]
     jobs["smoke"] = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
                      "--dryrun-smoke"]
+    jobs["serve"] = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                     "--dryrun-serve"]
     return jobs
 
 
@@ -6734,9 +6818,12 @@ def dry_record(out, cell):
         return json.load(f)
 
 
-def dryrun_path(torch, mods, p14a, p14b, counters):
-    """Path 15 (the module docstring, phase 36). Returns (result dict,
-    K5 / K6 / aggregate launches of (c)'s real steps)."""
+def dryrun_path(torch, mods, p14a, p14b, counters, beside=None):
+    """Path 15 (the module docstring, phase 36). ``beside()``, if given,
+    runs while the trace jobs finish (host-bound work of path 16 (b): the
+    traces leave cores idle once the short ones are done). Returns (result
+    dict, K5 / K6 / aggregate launches of (c)'s real steps, the records of
+    path 16's cuts, ``beside()``'s return value)."""
     (sh, analyze_step, phi_step, phi_args, make_mesh, init_opt_state) = mods
     import tempfile
     import torch.distributed as dist
@@ -6790,6 +6877,7 @@ def dryrun_path(torch, mods, p14a, p14b, counters):
         finally:
             dist.destroy_process_group()
         torch.cuda.empty_cache()
+        beside_out = None if beside is None else beside()
         logs = join_dry_jobs(procs, out, deadline)
         res["jobs_wall_s"] = time.perf_counter() - t_wall
 
@@ -6939,12 +7027,606 @@ def dryrun_path(torch, mods, p14a, p14b, counters):
                 f"on a {shape} mesh: arguments "
                 f"{rec['memory']['argument_size_in_bytes'] / 1e9:.2f} GB a "
                 f"rank, predicted peak {peak / 1e9:.2f} GB against 80 GB")
+        line = next(ln for ln in logs["serve"].splitlines()
+                    if ln.startswith('{"dryrun_serve"'))
+        serve_dry = json.loads(line)["dryrun_serve"]
     finally:
         shutil.rmtree(out, ignore_errors=True)
         shutil.rmtree(out + "_meta", ignore_errors=True)
     res["wall_s"] = time.perf_counter() - t_wall
     log(f"[path 15] wall {res['wall_s']:.1f} s")
-    return res, launched
+    return res, launched, serve_dry, beside_out
+
+
+def serve_b_config(name, layers):
+    """Path 16 (b)'s cut of arch ``name``: its published config at
+    ``layers`` layers, K5, granite at capacity_factor E / K."""
+    from repro_torch.configs.registry import config_module
+    cfg = dataclasses.replace(config_module(name).CONFIG, n_layers=layers,
+                              attn_impl="flash")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return cfg
+
+
+def serve_dry_cuts():
+    """Path 16's dry-run cuts: {name: (arch, shape, mesh shape, cut)}:
+    (a)'s two cells at one (16, 16) rank's share on (1, 1), and each (b)
+    case's prefill (its prompt: a prefill's collectives do not read the
+    cache) and decode (SERVE_B_SLOTS slots) on its mesh."""
+    cuts = {"a_prefill": ("tinyllama-1.1b", "prefill_32k", (1, 1),
+                          dict(batch=SERVE_PREFILL_BATCH, seq=SERVE_SEQ)),
+            "a_decode": ("tinyllama-1.1b", "decode_32k", (1, 1),
+                         dict(batch=SERVE_DECODE_BATCH, seq=SERVE_SEQ))}
+    for name, shape, layers, batch, prompt in SERVE_B_CASES:
+        cut = dict(batch=batch, layers=layers)
+        if name == "granite-moe-1b-a400m":
+            cut["capacity_factor"] = 4.0
+        cuts[f"b_prefill_{name}"] = (name, "prefill_32k", shape,
+                                     dict(cut, seq=prompt))
+        cuts[f"b_decode_{name}"] = (name, "decode_32k", shape,
+                                    dict(cut, seq=SERVE_B_SLOTS))
+    return cuts
+
+
+def serve_dry_records(device="cuda"):
+    """Path 16 (d)'s fake traces: rank 0 of each ``serve_dry_cuts`` cut on
+    fake ``device`` tensors, {name: dry-run record}."""
+    from repro_torch.launch.dryrun import cut_arch, run_cell
+    out = {}
+    for key, (name, shape, mesh, cut) in serve_dry_cuts().items():
+        arch = cut_arch(name, shape=shape, **cut)
+        out[key] = run_cell(name, shape, mesh, None, 0, device, arch=arch,
+                            verbose=False)
+    return out
+
+
+def dryrun_serve():
+    """``--dryrun-serve``: ``serve_dry_records`` as one JSON line."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    print(json.dumps({"dryrun_serve": serve_dry_records()}))
+    return 0
+
+
+def serve_reference(torch, tf, shape_config, name, layers, batch, prompt,
+                    path):
+    """Path 16 (b)'s one-process reference of one case on the card: the
+    prefill of a seeded prompt into SERVE_B_SLOTS slots, its cache, then
+    SERVE_B_STEPS greedy decode steps (the tokens fed and each step's
+    logits), saved to ``path``."""
+    cfg = serve_b_config(name, layers)
+    params = tf.lm_init_params(cfg, seed=SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 161)
+    toks = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
+                         device="cuda", dtype=torch.int32)
+    cache = tf.init_cache(cfg, batch, SERVE_B_SLOTS)
+    logits, cache = tf.lm_prefill(params, cfg, toks, cache)
+    kept = [{k: t.clone() for k, t in run.items()} for run in cache]
+    dcfg = shape_config(cfg, "decode")
+    tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+    fed, steps = [], []
+    for i in range(SERVE_B_STEPS):
+        fed.append(tok)
+        logits_i, cache = tf.lm_decode_step(params, dcfg, tok, prompt + i,
+                                            cache)
+        steps.append(logits_i.float())
+        tok = logits_i[:, :cfg.vocab].argmax(-1).to(torch.int32)
+    torch.save({"prompt": toks, "cache": kept, "prefill_logits": logits,
+                "fed": torch.stack(fed, 1), "logits": torch.stack(steps)},
+               path)
+    torch.cuda.synchronize()
+    del params, cache, kept
+
+
+def serve_mesh_rank(mesh22, tmp):
+    """One gloo rank of path 16 (b) on the card: each SERVE_B_CASES case on
+    its mesh (the (2, 2) mesh the ranks were started on, or a (1, 4) one
+    built over the same world), from this rank's blocks of the case's
+    parameters (every rank draws them from SEED on the card, as the
+    reference did): the prefill through ``make_sharded_prefill`` with the
+    bytes it puts into each collective kind and its K5 launches, its cache
+    blocks against the reference's, then the decode steps through
+    ``make_sharded_decode_step`` fed the reference's tokens, the logits
+    put together from the blocks against one process's
+    ``lm_decode_step`` from the ranks' own prefill cache (the merge alone:
+    granite's EP prefill rounds its experts otherwise than one process's
+    dispatch) and against the reference's. Returns every rank's
+    readings."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import shape_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import context as ctx
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel import step as pstep
+    out = {}
+    for name, shape, layers, batch, prompt in SERVE_B_CASES:
+        mesh = mesh22 if tuple(shape) == tuple(mesh22.dims) else make_mesh(
+            shape, ("data", "model"), backend="gloo", device=mesh22.device)
+        ref = torch.load(os.path.join(tmp, f"{name}.pt"),
+                         map_location=mesh.device)
+        cfg = serve_b_config(name, layers)
+        pspec = sh.lm_param_specs(cfg)
+        cspec = sh.lm_cache_specs(cfg, mesh, batch, SERVE_B_SLOTS)
+        b_ax = cspec[0]["k"][1]
+        full_params = tf.lm_init_params(cfg, seed=SEED)
+        params = sh.shard_tree(mesh, full_params, pspec)
+        cache = sh.shard_tree(mesh, tf.init_cache(cfg, batch, SERVE_B_SLOTS),
+                              cspec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prefill = pstep.make_sharded_prefill(cfg, mesh, pspec, cspec)
+        n5 = fa.flash_attention_fwd.launches
+        bf16 = fa.flash_attention_fwd.launches_by_route["mma_bf16"]
+        t0 = time.perf_counter()
+        with ctx.count_collectives() as c_pre:
+            logits, cache = prefill(params, sh.rank_block(
+                mesh, ref["prompt"], sh.P(b_ax, None)), cache)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        k5 = (fa.flash_attention_fwd.launches - n5,
+              fa.flash_attention_fwd.launches_by_route["mma_bf16"] - bf16)
+        want = sh.shard_tree(mesh, ref["cache"], cspec)
+        blocks = {}
+        for (key, got), (_, w) in zip(_keyed(cache), _keyed(want)):
+            blocks[key] = {"bit_equal": bool(torch.equal(got, w)),
+                           "rel_l2": rel_l2(torch, got.float(), w.float())
+                           if got.is_floating_point() else 0.0}
+        pre_full = sh.gather_blocks(mesh, logits, sh.P(b_ax, "model"))
+        pre_diff = float((pre_full.float() - ref["prefill_logits"].float())
+                         .abs().max())
+        # the merge alone: one process decodes from the ranks' own prefill
+        # cache (put together), fed the same tokens
+        one_cache = sh.gather_tree(mesh, cache, cspec)
+        dcfg = shape_config(cfg, "decode")
+        decode = pstep.make_sharded_decode_step(dcfg, mesh, pspec, cspec)
+        diffs, diffs_ref, agree, step_ms, c_steps = [], [], [], [], []
+        for i in range(SERVE_B_STEPS):
+            tok = sh.rank_block(mesh, ref["fed"][:, i], sh.P(b_ax))
+            cur = torch.tensor(prompt + i, dtype=torch.int32,
+                               device=mesh.device)
+            t0 = time.perf_counter()
+            with ctx.count_collectives() as c_dec:
+                logits, cache = decode(params, tok, cur, cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            c_steps.append(dict(c_dec.bytes))
+            full = sh.gather_blocks(mesh, logits, sh.P(b_ax, "model")).float()
+            one, one_cache = tf.lm_decode_step(full_params, dcfg,
+                                               ref["fed"][:, i], prompt + i,
+                                               one_cache)
+            diffs.append(float((full - one.float()).abs().max()))
+            diffs_ref.append(float((full - ref["logits"][i]).abs().max()))
+            agree.append(float((full[:, :cfg.vocab].argmax(-1)
+                                == one[:, :cfg.vocab].argmax(-1)).float()
+                               .mean()))
+            check(bool(torch.isfinite(full).all()), f"path 16 (b) {name}: "
+                  f"non-finite logits at step {i}")
+        out[name] = {
+            "mesh": list(shape), "rank": mesh.rank,
+            "coords": mesh.coords, "prefill_ms": pre_ms,
+            "decode_step_ms": step_ms,
+            "collective_bytes_prefill": dict(c_pre.bytes),
+            "collective_calls_prefill": dict(c_pre.calls),
+            "collective_bytes_decode_step": c_steps[0],
+            "decode_steps_alike": all(c == c_steps[0] for c in c_steps),
+            "k5_launches_prefill": k5[0], "k5_bf16_prefill": k5[1],
+            "cache_blocks": blocks,
+            "prefill_logits_max_abs_diff": pre_diff,
+            "decode_logits_max_abs_diff": diffs,
+            "decode_logits_max_abs_diff_vs_reference": diffs_ref,
+            "greedy_agreement": float(np.mean(agree)),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, full_params, cache, one_cache, want, ref, prefill, \
+            decode, logits, full, one
+        torch.cuda.empty_cache()
+    every = [None] * mesh22.size
+    dist.all_gather_object(every, out)
+    return every
+
+
+def serve_b(torch, tf, shape_config, run_ranks, smi):
+    """Path 16 (b): the one-process references (``serve_reference``), then
+    4 gloo ranks on cuda:0 (``serve_mesh_rank``), then the gates. Returns
+    (result dict, each rank's K5 launches by case)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="qpad-path16-")
+    t_wall = time.perf_counter()
+    out = {"note": "gloo on one card (every collective staged through "
+                   "host memory), run beside path 15's trace jobs: not a "
+                   "deployment's number", "card": smi,
+           "slots": SERVE_B_SLOTS, "steps": SERVE_B_STEPS, "cases": {}}
+    try:
+        t0 = time.perf_counter()
+        for name, _, layers, batch, prompt in SERVE_B_CASES:
+            serve_reference(torch, tf, shape_config, name, layers, batch,
+                            prompt, os.path.join(tmp, f"{name}.pt"))
+            torch.cuda.empty_cache()
+        out["reference_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_ranks(serve_mesh_rank, (2, 2), (tmp,), device="cuda",
+                          axis=("data", "model"), timeout=900)
+        out["ranks_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    k5 = {}
+    for name, shape, layers, batch, prompt in SERVE_B_CASES:
+        per = [r[name] for r in ranks]
+        atol = SERVE_B_LOGIT_ATOL * (layers / 22) ** 0.5
+        moe = name == "granite-moe-1b-a400m"
+        bit = all(b["bit_equal"] for r in per
+                  for b in r["cache_blocks"].values())
+        worst_rel = max(b["rel_l2"] for r in per
+                        for b in r["cache_blocks"].values())
+        diff = max(max(r["decode_logits_max_abs_diff"]) for r in per)
+        diff_ref = max(max(r["decode_logits_max_abs_diff_vs_reference"])
+                       for r in per)
+        agree = min(r["greedy_agreement"] for r in per)
+        k5[name] = [r["k5_launches_prefill"] for r in per]
+        out["cases"][name] = {
+            "mesh": list(shape), "layers": layers, "batch": batch,
+            "prompt": prompt, "ranks": per,
+            "cache_bit_equal": bit, "cache_worst_rel_l2": worst_rel,
+            "decode_logits_max_abs_diff": diff, "logits_atol": atol,
+            "decode_logits_max_abs_diff_vs_reference": diff_ref,
+            "greedy_agreement": agree}
+        log(f"[path 16] (b) {name} {layers} layers on {shape} gloo ranks, "
+            f"batch {batch}, prompt {prompt} into {SERVE_B_SLOTS} slots: "
+            f"prefill {[round(r['prefill_ms'], 1) for r in per]} ms a rank,"
+            f" decode {[round(float(np.median(r['decode_step_ms'])), 1) for r in per]}"
+            f" ms a step (p50); cache blocks bit-equal {bit} (worst rel "
+            f"L2 {worst_rel:.3e}); decode logits max |diff| {diff:.4f} "
+            f"(bound {atol:.4f}) against one process from the ranks' cache, "
+            f"{diff_ref:.4f} against the reference's prefill and decode; "
+            f"greedy agreement {agree:.3f}; rank 0's "
+            f"collective bytes: prefill "
+            f"{ {k: v for k, v in per[0]['collective_bytes_prefill'].items() if v} }"
+            f", a decode step "
+            f"{ {k: v for k, v in per[0]['collective_bytes_decode_step'].items() if v} }"
+            f"; K5 {k5[name]} a rank; peak "
+            f"{[round(r['peak_mem_gb'], 2) for r in per]} GB")
+        check(all(r["k5_launches_prefill"] == layers
+                  and r["k5_bf16_prefill"] == layers for r in per),
+              f"path 16 (b) {name}: K5 launches {k5[name]}, want {layers} "
+              "a rank on the bf16 route")
+        check(all(r["decode_steps_alike"] for r in per),
+              f"path 16 (b) {name}: decode steps moved different bytes")
+        check(bit or (moe and worst_rel <= SERVE_B_MOE_REL),
+              f"path 16 (b) {name}: cache blocks differ from one process's "
+              f"(worst rel L2 {worst_rel:.3e})")
+        check(diff <= atol, f"path 16 (b) {name}: decode logits differ by "
+              f"{diff} > {atol}")
+        check(agree >= LM_AGREE_FLOOR, f"path 16 (b) {name}: greedy "
+              f"agreement {agree} < {LM_AGREE_FLOOR}")
+    out["wall_s"] = time.perf_counter() - t_wall
+    return out, k5
+
+
+def serve_a(torch, mods, base_cfg, counters):
+    """Path 16 (a): ``base_cfg`` (TinyLlama-1.1B) on a (1, 1) NCCL mesh at
+    one production rank's share of prefill_32k and decode_32k (the module
+    docstring, phase 37). Returns (result dict, K5 launches on the main
+    runs, K5's max |err| at the path's shape, K5 timing dict)."""
+    (tf, fa, sh, pstep, make_mesh, shape_config, lm_param_count,
+     tensor_bytes, rms_norm) = mods
+    import torch.distributed as dist
+    cfg = dataclasses.replace(base_cfg, attn_impl="flash")
+    dcfg = shape_config(cfg, "decode")
+    out = {"config": cfg.name, "n_layers": cfg.n_layers, "mesh": [1, 1],
+           "backend": "nccl"}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 160)
+
+    def ints(high, *shape):
+        return torch.randint(0, high, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"), backend="nccl")
+    try:
+        pspec = sh.lm_param_specs(cfg)
+        params = sh.shard_tree(mesh, tf.lm_init_params(cfg, seed=SEED),
+                               pspec)
+        torch.cuda.synchronize()
+        # prefill_32k at one rank's share: counts zeroed just before
+        cspec = sh.lm_cache_specs(cfg, mesh, SERVE_PREFILL_BATCH, SERVE_SEQ)
+        prefill = pstep.make_sharded_prefill(cfg, mesh, pspec, cspec)
+        tokens = ints(cfg.vocab, SERVE_PREFILL_BATCH, SERVE_SEQ)
+        cache = tf.init_cache(cfg, SERVE_PREFILL_BATCH, SERVE_SEQ)
+        args = (params, tokens, cache)
+        out["prefill_argument_bytes"] = tensor_bytes(args)
+        for fn in counters:
+            fn.launches = 0
+        fa.flash_attention_fwd.launches_by_route = dict.fromkeys(fa.ROUTES,
+                                                                 0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = prefill(*args)
+        torch.cuda.synchronize()
+        out["first_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prefill_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                     - base + out["prefill_argument_bytes"])
+        launches = fa.flash_attention_fwd.launches
+        routes = dict(fa.flash_attention_fwd.launches_by_route)
+        others = {fn.__name__: fn.launches for fn in counters
+                  if fn is not fa.flash_attention_fwd}
+        check(launches == cfg.n_layers and routes["mma_bf16"] == launches,
+              f"path 16 (a): K5 launched {launches} times ({routes}) in the "
+              f"prefill, want {cfg.n_layers} on mma_bf16")
+        check(not any(others.values()), f"another kernel ran on path 16 "
+              f"(a): {others}")
+        ref_cache = tf.init_cache(cfg, SERVE_PREFILL_BATCH, SERVE_SEQ)
+        ref_logits, ref_cache = tf.lm_prefill(params, cfg, tokens, ref_cache)
+        pre_equal = bool(torch.equal(logits, ref_logits)) and all(
+            torch.equal(a, b) for (_, a), (_, b) in
+            zip(_keyed(cache), _keyed(ref_cache)))
+        del ref_cache, ref_logits
+        t0 = time.perf_counter()
+        prefill(params, tokens, cache)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        n_tok = SERVE_PREFILL_BATCH * SERVE_SEQ
+        # K5 at the path's shape: layer 0's q, k, v of these tokens
+        lp0 = {key: t[0] for key, t in params["runs"][0].items()
+               if not isinstance(t, dict)}
+        with torch.inference_mode():
+            x = rms_norm(params["embed"][tokens].to(cfg.dtype), lp0["ln1"])
+            q, k, v = tf._qkv(cfg, x, lp0, torch.arange(SERVE_SEQ,
+                                                        device="cuda"), None)
+        del x
+        out["k5_check"] = {}
+        k5_err = compare_k5(torch, fa, "K5 path 16 bf16 B=2 S=32768", q, k,
+                            v, None, out["k5_check"])
+        k5 = k5_timing(torch, fa, q, k, v, plain_reps=1)
+        del q, k, v
+        model_flops = (2 * lm_param_count(cfg) * n_tok
+                       + cfg.n_layers * k5["ops"])
+        out.update({
+            "prefill": {"batch": SERVE_PREFILL_BATCH, "seq": SERVE_SEQ,
+                        "bit_equal": pre_equal, "ms": pre_ms,
+                        "tok_per_s": n_tok / (pre_ms / 1e3),
+                        "model_flops": model_flops,
+                        "peak_share": model_flops / (pre_ms / 1e3)
+                        / BF16_OPS_PER_S,
+                        "k5_launches": launches, "k5_by_route": routes}})
+        log(f"[path 16] (a) prefill {SERVE_PREFILL_BATCH} x {SERVE_SEQ} on a "
+            f"(1, 1) NCCL mesh: {out['first_prefill_ms']:.1f} ms first, "
+            f"{pre_ms:.1f} ms second, {out['prefill']['tok_per_s']:.0f} "
+            f"tok/s ({out['prefill']['peak_share']:.4f} of the bf16 peak); "
+            f"bit-equal to lm_prefill: {pre_equal}; K5 {launches} "
+            f"launches; peak {out['prefill_peak_bytes'] / 1e9:.3f} GB "
+            f"(arguments {out['prefill_argument_bytes'] / 1e9:.3f})")
+        check(pre_equal, "path 16 (a): the prefill rank program is not "
+              "lm_prefill bit for bit")
+        del cache, tokens, args, logits
+        torch.cuda.empty_cache()
+
+        # decode_32k at one rank's share: a prefill fills the cache, then
+        # SERVE_DECODE steps through the rank program beside lm_decode_step
+        cspec = sh.lm_cache_specs(cfg, mesh, SERVE_DECODE_BATCH, SERVE_SEQ)
+        prefill = pstep.make_sharded_prefill(cfg, mesh, pspec, cspec)
+        decode = pstep.make_sharded_decode_step(dcfg, mesh, pspec, cspec)
+        fill = ints(cfg.vocab, SERVE_DECODE_BATCH, SERVE_FILL)
+        cache = tf.init_cache(cfg, SERVE_DECODE_BATCH, SERVE_SEQ)
+        n0 = fa.flash_attention_fwd.launches
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, fill, cache)
+        torch.cuda.synchronize()
+        fill_ms = (time.perf_counter() - t0) * 1e3
+        fill_k5 = fa.flash_attention_fwd.launches - n0
+        launches += fill_k5
+        del fill
+        ref_cache = [{k: t.clone() for k, t in run.items()} for run in cache]
+        tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        equal, step_ms = True, []
+        for i in range(SERVE_DECODE):
+            cur = torch.tensor(SERVE_FILL + i, dtype=torch.int32,
+                               device="cuda")
+            if i == 0:
+                args = (params, tok, cur, cache)
+                out["decode_argument_bytes"] = tensor_bytes(args)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            la, cache = decode(params, tok, cur, cache)
+            e.record()
+            torch.cuda.synchronize()
+            step_ms.append(s.elapsed_time(e))
+            if i == 0:
+                out["decode_peak_bytes"] = (
+                    torch.cuda.max_memory_allocated() - base
+                    + out["decode_argument_bytes"])
+            lb, ref_cache = tf.lm_decode_step(params, dcfg, tok,
+                                              SERVE_FILL + i, ref_cache)
+            equal = equal and bool(torch.equal(la, lb))
+            tok = la[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        equal = equal and all(torch.equal(a, b) for (_, a), (_, b) in
+                              zip(_keyed(cache), _keyed(ref_cache)))
+        del ref_cache
+        check(fa.flash_attention_fwd.launches - n0 == cfg.n_layers,
+              "path 16 (a): K5 ran in a decode step")
+        cur = torch.tensor(SERVE_SEQ - 1, dtype=torch.int32, device="cuda")
+        busy = busy_share(torch, lambda: decode(params, tok, cur, cache), 10,
+                          "path 16 (a) decode")
+        p50 = float(np.median(step_ms))
+        out["decode"] = {
+            "batch": SERVE_DECODE_BATCH, "slots": SERVE_SEQ,
+            "fill_tokens": SERVE_FILL, "steps": SERVE_DECODE,
+            "bit_equal": equal, "fill_prefill_ms": fill_ms,
+            "fill_k5_launches": fill_k5,
+            "step_ms": {"p50": p50, "p90": float(np.percentile(step_ms, 90)),
+                        "first": step_ms[0]},
+            "tok_per_s": SERVE_DECODE_BATCH / (p50 / 1e3), "busy": busy}
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[path 16] (a) decode {SERVE_DECODE_BATCH} rows over "
+            f"{SERVE_SEQ} slots (filled by {SERVE_FILL} tokens in "
+            f"{fill_ms:.1f} ms): p50 {p50:.3f} ms a step (first "
+            f"{step_ms[0]:.3f}), {out['decode']['tok_per_s']:.1f} tok/s, "
+            f"busy {busy['busy_share']:.3f}; bit-equal to lm_decode_step "
+            f"over {SERVE_DECODE} steps: {equal}; peak "
+            f"{out['decode_peak_bytes'] / 1e9:.3f} GB a step (arguments "
+            f"{out['decode_argument_bytes'] / 1e9:.3f})")
+        check(equal, "path 16 (a): the decode rank program is not "
+              "lm_decode_step bit for bit")
+        del cache, params, logits, la, lb
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out, launches, k5_err, k5
+
+
+def serve_c(torch, mods, gemma_cfg, smi):
+    """Path 16 (c): gemma3-4b long_500k at full size on a (1, 1) NCCL mesh:
+    LONG_SLOTS slots seeded with K / V and positions up to LONG_SLOTS -
+    LONG_STEPS, then LONG_STEPS decode steps through the rank program
+    beside lm_decode_step on a copy. Returns the result dict."""
+    tf, sh, pstep, make_mesh, shape_config, tensor_bytes = (
+        mods[0], mods[2], mods[3], mods[4], mods[5], mods[7])
+    import torch.distributed as dist
+    cfg = dataclasses.replace(gemma_cfg, attn_impl="flash")
+    dcfg = shape_config(cfg, "decode")
+    cur0 = LONG_SLOTS - LONG_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((1, 1), ("data", "model"), backend="nccl")
+    try:
+        pspec = sh.lm_param_specs(cfg)
+        cspec = sh.lm_cache_specs(cfg, mesh, 1, LONG_SLOTS)
+        t0 = time.perf_counter()
+        params = tf.lm_init_params(cfg, seed=SEED)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 162)
+        cache = tf.init_cache(cfg, 1, LONG_SLOTS)
+        for run in cache:
+            run["k"].normal_(generator=g)
+            run["v"].normal_(generator=g)
+            s_run = run["pos"].shape[0]
+            seen = torch.arange(max(0, cur0 - s_run), cur0, device="cuda",
+                                dtype=torch.int32)
+            run["pos"][seen.long() % s_run] = seen
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        param_bytes, cache_bytes = tensor_bytes(params), tensor_bytes(cache)
+        ref = [{k: t.clone() for k, t in run.items()} for run in cache]
+        decode = pstep.make_sharded_decode_step(dcfg, mesh, pspec, cspec)
+        tok = torch.randint(0, cfg.vocab, (1,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        equal, step_ms = True, []
+        for i in range(LONG_STEPS):
+            cur = torch.tensor(cur0 + i, dtype=torch.int32, device="cuda")
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            la, cache = decode(params, tok, cur, cache)
+            e.record()
+            torch.cuda.synchronize()
+            step_ms.append(s.elapsed_time(e))
+            lb, ref = tf.lm_decode_step(params, dcfg, tok, cur0 + i, ref)
+            equal = equal and bool(torch.equal(la, lb))
+            check(bool(torch.isfinite(la).all()), "path 16 (c): non-finite "
+                  "logits")
+            tok = la[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        equal = equal and all(torch.equal(a, b) for (_, a), (_, b) in
+                              zip(_keyed(cache), _keyed(ref)))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del ref, cache, params, la, lb
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    p50 = float(np.median(step_ms[1:]))
+    bound = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    out = {"config": cfg.name, "mesh": [1, 1], "batch": 1,
+           "slots": LONG_SLOTS, "cur": cur0, "steps": LONG_STEPS,
+           "bit_equal": equal, "init_s": init_s, "step_ms": step_ms,
+           "step_ms_p50": p50, "param_bytes": param_bytes,
+           "cache_bytes": cache_bytes, "read_bound_ms": bound,
+           "bound_share": bound / p50, "peak_mem_gb": peak, "card": smi}
+    log(f"[path 16] (c) {cfg.name} long_500k: {LONG_SLOTS} slots, "
+        f"{LONG_STEPS} decode steps from position {cur0}: p50 {p50:.2f} ms "
+        f"a step (steps {[round(t, 2) for t in step_ms]}); read bound "
+        f"{bound:.3f} ms (cache {cache_bytes / 1e9:.3f} GB + parameters "
+        f"{param_bytes / 1e9:.3f} GB at the HBM rate); bit-equal to "
+        f"lm_decode_step: {equal}; peak {peak:.2f} GB")
+    check(equal, "path 16 (c): the decode rank program is not "
+          "lm_decode_step bit for bit")
+    return out
+
+
+def serve_d(a, b, dry):
+    """Path 16 (d): path 15's traces of (a)'s and (b)'s cuts
+    (``serve_dry_cuts``, rank 0) against (a)'s real arguments, launches
+    and peaks and (b)'s rank 0 counts. Returns the result dict."""
+    out = {"peak_rtol": DRY_PEAK_RTOL}
+    for key in dry:
+        check(dry[key]["status"] == "ok", f"path 16 (d): {key} "
+              f"{dry[key]['status']}: {dry[key].get('error')}")
+    for phase in ("prefill", "decode"):
+        rec = dry[f"a_{phase}"]
+        got = rec["memory"]["argument_size_in_bytes"]
+        want = a[f"{phase}_argument_bytes"]
+        peak, real = (rec["memory"]["peak_memory_in_bytes"],
+                      a[f"{phase}_peak_bytes"])
+        out[f"a_{phase}"] = {"argument_bytes": got, "real_argument_bytes":
+                             want, "predicted_peak_bytes": peak,
+                             "real_peak_bytes": real,
+                             "peak_rel": (peak - real) / real,
+                             "launches": rec["launches"],
+                             "collectives": rec["collectives"]}
+        log(f"[path 16] (d) (a)'s {phase} cut: argument bytes {got} (real "
+            f"{want}), predicted peak {peak / 1e9:.3f} GB against "
+            f"{real / 1e9:.3f} GB ({out[f'a_{phase}']['peak_rel']:+.2%}), "
+            f"K5 {rec['launches']['flash_attention_fwd']}")
+        check(got == want, f"path 16 (d): {phase} argument bytes {got}, the "
+              f"real blocks' {want}")
+        check(abs(out[f"a_{phase}"]["peak_rel"]) <= DRY_PEAK_RTOL,
+              f"path 16 (d): {phase} predicted peak {peak} against {real}")
+    n5 = dry["a_prefill"]["launches"]["flash_attention_fwd"]
+    want5 = a["prefill"]["k5_launches"]
+    check(n5 == want5 == a["n_layers"] and dry["a_decode"]["launches"][
+        "flash_attention_fwd"] == 0, f"path 16 (d): K5 {n5} in the prefill "
+          f"trace (want {want5}, one a layer), "
+          f"{dry['a_decode']['launches']['flash_attention_fwd']} in decode")
+    for name, *_ in SERVE_B_CASES:
+        r0 = b["cases"][name]["ranks"][0]
+        for phase, real in (("prefill", r0["collective_bytes_prefill"]),
+                            ("decode", r0["collective_bytes_decode_step"])):
+            traced = {k: v for k, v in dry[f"b_{phase}_{name}"][
+                "collectives"].items() if k not in ("total", "counts")}
+            out[f"b_{phase}_{name}"] = {"traced": traced, "measured": real}
+            log(f"[path 16] (d) (b) {name} {phase}: traced bytes by kind "
+                f"{ {k: v for k, v in traced.items() if v} }, measured "
+                f"{ {k: v for k, v in real.items() if v} }")
+            check(traced == {k: float(v) for k, v in real.items()},
+                  f"path 16 (d): {name} {phase} traced {traced}, measured "
+                  f"{real}")
+    return out
+
+
+def serve_path(torch, mods, configs, counters, smi, b, dry):
+    """Path 16 (phase 37): (a) on ``configs``' TinyLlama, (c) on its
+    gemma3-4b, then (d) against path 15's traces of the cuts (``dry``) and
+    (b) (``serve_b``'s (result dict, K5 launches), run beside path 15's
+    trace jobs). Returns (result dict, K5 launches on (a)'s main runs,
+    (b)'s K5 launches a rank by case, K5's max |err| at (a)'s shape, the
+    K5 timing at (a)'s shape)."""
+    tinyllama, gemma = configs
+    t_wall = time.perf_counter()
+    res = {"card": smi}
+    res["a"], launches, k5_err, k5 = serve_a(torch, mods, tinyllama,
+                                             counters)
+    res["b"], k5_ranks = b
+    res["c"] = serve_c(torch, mods, gemma, smi)
+    res["d"] = serve_d(res["a"], res["b"], dry)
+    res["wall_s"] = time.perf_counter() - t_wall + res["b"]["wall_s"]
+    log(f"[path 16] wall {res['wall_s']:.1f} s ((b) {res['b']['wall_s']:.1f}"
+        " s of it, beside path 15's trace jobs)")
+    return res, launches, k5_ranks, k5_err, k5
 
 
 def main():
@@ -7011,8 +7693,10 @@ def main():
         from repro_torch.data import graph as graph_data
         from repro_torch.kernels import graph_agg as ga
         from repro_torch.models import gnn
-        from repro_torch.launch.step_analysis import analyze_step
+        from repro_torch.launch.step_analysis import (analyze_step,
+                                                      tensor_bytes)
         from repro_torch.launch.dryrun_mpad import phi_args, phi_step
+        from repro_torch.configs.gemma3_4b import CONFIG as GEMMA3
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -7528,10 +8212,20 @@ def main():
     result["path14"] = {"a": p14a, "b": p14b}
 
     # 36. path 15: the dry-run, against path 14 and real steps
-    p15, launches15 = dryrun_path(
+    # (path 16 (b)'s gloo ranks run beside its trace jobs)
+    p15, launches15, serve_dry, p16b = dryrun_path(
         torch, (psh, analyze_step, phi_step, phi_args, make_mesh,
-                optim.init_opt_state), p14a, p14b, counters)
+                optim.init_opt_state), p14a, p14b, counters,
+        beside=lambda: serve_b(torch, tf, shape_config, run_ranks, smi))
     result["path15"] = p15
+
+    # 37. path 16: LM prefill and decode over a ("data", "model") mesh
+    p16, k5_path16, k5_ranks16, k5_p16_err, k5_16 = serve_path(
+        torch, (tf, fa, psh, pstep, make_mesh, shape_config, lm_param_count,
+                tensor_bytes, rms_norm), (TINYLLAMA, GEMMA3), counters, smi,
+        p16b, serve_dry)
+    result["path16"] = p16
+    k5_err = max(k5_err, k5_p16_err)
 
     k1b = k1t["bounds"]
     k1_src = "src/repro_torch/kernels/pq_adc/csrc/pq_adc_gather_topk.cu"
@@ -7641,12 +8335,27 @@ def main():
                 "(b)'s 4 gloo ranks over its two steps, all bf16; "
                 "launches_path15: path 15 (c)'s real SMOKE-size step (f32 "
                 "route), whose fake trace counts the same; the launch is "
-                "a torch.library custom op since PR 26",
+                "a torch.library custom op since PR 26; launches_path16: "
+                "path 16 (a)'s rank programs on a (1, 1) NCCL mesh (the "
+                "2 x 32768 prefill and the decode cache's 8 x 32752 fill, "
+                "bf16); launches_path16_ranks: each of path 16 (b)'s 4 "
+                "gloo ranks' prefill by case; entries: K5 at path 16 (a)'s "
+                "prefill shape (B 2, S 32768, TinyLlama's heads)",
         "launches_path4": k5_train_launches,
         "launches_path10": k5_path10, "launches_path13": k5_path13,
         "launches_path14": k5_path14,
         "launches_path14_ranks": k5_ranks14,
-        "launches_path15": launches15["flash_attention_fwd"]}, {
+        "launches_path15": launches15["flash_attention_fwd"],
+        "launches_path16": k5_path16, "launches_path16_ranks": k5_ranks16,
+        "entries": [{
+            "name": "flash_attention_fwd (B 2, S 32768)", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bf16.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+            "launches": k5_path16, "max_abs_err": k5_p16_err,
+            "ms": k5_16["ms"], "plain_ms": k5_16["plain_ms"],
+            "bound_ms": k5_16["bound_ms"], "bound_by": k5_16["bound_by"],
+            "library_ms": k5_16["library_ms"]}]}, {
         "name": "fused_ce_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce_bf16.cu",
         "replaces": "src/repro/kernels/fused_ce/kernel.py:64",
@@ -7853,7 +8562,7 @@ def custom_op_timings():
 
 ALONE = {"--k1-timings": k1_alone, "--k2-timings": k2_alone,
          "--k4-timings": k4_alone, "--fit-spread": fit_spread,
-         "--dryrun-smoke": dryrun_smoke,
+         "--dryrun-smoke": dryrun_smoke, "--dryrun-serve": dryrun_serve,
          "--custom-op-timings": custom_op_timings}
 
 if __name__ == "__main__":

@@ -20,8 +20,6 @@ Each architecture module exposes ``get_arch() -> ArchSpec``; the dry-run
                                 program itself (``parallel.step``)
   * ``smoke(device)``         -- the family's reduced config, one real step
   * ``model_flops(shape)``    -- JAX's 6ND-style count
-  * ``not_ported(shape)``     -- why a cell has no rank program yet (None:
-                                it has one); JAX has no such cells
 """
 from __future__ import annotations
 
@@ -46,10 +44,6 @@ class ShapeDef:
     desc: str = ""
 
 
-def _no_rank_program(shape: str) -> Optional[str]:
-    return None
-
-
 @dataclasses.dataclass
 class ArchSpec:
     name: str
@@ -61,7 +55,6 @@ class ArchSpec:
     step_fn: Callable[[str, Any], Callable]
     smoke: Callable[[DeviceLike], dict]
     model_flops: Callable[[str], float] = lambda shape: 0.0   # 6ND-style
-    not_ported: Callable[[str], Optional[str]] = _no_rank_program
 
     def runnable_shapes(self):
         return {k: v for k, v in self.shapes.items() if v.skip is None}

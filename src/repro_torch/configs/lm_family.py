@@ -3,13 +3,14 @@ train_4k / prefill_32k / decode_32k / long_500k cells for the five
 transformer architectures, their parameter count and per-shape MoE
 implementation.
 
-The train cells' rank program is ``parallel.step.make_sharded_train_step``
-(the parameters under ``lm_param_specs``, the ZeRO-1 moments, the rows
-over the data axes) on the card's attention route, K5 (``attn_impl=
-"flash"``). The prefill and decode cells have their arguments and specs
-(``lm_cache_specs``) and no rank program yet: a cache split on the
-sequence over "model" needs attention across ranks, ROADMAP.md queue 1's
-head (``not_ported``).
+Every cell's rank program runs on the card's attention route, K5
+(``attn_impl="flash"``), with the parameters under ``lm_param_specs``:
+the train cells' is ``parallel.step.make_sharded_train_step`` (the ZeRO-1
+moments, the rows over the data axes), the prefill cells'
+``make_sharded_prefill`` and the decode cells' ``make_sharded_decode_step``
+(the KV cache under ``lm_cache_specs``: a run of 8192 slots or more split
+on its sequence, decode attention merged across the ranks that hold its
+blocks).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from repro_torch.optim import AdamWConfig, init_opt_state, make_train_step
 from .common import ArchSpec, ShapeDef, abstract_tensor, abstract_tree
 
 __all__ = ["make_lm_arch", "LM_SHAPES", "lm_param_count", "shape_config",
-           "smoke", "NOT_PORTED_REASON"]
+           "smoke"]
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", batch=256, seq=4096),
@@ -68,12 +69,6 @@ def shape_config(cfg: LMConfig, kind: str) -> LMConfig:
 
 
 _ADAM = AdamWConfig(lr=3e-4, total_steps=100_000)
-
-NOT_PORTED_REASON = (
-    "no rank program yet: a KV cache split on the sequence over 'model' "
-    "(lm_cache_specs) needs attention across ranks; ROADMAP.md queue 1, "
-    "'prefill and decode over a mesh under lm_cache_specs'")
-
 
 def smoke(c: LMConfig, device: DeviceLike = None) -> Dict[str, object]:
     """JAX's LM ``arch.smoke()`` on ``c`` (a SMOKE config): one AdamW train
@@ -179,21 +174,21 @@ def make_lm_arch(name: str, cfg: LMConfig, smoke_cfg: LMConfig,
         cspec = sh.lm_cache_specs(cfg, mesh, s["batch"], s["seq"])
         return (P(b_ax, "model"), cspec)     # logits vocab-sharded
 
-    def not_ported(sname: str) -> Optional[str]:
-        return None if table[sname]["kind"] == "train" else \
-            NOT_PORTED_REASON
-
     def step_fn(sname: str, mesh):
-        """The train cells' rank program: ``make_sharded_train_step`` on the
-        rank's blocks (K5 attention, the configured MoE)."""
-        reason = not_ported(sname)
-        if reason is not None:
-            raise NotImplementedError(f"{name} {sname}: {reason}")
-        from repro_torch.parallel.step import make_sharded_train_step
+        """The cell's rank program on the rank's blocks (K5 attention, the
+        shape's MoE implementation): the sharded train step, prefill or
+        decode step."""
+        from repro_torch.parallel import step as pstep
+        s = table[sname]
         c = dataclasses.replace(shape_cfg(sname), attn_impl="flash")
         pspec = sh.lm_param_specs(cfg)
-        return make_sharded_train_step(c, _ADAM, mesh, pspec,
-                                       _ospec(pspec, mesh))
+        if s["kind"] == "train":
+            return pstep.make_sharded_train_step(c, _ADAM, mesh, pspec,
+                                                 _ospec(pspec, mesh))
+        cspec = sh.lm_cache_specs(cfg, mesh, s["batch"], s["seq"])
+        if s["kind"] == "prefill":
+            return pstep.make_sharded_prefill(c, mesh, pspec, cspec)
+        return pstep.make_sharded_decode_step(c, mesh, pspec, cspec)
 
     def model_flops(sname: str) -> float:
         s = table[sname]
@@ -208,4 +203,4 @@ def make_lm_arch(name: str, cfg: LMConfig, smoke_cfg: LMConfig,
         abstract_args=abstract_args, arg_specs=arg_specs,
         out_specs=out_specs, step_fn=step_fn,
         smoke=lambda device=None: smoke(smoke_cfg, device),
-        model_flops=model_flops, not_ported=not_ported)
+        model_flops=model_flops)

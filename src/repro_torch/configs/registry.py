@@ -10,8 +10,7 @@ from typing import Dict
 
 from .common import ArchSpec
 
-__all__ = ["ARCH_MODULES", "NOT_PORTED", "config_module", "get_arch",
-           "all_arch_names"]
+__all__ = ["ARCH_MODULES", "config_module", "get_arch", "all_arch_names"]
 
 ARCH_MODULES = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
@@ -25,9 +24,6 @@ ARCH_MODULES = {
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
     "gin-tu": "repro_torch.configs.gin_tu",
 }
-
-# the JAX package's architectures the port does not have yet: none
-NOT_PORTED = ()
 
 
 def config_module(name: str) -> ModuleType:

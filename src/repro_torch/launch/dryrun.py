@@ -32,19 +32,18 @@ without CUDA cannot run autograd's backward on tensors that claim a CUDA
 device (the engine's device thread needs the CUDA runtime), so there the
 default is ``meta``; the two give the same numbers.
 
-Statuses: ``ok``; ``skipped`` (JAX's documented skips); ``not_ported``
-(the LM prefill / decode cells: no rank program yet, ROADMAP.md queue 1;
-their argument bytes a rank are still recorded); ``error``. The exit code
-is 1 on any ``error``.
+Statuses: ``ok``; ``skipped`` (JAX's documented skips); ``error``. The
+exit code is 1 on any ``error``.
 
 Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both \\
       [--arch NAME] [--shape NAME] [--out build/dryrun] [--rank R]
 
-A cut of an LM train cell (``--mesh-shape 2x2 --batch 4 --seq 1024
---layers 6 --capacity-factor 4.0``) traces that configuration on a
-("data", "model") mesh of the given shape: the dry-run of a run the card
-can make (``chip_smoke.py`` path 15).
+A cut of an LM cell (``--shape train_4k --mesh-shape 2x2 --batch 4
+--seq 1024 --layers 6 --capacity-factor 4.0``; any of the four LM shapes)
+traces that configuration on a ("data", "model") mesh of the given shape:
+the dry-run of a run the card can make (``chip_smoke.py`` paths 15 and
+16).
 """
 from __future__ import annotations
 
@@ -62,8 +61,7 @@ import torch
 from repro_torch.configs import all_arch_names, get_arch
 from repro_torch.configs.common import ArchSpec
 from repro_torch.launch.mesh import fake_world, production_shape
-from repro_torch.launch.step_analysis import (analyze_step, bytes_breakdown,
-                                              tensor_bytes)
+from repro_torch.launch.step_analysis import analyze_step, bytes_breakdown
 from repro_torch.parallel.context import COLLECTIVE_KINDS
 
 __all__ = ["run_cell", "cut_arch", "default_device", "main", "DEFAULT_OUT"]
@@ -79,10 +77,13 @@ def default_device() -> str:
 
 def cut_arch(name: str, batch: Optional[int] = None,
              seq: Optional[int] = None, layers: Optional[int] = None,
-             capacity_factor: Optional[float] = None) -> ArchSpec:
-    """LM arch ``name`` with its ``train_4k`` cell cut: the batch and
-    sequence, the depth, the MoE capacity factor (each None: the
-    published value)."""
+             capacity_factor: Optional[float] = None,
+             shape: str = "train_4k") -> ArchSpec:
+    """LM arch ``name`` with its ``shape`` cell (default ``train_4k``) cut:
+    the batch and sequence, the depth, the MoE capacity factor (each None:
+    the published value). The cut arch has that one cell, never skipped
+    (a cut ``long_500k`` of a full-attention arch is a run a card can
+    make)."""
     from repro_torch.configs import lm_family
     from repro_torch.configs.registry import config_module
     mod = config_module(name)
@@ -94,11 +95,11 @@ def cut_arch(name: str, batch: Optional[int] = None,
     if capacity_factor is not None and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=capacity_factor))
-    train = dict(lm_family.LM_SHAPES["train_4k"])
-    train.update({k: v for k, v in (("batch", batch), ("seq", seq))
-                  if v is not None})
-    return lm_family.make_lm_arch(name, cfg, mod.SMOKE, long_ok=False,
-                                  shapes={"train_4k": train})
+    cell = dict(lm_family.LM_SHAPES[shape])
+    cell.update({k: v for k, v in (("batch", batch), ("seq", seq))
+                 if v is not None})
+    return lm_family.make_lm_arch(name, cfg, mod.SMOKE, long_ok=True,
+                                  shapes={shape: cell})
 
 
 def _mesh_tag(shape: Tuple[int, ...]) -> str:
@@ -134,7 +135,7 @@ def run_cell(arch_name: str, shape_name: str,
     if path is not None and os.path.exists(path):
         with open(path) as f:
             rec = json.load(f)
-        if rec.get("status") in ("ok", "skipped", "not_ported"):
+        if rec.get("status") in ("ok", "skipped"):
             if verbose:
                 print(f"[cached] {cell_id}: {rec['status']}")
             return rec
@@ -151,7 +152,6 @@ def run_cell(arch_name: str, shape_name: str,
         if verbose:
             print(f"[skip]   {cell_id}: {sdef.skip}")
         return rec
-    reason = arch.not_ported(shape_name)
     t0 = time.perf_counter()
     try:
         with fake_world(mesh_shape, _axes(mesh_shape), rank, device) as mesh, \
@@ -159,13 +159,6 @@ def run_cell(arch_name: str, shape_name: str,
             args = arch.abstract_args(shape_name, device)
             blocks = shard_tree(mesh, args, arch.arg_specs(shape_name, mesh))
             del args
-            if reason is not None:
-                rec.update(status="not_ported", reason=reason, memory={
-                    "argument_size_in_bytes": tensor_bytes(blocks)})
-                _write(path, rec)
-                if verbose:
-                    print(f"[n/p]    {cell_id}: {reason}")
-                return rec
             step = arch.step_fn(shape_name, mesh)
             res = analyze_step(step, blocks, mesh)
             del blocks, res["out"]
@@ -244,11 +237,15 @@ def main(argv=None) -> int:
                              ("layers", args.layers),
                              ("capacity_factor", args.capacity_factor))
            if v is not None}
+    if cut and args.shape is None:
+        raise SystemExit("a cut (--batch, --seq, --layers, "
+                         "--capacity-factor) names its cell: --shape")
     failed = []
     t0 = time.perf_counter()
     for shape in meshes:
         for a in archs:
-            arch = cut_arch(a, **cut) if cut else get_arch(a)
+            arch = cut_arch(a, shape=args.shape, **cut) if cut \
+                else get_arch(a)
             tag = ("@" + ",".join(f"{k}={v}" for k, v in cut.items())
                    if cut else "")
             shapes = [args.shape] if args.shape else list(arch.shapes)

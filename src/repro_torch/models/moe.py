@@ -28,11 +28,15 @@ Two implementations with identical no-drop semantics:
                  batch. Without a mesh ``ep`` runs ``dispatch``.
 
 Under an active mesh (``parallel.context.mesh_context``; the sharded
-train step, ``parallel.step``) ``moe_block`` takes this rank's rows of
-the batch (its data block) and this rank's blocks of the layer's
-parameters under ``parallel.sharding.lm_param_specs``: the router's
-(D, E / mp) and the experts' (E / mp, D, F). Its output is this rank's
-rows. Its gradients follow ``parallel.context``'s convention (a rank's
+train step and prefill, ``parallel.step``) ``ep`` and ``dispatch`` take
+this rank's rows of the batch (its data block) and this rank's blocks of
+the layer's parameters under ``parallel.sharding.lm_param_specs``: the
+router's (D, E / mp) and the experts' (E / mp, D, F). Their output is
+this rank's rows. ``dispatch`` there runs what JAX's jitted ``dispatch``
+computes over a batch split on the data axes: the capacity of the whole
+batch (the fall-through above). ``dense`` combines the experts it is
+given on the rank's rows: every expert, gathered at use
+(``parallel.step.gather_at_use``). Its gradients follow ``parallel.context``'s convention (a rank's
 gradient is its data replica's; the step takes the mean over the data
 axes).
 
@@ -275,13 +279,14 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     """x: (B, S, D) -> (B, S, D), plus the scalar f32 aux loss. ``ep``
     under an active mesh takes this rank's rows and parameter blocks (the
     module docstring) and runs expert parallelism, or JAX's fall-through
-    where it does not apply; without a mesh it runs ``dispatch``."""
+    where it does not apply; ``dispatch`` under a mesh runs the
+    fall-through; without a mesh both run ``dispatch``."""
     if mcfg.impl not in IMPLS:
         raise ValueError(f"unknown moe impl {mcfg.impl!r}")
-    if mcfg.impl == "ep":
+    if mcfg.impl != "dense":
         mesh = ctx.active_mesh()
         if mesh is not None:
-            if _ep_applicable(x, mcfg, mesh):
+            if mcfg.impl == "ep" and _ep_applicable(x, mcfg, mesh):
                 return _moe_ep(x, p, mcfg, mesh)
             return _moe_gathered(x, p, mcfg, mesh)
     b, s, d = x.shape

@@ -12,8 +12,9 @@ port of ``repro.parallel``).
   ``lm_cache_specs``), GIN's and the recommenders'.
 * ``engine``: the serving state's layout pass (``shard_engine``,
   ``shard_stream``).
-* ``step``: the LM train step over rank blocks (expert parallelism on
-  the MoE layers, the ZeRO-1 update).
+* ``step``: the rank programs over blocks: the LM train step (expert
+  parallelism on the MoE layers, the ZeRO-1 update), the LM prefill and
+  decode over a split KV cache, and the other families' steps.
 
 ``engine``, ``sharding`` and ``step`` import the search package or the
 models, which import ``context``; they load at first use of their names
@@ -21,21 +22,25 @@ here.
 """
 import importlib
 
-from .context import (Mesh, active_mesh, all_gather, all_reduce_min,
-                      all_reduce_sum, constrain, mesh_context, require_mesh)
+from .context import (Mesh, active_mesh, all_gather, all_reduce_max,
+                      all_reduce_min, all_reduce_sum, constrain, mesh_context,
+                      require_mesh)
 
 __all__ = ["Mesh", "active_mesh", "mesh_context", "require_mesh",
-           "constrain", "all_gather", "all_reduce_min", "all_reduce_sum",
-           "shard_engine", "shard_stream", "dp_axes", "engine_state_specs",
-           "lm_param_specs", "opt_specs", "zero_opt_specs", "tree_named",
-           "lm_cache_specs", "replicate_like", "make_sharded_train_step"]
+           "constrain", "all_gather", "all_reduce_min", "all_reduce_max",
+           "all_reduce_sum", "shard_engine", "shard_stream", "dp_axes",
+           "engine_state_specs", "lm_param_specs", "opt_specs",
+           "zero_opt_specs", "tree_named", "lm_cache_specs",
+           "replicate_like", "make_sharded_train_step",
+           "make_sharded_prefill", "make_sharded_decode_step"]
 
 _LAZY = {"shard_engine": "engine", "shard_stream": "engine",
          "dp_axes": "sharding", "engine_state_specs": "sharding",
          "lm_param_specs": "sharding", "opt_specs": "sharding",
          "zero_opt_specs": "sharding", "tree_named": "sharding",
          "lm_cache_specs": "sharding", "replicate_like": "sharding",
-         "make_sharded_train_step": "step"}
+         "make_sharded_train_step": "step", "make_sharded_prefill": "step",
+         "make_sharded_decode_step": "step"}
 
 
 def __getattr__(name):

@@ -46,7 +46,7 @@ the mesh): a tiled ``all_gather`` on a given dim
 (``lax.all_gather(..., tiled=True)``: the blocks concatenated in the
 order JAX's ``NamedSharding`` gives a dim split over those axes),
 ``all_reduce_sum`` (``lax.psum``), ``all_reduce_min`` (``lax.pmin``),
-``pmean`` and a tiled ``all_to_all`` on dim 0
+``all_reduce_max`` (``lax.pmax``), ``pmean`` and a tiled ``all_to_all`` on dim 0
 (``lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=True)``). Every
 rank of a group gets the same result.
 
@@ -86,7 +86,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "mesh_context", "active_mesh", "require_mesh",
-           "constrain", "all_gather", "all_reduce_min", "all_reduce_sum",
+           "constrain", "all_gather", "all_reduce_min", "all_reduce_max",
+           "all_reduce_sum",
            "pmean", "all_to_all", "gather_replicated", "gather_partial",
            "take_block", "use_partial", "sum_partial", "count_collectives",
            "CollectiveCounts", "COLLECTIVE_KINDS"]
@@ -326,6 +327,12 @@ def all_reduce_min(mesh: Mesh, t: torch.Tensor,
                    axes: Axes = None) -> torch.Tensor:
     """Elementwise minimum over the ranks along ``axes`` (``lax.pmin``)."""
     return _all_reduce(mesh, t, dist.ReduceOp.MIN, axes)
+
+
+def all_reduce_max(mesh: Mesh, t: torch.Tensor,
+                   axes: Axes = None) -> torch.Tensor:
+    """Elementwise maximum over the ranks along ``axes`` (``lax.pmax``)."""
+    return _all_reduce(mesh, t, dist.ReduceOp.MAX, axes)
 
 
 def all_reduce_sum(mesh: Mesh, t: torch.Tensor,

@@ -39,6 +39,18 @@ the ranks' partial sums (``context.use_partial`` / ``sum_partial``), as
 XLA partitions JAX's ``segment_sum``; the card route stays
 ``kernels/graph_agg``.
 
+**The LM serving programs** (``make_sharded_prefill``,
+``make_sharded_decode_step``): the counterparts of JAX's jitted
+``lm_prefill`` / ``lm_decode_step`` under ``lm_cache_specs``. Each rank
+takes its batch rows, gathers the parameters at use and holds its block
+of the KV cache: a run of 8192 slots or more split on its sequence over
+"model" (over every axis when the batch is not split), a window's cache
+whole. Prefill writes the slots of the rank's block; decode writes the
+step's K / V on the rank that holds its slot and attends over its block,
+merged over the ranks that hold the others (``decode_attention``). Both
+return the logits' vocabulary block. On a mesh of one rank they run the
+one-process operations in their order.
+
 **The recommenders' serve programs** (``make_serve_step``,
 ``twotower_retrieval_step``): each rank runs the serve function on its
 block of the batch with the tables gathered at use; ``retrieval_cand``
@@ -48,21 +60,29 @@ search does (``search.serve``'s merge).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import contextlib
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch._tree import keyed_leaves, tree_map, tree_unflatten
-from repro_torch.models.transformer import LMConfig, lm_train_forward
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.transformer import (_NEG_INF, LMConfig, _layer_self,
+                                            _layers, _mlp, _qkv, _window,
+                                            layer_runs, lm_train_forward)
 from repro_torch.optim.adamw import AdamWConfig, sharded_adamw_update
 
 from . import context as ctx
 from .sharding import P, dp_axes, replicate_like
 
-__all__ = ["lm_batch_specs", "gather_at_use", "sharded_value_and_grad",
-           "sharded_loss_and_grad", "make_sharded_train_step",
-           "make_sharded_step", "gin_full_rank_loss", "make_serve_step",
-           "twotower_retrieval_step"]
+__all__ = ["lm_batch_specs", "moe_blocks", "gather_at_use",
+           "sharded_value_and_grad", "sharded_loss_and_grad",
+           "make_sharded_train_step", "make_sharded_step",
+           "gin_full_rank_loss", "make_serve_step",
+           "twotower_retrieval_step", "make_sharded_prefill",
+           "make_sharded_decode_step", "decode_attention"]
 
 
 def lm_batch_specs(mesh) -> Dict[str, P]:
@@ -71,41 +91,58 @@ def lm_batch_specs(mesh) -> Dict[str, P]:
     return {"tokens": P(dp or None, None), "labels": P(dp or None, None)}
 
 
-def _use_specs(param_specs: Any) -> Any:
+def _use_specs(param_specs: Any, moe_blocks: bool) -> Any:
     """``param_specs`` with each MoE sub-tree of an LM's runs marked
-    whole: those blocks go to ``moe.moe_block`` as they are."""
-    if not isinstance(param_specs, dict) or "runs" not in param_specs:
+    whole when ``moe_blocks``: those blocks go to ``moe.moe_block`` as
+    they are."""
+    if (not moe_blocks or not isinstance(param_specs, dict)
+            or "runs" not in param_specs):
         return param_specs
     runs = [{k: (replicate_like(v) if k == "moe" else v)
              for k, v in run.items()} for run in param_specs["runs"]]
     return {**param_specs, "runs": runs}
 
 
-def gather_at_use(mesh, params: Any, param_specs: Any) -> Any:
+def moe_blocks(cfg: LMConfig) -> bool:
+    """Whether ``cfg``'s MoE layers take the rank's blocks of their
+    parameters, which ``moe.moe_block`` under a mesh gathers itself where
+    it needs them: under ``impl="ep"`` (the experts stay local and the
+    tokens travel) and ``"dispatch"`` (the whole batch's capacity). The
+    dense combine runs over every expert it is given, so for it the MoE
+    leaves are gathered at use."""
+    return cfg.moe is not None and cfg.moe.impl in ("ep", "dispatch")
+
+
+def gather_at_use(mesh, params: Any, param_specs: Any,
+                  keep_moe_blocks: bool = False) -> Any:
     """The parameters a rank's forward uses: every leaf gathered over the
     axes its spec splits it on (``context.gather_replicated``), an LM's
-    MoE leaves kept as this rank's blocks."""
+    MoE leaves kept as this rank's blocks if ``keep_moe_blocks``
+    (``moe_blocks(cfg)``)."""
     def gather(block, spec):
         for dim, entry in enumerate(spec):
             if entry is not None:
                 block = ctx.gather_replicated(mesh, block, entry, dim)
         return block
 
-    return tree_map(gather, params, _use_specs(param_specs))
+    return tree_map(gather, params, _use_specs(param_specs, keep_moe_blocks))
 
 
 def sharded_loss_and_grad(loss_fn: Callable[[Any, Any], torch.Tensor],
                           mesh, param_specs: Any, params: Any,
-                          batch: Any) -> Tuple[torch.Tensor, Any]:
+                          batch: Any, keep_moe_blocks: bool = False
+                          ) -> Tuple[torch.Tensor, Any]:
     """(the global loss, this rank's gradient blocks as the mean over the
     data axes) of ``loss_fn(parameters gathered at use, batch)`` on this
-    rank's ``batch``. Marks the parameter blocks as requiring grad."""
+    rank's ``batch`` (``gather_at_use``'s ``keep_moe_blocks``). Marks the
+    parameter blocks as requiring grad."""
     keyed = keyed_leaves(params)
     leaves = [leaf for _, leaf in keyed]
     for p in leaves:
         p.requires_grad_(True)
     with ctx.mesh_context(mesh):
-        local = loss_fn(gather_at_use(mesh, params, param_specs), batch)
+        local = loss_fn(gather_at_use(mesh, params, param_specs,
+                                      keep_moe_blocks), batch)
         grads = list(torch.autograd.grad(local, leaves, allow_unused=True,
                                          materialize_grads=True))
     loss = local.detach()
@@ -127,12 +164,12 @@ def sharded_value_and_grad(cfg: LMConfig, mesh, param_specs: Any,
     ``batch`` rows."""
     return sharded_loss_and_grad(
         lambda p, b: lm_train_forward(p, cfg, b), mesh, param_specs, params,
-        batch)
+        batch, moe_blocks(cfg))
 
 
 def make_sharded_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                       adam: AdamWConfig, mesh, param_specs: Any,
-                      opt_specs: Any):
+                      opt_specs: Any, keep_moe_blocks: bool = False):
     """step(params, opt_state, batch) -> (loss, params, opt_state) on this
     rank's blocks: ``sharded_loss_and_grad`` of ``loss_fn``, then
     ``sharded_adamw_update``; the parameters and moments are updated in
@@ -140,7 +177,7 @@ def make_sharded_step(loss_fn: Callable[[Any, Any], torch.Tensor],
 
     def step(params, opt_state, batch):
         loss, grads = sharded_loss_and_grad(loss_fn, mesh, param_specs,
-                                            params, batch)
+                                            params, batch, keep_moe_blocks)
         params, opt_state = sharded_adamw_update(
             mesh, grads, opt_state, params, adam, param_specs, opt_specs)
         return loss, params, opt_state
@@ -154,7 +191,7 @@ def make_sharded_train_step(cfg: LMConfig, adam: AdamWConfig, mesh,
     rank's blocks (the module docstring); the parameters and moments are
     updated in place."""
     return make_sharded_step(lambda p, b: lm_train_forward(p, cfg, b), adam,
-                             mesh, param_specs, opt_specs)
+                             mesh, param_specs, opt_specs, moe_blocks(cfg))
 
 
 def gin_full_rank_loss(cfg, mesh):
@@ -237,3 +274,227 @@ def twotower_retrieval_step(cfg, mesh, param_specs: Any, k: int,
         return s, short[2, loc].long()
 
     return make_serve_step(serve, mesh, param_specs)
+
+
+# ----------------------------------------------------------- LM serving
+
+def _seq_axes(mesh, cache_spec_run) -> Tuple[str, ...]:
+    """The axes (of size > 1) a run's cache spec splits the sequence on."""
+    entry = cache_spec_run["k"][2]
+    if entry is None:
+        return ()
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    return tuple(a for a in axes if mesh.shape[a] > 1)
+
+
+def _block_start(mesh, axes: Tuple[str, ...], s_loc: int) -> int:
+    """The first slot of this rank's block of a cache split over
+    ``axes``."""
+    return mesh.axis_index(axes) * s_loc if axes else 0
+
+
+def _serving_config(cfg: LMConfig, cache_specs) -> Tuple[LMConfig, bool]:
+    """(``cfg`` as a serving rank runs it, whether its MoE layers run under
+    the mesh). Rows the data axes split (the cache specs' batch entry) run
+    under the mesh with the MoE blocks (``moe_blocks``). Rows every rank
+    holds whole run ``ep`` and ``dispatch`` as JAX's jit does then (its
+    ``_ep_applicable`` needs the batch split over the data axes):
+    ``dispatch`` over the rank's rows, which are the whole batch, with
+    every expert gathered at use."""
+    if cfg.moe is None or cache_specs[0]["k"][1] is not None:
+        return cfg, True
+    if cfg.moe.impl == "ep":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="dispatch"))
+    return cfg, False
+
+
+def _logits_block(cfg: LMConfig, mesh, params, h: torch.Tensor
+                  ) -> torch.Tensor:
+    """This rank's vocabulary block of the serving logits (``out_specs``'
+    ``P(b_ax, "model")``): ``h`` times the rank's block of the head (the
+    tied embedding's rows, or the untied head's columns, both split over
+    "model"), the padded tail masked in global column terms."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = h @ head
+    n = logits.shape[-1]
+    start = mesh.axis_index("model") * n if "model" in mesh.axis_names \
+        else 0
+    if start + n > cfg.vocab:                  # the padded vocab tail
+        logits[..., max(cfg.vocab - start, 0):] = _NEG_INF
+    return logits
+
+
+def _prefill_writes(s: int, s_run: int, start: int, s_loc: int,
+                    dev) -> Tuple[torch.Tensor, ...]:
+    """``lm_prefill``'s ring writes for a prompt of ``s`` tokens into a run
+    of ``s_run`` slots: (positions, slots) of the whole cache (``pos`` is
+    whole on every rank), then (positions, local slots) of those that fall
+    in this rank's block [start, start + s_loc). The owned ones are found
+    on the host as runs of consecutive positions (the shapes are static,
+    and a fake trace makes each run with ``arange``)."""
+    n_write = min(s, s_run)
+    src = torch.arange(s - n_write, s, device=dev)
+    dst = src % s_run
+    if start == 0 and s_loc == s_run:
+        return src, dst, src, dst
+    runs = []
+    for p in range(s - n_write, s):
+        if start <= p % s_run < start + s_loc:
+            if runs and runs[-1][1] == p:
+                runs[-1][1] = p + 1
+            else:
+                runs.append([p, p + 1])
+    src_m = torch.cat([torch.arange(a, b, device=dev) for a, b in runs]) \
+        if runs else torch.arange(0, device=dev)
+    return src, dst, src_m, src_m % s_run - start
+
+
+def make_sharded_prefill(cfg: LMConfig, mesh, param_specs: Any,
+                         cache_specs: Any):
+    """program(params, tokens, cache) -> (logits block, cache blocks): the
+    rank program of ``lm_prefill`` over ``mesh`` (JAX's jitted
+    ``lm_prefill`` under ``in_shardings = (param_specs, P(b_ax, None),
+    cache_specs)``).
+
+    Each rank takes its batch rows with the whole prompt, gathers the
+    parameters at use (the MoE layers keep their blocks under ``ep``) and
+    runs the layers as ``lm_prefill`` does (``cfg.attn_impl="flash"``: K5).
+    It writes only the slots of each run's cache block it holds (the ring
+    buffers of local runs as ``lm_prefill`` writes them) and the whole
+    ``pos``, and returns the last position's logits over its vocabulary
+    block. On a mesh of one rank it runs ``lm_prefill``'s operations in
+    their order. The cache blocks are written in place."""
+    cfg, under_mesh = _serving_config(cfg, cache_specs)
+    keep = under_mesh and moe_blocks(cfg)
+    seq = [_seq_axes(mesh, run) for run in cache_specs]
+
+    @torch.inference_mode()
+    def program(params, tokens, cache):
+        full = gather_at_use(mesh, params, param_specs, keep)
+        b, s = tokens.shape
+        dev = tokens.device
+        h = full["embed"][tokens].to(cfg.dtype)
+        q_pos = torch.arange(s, device=dev)
+        with (ctx.mesh_context(mesh) if under_mesh
+              else contextlib.nullcontext()):
+            for ri, (kind, _) in enumerate(layer_runs(cfg)):
+                rc = cache[ri]
+                s_loc = rc["k"].shape[2]
+                src, dst, src_m, dst_m = _prefill_writes(
+                    s, rc["pos"].shape[0],
+                    _block_start(mesh, seq[ri], s_loc), s_loc, dev)
+                for i, lp in enumerate(_layers(full["runs"][ri])):
+                    h, k, v, _ = _layer_self(cfg, _window(cfg, kind), h, lp,
+                                             q_pos)
+                    rc["k"][i][:, dst_m] = k[:, src_m].to(rc["k"].dtype)
+                    rc["v"][i][:, dst_m] = v[:, src_m].to(rc["v"].dtype)
+                rc["pos"][dst] = src.to(torch.int32)
+        h = rms_norm(h, full["final_norm"])
+        return _logits_block(cfg, mesh, params, h[:, -1:, :])[:, 0], cache
+
+    return program
+
+
+def decode_attention(mesh, axes: Tuple[str, ...], q: torch.Tensor,
+                     k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                     kv_pos: torch.Tensor, window: Optional[int]
+                     ) -> torch.Tensor:
+    """A rank's decode attention over its block of the cache: the
+    one-chunk softmax of ``layers.chunked_attention`` (decode attends with
+    the whole cache as one KV chunk) partitioned over the ranks along
+    ``axes`` that hold the other blocks, as GSPMD partitions JAX's.
+
+    q: (B, 1, H, dh); k, v: this rank's (B, S_loc, KV, dh) block;
+    kv_pos: its slots' positions. The scores over the rank's slots, the
+    maximum M over every rank (``all_reduce_max``), p = exp(s - M), and
+    one ``all_reduce_sum`` of [sum p, p v] packed together; the output is
+    their quotient. Only the global M is subtracted: a block with no
+    visible slot (s = -1e30 everywhere) has a local maximum of -1e30, and
+    exp(s - local max) would weigh each of its slots 1, not 0. With no
+    axis this runs ``_attn_one_q_chunk``'s operations for one chunk, bit
+    for bit. Returns (B, 1, H, dh) in q's dtype."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qf = q.reshape(b, sq, kvh, g, dh).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bckd->bqkgc", qf, kf) * (1.0 / math.sqrt(dh))
+    ok = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] >= 0)
+    if window is not None:
+        ok &= (q_pos[:, None] - kv_pos[None, :]) < window
+    s = s.masked_fill(~ok[None, :, None, None, :], _NEG_INF)
+    m = torch.maximum(torch.full((b, sq, kvh, g), _NEG_INF,
+                                 dtype=torch.float32, device=q.device),
+                      s.amax(dim=-1))
+    if axes:
+        m = ctx.all_reduce_max(mesh, m, axes)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bqkgc,bckd->bqkgd", p, vf)
+    if axes:
+        both = ctx.all_reduce_sum(mesh, torch.cat([l[..., None], acc],
+                                                  dim=-1), axes)
+        l, acc = both[..., 0], both[..., 1:]
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def make_sharded_decode_step(cfg: LMConfig, mesh, param_specs: Any,
+                             cache_specs: Any):
+    """program(params, token, cur, cache) -> (logits block, cache blocks):
+    the rank program of ``lm_decode_step`` over ``mesh`` (JAX's jitted
+    decode step under ``in_shardings = (param_specs, P(b_ax), P(),
+    cache_specs)``).
+
+    Each rank takes its batch rows' tokens, gathers the parameters at use
+    (the MoE leaves too: decode runs the dense combine, which reads every
+    expert), sets ``pos`` (whole on every rank) at ``cur``'s slot, and per
+    layer writes this step's K / V only where its block holds that slot,
+    then attends over its block (``decode_attention``, merged over the
+    axes the cache's spec splits the sequence on; a run whose cache is
+    whole attends locally). ``cur`` is a 0-d integer tensor (the cell's
+    ``P()`` argument), never read on the host: the dry-run traces it as a
+    fake tensor, and a position past a full cache fails in the index
+    write. On a mesh of one rank it runs ``lm_decode_step``'s operations,
+    bit for bit. The cache blocks are written in place."""
+    cfg, under_mesh = _serving_config(cfg, cache_specs)
+    keep = under_mesh and moe_blocks(cfg)
+    seq = [_seq_axes(mesh, run) for run in cache_specs]
+
+    @torch.inference_mode()
+    def program(params, token, cur, cache):
+        full = gather_at_use(mesh, params, param_specs, keep)
+        q_pos = cur.reshape(1).to(device=token.device, dtype=torch.int32)
+        h = full["embed"][token][:, None, :].to(cfg.dtype)
+        with (ctx.mesh_context(mesh) if under_mesh
+              else contextlib.nullcontext()):
+            for ri, (kind, _) in enumerate(layer_runs(cfg)):
+                rc = cache[ri]
+                s_run, s_loc = rc["pos"].shape[0], rc["k"].shape[2]
+                window = _window(cfg, kind)
+                ring = kind == "local" and window and s_run == window
+                slot = (q_pos % s_run if ring else q_pos).long()
+                rc["pos"].index_put_((slot,), q_pos)
+                start = _block_start(mesh, seq[ri], s_loc)
+                loc = slot - start
+                owned = ((loc >= 0) & (loc < s_loc)).view(1, 1, 1, 1)
+                idx = loc.clamp(0, s_loc - 1)
+                kv_pos = rc["pos"][start:start + s_loc]
+                for i, lp in enumerate(_layers(full["runs"][ri])):
+                    ck, cv = rc["k"][i], rc["v"][i]
+                    q, k, v = _qkv(cfg, rms_norm(h, lp["ln1"]), lp, q_pos,
+                                   window)
+                    ck[:, idx] = torch.where(owned, k.to(ck.dtype),
+                                             ck[:, idx])
+                    cv[:, idx] = torch.where(owned, v.to(cv.dtype),
+                                             cv[:, idx])
+                    attn = decode_attention(mesh, seq[ri], q,
+                                            ck.to(q.dtype), cv.to(q.dtype),
+                                            q_pos, kv_pos, window)
+                    h = h + attn.reshape(h.shape[0], 1, -1) @ lp["wo"]
+                    h = _mlp(cfg, h, lp)[0]
+        h = rms_norm(h, full["final_norm"])
+        return _logits_block(cfg, mesh, params, h)[:, 0], cache
+
+    return program

@@ -104,15 +104,31 @@ def test_cells_and_skips_match_jax():
 
 
 def test_not_ported_cells_are_the_lm_prefill_and_decode_cells():
-    owed = [(a, s) for a in ARCHS for s in get_arch(a).runnable_shapes()
-            if get_arch(a).not_ported(s)]
-    assert len(owed) == 11
-    assert all(get_arch(a).shapes[s].kind in ("prefill", "decode")
-               for a, s in owed)
-    for a, s in owed:
-        assert "ROADMAP.md" in get_arch(a).not_ported(s)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(a).step_fn(s, _port_mesh("pod"))
+    """No cell is left without a rank program: the 11 LM prefill and
+    decode cells (once without one) build theirs on both production
+    meshes, as every runnable cell does, and ``ArchSpec`` has no
+    ``not_ported`` field (JAX's has none)."""
+    import dataclasses
+
+    from repro_torch.configs.common import ArchSpec
+    from repro_torch.parallel import step as pstep
+    assert "not_ported" not in {f.name for f in dataclasses.fields(ArchSpec)}
+    serve = [(a, s) for a in ARCHS for s in get_arch(a).runnable_shapes()
+             if get_arch(a).shapes[s].kind in ("prefill", "decode")]
+    assert len(serve) == 11
+    built = 0
+    for tag in MESHES:
+        mesh = _port_mesh(tag)
+        for a in ARCHS:
+            for s in get_arch(a).runnable_shapes():
+                assert callable(get_arch(a).step_fn(s, mesh)), (a, s, tag)
+                built += 1
+        for a, s in serve:
+            fn = get_arch(a).step_fn(s, mesh)
+            want = (pstep.make_sharded_prefill if get_arch(a).shapes[s].kind
+                    == "prefill" else pstep.make_sharded_decode_step)
+            assert fn.__qualname__.startswith(want.__name__), (a, s)
+    assert built == 2 * 36
 
 
 @pytest.mark.parametrize("name", ARCHS)

@@ -9,16 +9,19 @@
   CPU tensors in a fake world, in a subprocess) reads the same collective
   bytes and calls by kind, FLOPs, unfused bytes, argument bytes and kernel
   launches as a real gloo run of the same rank program (``run_ranks``),
-  for an LM, a MoE LM (EP), sasrec, two-tower and gin (full graph and
-  molecules). On meta tensors (the card's routes) the LM and GIN traces
-  count the kernels' launches a step.
+  for an LM, a MoE LM (EP), the MoE LM's prefill and decode (its 8,192
+  slots split over "model": the merge's ``all_reduce_max`` and sums),
+  sasrec, two-tower and gin (full graph and molecules). On meta tensors
+  (the card's routes) the LM and GIN traces count the kernels' launches a
+  step.
 * The new rank programs against one process: at (1, 1) the sharded
   recsys / GIN train steps are bit-equal to ``make_train_step``; at
   (2, 2) the loss within ``LOSS_RTOL`` and step 0's gradients within
   ``GRAD_REL`` (f32, summed in other orders); the serve programs' ids
   equal one process's.
-* The CLIs: ``launch.dryrun``'s statuses (ok, skipped, not_ported) and its
-  cache; ``launch.dryrun_mpad`` on an 8-rank fake world at N 8192 x 64:
+* The CLIs: ``launch.dryrun``'s statuses (ok, skipped: a decode cell
+  traced through its rank program) and its cache; ``launch.dryrun_mpad``
+  on an 8-rank fake world at N 8192 x 64:
   a rank's all-gather of its 1,024 projections (4,096 B) and all-reduce
   of the 64-gradient (256 B), the closed form.
 
@@ -49,6 +52,7 @@ RANKS = (0, 3)
 
 # case -> the cells it traces
 CASES = {"lm": ("train_4k",), "moe": ("train_4k",),
+         "lm_serve": ("prefill_32k", "decode_32k"),
          "sasrec": ("train_batch", "serve_p99"),
          "twotower": ("train_batch", "serve_p99", "retrieval_cand"),
          "gin_full": ("full_graph_sm",), "gin_mol": ("molecule",)}
@@ -62,6 +66,16 @@ def _case(name):
         recsys_family
     from repro_torch.models import gnn, recsys as rs
     from repro_torch.models import transformer as tf
+    if name == "lm_serve":
+        # the decode cell's 8,192 slots split on the sequence over "model"
+        # (lm_cache_specs' threshold): the merged attention's collectives
+        cfg = LM_CONFIGS["granite-moe-1b-a400m"][1]
+        arch = lm_family.make_lm_arch(
+            "granite-moe-1b-a400m", cfg, cfg, long_ok=False,
+            shapes={"prefill_32k": dict(kind="prefill", batch=4, seq=32),
+                    "decode_32k": dict(kind="decode", batch=4, seq=8192)})
+        return (arch, lambda: tf.lm_init_params(cfg, 0, "cpu"),
+                {"tokens": cfg.vocab}, {})
     if name in ("lm", "moe"):
         arch_name = "tinyllama-1.1b" if name == "lm" else \
             "granite-moe-1b-a400m"
@@ -139,6 +153,19 @@ def _real_args(name, sname, seed=0):
     shapes = arch.abstract_args(sname, "meta")
     rng = np.random.default_rng(seed)
     params = init()
+    if arch.family == "lm" and arch.shapes[sname].kind != "train":
+        # a prompt or a decode token, the empty cache (pos -1) and the
+        # position half-way (a decode attends to its own slot)
+        cache = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype),
+                         shapes[-1])
+        for run in cache:
+            run["pos"].fill_(-1)
+        toks = torch.from_numpy(rng.integers(
+            0, highs["tokens"], tuple(shapes[1].shape))).to(torch.int32)
+        if arch.shapes[sname].kind == "prefill":
+            return (params, toks, cache)
+        cur = torch.tensor(cache[0]["pos"].shape[0] // 2, dtype=torch.int32)
+        return (params, toks, cur, cache)
     batch = {}
     for key, leaf in shapes[-1].items():
         shape, dt = tuple(leaf.shape), leaf.dtype
@@ -254,7 +281,7 @@ def _fake_main():
                                arch=arch, verbose=False)
                 assert rec["status"] == "ok", rec.get("traceback")
                 out[f"{name}|{sname}|{rank}|cpu"] = rec
-        if name in ("lm", "moe", "gin_full"):
+        if name in ("lm", "moe", "lm_serve", "gin_full"):
             rec = run_cell(arch.name, cells[0], (2, 2), None, 0, "meta",
                            arch=arch, verbose=False)
             assert rec["status"] == "ok", rec.get("traceback")
@@ -314,9 +341,14 @@ def test_fake_trace_equals_a_real_gloo_run(fake, real, name, sname):
                "launches": rec["launches"]}
         assert got == want, (rank, got, want)
         assert rec["collectives"]["total"] == sum(want["coll"].values())
-    if name in ("lm", "moe", "sasrec", "twotower", "gin_full"):
-        # the split tables, experts or edges move bytes between ranks
+    if name in ("lm", "moe", "lm_serve", "sasrec", "twotower", "gin_full"):
+        # the split tables, experts, edges or cache move bytes between ranks
         assert sum(want["coll"].values()) > 0
+    if sname == "decode_32k":
+        # a layer's merge over "model": its maximum, then its sums
+        n_layers = _case(name)[0].abstract_args(sname, "meta")[-1][0][
+            "k"].shape[0]
+        assert want["calls"]["all-reduce"] == 2 * n_layers, want
 
 
 def test_fake_traces_on_the_card_route_count_the_kernels(fake):
@@ -330,6 +362,11 @@ def test_fake_traces_on_the_card_route_count_the_kernels(fake):
         assert rec["launches"]["fused_ce_fwd"] == 32 // cfg.seq_chunk
         assert rec["launches"]["flash_attention_fwd_by_route"][
             "simt_f32"] == 2 * cfg.n_layers
+    rec = fake["lm_serve|prefill_32k|0|meta"]
+    n = LM_CONFIGS["granite-moe-1b-a400m"][1].n_layers
+    # one K5 launch a layer, none on the decode
+    assert rec["launches"]["flash_attention_fwd"] == n
+    assert rec["launches"]["flash_attention_fwd_by_route"]["simt_f32"] == n
     rec = fake["gin_full|full_graph_sm|0|meta"]
     # 3 layers forward, 2 backward (the features need no gradient)
     assert rec["launches"]["csr_gather_sum_by_order"] == {"dst": 3, "src": 2}
@@ -456,8 +493,13 @@ def test_dryrun_cli_statuses_and_cache(tmp_path):
                 "temp_size_in_bytes", "peak_memory_in_bytes"):
         assert key in mol["memory"], key
     dec = recs["multipod_2x16x16.tinyllama-1.1b.decode_32k.json"]
-    assert dec["status"] == "not_ported" and "ROADMAP" in dec["reason"]
+    assert dec["status"] == "ok", dec.get("traceback")
     assert dec["memory"]["argument_size_in_bytes"] > 0
+    # 128 rows over 32 data ranks, 32,768 slots over 16 model ranks: a
+    # layer's merge is two all-reduces over "model"; no K5 in a decode
+    assert dec["collectives"]["counts"]["all-reduce"] == 2 * 22
+    assert dec["collectives"]["counts"]["all-gather"] > 0
+    assert dec["launches"]["flash_attention_fwd"] == 0
     assert recs["multipod_2x16x16.tinyllama-1.1b.long_500k.json"][
         "status"] == "skipped"
     again = _run(code.format(f"'--arch', 'gin-tu', '--shape', 'molecule', "

@@ -21,7 +21,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch._tree import keyed_leaves  # noqa: E402
 from repro_torch.configs import LM_CONFIGS  # noqa: E402
 from repro_torch.configs.registry import (ARCH_MODULES,  # noqa: E402
-                                          NOT_PORTED, config_module)
+                                          config_module)
 from repro_torch.data import deterministic_shard, lm_token_batches  # noqa
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_ce as fce  # noqa: E402
@@ -460,8 +460,7 @@ def test_registry_names_the_ported_archs():
     jax, _ = _jax()
     import importlib
     from repro.configs.registry import ARCH_MODULES as JAX_ARCHS
-    assert sorted(JAX_ARCHS) == sorted([*ARCH_MODULES, *NOT_PORTED])
-    assert NOT_PORTED == ()
+    assert sorted(JAX_ARCHS) == sorted(ARCH_MODULES)
     for name in ("sasrec", "dien", "autoint", "two-tower-retrieval",
                  "gin-tu"):
         jcfg = importlib.import_module(JAX_ARCHS[name]).CONFIG
