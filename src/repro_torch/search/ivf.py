@@ -22,6 +22,7 @@ import torch
 from repro_torch._segment import segment_sum
 
 from .knn import masked_topk, topk_smallest
+from .tracing import span
 
 __all__ = ["IVFIndex", "sq_dists", "nearest", "kmeans", "posting_lists",
            "balance_cells", "probe_cells", "build_ivf", "cell_vectors",
@@ -197,14 +198,16 @@ def ivf_scan(index: IVFIndex, q: torch.Tensor, k: int, nprobe: int = 8):
     were probed."""
     q = q.to(torch.float32)
     cent, lists, vecs = index
-    _, cand, _ = probe_cells(cent, lists, q, nprobe, k)
-    valid = cand >= 0
-    cv = vecs[cand.clamp_min(0)]                          # (Q, C, d)
-    d2 = ((cv - q[:, None, :]) ** 2).sum(dim=-1)
-    d2 = torch.where(valid, d2, float("inf"))
-    vals, sel = topk_smallest(d2, k)
-    ids = torch.gather(cand, 1, sel)
-    return vals.clamp_min(0.0).sqrt(), ids
+    with span("search.probe"):
+        _, cand, _ = probe_cells(cent, lists, q, nprobe, k)
+    with span("search.scan"):
+        valid = cand >= 0
+        cv = vecs[cand.clamp_min(0)]                      # (Q, C, d)
+        d2 = ((cv - q[:, None, :]) ** 2).sum(dim=-1)
+        d2 = torch.where(valid, d2, float("inf"))
+        vals, sel = topk_smallest(d2, k)
+        ids = torch.gather(cand, 1, sel)
+        return vals.clamp_min(0.0).sqrt(), ids
 
 
 def ivf_local_scan(centroids: torch.Tensor, lists_loc: torch.Tensor,

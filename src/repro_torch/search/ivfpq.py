@@ -54,6 +54,7 @@ from .ivf import (_balanced_layout, kmeans, nearest, posting_lists,
                   probe_cells, sq_dists)
 from .knn import topk_smallest
 from .pq import _check_adc_args, adc_tables, build_pq
+from .tracing import span
 
 __all__ = ["IVFPQIndex", "build_ivfpq", "ivfpq_lut_stats", "live_cells",
            "ivfpq_adc_scan", "ivfpq_scan_given_probe", "ivfpq_scan_inputs",
@@ -239,13 +240,19 @@ def ivfpq_adc_scan(centroids, lists, codes_cell, bias_cell, lut_w, cbnorm,
     row id masks tombstoned and unallocated rows (the streaming scan)."""
     _check_adc_args(backend, lut_dtype)
     q = q.to(torch.float32)
-    probe, cand, cd2p = probe_cells(centroids, lists, q, nprobe, n_cand)
-    cell_len = (lists >= 0).sum(dim=1) if backend == "kernel" else None
-    cell_live = None if live is None else live_cells(lists, live)
-    return ivfpq_scan_given_probe(probe, cand, cd2p, codes_cell, bias_cell,
-                                  lut_w, cbnorm, codebooks, q, n_cand,
-                                  backend=backend, lut_dtype=lut_dtype,
-                                  cell_len=cell_len, cell_live=cell_live)
+    with span("search.probe"):
+        probe, cand, cd2p = probe_cells(centroids, lists, q, nprobe, n_cand)
+        cell_len = (lists >= 0).sum(dim=1) if backend == "kernel" else None
+    cell_live = None
+    if live is not None:
+        with span("search.live_map"):
+            cell_live = live_cells(lists, live)
+    with span("search.scan"):
+        return ivfpq_scan_given_probe(probe, cand, cd2p, codes_cell,
+                                      bias_cell, lut_w, cbnorm, codebooks, q,
+                                      n_cand, backend=backend,
+                                      lut_dtype=lut_dtype, cell_len=cell_len,
+                                      cell_live=cell_live)
 
 
 def ivfpq_compact_scan(centroids, lists, codes_cell, bias_cell, lut_w,
@@ -264,28 +271,31 @@ def ivfpq_compact_scan(centroids, lists, codes_cell, bias_cell, lut_w,
     if scan_cap <= 0:
         raise ValueError("ivfpq_compact_scan needs scan_cap > 0")
     q = q.to(torch.float32)
-    cd2 = sq_dists(q, centroids)                          # (Q, nlist)
-    cd2p, probe = topk_smallest(cd2, nprobe)
-    tables = adc_tables(lut_w, cbnorm, q)
-    lens = (lists >= 0).sum(dim=1)                        # (nlist,) mass
-    plens = lens[probe]                                   # (Q, P)
-    cum = torch.cumsum(plens, dim=1)                      # inclusive
-    start = cum - plens
-    total = cum[:, -1:]
-    j = torch.arange(scan_cap, device=q.device)
-    # flat slot -> probe slot: the count of prefix sums <= j
-    p = (cum[:, :, None] <= j[None, None, :]).sum(dim=1)  # (Q, S)
-    pc = p.clamp(0, nprobe - 1)
-    cell = torch.gather(probe, 1, pc)                     # (Q, S)
-    r = j[None, :] - torch.gather(start, 1, pc)           # in-cell slot
-    rc = r.clamp(0, lists.shape[1] - 1)
-    ok = j[None, :] < total                               # real posting mass
-    cand = torch.where(ok, lists[cell, rc], -1)
-    ccodes = codes_cell[cell, rc]                         # (Q, S, M)
-    base = torch.gather(cd2p, 1, pc) + bias_cell[cell, rc]
-    base = torch.where(cand >= 0, base, float("inf"))
-    return _score_topk(tables, cand, q, codebooks, cbnorm, n_cand, lut_dtype,
-                       _gathered_select(ccodes, base, backend, lut_dtype))
+    with span("search.probe"):
+        cd2 = sq_dists(q, centroids)                      # (Q, nlist)
+        cd2p, probe = topk_smallest(cd2, nprobe)
+    with span("search.scan"):
+        tables = adc_tables(lut_w, cbnorm, q)
+        lens = (lists >= 0).sum(dim=1)                    # (nlist,) mass
+        plens = lens[probe]                               # (Q, P)
+        cum = torch.cumsum(plens, dim=1)                  # inclusive
+        start = cum - plens
+        total = cum[:, -1:]
+        j = torch.arange(scan_cap, device=q.device)
+        # flat slot -> probe slot: the count of prefix sums <= j
+        p = (cum[:, :, None] <= j[None, None, :]).sum(dim=1)   # (Q, S)
+        pc = p.clamp(0, nprobe - 1)
+        cell = torch.gather(probe, 1, pc)                 # (Q, S)
+        r = j[None, :] - torch.gather(start, 1, pc)       # in-cell slot
+        rc = r.clamp(0, lists.shape[1] - 1)
+        ok = j[None, :] < total                           # real posting mass
+        cand = torch.where(ok, lists[cell, rc], -1)
+        ccodes = codes_cell[cell, rc]                     # (Q, S, M)
+        base = torch.gather(cd2p, 1, pc) + bias_cell[cell, rc]
+        base = torch.where(cand >= 0, base, float("inf"))
+        return _score_topk(tables, cand, q, codebooks, cbnorm, n_cand,
+                           lut_dtype,
+                           _gathered_select(ccodes, base, backend, lut_dtype))
 
 
 def ivfpq_scan(index: IVFPQIndex, q: torch.Tensor, k: int, nprobe: int = 8,

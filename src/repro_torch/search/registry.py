@@ -43,6 +43,7 @@ from .ivfpq import (IVFPQIndex, build_ivfpq, ivfpq_adc_scan,
 from .knn import _sq_dists, knn_scan, knn_scan_d2, masked_topk
 from .pq import (PQIndex, adc_tables, build_pq, pq_local_scan,
                  pq_reconstruct, pq_scan)
+from .tracing import span
 
 __all__ = ["Index", "IndexOps", "ScanParams", "BuildInits", "INDEX_KINDS",
            "OPQIndex", "PQQuant", "OPQQuant", "IVFPQQuant", "register_index",
@@ -288,7 +289,8 @@ def _flat_build(reduced, spec, generator, inits):
 
 
 def _flat_scan(state, qr, n_cand, p):
-    return knn_scan(qr, state.index.payload, n_cand)
+    with span("search.scan"):
+        return knn_scan(qr, state.index.payload, n_cand)
 
 
 def _flat_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
@@ -312,10 +314,11 @@ def _flat_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
 
 
 def _flat_stream_scan(store, frozen, qr, n_cand, live, p):
-    rows = _scan_rows(store)
-    d2 = torch.where(live[None, :], _sq_dists(qr, rows), float("inf"))
-    return masked_topk(d2, _row_ids(rows.shape[0], qr.shape[0], qr.device),
-                       n_cand)
+    with span("search.scan"):
+        rows = _scan_rows(store)
+        d2 = torch.where(live[None, :], _sq_dists(qr, rows), float("inf"))
+        return masked_topk(d2, _row_ids(rows.shape[0], qr.shape[0],
+                                        qr.device), n_cand)
 
 
 def _flat_store_parts(state, n_cap, cell_slack):
@@ -367,12 +370,14 @@ def _ivf_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
 def _ivf_stream_scan(store, frozen, qr, n_cand, live, p):
     rows = _scan_rows(store)
     n_cap = rows.shape[0]
-    _, cand, _ = probe_cells(frozen.centroids, store.lists, qr, p.nprobe,
-                             n_cand)
-    ok = (cand >= 0) & live[cand.clamp(0, n_cap - 1)]
-    cv = rows[cand.clamp_min(0)]
-    d2 = ((cv - qr[:, None, :]) ** 2).sum(dim=-1)
-    return masked_topk(torch.where(ok, d2, float("inf")), cand, n_cand)
+    with span("search.probe"):
+        _, cand, _ = probe_cells(frozen.centroids, store.lists, qr,
+                                 p.nprobe, n_cand)
+    with span("search.scan"):
+        ok = (cand >= 0) & live[cand.clamp(0, n_cap - 1)]
+        cv = rows[cand.clamp_min(0)]
+        d2 = ((cv - qr[:, None, :]) ** 2).sum(dim=-1)
+        return masked_topk(torch.where(ok, d2, float("inf")), cand, n_cand)
 
 
 def _ivf_store_parts(state, n_cap, cell_slack):
@@ -431,8 +436,9 @@ def _pq_build(reduced, spec, generator, inits):
 
 
 def _pq_scan(state, qr, n_cand, p):
-    return pq_scan(state.index.payload, qr, n_cand, backend=p.backend,
-                   lut_dtype=p.lut_dtype)
+    with span("search.scan"):
+        return pq_scan(state.index.payload, qr, n_cand, backend=p.backend,
+                       lut_dtype=p.lut_dtype)
 
 
 def _pq_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
@@ -443,6 +449,13 @@ def _pq_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
 
 
 def _pq_stream_scan(store, frozen, qr, n_cand, live, p):
+    with span("search.scan"):
+        return _pq_masked_scan(store, frozen, qr, n_cand, live, p)
+
+
+def _pq_masked_scan(store, frozen, qr, n_cand, live, p):
+    """The streaming pq scan: plain ADC scores over every row code, rows
+    ``live`` does not mark at +inf, top-n_cand."""
     tables = adc_tables(frozen.lut_w, frozen.cbnorm, qr)
     const = (qr * qr).sum(dim=1)
     if p.lut_dtype != "f32":
@@ -538,8 +551,9 @@ def _opq_scan(state, qr, n_cand, p):
     ix = state.index.payload
     view = PQIndex(codebooks=ix.codebooks, codes=ix.codes, lut_w=ix.lut_w,
                    cbnorm=ix.cbnorm)
-    return pq_scan(view, qr @ ix.rot, n_cand, backend=p.backend,
-                   lut_dtype=p.lut_dtype)
+    with span("search.scan"):
+        return pq_scan(view, qr @ ix.rot, n_cand, backend=p.backend,
+                       lut_dtype=p.lut_dtype)
 
 
 def _opq_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
@@ -551,8 +565,9 @@ def _opq_local_scan(sstate, qr, n_cand, p, shard, slack, live=None):
 
 def _opq_stream_scan(store, frozen, qr, n_cand, live, p):
     # rotate, then the masked pq scan serves the rotated space
-    return _pq_stream_scan(store, frozen, qr @ frozen.quant.payload.rot,
-                           n_cand, live, p)
+    with span("search.scan"):
+        return _pq_masked_scan(store, frozen, qr @ frozen.quant.payload.rot,
+                               n_cand, live, p)
 
 
 def _opq_store_parts(state, n_cap, cell_slack):

@@ -64,6 +64,7 @@ from .durability.policy import PolicyConfig
 from .reducers import Reducer, reduce_vectors, reducer_dim
 from .registry import (Index, _pad_cells, _pad_rows, encode_pq, get_ops,
                        ivfpq_encode)
+from .tracing import count, span
 
 __all__ = ["StreamConfig", "StreamStore", "MutableEngineState",
            "FrozenParams", "make_mutable", "upsert_fn", "delete_fn",
@@ -184,11 +185,23 @@ def _ids(ids, device) -> torch.Tensor:
     return torch.as_tensor(ids, dtype=torch.int64).reshape(-1).to(device)
 
 
+def _isin(elements: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
+    """``torch.isin``, counting the host syncs it makes on the card. ATen
+    takes numpy's heuristic: fewer than 10 * numel(elements) ** 0.145 test
+    elements are compared one by one, on the device; more take the sorted
+    route, whose two ``_unique`` calls read lengths back to the host three
+    times on torch 2.11's CUDA build (``set_sync_debug_mode`` counts
+    them)."""
+    n = elements.numel()
+    if n and test.numel() >= int(10.0 * n ** 0.145):
+        count("host_syncs", 3)
+    return torch.isin(elements, test)
+
+
 def _tombstone(store: StreamStore, ids: torch.Tensor) -> torch.Tensor:
     """``dead`` with the base copies of the valid ``ids`` marked (pads
     are -1, as unallocated rows are: those never match)."""
-    return store.dead | (torch.isin(store.row_ids, ids)
-                         & (store.row_ids >= 0))
+    return store.dead | (_isin(store.row_ids, ids) & (store.row_ids >= 0))
 
 
 def make_mutable(state, config: StreamConfig
@@ -277,8 +290,10 @@ def upsert_fn(store: StreamStore, frozen: FrozenParams, ids, vectors
     write = fits & (last == rows)
     red = (reduce_vectors(frozen.proj, vectors)
            if store.delta_reduced is not None else None)
+    with span("write.tombstone"):
+        dead = _tombstone(store, ids)
     out = store._replace(
-        dead=_tombstone(store, ids),
+        dead=dead,
         delta_ids=_set_rows(store.delta_ids, slot, ids, write),
         delta_vectors=_set_rows(store.delta_vectors, slot, vectors, write),
         delta_reduced=(_set_rows(store.delta_reduced, slot, red, write)
@@ -291,8 +306,10 @@ def delete_fn(store: StreamStore, ids) -> StreamStore:
     """Apply a padded delete batch (ids (B,), -1 = no-op pad): tombstone
     base rows, punch delta holes. Absent ids are no-ops."""
     ids = _ids(ids, store.delta_ids.device)
-    kill = torch.isin(store.delta_ids, ids) & (store.delta_ids >= 0)
-    return store._replace(dead=_tombstone(store, ids),
+    with span("write.tombstone"):
+        kill = _isin(store.delta_ids, ids) & (store.delta_ids >= 0)
+        dead = _tombstone(store, ids)
+    return store._replace(dead=dead,
                           delta_ids=torch.where(kill, -1, store.delta_ids))
 
 
@@ -325,8 +342,10 @@ def compact_fn(store: StreamStore, frozen: FrozenParams
                             assign[:, None])[:, 0]
         slot_pos = counts[assign] + rank
         ok = ok & ~(alive & (slot_pos >= mc_cap)).any()
+    count("host_syncs")
     if not bool(ok):
         return store, n_alive
+    count("host_syncs")               # nonzero reads its length back
     src = alive.nonzero()[:, 0]
     dest = store.n_rows + pos[src]
     store.corpus[dest] = store.delta_vectors[src]

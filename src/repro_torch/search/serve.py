@@ -79,6 +79,7 @@ from .reducers import Reducer, fit_reducer, reduce_vectors
 from .registry import (INDEX_KINDS, BuildInits, Index, ScanParams, get_ops)
 from .segments import StreamConfig
 from .spec import IndexSpec, parse_spec, spec_from_config
+from .tracing import count, span
 
 __all__ = ["ServeConfig", "SearchEngine", "EngineState", "ShardedEngineState",
            "search_fn", "sharded_search_fn", "exact_rerank",
@@ -263,6 +264,7 @@ def prefiltered_rerank(state: EngineState, queries: torch.Tensor,
     # relative slack absorbs the sqrt / square round trips; it only keeps
     # more candidates
     keep = valid & (lb <= w + 1e-3 * (1.0 + w.abs()))
+    count("host_syncs")
     tight = int(keep.sum(dim=1).max()) <= r_s
     if counters is not None:
         key = "prefilter_tight" if tight else "prefilter_full"
@@ -298,13 +300,15 @@ def search_fn(state: EngineState, queries: torch.Tensor, k: int, *,
     which counts its branch into ``counters`` when given). Both return the
     ids of the defaults."""
     ops = get_ops(state.index.kind)
-    queries = queries.to(torch.float32)
-    qr = reduce_vectors(state.proj, queries)
+    with span("search.project"):
+        queries = queries.to(torch.float32)
+        qr = reduce_vectors(state.proj, queries)
     approximate = state.proj is not None or ops.lossy
     _check_rerank_budget(approximate, rerank, k)
     n_cand = rerank if approximate else k
     p = ScanParams(nprobe=nprobe, backend=backend, lut_dtype=lut_dtype,
                    scan_cap=scan_cap)
+    # the kind's scan opens search.probe / search.scan itself
     d_scan, cand = ops.scan(state, qr, n_cand, p)
     if prefilter > 0:
         if state.index.kind != "ivfpq" or state.proj is not None:
@@ -313,9 +317,11 @@ def search_fn(state: EngineState, queries: torch.Tensor, k: int, *,
                 "certified distance bounds require the scan space to be "
                 "the re-rank space")
         if prefilter < n_cand:
-            return prefiltered_rerank(state, queries, qr, d_scan, cand, k,
-                                      prefilter, lut_dtype, counters)
-    return exact_rerank(queries, state.corpus, cand, k)
+            with span("search.rerank"):
+                return prefiltered_rerank(state, queries, qr, d_scan, cand,
+                                          k, prefilter, lut_dtype, counters)
+    with span("search.rerank"):
+        return exact_rerank(queries, state.corpus, cand, k)
 
 
 # --- sharded serving (one process a shard of a database-axis mesh) ----------
@@ -429,6 +435,15 @@ def _shapes(tree) -> tuple:
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _on_device(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor on ``device``. A copy between the host
+    and the card blocks the host until it lands: a host sync."""
+    t = torch.as_tensor(x, dtype=dtype)
+    if t.device.type != device.type:
+        count("host_syncs")
+    return t.to(device)
 
 
 class SearchEngine:
@@ -675,6 +690,7 @@ class SearchEngine:
         cap = self._scan_caps.get(nprobe)
         if cap is None:
             lists = self.state.index.payload.lists
+            count("host_syncs")
             lens = (lists >= 0).sum(dim=1).cpu().numpy()
             top = np.sort(lens)[-nprobe:]
             cap = -(-int(top.sum()) // 128) * 128
@@ -688,65 +704,69 @@ class SearchEngine:
         batch is zero-padded to its power-of-two bucket, then sliced back.
         A streaming engine returns external ids and first swaps in a
         background compaction that has finished."""
-        cfg = self.config
-        ops = get_ops(cfg.index)
-        _check_rerank_budget(cfg.target_dim is not None or ops.lossy,
-                             cfg.rerank, k)
-        queries = torch.as_tensor(queries, dtype=torch.float32).to(
-            self.device)
-        nq = queries.shape[0]
-        bucket = _bucket(nq, cfg.query_bucket, cfg.small_batch)
-        self.last_bucket = bucket
-        if bucket != nq:
-            queries = torch.nn.functional.pad(queries, (0, 0, 0, bucket - nq))
-        # knobs the index kind cannot observe are normalized, as the JAX
-        # engine does, so flipping one never makes a new program
-        probed = cfg.index in ("ivf", "ivfpq")
-        coded = cfg.index in ("pq", "opq", "ivfpq")
-        kw = dict(nprobe=cfg.nprobe if probed else 0, rerank=cfg.rerank,
-                  backend=cfg.pq_backend if coded else "jnp",
-                  lut_dtype=cfg.lut_dtype if coded else "f32",
-                  scan_cap=0, prefilter=0)
-        if (self.store is None and self.sharded_state is None
-                and cfg.index == "ivfpq"):
-            if 0 < bucket <= cfg.compact_batch:
-                kw["scan_cap"] = self._scan_cap(cfg.nprobe)
-            if 0 < bucket <= cfg.prefilter_batch and cfg.target_dim is None:
-                r_s = max(2 * k, cfg.rerank // 2)
-                if r_s < cfg.rerank:
-                    kw["prefilter"] = r_s
-        # tracing: one perf_counter read when a tracer is attached and
-        # active; with none the serve path is exactly the untraced one
-        tracer = self._tracer
-        t0 = (time.perf_counter()
-              if tracer is not None and tracer.active else None)
-        key = (k, bucket) + tuple(kw.values())
-        if self.store is not None:
-            from .stream import (replica_from_store, sharded_stream_search_fn,
-                                 stream_search_fn)
-            self._poll_compaction()
-            sbase = self._stream_sharded_base
-            if sbase is not None:
-                repl = replica_from_store(self.store)
-                self._programs["stream_sharded"].add(
-                    key + self._mesh_key() + _shapes(
-                        (sbase.corpus, sbase.index.payload, repl)))
-                d, ids = sharded_stream_search_fn(
-                    sbase, repl, queries, k, mesh=self._mesh,
-                    axis=self._shard_axis, **kw)
+        with span("search", self.device):
+            cfg = self.config
+            ops = get_ops(cfg.index)
+            _check_rerank_budget(cfg.target_dim is not None or ops.lossy,
+                                 cfg.rerank, k)
+            queries = _on_device(queries, torch.float32, self.device)
+            nq = queries.shape[0]
+            bucket = _bucket(nq, cfg.query_bucket, cfg.small_batch)
+            self.last_bucket = bucket
+            if bucket != nq:
+                queries = torch.nn.functional.pad(queries,
+                                                  (0, 0, 0, bucket - nq))
+            # knobs the index kind cannot observe are normalized, as the
+            # JAX engine does, so flipping one never makes a new program
+            probed = cfg.index in ("ivf", "ivfpq")
+            coded = cfg.index in ("pq", "opq", "ivfpq")
+            kw = dict(nprobe=cfg.nprobe if probed else 0, rerank=cfg.rerank,
+                      backend=cfg.pq_backend if coded else "jnp",
+                      lut_dtype=cfg.lut_dtype if coded else "f32",
+                      scan_cap=0, prefilter=0)
+            if (self.store is None and self.sharded_state is None
+                    and cfg.index == "ivfpq"):
+                if 0 < bucket <= cfg.compact_batch:
+                    kw["scan_cap"] = self._scan_cap(cfg.nprobe)
+                if (0 < bucket <= cfg.prefilter_batch
+                        and cfg.target_dim is None):
+                    r_s = max(2 * k, cfg.rerank // 2)
+                    if r_s < cfg.rerank:
+                        kw["prefilter"] = r_s
+            # tracing: one perf_counter read when a tracer is attached and
+            # active; with none the serve path is exactly the untraced one
+            tracer = self._tracer
+            t0 = (time.perf_counter()
+                  if tracer is not None and tracer.active else None)
+            key = (k, bucket) + tuple(kw.values())
+            if self.store is not None:
+                from .stream import (replica_from_store,
+                                     sharded_stream_search_fn,
+                                     stream_search_fn)
+                self._poll_compaction()
+                sbase = self._stream_sharded_base
+                if sbase is not None:
+                    repl = replica_from_store(self.store)
+                    self._programs["stream_sharded"].add(
+                        key + self._mesh_key() + _shapes(
+                            (sbase.corpus, sbase.index.payload, repl)))
+                    d, ids = sharded_stream_search_fn(
+                        sbase, repl, queries, k, mesh=self._mesh,
+                        axis=self._shard_axis, **kw)
+                else:
+                    self._programs["stream"].add(
+                        key + (_shapes(self.store),))
+                    d, ids = stream_search_fn(self.store, self.frozen,
+                                              queries, k, **kw)
+            elif self.sharded_state is not None:
+                self._programs["sharded"].add(key + self._mesh_key())
+                d, ids = sharded_search_fn(self.sharded_state, queries, k,
+                                           mesh=self._mesh,
+                                           axis=self._shard_axis, **kw)
             else:
-                self._programs["stream"].add(key + (_shapes(self.store),))
-                d, ids = stream_search_fn(self.store, self.frozen, queries,
-                                          k, **kw)
-        elif self.sharded_state is not None:
-            self._programs["sharded"].add(key + self._mesh_key())
-            d, ids = sharded_search_fn(self.sharded_state, queries, k,
-                                       mesh=self._mesh,
-                                       axis=self._shard_axis, **kw)
-        else:
-            self._programs["search"].add(key)
-            d, ids = search_fn(self.state, queries, k,
-                               counters=self.counters, **kw)
+                self._programs["search"].add(key)
+                d, ids = search_fn(self.state, queries, k,
+                                   counters=self.counters, **kw)
         if t0 is not None:
             # synchronizes (an honest end-to-end time), then records and
             # samples
@@ -952,65 +972,68 @@ class SearchEngine:
         (B, D)): delta appends, in chunks of at most the compact point,
         the delta auto-compacting at ``compact_threshold``. Returns
         ``self``."""
-        self._require_stream()
-        self._poll_compaction()
-        host = None
-        if self._logging:
-            # the log's copy, from the caller's arrays before they move
-            # (one copy a batch, on a durable engine only); every id is
-            # checked before any record of the batch is written
-            hid = check_ids(_host(ids))
-            host = (hid, _host(vectors).astype(np.float32, copy=False)
-                    .reshape(hid.shape[0], -1))
-        ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1).to(
-            self.device)
-        vectors = torch.as_tensor(vectors, dtype=torch.float32).to(
-            self.device).reshape(ids.shape[0], -1)
-        cap = self.config.stream.delta_capacity
-        point = self._compact_point()
-        b = 0
-        while b < ids.shape[0]:
-            chunk = min(ids.shape[0] - b, point)
-            if not self._replaying:
-                # a replayed log holds its compactions as RT_COMPACT
-                self._ensure_delta_room(chunk, cap, point)
-            cid, cv = ids[b:b + chunk], vectors[b:b + chunk]
-            if host is not None:
-                self._wal_append(RT_UPSERT, encode_upsert(
-                    host[0][b:b + chunk], host[1][b:b + chunk]), wait=False)
-            if self._compact_future is not None:
-                # the pending fold works on a copy taken at its start:
-                # this write is replayed onto the folded store at the swap
-                self._compact_tail.append(("upsert", cid, cv))
-                self._tail_rows += chunk
-            pid, pv = self._pad_write(cid, cv)
-            # dropped stays 0: a chunk never exceeds the compact point
-            self.store, _ = self._upsert(self.store, pid, pv)
-            self._delta_used += chunk
-            b += chunk
-        self._wal_wait_durable()     # one group-commit wait a batch
+        with span("write.upsert", self.device):
+            self._require_stream()
+            self._poll_compaction()
+            host = None
+            if self._logging:
+                # the log's copy, from the caller's arrays before they move
+                # (one copy a batch, on a durable engine only); every id is
+                # checked before any record of the batch is written
+                hid = check_ids(_host(ids))
+                host = (hid, _host(vectors).astype(np.float32, copy=False)
+                        .reshape(hid.shape[0], -1))
+            ids = _on_device(ids, torch.int64, self.device).reshape(-1)
+            vectors = _on_device(vectors, torch.float32,
+                                 self.device).reshape(ids.shape[0], -1)
+            cap = self.config.stream.delta_capacity
+            point = self._compact_point()
+            b = 0
+            while b < ids.shape[0]:
+                chunk = min(ids.shape[0] - b, point)
+                if not self._replaying:
+                    # a replayed log holds its compactions as RT_COMPACT
+                    self._ensure_delta_room(chunk, cap, point)
+                cid, cv = ids[b:b + chunk], vectors[b:b + chunk]
+                if host is not None:
+                    self._wal_append(RT_UPSERT, encode_upsert(
+                        host[0][b:b + chunk], host[1][b:b + chunk]),
+                        wait=False)
+                if self._compact_future is not None:
+                    # the pending fold works on a copy taken at its
+                    # start: this write is replayed onto the folded store
+                    # at the swap
+                    self._compact_tail.append(("upsert", cid, cv))
+                    self._tail_rows += chunk
+                pid, pv = self._pad_write(cid, cv)
+                # dropped stays 0: a chunk never exceeds the compact point
+                self.store, _ = self._upsert(self.store, pid, pv)
+                self._delta_used += chunk
+                b += chunk
+            self._wal_wait_durable()     # one group-commit wait a batch
         return self
 
     def delete(self, ids) -> "SearchEngine":
         """Delete rows by external id: tombstone base copies, punch delta
         holes (absent ids are no-ops). With a configured policy a dense
         tombstone bitmap triggers ``vacuum``. Returns ``self``."""
-        self._require_stream()
-        self._poll_compaction()
-        if self._logging:
-            self._wal_append(RT_DELETE, encode_delete(_host(ids)))
-        ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1).to(
-            self.device)
-        if self._compact_future is not None:
-            self._compact_tail.append(("delete", ids, None))
-        pid, _ = self._pad_write(ids)
-        self.store = self._delete(self.store, pid)
-        if self._policy_active and not self._replaying:
-            decision = self._policy.decide_delete(
-                dead=int(self.store.dead.sum()),
-                allocated=int(self.store.n_rows))
-            if decision.kind == "vacuum":
-                self.vacuum()
+        with span("write.delete", self.device):
+            self._require_stream()
+            self._poll_compaction()
+            if self._logging:
+                self._wal_append(RT_DELETE, encode_delete(_host(ids)))
+            ids = _on_device(ids, torch.int64, self.device).reshape(-1)
+            if self._compact_future is not None:
+                self._compact_tail.append(("delete", ids, None))
+            pid, _ = self._pad_write(ids)
+            self.store = self._delete(self.store, pid)
+            if self._policy_active and not self._replaying:
+                count("host_syncs", 2)
+                decision = self._policy.decide_delete(
+                    dead=int(self.store.dead.sum()),
+                    allocated=int(self.store.n_rows))
+                if decision.kind == "vacuum":
+                    self.vacuum()
         return self
 
     # --- compaction (blocking and on a worker thread) ---------------------
@@ -1019,16 +1042,19 @@ class SearchEngine:
         """The fold and grow-retry loop over ``store`` (written in place).
         Returns (folded store, grows)."""
         scfg = self.config.stream
-        store, dropped = self._compact(store)
-        grows = 0
-        while int(dropped):
-            # a delta's worth of cell slack covers every delta row landing
-            # in one cell, so one grow suffices
-            store = segments.grow_store(store,
-                                        row_extra=4 * scfg.delta_capacity,
-                                        cell_extra=scfg.delta_capacity)
-            grows += 1
+        with span("write.compact", self.device):
             store, dropped = self._compact(store)
+            grows = 0
+            count("host_syncs")
+            while int(dropped):
+                # a delta's worth of cell slack covers every delta row
+                # landing in one cell, so one grow suffices
+                store = segments.grow_store(
+                    store, row_extra=4 * scfg.delta_capacity,
+                    cell_extra=scfg.delta_capacity)
+                grows += 1
+                store, dropped = self._compact(store)
+                count("host_syncs")
         return store, grows
 
     def _compact_task(self, store, stream):
@@ -1162,6 +1188,7 @@ class SearchEngine:
         cb = self.frozen.cbnorm if self.frozen is not None else None
         if cb is None or self.config.index not in ("pq", "opq", "ivfpq"):
             return 0.0
+        count("host_syncs")
         return float(lut_error_bound(cb[None], self.config.lut_dtype)[0])
 
     def _observe_drift(self):
@@ -1176,10 +1203,12 @@ class SearchEngine:
         rows = (store.delta_reduced if store.delta_reduced is not None
                 else store.delta_vectors)
         alive = segments.delta_alive(store)
+        count("host_syncs")
         n = int(alive.sum())
         if n == 0:
             return
         err = ops.drift_stats(self.frozen, rows)
+        count("host_syncs")
         self._policy.observe_encode_error(
             float(torch.where(alive, err, 0.0).sum()) / n, n)
 
@@ -1188,6 +1217,7 @@ class SearchEngine:
         if not self._policy_active:
             return
         scfg = self.config.stream
+        count("host_syncs")
         free = int(self.store.corpus.shape[0]) - int(self.store.n_rows)
         decision = self._policy.decide_post_compact(
             free_rows=free, delta_capacity=scfg.delta_capacity,
@@ -1390,6 +1420,8 @@ class SearchEngine:
 def _host(a) -> np.ndarray:
     """A host (numpy) view or copy of a caller's array or tensor."""
     if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            count("host_syncs")
         return a.detach().cpu().numpy()
     return np.asarray(a)
 

@@ -40,6 +40,7 @@ from .registry import ScanParams, get_ops
 from .segments import FrozenParams, StreamStore, delta_alive, live_mask
 from .serve import (ShardedEngineState, _check_axis, _check_rerank_budget,
                     _dedupe_candidates, _merge_local)
+from .tracing import span
 
 __all__ = ["stream_search_fn", "sharded_stream_search_fn", "StreamReplica",
            "replica_from_store"]
@@ -132,24 +133,31 @@ def stream_search_fn(store: StreamStore, frozen: FrozenParams,
     ops = get_ops(kind)
     _check_adc_args(backend, lut_dtype)
     _check_stream_backend(kind, backend)
-    queries = queries.to(torch.float32)
-    qr = reduce_vectors(frozen.proj, queries)
+    with span("search.project"):
+        queries = queries.to(torch.float32)
+        qr = reduce_vectors(frozen.proj, queries)
     approximate = frozen.proj is not None or ops.lossy
     _check_rerank_budget(approximate, rerank, k)
     n_cand = rerank if approximate else k
     n_cap = store.corpus.shape[0]
     p = ScanParams(nprobe=nprobe, backend=backend, lut_dtype=lut_dtype)
-    bd2, bids = ops.stream_scan(store, frozen, qr, n_cand, live_mask(store),
-                                p)
-    delta_rows = (store.delta_reduced if store.delta_reduced is not None
-                  else store.delta_vectors)
-    dd2, dids = _delta_scan(qr, delta_rows, delta_alive(store), n_cap,
-                            n_cand)
-    _, mids = masked_topk(torch.cat([bd2, dd2], dim=1),
-                          torch.cat([bids, dids], dim=1), n_cand)
-    dists, internal = _stream_rerank(queries, store.corpus,
-                                     store.delta_vectors, mids, k)
-    return dists, _to_external(internal, store.row_ids, store.delta_ids)
+    with span("search.live_map"):
+        live = live_mask(store)
+    # the kind's scan opens search.probe / search.live_map / search.scan
+    bd2, bids = ops.stream_scan(store, frozen, qr, n_cand, live, p)
+    with span("search.delta_scan"):
+        delta_rows = (store.delta_reduced if store.delta_reduced is not None
+                      else store.delta_vectors)
+        dd2, dids = _delta_scan(qr, delta_rows, delta_alive(store), n_cap,
+                                n_cand)
+    with span("search.merge"):
+        _, mids = masked_topk(torch.cat([bd2, dd2], dim=1),
+                              torch.cat([bids, dids], dim=1), n_cand)
+    with span("search.rerank"):
+        dists, internal = _stream_rerank(queries, store.corpus,
+                                         store.delta_vectors, mids, k)
+        return dists, _to_external(internal, store.row_ids,
+                                   store.delta_ids)
 
 
 # --- sharded streaming (base sharded, delta and tombstones replicated) ------

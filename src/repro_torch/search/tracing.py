@@ -1,9 +1,9 @@
 """Request-level tracing: per-query timing, deep per-stage attribution,
-slow-query capture, and online recall estimation (port of
-``repro.search.tracing``).
+slow-query capture, online recall estimation, and stage spans inside the
+serving path (port of ``repro.search.tracing``, plus the spans).
 
 A host timer around one ``SearchEngine.search`` call sees only the
-end-to-end latency. This module layers three opt-in instruments on top
+end-to-end latency. This module layers four opt-in instruments on top
 of that single number:
 
 - **Latency histograms** (``TraceConfig(histograms=True)``): every search
@@ -25,37 +25,63 @@ of that single number:
   streaming engines; kernel K3 on the card) and the observed recall@k
   feeds a ``recall.estimate_at_k`` EMA gauge plus, on a streaming
   engine, ``MaintenancePolicy.observe_recall``.
+- **Program spans** (``span`` / ``count``, process-wide, one
+  ``SpanRecorder``): the path that serves opens a span at every stage
+  boundary (``search`` and its children ``search.project``,
+  ``search.probe``, ``search.live_map``, ``search.scan``,
+  ``search.delta_scan``, ``search.merge``, ``search.rerank``; the writes
+  ``write.upsert`` and ``write.delete``, their ``write.tombstone`` and a
+  ``write.compact`` one of them triggers) and counts ``host_syncs`` where
+  it makes the host wait for the device, charged to the innermost open
+  span. The switch is the PyTorch profiler itself: spans record only
+  while a ``torch.profiler`` session records (``torch_profile``, or a
+  benchmark's traced window). Off, a site costs one read of the
+  profiler's module flag (and a span site one store of a module flag):
+  no timestamp, no record, no ``record_function`` call, no synchronize.
+  On, a span opens ``record_function("qpad.<name>")`` (its request id as
+  the ``args``), so the stage lies in the profiler's trace on the
+  kernels' clock, and records its host interval, its parent (a
+  per-thread stack), a request id shared by every span of one
+  ``search`` / ``upsert`` / ``delete`` call, and a CUDA event at each
+  end on the current stream (no synchronize); ``snapshot()`` resolves
+  the device intervals (on the CPU the host interval stands for it) and
+  returns per-name aggregates (count, host ms, self ms, device ms and
+  counters) of the newest profiler session: the recorder starts afresh
+  when a site finds the profiler on after one found it off.
 
-Everything funnels through one ``Tracer`` attached by
+The first four funnel through one ``Tracer`` attached by
 ``engine.tracing(...)``; with every feature off ``Tracer.active`` is
 False and the serve path skips even the timestamp. Chrome-trace /
 Perfetto JSON export (``trace_dir=``) covers host-side spans; for
 device-side kernel timelines use the ``torch_profile`` context manager
-(a ``torch.profiler`` trace written as Chrome-trace JSON).
+(a ``torch.profiler`` trace written as Chrome-trace JSON), under which
+the program spans record too.
 """
 from __future__ import annotations
 
 import bisect
+import collections
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import threading
 import time
-from typing import Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 
-from .ivf import probe_cells
-from .ivfpq import ivfpq_scan_given_probe
-from .knn import knn_search, recall_at_k
 from .metrics import HistogramSnapshot, LatencyMetrics, RecallMetrics
-from .reducers import reduce_vectors
-from .registry import ScanParams, get_ops
-from .serve import _sync, exact_rerank
 
 __all__ = ["TraceConfig", "Tracer", "LatencyHistogram", "deep_trace",
-           "shadow_recall", "torch_profile"]
+           "shadow_recall", "torch_profile", "span", "count", "snapshot",
+           "SpanStats", "Span", "SpanRecorder", "RECORDER"]
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 # Log-spaced upper bounds in milliseconds: 0.05 ms .. ~105 s doubling, the
@@ -134,6 +160,11 @@ def deep_trace(engine, queries, k: int, kw: Mapping) -> Optional[dict]:
     first run at a (shape, kind, knobs) key is an untimed warm pass, so a
     kernel's first call at a shape is never timed.
     """
+    from .ivf import probe_cells
+    from .ivfpq import ivfpq_scan_given_probe
+    from .reducers import reduce_vectors
+    from .registry import ScanParams, get_ops
+    from .serve import exact_rerank
     state = engine.state
     if (state is None or engine.store is not None
             or engine.sharded_state is not None):
@@ -198,6 +229,7 @@ def shadow_recall(engine, queries, nq: int, k: int, ids) -> Optional[tuple]:
     external ids); read-only engines against ``state.corpus`` (row index
     == external id). k' = min(k, live rows). Both exact searches are
     ``knn_search``: kernel K3 on the card, one launch a check."""
+    from .knn import knn_search, recall_at_k
     queries = queries[:nq]
     if engine.store is not None:
         vecs, ext = engine._gather_live()
@@ -405,3 +437,284 @@ def torch_profile(logdir: str):
         prof.stop()
         prof.export_chrome_trace(
             os.path.join(logdir, f"qpad_profile_{os.getpid()}.json"))
+
+
+# --- program spans -----------------------------------------------------------
+
+_profiler = torch.autograd.profiler     # its module flag is the switch
+_PREFIX = "qpad."
+_RECENT = 4096       # closed spans kept for inspection, newest
+_PENDING = 8192      # spans awaiting their device interval: past this the
+#                      oldest half is resolved (waiting on its events)
+_off_seen = True     # a span site found the profiler off since the
+#                      recorder's session began
+
+
+@dataclasses.dataclass
+class SpanStats:
+    """One span name's aggregate over a profiler session: spans closed,
+    their host ms, self ms (host ms less the part their children cover),
+    device ms (between the CUDA events at their ends; the host interval
+    on the CPU) and the counters charged to them (``host_syncs``, ...)."""
+    count: int = 0
+    host_ms: float = 0.0
+    self_ms: float = 0.0
+    device_ms: float = 0.0
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def syncs(self) -> int:
+        return self.counts.get("host_syncs", 0)
+
+
+class Span:
+    """One stage interval (a context manager from ``span``). Closed, it
+    holds ``name``, ``sid``, ``parent`` (the enclosing span's ``sid`` on
+    the same thread, None for a root), ``request``, ``thread``, the host
+    interval ``t0`` / ``t1`` (``perf_counter`` seconds), ``child_s`` (the
+    host time its children cover), ``device_ms`` (None until resolved)
+    and ``counts``."""
+
+    __slots__ = ("name", "sid", "parent", "request", "thread", "session",
+                 "stream", "device", "t0", "t1", "child_s", "device_ms",
+                 "counts", "_rec", "_up", "_rf", "_e0", "_e1")
+
+    def __init__(self, rec: "SpanRecorder", name: str, device):
+        self._rec, self.name, self.device = rec, name, device
+        self.child_s, self.device_ms, self.counts = 0.0, None, {}
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1 - self.t0) * 1e3
+
+    @property
+    def self_ms(self) -> float:
+        return (self.t1 - self.t0 - self.child_s) * 1e3
+
+    def __enter__(self) -> "Span":
+        rec = self._rec
+        stack = rec._stack()
+        up = stack[-1] if stack else None
+        self._up = up
+        self.parent = None if up is None else up.sid
+        self.request = (rec._new_request() if up is None else up.request)
+        # the stream the span's events go on: the current one of a root's
+        # CUDA device, a child's parent's; None on the CPU
+        if up is not None:
+            self.stream = up.stream
+        elif (self.device is not None
+              and torch.device(self.device).type == "cuda"):
+            self.stream = torch.cuda.current_stream(self.device)
+        else:
+            self.stream = None
+        self.sid = next(rec._sids)
+        self.thread = threading.get_ident()
+        self.session = rec.session
+        self._rf = _profiler.record_function(_PREFIX + self.name,
+                                             str(self.request))
+        self._rf.__enter__()
+        self._e0 = None if self.stream is None else rec._event(self.stream)
+        self.t0 = time.perf_counter()
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self._rec
+        self.t1 = time.perf_counter()
+        self._e1 = None if self.stream is None else rec._event(self.stream)
+        self._rf.__exit__(*exc)
+        self._rf = None
+        rec._stack().pop()
+        if self._up is not None:
+            self._up.child_s += self.t1 - self.t0
+        self._up = None
+        rec._close(self)
+        return False
+
+
+class _NoSpan:
+    """What a span site gets while the profiler is off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class SpanRecorder:
+    """The spans and counters of the newest profiler session: per-name
+    ``SpanStats`` (kept whole however many spans close), the newest
+    ``_RECENT`` closed spans, and the counters made outside any span
+    (under the name ``""``). Thread-safe: each thread keeps its own stack
+    of open spans; closing and reading take one lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._sids = itertools.count()
+        self._free: Dict[torch.device, List] = {}   # events to record again
+        self.session = 0
+        self._begin()
+
+    def _begin(self):
+        """A new session: forget the last one's spans and counts."""
+        self.session += 1
+        self._stats: Dict[str, SpanStats] = {}
+        self._recent = collections.deque(maxlen=_RECENT)
+        self._pending = collections.deque()
+        self._requests = itertools.count()
+
+    def _current(self):
+        """Start a new session when a site found the profiler off since
+        this one began."""
+        global _off_seen
+        if _off_seen:
+            with self._lock:
+                if _off_seen:
+                    self._begin()
+                    _off_seen = False
+
+    def open(self, name: str, device=None) -> Span:
+        self._current()
+        return Span(self, name, device)
+
+    def count(self, name: str, n: int = 1):
+        self._current()
+        stack = self._stack()
+        if stack:
+            c = stack[-1].counts
+            c[name] = c.get(name, 0) + n
+            return
+        with self._lock:
+            c = self._stats.setdefault("", SpanStats()).counts
+            c[name] = c.get(name, 0) + n
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def _new_request(self) -> int:
+        with self._lock:
+            return next(self._requests)
+
+    def _event(self, stream):
+        """A timing event recorded on ``stream`` (one of the pool where
+        one is free)."""
+        with self._lock:
+            free = self._free.get(stream.device)
+            ev = free.pop() if free else None
+        if ev is None:
+            ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev
+
+    def _release(self, sp: Span):
+        """Return a span's events to the pool (the lock held)."""
+        free = self._free.setdefault(sp.stream.device, [])
+        free.extend((sp._e0, sp._e1))
+        sp._e0 = sp._e1 = None
+
+    def _close(self, sp: Span):
+        with self._lock:
+            if sp.session != self.session:      # opened before a reset
+                if sp.stream is not None:
+                    self._release(sp)
+                return
+            st = self._stats.get(sp.name)
+            if st is None:
+                st = self._stats[sp.name] = SpanStats()
+            st.count += 1
+            st.host_ms += sp.host_ms
+            st.self_ms += sp.self_ms
+            for k, v in sp.counts.items():
+                st.counts[k] = st.counts.get(k, 0) + v
+            self._recent.append(sp)
+            if sp.stream is None:
+                sp.device_ms = sp.host_ms
+                st.device_ms += sp.device_ms
+                return
+            self._pending.append(sp)
+            if sp.parent is None:
+                self._recycle()
+            if len(self._pending) > _PENDING:
+                self._resolve(len(self._pending) // 2)
+
+    def _recycle(self):
+        """Resolve the oldest pending spans whose events the card has
+        passed, so their events go back to the pool while the session
+        runs: one query a root, whose end event follows its children's
+        on their stream. Called with the lock held."""
+        pending = self._pending
+        while pending:
+            n = next((i for i, sp in enumerate(pending)
+                      if sp.parent is None), None)
+            if n is None or not pending[n]._e1.query():
+                return
+            stream = pending[n].stream
+            if not all(sp.stream == stream or sp._e1.query()
+                       for sp in itertools.islice(pending, n)):
+                return
+            self._resolve(n + 1, wait=False)
+
+    def _resolve(self, n: Optional[int] = None, wait: bool = True):
+        """Read the device interval of the ``n`` oldest pending spans (all
+        by default), first waiting for their end events unless the card
+        has passed them. Called with the lock held."""
+        n = len(self._pending) if n is None else n
+        for _ in range(n):
+            sp = self._pending.popleft()
+            if wait:
+                sp._e1.synchronize()
+            sp.device_ms = sp._e0.elapsed_time(sp._e1)
+            self._release(sp)
+            self._stats[sp.name].device_ms += sp.device_ms
+
+    def snapshot(self) -> Dict[str, SpanStats]:
+        """Per-name aggregates of the newest session, device intervals
+        resolved (a copy)."""
+        with self._lock:
+            self._resolve()
+            return {k: dataclasses.replace(v, counts=dict(v.counts))
+                    for k, v in self._stats.items()}
+
+    def recent_spans(self) -> List[Span]:
+        """The newest closed spans of the session, oldest first, device
+        intervals resolved."""
+        with self._lock:
+            self._resolve()
+            return list(self._recent)
+
+
+RECORDER = SpanRecorder()
+
+
+def span(name: str, device=None):
+    """A context manager around one stage of the path that serves. While
+    no ``torch.profiler`` session records it is a shared no-op; otherwise
+    a ``Span`` of ``RECORDER``. A root span (no open span on its thread)
+    names the device its events go on; a child inherits its parent's."""
+    global _off_seen
+    if not _profiler._is_profiler_enabled:
+        _off_seen = True
+        return _NO_SPAN
+    return RECORDER.open(name, device)
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the counter ``name`` of the innermost open span (while
+    a profiler session records; a no-op otherwise)."""
+    if _profiler._is_profiler_enabled:
+        RECORDER.count(name, n)
+
+
+def snapshot() -> Dict[str, SpanStats]:
+    """``RECORDER.snapshot()``: per-name ``SpanStats`` of the newest
+    profiler session."""
+    return RECORDER.snapshot()
