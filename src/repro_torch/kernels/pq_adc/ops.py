@@ -334,22 +334,28 @@ def pq_adc_select_plan(source: str, nq: int, n_units: int, unit_rows: int,
 
 
 def pq_adc_cells_topk_plain(tables, probe, cd2p, codes_cell, bias_cell, cand,
-                            k, lut_dtype="f32", scale=None, live=None):
+                            k, lut_dtype="f32", scale=None, live=None,
+                            cell_len=None):
     """The cell-major entry's plain version: the padded scan's gather
-    (``ref.gather_cells``, ``cand`` set to -1 where the cell-major map
-    ``live`` is 0, ``ref.live_slots``), then ``pq_adc_gather_topk_plain``.
-    A probed id outside [0, nlist) is an empty cell, as the kernel reads
-    it. Runs on any device; the wrapper takes it for CPU tensors."""
+    (``ref.gather_cells``, its empty slots from ``cand``, or from
+    ``cell_len`` when ``cand`` is None), the slots where the cell-major map
+    ``live`` is 0 masked (``ref.live_slots``), then
+    ``pq_adc_gather_topk_plain``. A probed id outside [0, nlist) is an
+    empty cell, as the kernel reads it. Runs on any device; the wrapper
+    takes it for CPU tensors."""
+    ccodes, base = gather_cells(probe, cand, cd2p, codes_cell, bias_cell,
+                                cell_len)
     if live is not None:
-        cand = torch.where(live_slots(probe, live, cand.shape[1]), cand, -1)
-    ccodes, base = gather_cells(probe, cand, cd2p, codes_cell, bias_cell)
+        base = torch.where(live_slots(probe, live, base.shape[1]), base,
+                           float("inf"))
     return pq_adc_gather_topk_plain(tables, ccodes, base, k, lut_dtype,
                                     scale)
 
 
 def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
                       cd2p: torch.Tensor, codes_cell: torch.Tensor,
-                      bias_cell: torch.Tensor, cand: torch.Tensor, k: int,
+                      bias_cell: torch.Tensor,
+                      cand: Optional[torch.Tensor], k: int,
                       lut_dtype: str = "f32", scale=None, cell_len=None,
                       live=None):
     """K1 over an IVF-PQ index's probed cells, read where they lie.
@@ -363,18 +369,23 @@ def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
     a cell another rank owns). ``cell_len`` (nlist,), the fill
     ``(lists >= 0).sum(1)`` of each cell, may replace reading ``cand``
     only where the posting lists are left-packed (ids, then pads), as
-    ``posting_lists`` builds them. ``live`` (nlist, max_cell) uint8 or
-    bool, a cell-major map read beside ``cell_len`` (which it needs) in
-    place like ``bias_cell``, masks a posting slot where it is 0, as
-    ``cand`` -1 would (a streaming store's tombstoned rows). Returns what
+    ``posting_lists`` builds them; beside it ``cand`` may be None, and
+    the slot range is then P * max_cell (the caller maps the k selected
+    slots to ids itself). ``live`` (nlist, max_cell) uint8 or bool, a
+    cell-major map read beside ``cell_len`` (which it needs) in place like
+    ``bias_cell``, masks a posting slot where it is 0, as ``cand`` -1
+    would (a streaming store's tombstoned rows). Returns what
     ``pq_adc_gather_topk(tables, *gather_cells(probe, cand', cd2p,
-    codes_cell, bias_cell), k, ...)`` returns, bit for bit, cand' being
-    ``cand`` with the dead slots -1 (``ref.live_slots``): (d2 (Q, k) f32,
-    slot (Q, k) int64).
+    codes_cell, bias_cell, cell_len), k, ...)`` returns, bit for bit,
+    cand' being ``cand`` with the dead slots -1 (``ref.live_slots``): (d2
+    (Q, k) f32, slot (Q, k) int64).
     """
-    extra = tuple(t for t in (cell_len, live) if t is not None)
+    extra = tuple(t for t in (cand, cell_len, live) if t is not None)
     _check_common(tables, k, lut_dtype, scale, probe, cd2p, codes_cell,
-                  bias_cell, cand, *extra)
+                  bias_cell, *extra)
+    if cand is None and cell_len is None:
+        raise ValueError("cand=None is read through cell_len; without the "
+                         "fills, pass the candidate ids")
     if live is not None:
         if cell_len is None:
             raise ValueError("live= is read beside cell_len; without the "
@@ -383,7 +394,7 @@ def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
             raise ValueError(f"live must be {tuple(bias_cell.shape)} "
                              f"(bias_cell's shape), got {tuple(live.shape)}")
     if tables.ndim != 3 or probe.ndim != 2 or codes_cell.ndim != 3 or \
-            bias_cell.ndim != 2 or cand.ndim != 2:
+            bias_cell.ndim != 2 or (cand is not None and cand.ndim != 2):
         raise ValueError("expected tables (Q, M, K), probe (Q, P), codes_cell "
                          "(nlist, max_cell, M), bias_cell (nlist, max_cell), "
                          "cand (Q, C)")
@@ -392,17 +403,17 @@ def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
     if probe.shape[0] != nq or tuple(cd2p.shape) != tuple(probe.shape) or \
             codes_cell.shape[2] != m or \
             tuple(bias_cell.shape) != (nlist, max_cell) or \
-            cand.shape[0] != nq:
+            (cand is not None and cand.shape[0] != nq):
         raise ValueError(f"shape mismatch: tables {tuple(tables.shape)}, "
                          f"probe {tuple(probe.shape)}, cd2p "
                          f"{tuple(cd2p.shape)}, codes_cell "
                          f"{tuple(codes_cell.shape)}, bias_cell "
                          f"{tuple(bias_cell.shape)}, cand "
-                         f"{tuple(cand.shape)}")
+                         f"{None if cand is None else tuple(cand.shape)}")
     if tables.device.type == "cpu":
         return pq_adc_cells_topk_plain(tables, probe, cd2p, codes_cell,
                                        bias_cell, cand, k, lut_dtype, scale,
-                                       live)
+                                       live, cell_len)
     _check_cuda_codes(tables, codes_cell)
     for name, t in (("cd2p", cd2p), ("bias_cell", bias_cell)):
         if t.dtype != torch.float32:
@@ -423,7 +434,8 @@ def pq_adc_cells_topk(tables: torch.Tensor, probe: torch.Tensor,
         cand = cand.to(torch.int64).contiguous()
     probe = probe.to(torch.int64).contiguous()
     cd2p, bias_cell = cd2p.contiguous(), bias_cell.contiguous()
-    n_probe, c = probe.shape[1], cand.shape[1]
+    n_probe = probe.shape[1]
+    c = n_probe * max_cell if cand is None else cand.shape[1]
     dev = codes_cell.device
     mode = _LUT_MODE[lut_dtype]
     _check_smem(gather_topk_library().qpad_pq_adc_gather_topk_smem(

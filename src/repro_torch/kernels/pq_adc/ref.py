@@ -9,7 +9,8 @@ kernels:
     gathered codes (K1): out[q, c] = base[q, c] + sum_m tables[q, m, codes[q, c, m]]
 
 K1's cell-major entry scores an IVF-PQ index's probed cells where they
-lie; its plain version is ``gather_cells`` (the padded scan's gather)
+lie; its plain version is ``gather_cells`` (the padded scan's gather,
+its empty slots read from the candidate ids or from the cells' fills)
 followed by the gathered top-k. A cell-major live map (a streaming
 store's tombstones) masks slots through ``live_slots``. A probed cell id
 outside [0, nlist) is an empty cell in both, as the kernel reads it.
@@ -136,15 +137,19 @@ def _probed(probe: torch.Tensor, nlist: int):
     return probe.clamp(0, nlist - 1), ok
 
 
-def gather_cells(probe: torch.Tensor, cand: torch.Tensor, cd2p: torch.Tensor,
-                 codes_cell: torch.Tensor, bias_cell: torch.Tensor):
+def gather_cells(probe: torch.Tensor, cand, cd2p: torch.Tensor,
+                 codes_cell: torch.Tensor, bias_cell: torch.Tensor,
+                 cell_len=None):
     """Candidate codes (Q, C, M) and additive base (Q, C) of an IVF-PQ
     padded scan: the nprobe probed cells' contiguous cell-major rows, slot
     p * max_cell + r from cell probe[q, p]; base cd2p[q, p] +
     bias_cell[cell, r] (one f32 add), +inf where ``cand`` < 0 (an empty
     posting slot, or a slot past P * max_cell) and on every slot of a
     probed id outside [0, nlist), which is an empty cell (the kernel's
-    contract: such a probe reads nothing)."""
+    contract: such a probe reads nothing). ``cand`` may be None beside
+    ``cell_len`` (nlist,), the fills of left-packed lists: C is then P *
+    max_cell and slot r of a cell is empty iff r >= cell_len[cell], the
+    mask ``cand`` < 0 gives on such lists."""
     nq = probe.shape[0]
     nlist, max_cell, m = codes_cell.shape
     cell, inside = _probed(probe, nlist)
@@ -153,6 +158,13 @@ def gather_cells(probe: torch.Tensor, cand: torch.Tensor, cd2p: torch.Tensor,
             + bias_cell[cell].reshape(nq, -1))            # (Q, P*max_cell)
     base = torch.where(inside.repeat_interleave(max_cell, dim=1), base,
                        float("inf"))
+    if cand is None:
+        if cell_len is None:
+            raise ValueError("gather_cells needs cand or cell_len")
+        r = torch.arange(max_cell, device=probe.device)
+        filled = r[None, None, :] < cell_len[cell][:, :, None]
+        return ccodes, torch.where(filled.reshape(nq, -1), base,
+                                   float("inf"))
     short = cand.shape[1] - base.shape[1]                 # degenerate budget
     if short:
         ccodes = torch.nn.functional.pad(ccodes, (0, 0, 0, short))

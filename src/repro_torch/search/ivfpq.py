@@ -20,7 +20,11 @@ candidates and takes the gathered entry (``ops.pq_adc_gather_topk``).
 ``lists`` rows are left-packed (a cell's ids ascending, then -1 pads), as
 ``posting_lists`` builds them and the JAX package's do: the padded scan
 hands K1 each cell's fill, ``(lists >= 0).sum(1)``, in place of reading
-the candidate ids.
+the candidate ids, and builds no candidate-id table (``lists[probe]``,
+Q x nprobe * max_cell ids): K1 returns the k best slots, and only those
+are mapped to ids, slot p * max_cell + r of query q being
+``lists[probe[q, p], r]``. The plain route (``@jnp``) and the compact
+scan gather their candidates, so they build the table they read.
 
 A streaming scan passes ``live`` (the store's (n_cap,) bool map of rows
 allocated and not tombstoned): a dead row scores as a posting pad, +inf
@@ -33,11 +37,12 @@ the JAX package masks ``base``: the same slots, the same scores.
 
 ``ivfpq_local_scan`` is the shard-local scan of sharded serving: the
 probe and the tables run on replicated inputs, and only the probed cells
-the rank owns are scored, through the same cell-major entry with the
-probed ids of cells owned elsewhere set to -1 (K1 reads nothing for a
-probed id outside [0, nlist), and its plain version treats it as an empty
-cell). ``build_ivfpq(..., shards=, balance=)`` lays the cell axis out for
-it (see ``ivf.posting_lists`` and ``ivf.balance_cells``).
+the rank owns are scored, through the same cell-major entry (and the same
+slot-to-id mapping) with the probed ids of cells owned elsewhere set to
+-1 (K1 reads nothing for a probed id outside [0, nlist), and its plain
+version treats it as an empty cell). ``build_ivfpq(..., shards=,
+balance=)`` lays the cell axis out for it (see ``ivf.posting_lists`` and
+``ivf.balance_cells``).
 """
 from __future__ import annotations
 
@@ -57,9 +62,9 @@ from .pq import _check_adc_args, adc_tables, build_pq
 from .tracing import span
 
 __all__ = ["IVFPQIndex", "build_ivfpq", "ivfpq_lut_stats", "live_cells",
-           "ivfpq_adc_scan", "ivfpq_scan_given_probe", "ivfpq_scan_inputs",
-           "ivfpq_compact_scan", "ivfpq_local_scan", "ivfpq_scan",
-           "ivfpq_search"]
+           "ivfpq_probe", "ivfpq_adc_scan", "ivfpq_scan_given_probe",
+           "ivfpq_scan_inputs", "ivfpq_compact_scan", "ivfpq_local_scan",
+           "ivfpq_scan", "ivfpq_search"]
 
 
 class IVFPQIndex(NamedTuple):
@@ -145,27 +150,51 @@ def ivfpq_lut_stats(codebooks: torch.Tensor, cbnorm: torch.Tensor,
     return rowmean, bound.clamp_min(1e-12) / 127.0
 
 
-def _score_topk(tables, cand, q, codebooks, cbnorm, n_cand, lut_dtype,
-                select):
+def _score_topk(tables, q, codebooks, cbnorm, n_cand, k, lut_dtype, select,
+                slot_ids):
     """Shared tail of the padded and compact scans: (int8) centering, the
     ADC top-k ``select(tables, center, scale, k)`` -> (d2, slot), restore
-    the centre, map slots to ids."""
+    the centre, map the selected slots to ids (``slot_ids``), pad up to
+    ``n_cand``."""
     center = scale = None
     if lut_dtype == "int8":
         # the int8 grid only covers the candidate-varying part of the
         # table; the per-query constant sum_m center returns after top-k
         center, scale = ivfpq_lut_stats(codebooks, cbnorm, q, lut_dtype)
-    k_eff = min(n_cand, cand.shape[1])
-    d2, sel = select(tables, center, scale, k_eff)
+    d2, sel = select(tables, center, scale, k)
     if center is not None:
         d2 = d2 + center.sum(dim=1)[:, None]              # inf pads stay inf
-    ids = torch.where(sel >= 0, torch.gather(cand, 1, sel.clamp_min(0)), -1)
-    ids = torch.where(torch.isinf(d2), -1, ids)
-    if k_eff < n_cand:
-        pad = n_cand - k_eff
+    ids = torch.where(torch.isinf(d2), -1, slot_ids(sel))
+    if k < n_cand:
+        pad = n_cand - k
         d2 = torch.nn.functional.pad(d2, (0, pad), value=float("inf"))
         ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
     return d2, ids
+
+
+def _cand_ids(cand):
+    """Slot -> id through a candidate-id table ``cand`` (Q, C); -1 for an
+    unfilled slot (sel < 0)."""
+    def slot_ids(sel):
+        return torch.where(sel >= 0, torch.gather(cand, 1, sel.clamp_min(0)),
+                           -1)
+    return slot_ids
+
+
+def _cell_ids(lists, probe):
+    """Slot -> id without a candidate-id table: slot s = p * max_cell + r
+    of query q is ``lists[probe[q, p], r]``, looked up for the selected
+    slots only. An unfilled slot (sel < 0) and a slot of a probed id
+    outside [0, nlist), which K1 never scores, come with a +inf distance,
+    which ``_score_topk`` maps to -1: here they are only kept in bounds."""
+    nlist, max_cell = lists.shape
+
+    def slot_ids(sel):
+        s = sel.clamp_min(0)
+        p = torch.div(s, max_cell, rounding_mode="floor")
+        cell = torch.gather(probe, 1, p).clamp(0, nlist - 1)
+        return lists[cell, s - p * max_cell]
+    return slot_ids
 
 
 def _gathered_select(ccodes, base, backend, lut_dtype):
@@ -200,21 +229,33 @@ def live_cells(lists: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
 def ivfpq_scan_given_probe(probe, cand, cd2p, codes_cell, bias_cell, lut_w,
                            cbnorm, codebooks, q, n_cand: int,
                            backend: str = "jnp", lut_dtype: str = "f32",
-                           cell_len=None, cell_live=None):
+                           cell_len=None, cell_live=None, lists=None):
     """ADC scan given an already-computed coarse probe. Returns (d2 (Q,
     n_cand) squared approximate distances, ids) with (+inf, -1) on masked
     or unfilled slots. With ``backend="kernel"``, K1's cell-major entry
     scores the probed cells in place (given ``cell_len``, the cells' fills,
     only for left-packed lists; else it reads ``cand``); with ``"jnp"``
-    the candidates are gathered first. ``cell_live`` (nlist, max_cell)
-    (``live_cells``) masks posting slots where it is 0: beside
-    ``cell_len`` the kernel reads it in place, else the dead candidates'
-    ids become -1."""
+    the candidates are gathered first. ``cand`` (Q, C), the candidate-id
+    table ``probe_cells`` builds, may be None beside ``cell_len`` on the
+    kernel backend: the k selected slots are then mapped to ids from
+    ``lists`` (the posting lists ``probe`` indexes), the same ids.
+    ``cell_live`` (nlist, max_cell) (``live_cells``) masks posting slots
+    where it is 0: beside ``cell_len`` the kernel reads it in place, else
+    the dead candidates' ids become -1."""
     q = q.to(torch.float32)
     kernel_map = backend == "kernel" and cell_len is not None
-    if cell_live is not None and not kernel_map:
-        cand = torch.where(live_slots(probe, cell_live, cand.shape[1]), cand,
-                           -1)
+    if cand is None:
+        if not kernel_map or lists is None:
+            raise ValueError("cand=None needs backend='kernel' with cell_len, "
+                             "and lists to map the selected slots to ids")
+        slot_ids = _cell_ids(lists, probe)
+        k = min(n_cand, probe.shape[1] * lists.shape[1])
+    else:
+        if cell_live is not None and not kernel_map:
+            cand = torch.where(live_slots(probe, cell_live, cand.shape[1]),
+                               cand, -1)
+        slot_ids = _cand_ids(cand)
+        k = min(n_cand, cand.shape[1])
     tables = adc_tables(lut_w, cbnorm, q)
     if backend == "kernel":
         def select(tables, center, scale, k):
@@ -227,8 +268,23 @@ def ivfpq_scan_given_probe(probe, cand, cd2p, codes_cell, bias_cell, lut_w,
         ccodes, base = ivfpq_scan_inputs(probe, cand, cd2p, codes_cell,
                                          bias_cell)
         select = _gathered_select(ccodes, base, backend, lut_dtype)
-    return _score_topk(tables, cand, q, codebooks, cbnorm, n_cand, lut_dtype,
-                       select)
+    return _score_topk(tables, q, codebooks, cbnorm, n_cand, k, lut_dtype,
+                       select, slot_ids)
+
+
+def ivfpq_probe(centroids, lists, q, nprobe: int, n_cand: int,
+                backend: str = "jnp"):
+    """The padded scan's probe: (probe (Q, nprobe) cell ids, cand, coarse
+    d2 (Q, nprobe), cell_len). With ``backend="kernel"`` K1 reads the
+    probed cells in place beside their fills, ``cell_len`` =
+    ``(lists >= 0).sum(1)``, and no candidate-id table is built (``cand``
+    None); the plain route gathers its candidates by ``probe_cells``'s
+    (Q, max(nprobe * max_cell, n_cand)) table (``cell_len`` None)."""
+    if backend == "kernel":
+        cd2p, probe = topk_smallest(sq_dists(q, centroids), nprobe)
+        return probe, None, cd2p, (lists >= 0).sum(dim=1)
+    probe, cand, cd2p = probe_cells(centroids, lists, q, nprobe, n_cand)
+    return probe, cand, cd2p, None
 
 
 def ivfpq_adc_scan(centroids, lists, codes_cell, bias_cell, lut_w, cbnorm,
@@ -241,8 +297,8 @@ def ivfpq_adc_scan(centroids, lists, codes_cell, bias_cell, lut_w, cbnorm,
     _check_adc_args(backend, lut_dtype)
     q = q.to(torch.float32)
     with span("search.probe"):
-        probe, cand, cd2p = probe_cells(centroids, lists, q, nprobe, n_cand)
-        cell_len = (lists >= 0).sum(dim=1) if backend == "kernel" else None
+        probe, cand, cd2p, cell_len = ivfpq_probe(centroids, lists, q,
+                                                  nprobe, n_cand, backend)
     cell_live = None
     if live is not None:
         with span("search.live_map"):
@@ -252,7 +308,7 @@ def ivfpq_adc_scan(centroids, lists, codes_cell, bias_cell, lut_w, cbnorm,
                                       bias_cell, lut_w, cbnorm, codebooks, q,
                                       n_cand, backend=backend,
                                       lut_dtype=lut_dtype, cell_len=cell_len,
-                                      cell_live=cell_live)
+                                      cell_live=cell_live, lists=lists)
 
 
 def ivfpq_compact_scan(centroids, lists, codes_cell, bias_cell, lut_w,
@@ -293,9 +349,10 @@ def ivfpq_compact_scan(centroids, lists, codes_cell, bias_cell, lut_w,
         ccodes = codes_cell[cell, rc]                     # (Q, S, M)
         base = torch.gather(cd2p, 1, pc) + bias_cell[cell, rc]
         base = torch.where(cand >= 0, base, float("inf"))
-        return _score_topk(tables, cand, q, codebooks, cbnorm, n_cand,
-                           lut_dtype,
-                           _gathered_select(ccodes, base, backend, lut_dtype))
+        return _score_topk(tables, q, codebooks, cbnorm, n_cand,
+                           min(n_cand, scan_cap), lut_dtype,
+                           _gathered_select(ccodes, base, backend, lut_dtype),
+                           _cand_ids(cand))
 
 
 def ivfpq_scan(index: IVFPQIndex, q: torch.Tensor, k: int, nprobe: int = 8,
@@ -332,15 +389,20 @@ def ivfpq_local_scan(centroids, lists_loc, codes_cell_loc, bias_cell_loc,
     nl_loc = lists_loc.shape[0]
     lp = probe - shard * nl_loc
     own = (lp >= 0) & (lp < nl_loc)
-    cand = torch.where(own[:, :, None], lists_loc[lp.clamp(0, nl_loc - 1)],
-                       -1).reshape(q.shape[0], -1)
-    cell_len = (lists_loc >= 0).sum(dim=1) if backend == "kernel" else None
+    cand = cell_len = None
+    if backend == "kernel":
+        cell_len = (lists_loc >= 0).sum(dim=1)
+    else:
+        cand = torch.where(own[:, :, None],
+                           lists_loc[lp.clamp(0, nl_loc - 1)],
+                           -1).reshape(q.shape[0], -1)
     cell_live = None if live is None else live_cells(lists_loc, live)
     return ivfpq_scan_given_probe(torch.where(own, lp, -1), cand, cd2p,
                                   codes_cell_loc, bias_cell_loc, lut_w,
                                   cbnorm, codebooks, q, n_cand,
                                   backend=backend, lut_dtype=lut_dtype,
-                                  cell_len=cell_len, cell_live=cell_live)
+                                  cell_len=cell_len, cell_live=cell_live,
+                                  lists=lists_loc)
 
 
 def ivfpq_search(index: IVFPQIndex, q: torch.Tensor, k: int,

@@ -148,9 +148,10 @@ def deep_trace(engine, queries, k: int, kw: Mapping) -> Optional[dict]:
     ``queries`` is the engine's already-padded bucket batch and ``kw`` the
     knob dict ``SearchEngine.search`` dispatched with, so the
     decomposition describes the shapes the search ran. ivfpq decomposes as
-    project/probe/scan/rerank (the scan given the probe is
-    ``ivfpq_scan_given_probe``, the search's own scan: K1's cell-major
-    entry on the cells' fills with ``backend="kernel"``); other kinds as
+    project/probe/scan/rerank (``ivfpq_probe`` and
+    ``ivfpq_scan_given_probe``, the search's own probe and scan: K1's
+    cell-major entry on the cells' fills, with no candidate-id table, on
+    ``backend="kernel"``); other kinds as
     project/scan/rerank. Only unsharded read-only engines qualify
     (``engine.state``); returns None otherwise.
 
@@ -160,8 +161,7 @@ def deep_trace(engine, queries, k: int, kw: Mapping) -> Optional[dict]:
     first run at a (shape, kind, knobs) key is an untimed warm pass, so a
     kernel's first call at a shape is never timed.
     """
-    from .ivf import probe_cells
-    from .ivfpq import ivfpq_scan_given_probe
+    from .ivfpq import ivfpq_probe, ivfpq_scan_given_probe
     from .reducers import reduce_vectors
     from .registry import ScanParams, get_ops
     from .serve import exact_rerank
@@ -184,17 +184,16 @@ def deep_trace(engine, queries, k: int, kw: Mapping) -> Optional[dict]:
         stages.append(("project", (t1 - t0) * 1e3))
         if kind == "ivfpq":
             ix = state.index.payload
-            probe, cand0, cd2p = probe_cells(ix.centroids, ix.lists, qr,
-                                             kw["nprobe"], n_cand)
+            probe, cand0, cd2p, cell_len = ivfpq_probe(
+                ix.centroids, ix.lists, qr, kw["nprobe"], n_cand,
+                kw["backend"])
             _sync(device)
             t2 = time.perf_counter()
             stages.append(("probe", (t2 - t1) * 1e3))
-            cell_len = ((ix.lists >= 0).sum(dim=1)
-                        if kw["backend"] == "kernel" else None)
             _, cand = ivfpq_scan_given_probe(
                 probe, cand0, cd2p, ix.codes_cell, ix.bias_cell, ix.lut_w,
                 ix.cbnorm, ix.codebooks, qr, n_cand, backend=kw["backend"],
-                lut_dtype=kw["lut_dtype"], cell_len=cell_len)
+                lut_dtype=kw["lut_dtype"], cell_len=cell_len, lists=ix.lists)
             _sync(device)
             t3 = time.perf_counter()
             stages.append(("scan", (t3 - t2) * 1e3))

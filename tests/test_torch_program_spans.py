@@ -448,14 +448,12 @@ def test_cuda_read_only_ivfpq_search_at_1024_makes_no_host_sync():
     assert not _sync_warnings(caught)
 
 
-@pytest.mark.gpu
-def test_cuda_stage_device_time_matches_the_trace_busy_time(tmp_path):
-    """In a profiled window of a read-only engine whose searches are all
+def _queued_searches(tmp_path):
+    """A profiled window of a read-only engine whose searches are all
     queued behind a spin kernel (the host enqueues them before the card
-    reaches the first), the stages' device ms sum to within 10% of the
-    trace's busy time over the searches (the union of every other
-    kernel, copy and set). A trace that lost one of K1's launches is
-    taken again, as ``bench/trace.py`` does."""
+    reaches the first): the stages' device ms summed, and the trace's
+    kernels, copies and sets over the searches. A trace that lost one of
+    K1's launches is taken again, as ``bench/trace.py`` does."""
     _needs_card()
     from repro_torch.kernels.pq_adc import ops as adc_ops
     eng = build_engine(_data(n=400_000, d=128), "qpad32>ivf256x32>"
@@ -497,6 +495,11 @@ def test_cuda_stage_device_time_matches_the_trace_busy_time(tmp_path):
     assert stats["search"].count == batches
     stage_ms = sum(s.device_ms for n, s in stats.items()
                    if n.startswith("search."))
+    return stage_ms, ev
+
+
+def _busy_ms(ev):
+    """The union of the events' intervals, in ms."""
     busy, end = 0.0, float("-inf")
     for e in sorted(ev, key=lambda e: float(e["ts"])):
         s, t = float(e["ts"]), float(e["ts"]) + float(e["dur"])
@@ -504,5 +507,32 @@ def test_cuda_stage_device_time_matches_the_trace_busy_time(tmp_path):
         if t > s:
             busy += t - s
             end = t
-    busy_ms = busy / 1e3
+    return busy / 1e3
+
+
+@pytest.mark.gpu
+def test_cuda_stage_device_time_matches_the_trace_busy_time(tmp_path):
+    """In a profiled window of a read-only engine whose searches are all
+    queued behind a spin kernel (the host enqueues them before the card
+    reaches the first), the stages' device ms sum to within 10% of the
+    trace's busy time over the searches (the union of every other
+    kernel, copy and set). A trace that lost one of K1's launches is
+    taken again, as ``bench/trace.py`` does."""
+    stage_ms, ev = _queued_searches(tmp_path)
+    busy_ms = _busy_ms(ev)
     assert abs(stage_ms - busy_ms) <= 0.10 * busy_ms, (stage_ms, busy_ms)
+
+
+@pytest.mark.gpu
+def test_cuda_stage_device_time_matches_the_queued_window(tmp_path):
+    """Over the same queued searches the stages' device ms lie within 5%
+    of the card's time from the searches' first kernel's start to their
+    last one's end, and at or above the trace's busy time: a span runs
+    between CUDA events, so it holds the card's own gaps between queued
+    kernels, which the busy time leaves out."""
+    stage_ms, ev = _queued_searches(tmp_path)
+    window_ms = (max(float(e["ts"]) + float(e["dur"]) for e in ev)
+                 - min(float(e["ts"]) for e in ev)) / 1e3
+    assert _busy_ms(ev) <= stage_ms, (stage_ms, _busy_ms(ev))
+    assert abs(stage_ms - window_ms) <= 0.05 * window_ms, (stage_ms,
+                                                           window_ms)
