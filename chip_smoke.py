@@ -2356,7 +2356,8 @@ def k2_alone():
     """``python3 chip_smoke.py --k2-timings``: K2 alone at path 2's shapes
     (N 1,000,000, M 16, K 256, k 64, uint8 codes) on codes and positive
     tables drawn from a seed, at K2_RUNS, each with ``k2_time_one``'s
-    times. It calls nothing of the port but ``pq_adc_topk`` and
+    times, then at the pq cell's shape (``k2_cell_time``: Q 1,024 over
+    5M rows). It calls nothing of the port but ``pq_adc_topk`` and
     ``pq_adc_topk_plain``, whose signatures every version of K2 shares,
     so a copy of this script at the root of another checkout times that
     checkout's K2 on the same inputs. Prints the card's line and one JSON
@@ -2383,8 +2384,51 @@ def k2_alone():
                 f"{run['host_ms']:.4f} ms a synchronized call, "
                 f"{run['device_ms']:.4f} ms of its kernels, plain "
                 f"{run['plain_ms']:.4f} ms, bound {run['bound_ms']:.4f} ms")
+    del codes, tables
+    out[K2_CELL_LABEL] = k2_cell_time(torch, ops, rng, dev)
     print(json.dumps({"k2_alone": out}))
     return 0
+
+
+# the benchmark's exhaustive pq cell: a batch of 1,024 int8 queries over
+# 5M rows of 16 uint8 codes (K 256), k 64 (bench/configs/openai1536-5m-pq)
+K2_CELL = (1024, 5_000_000, 16, 256)
+K2_CELL_LABEL = "int8 Q=1024 N=5000000"
+K2_CELL_CHECK = 64             # queries held against the plain version
+
+
+def k2_cell_time(torch, ops, rng, dev):
+    """K2 alone at the pq cell's shape (``K2_CELL``) on codes and positive
+    tables drawn from ``rng``: ``k2_time_one``'s times but the plain
+    version's (its (Q, N) scores would take ~20 GB), and the first
+    ``K2_CELL_CHECK`` queries' d2 and ids held bit for bit against the
+    plain version on those queries alone (an int8 query's scale is its
+    own, so its answer does not depend on the rest of the batch)."""
+    nq, n, m, kc = K2_CELL
+    codes = torch.from_numpy(rng.integers(0, kc, (n, m)).astype(
+        np.uint8)).to(dev)
+    t = torch.from_numpy((rng.uniform(size=(nq, m, kc)) * 5).astype(
+        np.float32)).to(dev)
+    d, i = ops.pq_adc_topk(t, codes, RERANK, "int8")
+    torch.cuda.synchronize()
+    dr, ir = ops.pq_adc_topk_plain(t[:K2_CELL_CHECK], codes, RERANK, "int8")
+    check(torch.equal(d[:K2_CELL_CHECK], dr) and
+          torch.equal(i[:K2_CELL_CHECK], ir),
+          "K2 at the pq cell's shape differs from its plain version")
+    del d, i, dr, ir
+    ms = cuda_ms(torch, lambda: ops.pq_adc_topk(t, codes, RERANK, "int8"),
+                 reps=10)
+    dev_ms = device_ms(torch, lambda: ops.pq_adc_topk(t, codes, RERANK,
+                                                      "int8"), reps=5,
+                       match=("adc_shared_select", "select_topk"))
+    bound, by = k2_bound(nq, n, m, kc, RERANK)
+    plan = ops.pq_adc_topk_plan(codes, nq, kc, RERANK, "int8") \
+        if hasattr(ops, "pq_adc_topk_plan") else None
+    run = {"ms": ms, "device_ms": dev_ms, "bound_ms": bound,
+           "bound_by": by, "checked_queries": K2_CELL_CHECK, "plan": plan}
+    log(f"[k2 alone] {K2_CELL_LABEL}: {ms:.4f} ms a call, {dev_ms:.4f} ms "
+        f"of its kernels, bound {bound:.4f} ms ({by}); plan {plan}")
+    return run
 
 
 def edge_cases_k2(torch, ops):

@@ -179,6 +179,85 @@ __device__ __forceinline__ void warp_sort512(float* key, int* slot) {
   }
 }
 
+// Ascending sort of the 256 (key, slot) pairs at key / slot by one warp,
+// in registers: warp_sort512's network at half the length, lane l holding
+// pairs 8 l .. 8 l + 7 (stages with a stride below 8 swap within a lane,
+// the 15 with a larger stride trade by shuffles). K2's groups of 32
+// queries keep lists of this length (32 lists and the tables fill a
+// block's shared memory).
+constexpr int kRegSort256 = 256;
+
+__device__ __forceinline__ void warp_sort256(float* key, int* slot) {
+  constexpr int kPer = kRegSort256 / 32;       // pairs a lane holds
+  const int lane = threadIdx.x & 31;
+  float k[kPer];
+  int sl[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; r += 4) {
+    const float4 kv = *reinterpret_cast<const float4*>(key + lane * kPer + r);
+    const int4 sv = *reinterpret_cast<const int4*>(slot + lane * kPer + r);
+    k[r] = kv.x; k[r + 1] = kv.y; k[r + 2] = kv.z; k[r + 3] = kv.w;
+    sl[r] = sv.x; sl[r + 1] = sv.y; sl[r + 2] = sv.z; sl[r + 3] = sv.w;
+  }
+#pragma unroll
+  for (int size = 2; size <= kRegSort256; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      if (j >= kPer) {
+        const int pl = j / kPer;               // the partner lane's offset
+        const bool keep_min =
+            ((lane & pl) == 0) == (((lane * kPer) & size) == 0);
+#pragma unroll
+        for (int r = 0; r < kPer; ++r) {
+          const float ok = __shfl_xor_sync(0xffffffffu, k[r], pl);
+          const int os = __shfl_xor_sync(0xffffffffu, sl[r], pl);
+          if (sorts_before(ok, os, k[r], sl[r]) == keep_min) {
+            k[r] = ok;
+            sl[r] = os;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < kPer; ++r) {
+          if ((r & j) == 0) {
+            const int q = r | j;
+            const bool up = ((lane * kPer + r) & size) == 0;
+            if (sorts_after(k[r], sl[r], k[q], sl[q]) == up) {
+              const float tk = k[r];
+              const int ts = sl[r];
+              k[r] = k[q];
+              sl[r] = sl[q];
+              k[q] = tk;
+              sl[q] = ts;
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kPer; r += 4) {
+    *reinterpret_cast<float4*>(key + lane * kPer + r) =
+        make_float4(k[r], k[r + 1], k[r + 2], k[r + 3]);
+    *reinterpret_cast<int4*>(slot + lane * kPer + r) =
+        make_int4(sl[r], sl[r + 1], sl[r + 2], sl[r + 3]);
+  }
+}
+
+// sort_list_warp for a list of kRegSort256 pairs (k + c <= 256): the c
+// newcomers at key / slot + k sorted into the k best, in registers.
+__device__ __forceinline__ void sort_list_warp256(float* key, int* slot,
+                                                  int k, int c) {
+  const int lane = threadIdx.x & 31;
+  for (int i = k + c + lane; i < kRegSort256; i += 32) {
+    key[i] = __int_as_float(0x7f800000);
+    slot[i] = kPadSlot;
+  }
+  __syncwarp();
+  warp_sort256(key, slot);
+  __syncwarp();
+}
+
 // The list of ``work`` pairs a running-bar block keeps for one query: a
 // power of two >= 2k and >= kRegSort (ops.list_work computes the same).
 __host__ __device__ inline int list_work(int k) {

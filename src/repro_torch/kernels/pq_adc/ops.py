@@ -17,14 +17,17 @@ int64) with ties to the lower slot and (+inf, -1) where fewer than k
 candidates are finite (k above the candidate count pads the same way).
 
 K2 reads its tables in a layout this module makes: ``shared_layout``
-picks the queries a block serves (QB) and how an entry is staged,
-``pack_shared_tables`` packs the quantized tables query-interleaved,
-[group][m][code][qi], so that one shared-memory load serves all QB
-queries of a block, and ``packed_scores`` is the plain scorer over that
+picks the queries a block serves (QB: up to 32 with int8 tables, 8 with
+f32 and bf16) and how an entry is staged, ``pack_shared_tables`` packs
+the quantized tables query-interleaved, [group][m][code][qi], so that one
+shared-memory load serves all QB queries of a block (8 of them a lane in
+an int8 group of 32, whose four lanes a row each load a quarter of the
+entry vector), and ``packed_scores`` is the plain scorer over that
 layout, with the kernel's arithmetic (int8 as biased bytes summed in
 16-bit lanes, flushed into int32 every 256 terms). ``shared_smem_bytes``
 is a block's shared memory as the kernel counts it; the kernel checks the
-group size it is handed and refuses a call past the Hopper limit.
+group size it is handed and refuses a call past the Hopper limit. K2
+counts its launches by QB in ``pq_adc_topk.launches_by_qb``.
 """
 from __future__ import annotations
 
@@ -57,8 +60,16 @@ _ENTRY_BYTES = {"f32": 4, "bf16": 2, "uint8": 1}
 _ENTRY = {"f32": "f32", "bf16": "bf16", "int8": "uint8"}
 U8_BIAS = 128            # an int8 entry q is staged as the byte q + 128
 LANE_FLUSH = 256         # terms a 16-bit lane sums exactly (256 * 255 < 2^16)
-MAX_QB = 8               # queries a K2 block serves at most
+MAX_QB = 8               # queries a K2 block serves at most (f32, bf16)
+MAX_QB_U8 = 32           # ... with int8 tables (biased-byte entries)
 LIST_MIN_WORK = 512      # K2's list room a query: k best + newcomers (pow2)
+LIST_MIN_WORK_32 = 256   # ... in a group of 32 (its tables fill the rest)
+# (query, row) pairs a K2 call scans before int8 groups of more than 8
+# queries pay: such a group fills an SM with one block, whose set-up (the
+# tables staged, the lists sorted) a short row part does not repay (on the
+# card: 18% slower at Q 256 over 1M rows, 9% faster at Q 1,024 over 1M and
+# 13% at Q 1,024 over 5M; PERF.md)
+WIDE_MIN_PAIRS = 1 << 29
 
 
 def _pad_contract(d2, idx, k):
@@ -134,12 +145,14 @@ def _quantized(tables, lut_dtype, scale):
     return qt.contiguous(), s.to(torch.float32).contiguous()
 
 
-def list_work(k: int) -> int:
-    """K2's list a query, in (key, row) pairs: a power of two >= 2k and
-    >= LIST_MIN_WORK (topk_select.cuh's list_work). Its first k pairs are
-    the query's k best, the other (work - k) the room where rows that beat
-    the k-th wait for a sort."""
-    w = LIST_MIN_WORK
+def list_work(k: int, qb: int = 1) -> int:
+    """K2's list a query in a group of ``qb`` queries, in (key, row)
+    pairs: a power of two >= 2k and >= LIST_MIN_WORK, or >=
+    LIST_MIN_WORK_32 in a group of 32 (whose tables leave room for 256
+    pairs a query at k <= 128; the kernel's warp_sort256). Its first k
+    pairs are the query's k best, the other (work - k) the room where rows
+    that beat the k-th wait for a sort."""
+    w = LIST_MIN_WORK_32 if qb > 16 else LIST_MIN_WORK
     while w < 2 * k:
         w <<= 1
     return w
@@ -152,18 +165,26 @@ def _table_bytes(entry: str, qb: int, m: int, kc: int) -> int:
 
 def shared_smem_bytes(entry: str, qb: int, m: int, kc: int, k: int) -> int:
     """Shared memory of one K2 block: the group's packed tables, QB lists
-    of ``list_work(k)`` pairs and 16 counters (the kernel's smem_bytes)."""
-    return _table_bytes(entry, qb, m, kc) + qb * 8 * list_work(k) + 64
+    of ``list_work(k, qb)`` pairs and max(QB, 16) counters (the kernel's
+    smem_bytes)."""
+    return (_table_bytes(entry, qb, m, kc) + qb * 8 * list_work(k, qb)
+            + 4 * max(qb, 16))
 
 
-def shared_layout(nq: int, m: int, kc: int, k: int, lut_dtype: str):
-    """K2's layout for a call: (QB, entry). QB is the largest of 8, 4, 2, 1
-    that is no more than the batch needs (the next power of two >= nq) and
-    whose tables and lists fit a block's shared memory. The entry is f32 /
-    bf16 as the LUT is, and int8 as a biased byte ("uint8")."""
+def shared_layout(nq: int, m: int, kc: int, k: int, lut_dtype: str,
+                  n_rows: int):
+    """K2's layout for a call over ``n_rows`` code rows: (QB, entry). QB
+    starts at the next power of two >= nq, at most 32 with int8 tables
+    (MAX_QB_U8) where the call scans at least WIDE_MIN_PAIRS (query, row)
+    pairs, else at most 8 (MAX_QB), and halves while the group's tables and
+    lists do not fit a block's shared memory (an int8 group of 32 at M 16,
+    K 256 fits up to k 128). The entry is f32 / bf16 as the LUT is, and
+    int8 as a biased byte ("uint8")."""
     entry = _ENTRY[lut_dtype]
+    wide = entry == "uint8" and nq * n_rows >= WIDE_MIN_PAIRS
+    top = MAX_QB_U8 if wide else MAX_QB
     qb = 1
-    while qb < min(MAX_QB, nq):
+    while qb < min(top, nq):
         qb <<= 1
     while qb > 1 and shared_smem_bytes(entry, qb, m, kc, k) > _SMEM_LIMIT:
         qb >>= 1
@@ -176,7 +197,8 @@ def pack_shared_tables(tables_q: torch.Tensor, lut_dtype: str,
     in K2's staged layout: (G, M, K, QB) with G = ceil(Q / QB) groups, the
     QB queries of a group interleaved innermost, so that the entries of
     one (m, code) are one vector (8 queries: 8 bytes of int8, 16 of bf16,
-    32 of f32). f32 and bf16 stay as they are; int8 entries q become the
+    32 of f32; 32 queries: 32 bytes of int8). QB is 1, 2, 4, 8, 16 or 32.
+    f32 and bf16 stay as they are; int8 entries q become the
     bytes q + U8_BIAS in [1, 255] (the int8 bits with the sign bit
     flipped, one elementwise op). Absent queries of the last group hold
     entries that score 0."""
@@ -185,7 +207,7 @@ def pack_shared_tables(tables_q: torch.Tensor, lut_dtype: str,
     if tables_q.dtype != want:
         raise TypeError(f"{lut_dtype} tables must be {want}, got "
                         f"{tables_q.dtype}")
-    if qb not in (1, 2, 4, 8):
+    if qb not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"no K2 layout for QB {qb}")
     nq, m, kc = tables_q.shape
     g = -(-nq // qb)
@@ -475,7 +497,9 @@ def pq_adc_topk(tables: torch.Tensor, codes: torch.Tensor, k: int,
     tables (Q, M, K) f32, quantized here per ``lut_dtype`` as in
     ``pq_adc_gather_topk``; codes (N, M) uint8 (int32 for K > 256),
     scanned by every query.
-    Returns (d2 (Q, k) f32 ascending, row (Q, k) int64).
+    Returns (d2 (Q, k) f32 ascending, row (Q, k) int64). Each launch adds
+    one to ``launches`` and to ``launches_by_qb[QB]``, QB being the queries
+    a block served (``shared_layout``).
     """
     _check_common(tables, k, lut_dtype, scale, codes)
     if tables.ndim != 3 or codes.ndim != 2:
@@ -489,7 +513,7 @@ def pq_adc_topk(tables: torch.Tensor, codes: torch.Tensor, k: int,
     _check_cuda_codes(tables, codes)
     n = codes.shape[0]
     dev = codes.device
-    qb, entry = shared_layout(nq, m, kc, k, lut_dtype)
+    qb, entry = shared_layout(nq, m, kc, k, lut_dtype, n)
     _check_smem(shared_smem_bytes(entry, qb, m, kc, k), m, kc, k)
     if nq == 0 or n == 0:
         return _empty(nq, k, dev)
@@ -509,12 +533,14 @@ def pq_adc_topk(tables: torch.Tensor, codes: torch.Tensor, k: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = topk_library().qpad_pq_adc_topk(
             group.data_ptr(), ENTRY_MODES[entry], qb, gbytes, s.data_ptr(),
-            codes.data_ptr(), codes.element_size(), nq, n, m, kc, k, plan["work"], plan["parts"], plan["rows_per_part"],
+            codes.data_ptr(), codes.element_size(), nq, n, m, kc, k,
+            plan["work"], plan["parts"], plan["rows_per_part"],
             sk.data_ptr(), ss.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             stream)
     if err != 0:
         raise RuntimeError(f"pq_adc_topk launch failed: CUDA error {err}")
     pq_adc_topk.launches += 1
+    _launches_by_qb[qb] = _launches_by_qb.get(qb, 0) + 1
     return out_d, out_i.long()
 
 
@@ -532,20 +558,20 @@ def pq_adc_topk_plan(codes: torch.Tensor, nq: int, kc: int, k: int,
     n, m = codes.shape
     code_bytes = codes.element_size()
     dev = codes.device
-    key = (nq, n, m, kc, k, lut_dtype, code_bytes, dev)
+    qb, entry = shared_layout(nq, m, kc, k, lut_dtype, n)
+    key = (nq, n, m, kc, k, lut_dtype, code_bytes, dev, qb)
     plan = _plans.get(key)
     if plan is None:
-        qb, entry = shared_layout(nq, m, kc, k, lut_dtype)
         out = (ctypes.c_longlong * 5)()
         with torch.cuda.device(dev):
             err = topk_library().qpad_pq_adc_topk_plan(
                 ENTRY_MODES[entry], qb, code_bytes, nq, n, m, kc, k,
-                list_work(k), out)
+                list_work(k, qb), out)
         if err != 0:
             raise RuntimeError(f"pq_adc_topk_plan failed: CUDA error {err}")
         parts, rows, per_sm, sms, scratch = (int(v) for v in out)
         blocks = -(-nq // qb) * parts
-        plan = {"qb": qb, "entry": entry, "work": list_work(k),
+        plan = {"qb": qb, "entry": entry, "work": list_work(k, qb),
                 "smem": shared_smem_bytes(entry, qb, m, kc, k),
                 "parts": parts, "rows_per_part": rows,
                 "blocks_per_sm": per_sm, "sms": sms, "blocks": blocks,
@@ -555,6 +581,11 @@ def pq_adc_topk_plan(codes: torch.Tensor, nq: int, kc: int, k: int,
 
 
 pq_adc_topk.launches = 0
+# K2's launches by QB; the dict is the module's own, so a wrapper that
+# stands in for ``pq_adc_topk`` (it then takes the ``launches`` count)
+# leaves it counting
+_launches_by_qb = {}
+pq_adc_topk.launches_by_qb = _launches_by_qb
 
 
 def _global_ids(topk, tables, codes, k, row_offset, n_valid, slack,

@@ -178,7 +178,7 @@ LAYOUT_CASES = [
 
 
 @pytest.mark.parametrize("lut_dtype", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("qb", [1, 2, 4, 8])
+@pytest.mark.parametrize("qb", [1, 2, 4, 8, 16, 32])
 @pytest.mark.parametrize("nq,n,m,kc,code_dtype,values", LAYOUT_CASES)
 def test_packed_layout_scores_bit_equal(lut_dtype, qb, nq, n, m, kc,
                                         code_dtype, values):
@@ -222,26 +222,83 @@ def test_packed_layout_interleaves_queries():
     assert bool((p[1, :, :, 1:] == 128).all())
 
 
+def test_packed_layout_interleaves_32_queries():
+    """A group of 32 int8 queries: the 32 bytes of one (m, code) are one
+    vector holding query qi at byte qi (lane j of the four that share a
+    row loads queries 8j .. 8j + 7); a ragged last group holds 128 for its
+    absent queries."""
+    rng = np.random.default_rng(32)
+    nq, m, kc = 37, 3, 5
+    qt = torch.from_numpy(rng.integers(-127, 128, (nq, m, kc)).astype(
+        np.int8))
+    p = ops.pack_shared_tables(qt, "int8", 32)
+    assert tuple(p.shape) == (2, m, kc, 32) and p.is_contiguous()
+    flat = p.reshape(-1)
+    for q in range(nq):
+        g, qi = divmod(q, 32)
+        for mm in range(m):
+            for code in range(kc):
+                off = ((g * m + mm) * kc + code) * 32
+                assert int(flat[off + qi]) - 128 == int(qt[q, mm, code])
+    assert bool((p[1, :, :, nq - 32:] == 128).all())
+
+
+# int8 groups where they differ from f32 and bf16's (up to 32 queries)
+_QB_INT8 = {9: 16, 16: 16, 17: 32, 32: 32, 33: 32, 256: 32, 1024: 32}
+# a code matrix long enough that the batch alone sets QB
+_MANY_ROWS = 1 << 30
+
+
 @pytest.mark.parametrize("nq,want", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8),
-                                     (8, 8), (9, 8), (256, 8)])
+                                     (8, 8), (9, 8), (256, 8), (16, 8),
+                                     (17, 8), (32, 8), (33, 8), (1024, 8)])
 def test_queries_per_block_follow_the_batch(nq, want):
-    """QB is the next power of two >= nq, at most 8: a batch of one stages
-    no absent query."""
+    """QB is the next power of two >= nq, at most 8 with f32 and bf16
+    tables and at most 32 with int8 ones (``_QB_INT8``; ``want`` is f32 and
+    bf16's) over a code matrix long enough for wide groups: a batch of one
+    stages no absent query, a batch of 1,024 int8 queries takes groups of
+    32."""
     for lut in ("f32", "bf16", "int8"):
-        assert ops.shared_layout(nq, 16, 256, 64, lut) == \
-            (want, {"f32": "f32", "bf16": "bf16", "int8": "uint8"}[lut])
+        qb = _QB_INT8.get(nq, want) if lut == "int8" else want
+        assert ops.shared_layout(nq, 16, 256, 64, lut, _MANY_ROWS) == \
+            (qb, {"f32": "f32", "bf16": "bf16", "int8": "uint8"}[lut])
+
+
+def test_int8_groups_widen_only_over_enough_rows():
+    """Groups of more than 8 int8 queries only where the call scans at
+    least WIDE_MIN_PAIRS (query, row) pairs: the pq cell's 1,024 queries
+    over 5M rows take 32, path 2's 256 over 1M take 8; f32 and bf16 stay
+    at 8 either way."""
+    assert ops.WIDE_MIN_PAIRS == 1 << 29
+    for nq, n, want in ((1024, 5_000_000, 32), (1024, 1 << 19, 32),
+                        (1024, (1 << 19) - 1, 8), (256, 1_000_000, 8),
+                        (9, 5_000_000, 8), (9, 1 << 26, 16),
+                        (4, 1 << 30, 4)):
+        assert ops.shared_layout(nq, 16, 256, 64, "int8", n) == \
+            (want, "uint8")
+        assert ops.shared_layout(nq, 16, 256, 64, "f32", n)[0] == min(want, 8)
 
 
 def test_queries_per_block_shrink_to_fit_shared_memory():
-    """Where 8 queries' tables and lists do not fit a block, QB halves;
-    k 1000 needs 2048-pair lists (16 KB a query)."""
+    """Where a group's tables and lists do not fit a block, QB halves;
+    k 1000 needs 2048-pair lists (16 KB a query). An int8 group of 32
+    keeps 256-pair lists (its 128 KB of tables at M 16, K 256 leave no
+    room for 512), so it takes k up to 128 and falls back below 32
+    above."""
     assert ops.list_work(64) == 512 and ops.list_work(1000) == 2048
-    assert ops.shared_layout(256, 16, 256, 1000, "f32")[0] == 4
-    assert ops.shared_layout(256, 16, 256, 1000, "int8")[0] == 8
-    assert ops.shared_layout(256, 8, 25_000, 64, "int8")[0] == 1
+    assert ops.list_work(64, 32) == 256 and ops.list_work(128, 32) == 256
+    assert ops.list_work(129, 32) == 512 and ops.list_work(64, 16) == 512
+    assert ops.shared_layout(256, 16, 256, 1000, "f32", _MANY_ROWS)[0] == 4
+    assert ops.shared_layout(256, 16, 256, 1000, "int8", _MANY_ROWS)[0] == 8
+    assert ops.shared_layout(1024, 16, 256, 1000, "int8", _MANY_ROWS)[0] < 32
+    assert ops.shared_layout(1024, 16, 256, 128, "int8", _MANY_ROWS)[0] == 32
+    assert ops.shared_layout(1024, 16, 256, 129, "int8", _MANY_ROWS)[0] == 16
+    assert ops.shared_layout(256, 8, 25_000, 64, "int8", _MANY_ROWS)[0] == 1
     for nq, m, kc, k, lut in ((256, 16, 256, 1000, "f32"),
-                              (9, 16, 4096, 64, "bf16")):
-        qb, entry = ops.shared_layout(nq, m, kc, k, lut)
+                              (9, 16, 4096, 64, "bf16"),
+                              (1024, 16, 256, 129, "int8"),
+                              (1024, 16, 256, 1000, "int8")):
+        qb, entry = ops.shared_layout(nq, m, kc, k, lut, _MANY_ROWS)
         assert ops.shared_smem_bytes(entry, qb, m, kc, k) <= 232_448
         assert ops.shared_smem_bytes(entry, 2 * qb, m, kc, k) > 232_448
 
@@ -266,7 +323,8 @@ def test_every_shape_the_parent_accepted_still_fits(lut_dtype):
             for k in (1, 64, 500, 1000, 4096, 8192):
                 if _parent_smem(lut_dtype, m, kc, k) > 232_448:
                     continue
-                qb, entry = ops.shared_layout(1, m, kc, k, lut_dtype)
+                qb, entry = ops.shared_layout(1, m, kc, k, lut_dtype,
+                                              _MANY_ROWS)
                 assert qb == 1
                 assert ops.shared_smem_bytes(entry, 1, m, kc, k) <= \
                     _parent_smem(lut_dtype, m, kc, k)
@@ -322,14 +380,20 @@ def test_cuda_largest_tables_the_parent_accepted(lut_dtype):
 
 @pytest.mark.gpu
 def test_cuda_plan_fills_whole_waves():
-    """K2's plan fills whole waves of the blocks its occupancy allows."""
+    """K2's plan fills whole waves of the blocks its occupancy allows, at
+    the QB its layout picks (8 at most over 1M rows up to Q 512, 32 at
+    Q 1,024)."""
     dev = _cuda_or_skip()
-    codes = torch.zeros((1_000_000, 16), dtype=torch.uint8, device=dev)
-    for nq in (1, 8, 64, 256):
-        plan = ops.pq_adc_topk_plan(codes, nq, 256, 64, "int8")
-        assert plan["qb"] == min(nq, 8) and plan["blocks_per_sm"] >= 1
+    codes = torch.zeros((2_000_000, 16), dtype=torch.uint8, device=dev)
+    for nq, n, qb in ((1, 10**6, 1), (8, 10**6, 8), (64, 10**6, 8),
+                      (256, 10**6, 8), (512, 10**6, 8), (1024, 10**6, 32),
+                      (1024, 2 * 10**6, 32)):
+        plan = ops.pq_adc_topk_plan(codes[:n], nq, 256, 64, "int8")
+        assert plan["qb"] == qb == \
+            ops.shared_layout(nq, 16, 256, 64, "int8", n)[0]
+        assert plan["blocks_per_sm"] >= 1
         assert plan["waves"] >= 0.9 * -(-plan["waves"] // 1)
-        assert plan["parts"] * plan["rows_per_part"] >= 1_000_000
+        assert plan["parts"] * plan["rows_per_part"] >= n
 
 
 @pytest.mark.gpu
@@ -454,3 +518,121 @@ def test_cuda_list_counts_at_the_sort_limit(lut_dtype):
     torch.cuda.synchronize()
     dr, ir = ops.pq_adc_topk_plain(t, codes, k, lut_dtype)
     assert torch.equal(d, dr) and torch.equal(i, ir)
+
+
+def _int8_call(t, c, k, scale=None):
+    """K2 on int8 tables, checked bit for bit (d2 and ids) against the
+    plain version and against a second call; returns the QB it launched,
+    read from ``launches_by_qb``."""
+    before = dict(ops.pq_adc_topk.launches_by_qb)
+    d, i = ops.pq_adc_topk(t, c, k, "int8", scale)
+    torch.cuda.synchronize()
+    after = ops.pq_adc_topk.launches_by_qb
+    (qb,) = [q for q in after if after[q] != before.get(q, 0)]
+    assert after[qb] == before.get(qb, 0) + 1
+    dr, ir = ops.pq_adc_topk_plain(t, c, k, "int8", scale)
+    assert torch.equal(d, dr) and torch.equal(i, ir)
+    d2, i2 = ops.pq_adc_topk(t, c, k, "int8", scale)
+    assert torch.equal(d2, d) and torch.equal(i2, i)
+    return qb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq", [16, 31, 32, 33, 1024])
+@pytest.mark.parametrize("k", [1, 64, 128, 200, 1000])
+def test_cuda_int8_groups_of_16_and_32_match_plain_version(nq, k,
+                                                          monkeypatch):
+    """int8 groups of more than 8 queries (taken here at any row count):
+    QB 16 (one lane a row) at 16 queries, QB 32 (four lanes a row) from 17
+    up, with a ragged group at 31 and a group of one query after a full
+    one at 33; k 200 falls back to 16 and k 1000 to 8 (their lists do not
+    fit beside 32 queries' tables). d2 and ids bit-equal to the plain
+    version."""
+    dev = _cuda_or_skip()
+    monkeypatch.setattr(ops, "WIDE_MIN_PAIRS", 0)
+    tables, codes = _inputs(nq + k, nq, 20_011, 16, 256)
+    t, c = torch.from_numpy(tables).to(dev), torch.from_numpy(codes).to(dev)
+    want = {1: 32, 64: 32, 128: 32, 200: 16, 1000: 8}[k]
+    want = min(want, 16) if nq == 16 else want
+    assert _int8_call(t, c, k) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,kc,code_dtype,qb", [
+    (4, 512, np.int32, 32),      # a row of one 16-byte vector, int32
+    (6, 300, np.int32, 32),      # one code at a time
+    (8, 1024, np.int32, 16),     # two vectors; 32 queries do not fit
+    (6, 256, np.uint8, 32),      # one code at a time
+    (32, 64, np.uint8, 32),      # two vectors
+])
+def test_cuda_int8_groups_of_32_on_other_code_rows(m, kc, code_dtype, qb,
+                                                   monkeypatch):
+    """The 32- and 16-query groups (taken here at any row count) on rows
+    that are not one 16-byte vector of uint8 codes (int32 codes for K >
+    256, M not a multiple of a vector, two vectors a row): bit-equal to
+    the plain version."""
+    dev = _cuda_or_skip()
+    monkeypatch.setattr(ops, "WIDE_MIN_PAIRS", 0)
+    rng = np.random.default_rng(m * kc)
+    t = torch.from_numpy((rng.uniform(size=(40, m, kc)) * 5).astype(
+        np.float32)).to(dev)
+    c = torch.from_numpy(rng.integers(0, kc, (20_001, m)).astype(
+        code_dtype)).to(dev)
+    assert _int8_call(t, c, 64) == qb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 16])
+def test_cuda_int8_exact_ties_at_32_queries(m, monkeypatch):
+    """test_int8_exact_ties_keep_lax_order's ties in groups of 32 (taken
+    here at any row count): integer tables with a caller scale of 1, so
+    many rows score exactly alike; ids in lax.top_k's order (lower row
+    first), bit-equal to the plain version, at M 4 (one code at a time)
+    and M 16 (the row a chunk ahead)."""
+    dev = _cuda_or_skip()
+    monkeypatch.setattr(ops, "WIDE_MIN_PAIRS", 0)
+    rng = np.random.default_rng(m)
+    nq, n, kc, k = 40, 4000, 8, 50
+    t = torch.from_numpy(rng.integers(-3, 4, (nq, m, kc)).astype(
+        np.float32)).to(dev)
+    c = torch.from_numpy(rng.integers(0, kc, (n, m)).astype(np.uint8)).to(dev)
+    scale = torch.ones(nq, device=dev)
+    dp, _ = ops.pq_adc_topk_plain(t, c, k, "int8", scale)
+    assert int((dp[:, 1:] == dp[:, :-1]).sum()) > k     # the ties are real
+    assert _int8_call(t, c, k, scale) == 32
+
+
+@pytest.mark.gpu
+def test_cuda_one_scan_launch_a_call_at_32_queries():
+    """A 1,024-query int8 call over 2^19 rows (the least that takes wide
+    groups) at the pq cell's M 16, K 256, k 64 takes groups of 32
+    (``launches_by_qb``) and launches one scan kernel,
+    ``adc_shared_select<2, 32, unsigned char>``, and its ``select_topk``
+    merge passes. A profiler trace may lose a record now and then, so up
+    to three traces are taken: none holds more than one scan, one holds
+    exactly one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = _cuda_or_skip()
+    tables, codes = _inputs(5, 1024, 1 << 19, 16, 256)
+    t, c = torch.from_numpy(tables).to(dev), torch.from_numpy(codes).to(dev)
+    before = ops.pq_adc_topk.launches_by_qb.get(32, 0)
+    ops.pq_adc_topk(t, c, 64, "int8")
+    torch.cuda.synchronize()
+    assert ops.pq_adc_topk.launches_by_qb[32] == before + 1
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.pq_adc_topk(t, c, 64, "int8")
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        scans = {e.key: e.count for e in kern
+                 if "adc_shared_select<" in e.key}
+        seen.append(scans)
+        assert sum(scans.values()) <= 1, scans
+        if sum(scans.values()) == 1:
+            break
+    assert seen[-1] and "adc_shared_select<2, 32," in next(iter(seen[-1])), \
+        seen
